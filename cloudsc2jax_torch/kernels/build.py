@@ -21,7 +21,8 @@ import shutil
 import subprocess
 from typing import Dict, List
 
-__all__ = ["load_library", "ptxas_report", "nvcc_path", "NVCC_FLAGS"]
+__all__ = ["load_library", "load_libraries", "ptxas_report", "nvcc_path",
+           "NVCC_FLAGS"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cloudsc2jax_torch"
@@ -58,26 +59,39 @@ def _build_dir(name: str) -> pathlib.Path:
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` unless this exact build exists, then load
     it (once per process).  Raises with nvcc's output if the build fails."""
-    lib = _LIBRARIES.get(name)
-    if lib is not None:
-        return lib
-    out_dir = _build_dir(name)
-    so = out_dir / f"lib{name}.so"
-    if not so.is_file():
+    return load_libraries([name])[0]
+
+
+def load_libraries(names: List[str]) -> List[ctypes.CDLL]:
+    """:func:`load_library` for several sources, their nvcc runs started
+    together so the builds overlap."""
+    running = []
+    for name in dict.fromkeys(names):
+        if name in _LIBRARIES:  # loaded: no hashing on the launch path
+            continue
+        out_dir = _build_dir(name)
+        if (out_dir / f"lib{name}.so").is_file():
+            continue
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        running.append((name, out_dir, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out_dir, tmp, proc in running:
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode} building "
-                f"{name}.cu:\n{proc.stdout}{proc.stderr}"
-            )
-        (out_dir / f"{name}.ptxas.txt").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    _LIBRARIES[name] = lib
-    return lib
+            failed.append(f"nvcc failed with exit code {proc.returncode} "
+                          f"building {name}.cu:\n{log}")
+            continue
+        (out_dir / f"{name}.ptxas.txt").write_text(log)
+        os.replace(tmp, out_dir / f"lib{name}.so")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LIBRARIES:
+            _LIBRARIES[name] = ctypes.CDLL(str(_build_dir(name) / f"lib{name}.so"))
+    return [_LIBRARIES[name] for name in names]
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from ..constants import Params
+from ..ops import damp_tangent
 from ..physics.cloudsc2 import (
     Cloudsc2Inputs,
     Cloudsc2Outputs,
@@ -44,6 +45,7 @@ from ..physics.satur import satur
 __all__ = [
     "Cloudsc2StreamOutputs",
     "KernelPrelude",
+    "check_operands",
     "cloudsc2_nl",
     "cloudsc2_nl_reference",
     "kernel_prelude",
@@ -114,14 +116,44 @@ def _check_config(params: Params, ldrain1d: bool) -> None:
         )
 
 
-def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
-    """One level of CLOUDSC2 on ``(ncol,)`` tensors (``lregcl=False``).
+def _maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum``: NaN-propagating max whose tangent and cotangent
+    select the larger operand's and split an exact tie evenly.
+    ``torch.maximum`` has the same values and cotangents, but its tangent
+    is ``b_t + w*(a_t - b_t)``, which rounds away the low bits of the
+    selected tangent when the other one is larger."""
+    return torch.where(a > b, a, torch.where(a < b, b, (a + b) * 0.5))
+
+
+def _minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum``, as :func:`_maximum`."""
+    return torch.where(a < b, a, torch.where(a > b, b, (a + b) * 0.5))
+
+
+def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry,
+                  lregcl: bool = False):
+    """One level of CLOUDSC2 on ``(ncol,)`` tensors.
 
     ``scalars`` = (ceta_k, zscalm_k, not_last) with the first two 0-d
-    tensors of the working dtype and ``not_last`` a bool; ``fields`` = the
-    14 raw level rows + (plu_k1, paph_lo, paph_hi); ``cols`` = (ztrpaus,
-    paph_sfc); ``carry`` = (zrfl, zsfl, zcovptot).  Returns (outputs,
-    new_carry).  Line references cite src/cloudsc2_nl/cloudsc2.F90.
+    tensors of the working dtype and ``not_last`` a bool or a 0-d bool
+    tensor; ``fields`` = the 14 raw level rows + (plu_k1, paph_lo,
+    paph_hi); ``cols`` = (ztrpaus, paph_sfc); ``carry`` = (zrfl, zsfl,
+    zcovptot).  Returns (outputs, new_carry).  Line references cite
+    src/cloudsc2_nl/cloudsc2.F90.
+
+    ``lregcl`` injects the reference's TL/AD perturbation regularisations
+    through :func:`cloudsc2jax_torch.ops.damp_tangent` (identity on this
+    trajectory) at the five sites of ``_level_physics``: the ZYYY
+    cloud-cover damp (cloudsc2tl.F90:574-580), 0.1x subsidence (:657), the
+    two 1/100 autoconversion damps (:323-324 with :754 and :794) and 0.7x
+    vapour clipping (:994-1001).
+
+    Every max and min is :func:`_maximum`/:func:`_minimum`, against a
+    tensor of the constant where JAX writes a constant: their derivative
+    is that of ``jnp.maximum``/``jnp.minimum``, a select that splits an
+    exact tie evenly, where ``clamp_min``/``clamp_max`` would pass a tie
+    whole.  The params may be Python floats or 0-d tensors (the derivative
+    emitter traces them as inputs).
     """
     cst, thf = params.yomcst, params.yoethf
     cldp, phli, phnc = params.yrecldp, params.yrephli, params.yophnc
@@ -134,10 +166,14 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
     zrfl, zsfl, zcovptot = carry
 
     one = torch.ones_like(pt)
+    reg = damp_tangent if lregcl else (lambda x, factor: x)
 
-    def sel(cond, a: float, b: float):
-        """where(cond, a, b) for two Python floats, in the working dtype."""
-        return torch.where(cond, torch.full_like(pt, a), b)
+    def const(v: float):
+        return torch.full_like(pt, v)
+
+    def sel(cond, a, b):
+        """where(cond, a, b) for two params, in the working dtype."""
+        return torch.where(cond, one * a, one * b)
 
     zckcodtl = 2.0 * cldp.rkconv * ptsphy
     zckcodti = 5.0 * cldp.rkconv * ptsphy
@@ -166,7 +202,7 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
     z3es = sel(cold, thf.r3ies, thf.r3les)
     z4es = sel(cold, thf.r4ies, thf.r4les)
     zfoeew = thf.r2es * torch.exp(z3es * (ztp1 - cst.rtt) / (ztp1 - z4es))
-    zesdp = torch.clamp_max(zfoeew / pap, _ZQMAX)
+    zesdp = _minimum(zfoeew / pap, const(_ZQMAX))
     zfacw = thf.r5les / (ztp1 - thf.r4les) ** 2
     zfaci = thf.r5ies / (ztp1 - thf.r4ies) ** 2
     zfac = zfwat * zfacw + (1.0 - zfwat) * zfaci
@@ -188,7 +224,17 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
     denom = zqcd - zscalm_k * (zqt - zqcrit)
     denom_safe = torch.where(mid, denom, one)
     ratio = torch.where(mid, zqpd, denom_safe) / denom_safe
-    pclc_mid = 1.0 - torch.sqrt(torch.clamp_min(ratio, 0.0))
+    pclc_mid = 1.0 - torch.sqrt(_maximum(ratio, const(0.0)))
+    if lregcl:
+        # ZYYY cloud-fraction perturbation damp (cloudsc2tl.F90:574-580)
+        zqcd_safe = torch.where(mid, zqcd, one)
+        zrat = torch.clamp(zqpd / zqcd_safe, 0.0, 1.0)
+        zyyy = _minimum(
+            const(0.3),
+            3.5 * torch.sqrt(zrat * (1.0 - zscalm_k * (1.0 - zrat)) ** 3)
+            / (1.0 - zscalm_k),
+        )
+        pclc_mid = damp_tangent(pclc_mid, zyyy)
     zqc_mid = (zscalm_k * zqpd + (1.0 - zscalm_k) * zqcd) * pclc_mid ** 2
     saturated = zqt >= zqsat
     pclc = torch.where(mid, pclc_mid, torch.where(saturated, one, 0.0))
@@ -199,7 +245,7 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
     # --- convective detrainment (:431-444)
     zgdp = cst.rg / zdp
     zlude = plude * ptsphy * zgdp
-    llo1 = (zlude >= cldp.rlmin) & (plu_k1 >= _ZEPS2) & bool(not_last)
+    llo1 = not_last & (zlude >= cldp.rlmin) & (plu_k1 >= _ZEPS2)
     plu_safe = torch.where(llo1, plu_k1, one)
     pclc = torch.where(
         llo1, pclc + (1.0 - pclc) * (1.0 - torch.exp(-zlude / plu_safe)), pclc
@@ -214,8 +260,9 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
     dtdzmo = cst.rg * (1.0 / cst.rcpd - zldcp * zrodqsdp) * zfac3
     zdqsdz = zdqsdtemp * dtdzmo - cst.rg * zrodqsdp
     zdqc_sub = zdqsdz * (pmfu + pmfd) * ptsphy / zrho
-    # MIN tie convention (cloudsc2tl.F90:651-661)
-    zqc = zqc - torch.where(zdqc_sub < zqc, zdqc_sub, zqc)
+    # MIN tie convention + 0.1x subsidence tangent damp under LREGCL
+    # (cloudsc2tl.F90:651-661)
+    zqc = zqc - torch.where(zdqc_sub < zqc, reg(zdqc_sub, 0.1), zqc)
 
     # --- condensation rates (:464-469)
     zqlwc = zqc * zfwat
@@ -224,12 +271,12 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
     zcondi = (zqiwc - zi) * zqtmst
 
     # --- precip overlap (:475-481)
-    zcovptot = torch.maximum(zcovptot, pclc)
-    zcovpclr = torch.clamp_min(zcovptot - pclc, 0.0)
+    zcovptot = _maximum(zcovptot, pclc)
+    zcovpclr = _maximum(zcovptot - pclc, const(0.0))
 
     # --- snow melt (:487-498)
     zcons = zcons2 * zdp / zlfdcp
-    zsnmlt = torch.minimum(zsfl, zcons * torch.clamp_min(ztp1 - zmeltp2, 0.0))
+    zsnmlt = _minimum(zsfl, zcons * _maximum(const(0.0), ztp1 - zmeltp2))
     zrfln = zrfl + zsnmlt
     zsfln = zsfl - zsnmlt
     ztp1 = ztp1 - zsnmlt / zcons
@@ -241,6 +288,7 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
     zlcrit_l = 1.9 * cldp.rclcrit if (levapls2 or ldrain1d) else 2.0 * cldp.rclcrit
     zcldl = zqlwc / pclc_safe
     zdl = zckcodtl * (1.0 - torch.exp(-((zcldl / zlcrit_l) ** 2)))
+    zdl = reg(zdl, 0.01)  # ZCKCODTLA=ZCKCODTL/100 (cloudsc2tl.F90:323,751-760)
     zlnew = pclc * zcldl * torch.exp(-zdl)
     zprr = torch.where(active, zqlwc - zlnew, 0.0)
     zqlwc = zqlwc - zprr
@@ -252,6 +300,7 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
         * torch.exp(0.025 * (ztp1 - cst.rtt))
         * (1.0 - torch.exp(-((zcldi / zlcrit_i) ** 2)))
     )
+    zdi = reg(zdi, 0.01)  # (cloudsc2tl.F90:324, 791-800)
     zinew = pclc * zcldi * torch.exp(-zdi)
     zprs = torch.where(active, zqiwc - zinew, 0.0)
     zqiwc = zqiwc - zprs
@@ -281,7 +330,7 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
         zbeta = cst.rg * cldp.rpecons * zbeta_arg ** 0.5777
         zb = ptsphy * zbeta * (pqs - zqe) / (1.0 + zbeta * ptsphy * zcorqs)
         zdtgdp = ptsphy * cst.rg / zdp
-        zdpr = torch.minimum(zcovpclr * zb / zdtgdp, zpreclr)
+        zdpr = _minimum(zcovpclr * zb / zdtgdp, zpreclr)
         zpreclr2 = zpreclr - zdpr
         zcovptot_new = torch.where(zpreclr2 <= 0.0, pclc, zcovptot)
         zcovptot = torch.where(llo2, zcovptot_new, zcovptot)
@@ -326,7 +375,7 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
     zqp = 1.0 / pap
     for _ in range(2):
         foeew_a = thf.r2es * torch.exp(z3es * (ztp1 - cst.rtt) / (ztp1 - z4es))
-        qsat_a = torch.clamp_max(zqp * foeew_a, _ZQMAX)
+        qsat_a = _minimum(zqp * foeew_a, const(_ZQMAX))
         cor_a = 1.0 / (1.0 - cst.retv * qsat_a)
         qsat_a = qsat_a * cor_a
         z2s = z5alcp / (ztp1 - z4es) ** 2
@@ -334,9 +383,10 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry):
         ztp1 = ztp1 + zaldcp * cond1
         zqp1 = zqp1 - cond1
 
-    # --- post-adjustment accounting (:672-692)
+    # --- post-adjustment accounting (:672-692); clipping tangent damped
+    # by 0.7 under LREGCL (cloudsc2tl.F90:994-1001)
     diff = zqold - zqp1
-    zdq = torch.where(diff >= 0.0, diff, 0.0)
+    zdq = torch.where(diff >= 0.0, reg(diff, 0.7), torch.zeros_like(diff))
     zdr2 = zcons2 * zdp * zdq
     cold2 = ztp1 < cst.rtt
     zrfreeze2 = torch.where(cold2, zfwat * zdr2, 0.0)
@@ -499,22 +549,24 @@ def _load_kernel():
     return lib
 
 
-def _check_kernel_operands(inputs: Cloudsc2Inputs, pre: KernelPrelude):
-    pt = inputs.pt
-    if pt.dim() != 2:
-        raise ValueError(f"expected levels-major (nlev, ncol) inputs, got {tuple(pt.shape)}")
-    nlev, ncol = pt.shape
-    if pt.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"cloudsc2_nl takes float32 or float64, got {pt.dtype}")
-    shapes = dict.fromkeys(KERNEL_STREAMS, (nlev, ncol))
-    shapes.update(paph=(nlev + 1, ncol), ceta=(nlev,), zscalm=(nlev,),
-                  ztrpaus=(ncol,), paph_sfc=(ncol,))
-    tensors = {**inputs._asdict(), **pre._asdict()}
-    for name, shape in shapes.items():
-        x = tensors[name]
-        if x.device != pt.device or x.dtype != pt.dtype:
+def check_operands(tensors, names, like: torch.Tensor, what: str) -> None:
+    """Raise unless every ``tensors[name]`` of ``names`` is a contiguous
+    tensor with ``like``'s device and dtype (float32 or float64) and the
+    kernels' shape for it: ``(nlev, ncol)`` for a level stream, ``(nlev+1,
+    ncol)`` for paph, ``(nlev,)`` for ceta and zscalm, ``(ncol,)`` for
+    ztrpaus and paph_sfc, where ``(nlev, ncol)`` is ``like``'s shape."""
+    if like.dim() != 2:
+        raise ValueError(f"expected levels-major (nlev, ncol) inputs, got {tuple(like.shape)}")
+    if like.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what} takes float32 or float64, got {like.dtype}")
+    nlev, ncol = like.shape
+    special = dict(paph=(nlev + 1, ncol), ceta=(nlev,), zscalm=(nlev,),
+                   ztrpaus=(ncol,), paph_sfc=(ncol,))
+    for name in names:
+        x, shape = tensors[name], special.get(name, (nlev, ncol))
+        if x.device != like.device or x.dtype != like.dtype:
             raise ValueError(f"{name}: {x.dtype} on {x.device}, expected "
-                             f"{pt.dtype} on {pt.device}")
+                             f"{like.dtype} on {like.device}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
         if not x.is_contiguous():
@@ -534,10 +586,10 @@ def launch_cloudsc2_nl(
     if inputs.pt.device.type != "cuda":
         raise ValueError(f"launch_cloudsc2_nl needs CUDA tensors, got {inputs.pt.device}")
     _check_config(params, ldrain1d)
-    _check_kernel_operands(inputs, pre)
+    operands = {**inputs._asdict(), **pre._asdict()}
+    check_operands(operands, KERNEL_STREAMS, inputs.pt, "cloudsc2_nl")
     lib = _load_kernel()
     nlev, ncol = inputs.pt.shape
-    operands = {**inputs._asdict(), **pre._asdict()}
     outs = [torch.empty_like(inputs.pt) for _ in KERNEL_OUTPUTS]
     in_ptrs = (ctypes.c_void_p * len(KERNEL_STREAMS))(
         *(operands[name].data_ptr() for name in KERNEL_STREAMS))

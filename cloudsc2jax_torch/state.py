@@ -100,16 +100,22 @@ class Cloudsc2State:
 
     def device_kernel_inputs(
         self, ngptot: Optional[int] = None, dtype: torch.dtype = torch.float32,
-        device="cuda",
+        device="cuda", pqs: bool = False,
     ) -> Cloudsc2Inputs:
         """Levels-major kernel inputs expanded to ``ngptot`` columns ON THE
         DEVICE.  Only the ``klon_file`` stored columns cross to the device
         (~1 MB); ``index_select`` tiles them cyclically straight into
         ``(nlev[+1], ngptot)``, the kernel's layout, with no padding (the
-        port's ``blockify_columns``).  ``pqs`` is ``None``: the sweep
-        computes qsat from pt and pap itself."""
+        port's ``blockify_columns``).
+
+        ``pqs=False`` (the NL sweep, which computes qsat from pt and pap
+        itself) leaves ``pqs`` as ``None``.  ``pqs=True`` (the TL/AD sweeps,
+        which read it as an independent input) runs SATUR on the stored
+        columns in ``dtype`` and tiles the result like the other fields, as
+        the JAX package does (``cloudsc2jax/state.py:147-215``)."""
         ngptot = ngptot or self.ngptot
-        base = self._stored_inputs(dtype, device)
+        base = (self.kernel_inputs(dtype, device) if pqs
+                else self._stored_inputs(dtype, device))
         idx = torch.arange(ngptot, device=base.pt.device) % self.klon_file
         return Cloudsc2Inputs(
             *(None if x is None else x.index_select(1, idx) for x in base))

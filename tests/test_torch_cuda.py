@@ -1,4 +1,4 @@
-"""CUDA-gated tests of the port: the hand-written kernel on the card.
+"""CUDA-gated tests of the port: the hand-written kernels on the card.
 
 Marked ``cuda``; each test skips without a CUDA device.  The file imports
 neither JAX nor ``conftest``, so on a machine with the card and without
@@ -71,3 +71,83 @@ def test_cuda_cli_validates_through_the_kernel(argv):
     launches = kmod.cloudsc2_nl.launches
     assert cli.main(argv + ["--device", "cuda"]) == 0
     assert kmod.cloudsc2_nl.launches == launches + 1
+
+
+def _rel_err(got, ref):
+    return max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+               for a, b in zip(got, ref))
+
+
+# f32 AD: the plu adjoint carries f32 rounding of ~4e-5 of its maximum in
+# the kernel and in the plain version alike (PERF.md)
+TLAD_TOL = {torch.float32: (1e-5, 1e-4), torch.float64: (1e-11, 1e-11)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ncol", [100, 5000])
+def test_cuda_tlad_kernels_match_plain_versions(dtype, ncol):
+    """TL (both write_primal settings) and AD kernels against their plain
+    versions on the same card and inputs (chip_smoke.py's phase 6)."""
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(ncol, dtype=dtype, device="cuda", pqs=True)
+    tol_tl, tol_ad = TLAD_TOL[dtype]
+    launches = (tk.cloudsc2_tl.launches, tk.cloudsc2_ad.launches)
+    out, dout, ck = tk.cloudsc2_tl(inputs, st.params, dscale=DSCALE)
+    none, dout_n, ck_n = tk.cloudsc2_tl(inputs, st.params, dscale=DSCALE,
+                                        write_primal=False)
+    r_out, r_dout, r_ck = tk.cloudsc2_tl_reference(inputs, st.params, dscale=DSCALE)
+    adj = tk.cloudsc2_ad(inputs, r_dout, r_ck, st.params)
+    r_adj = tk.cloudsc2_ad_reference(inputs, r_dout, r_ck, st.params)
+    assert (tk.cloudsc2_tl.launches, tk.cloudsc2_ad.launches) == (
+        launches[0] + 2, launches[1] + 1)
+    assert none is None
+    for got, ref in ((out, r_out), (dout, r_dout), (ck, r_ck), (dout_n, r_dout),
+                     (ck_n, r_ck)):
+        assert all(torch.isfinite(x).all() for x in got)
+        assert _rel_err(got, ref) <= tol_tl
+    assert all(torch.isfinite(x).all() for x in adj)
+    assert _rel_err(adj, r_adj) <= tol_ad
+
+
+@pytest.mark.cuda
+def test_cuda_tlad_kernels_reject_bad_operands():
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(300, dtype=torch.float32, device="cuda", pqs=True)
+    pre = kmod.kernel_prelude(inputs, st.params)
+    _, dout, ck = tk.launch_cloudsc2_tl(inputs, pre, st.params, dscale=DSCALE)
+    bad = inputs._replace(pqs=inputs.pqs.T.contiguous().T)
+    with pytest.raises(ValueError):
+        tk.launch_cloudsc2_tl(bad, pre, st.params, dscale=DSCALE)
+    with pytest.raises(ValueError):
+        tk.launch_cloudsc2_ad(bad, pre, dout, ck, st.params)
+    with pytest.raises(ValueError):
+        tk.launch_cloudsc2_ad(inputs, pre, dout, (ck[0].double(),) + ck[1:], st.params)
+    with pytest.raises(ValueError):
+        tk.launch_cloudsc2_ad(inputs, pre, dout._replace(rfln=dout.rfln[:-1]), ck,
+                              st.params)
+    with pytest.raises(ValueError, match="pqs"):
+        tk.launch_cloudsc2_tl(inputs._replace(pqs=None), pre, st.params, dscale=DSCALE)
+    with pytest.raises(NotImplementedError):
+        tk.launch_cloudsc2_tl(inputs, pre, st.params, dscale=DSCALE, lregcl=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_cuda_cli_tlad_through_the_kernels(dtype):
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    launches = (tk.cloudsc2_tl.launches, tk.cloudsc2_ad.launches)
+    assert cli.main(["tlad", "1", "4096", "128", "--dtype", dtype,
+                     "--device", "cuda"]) == 0
+    assert (tk.cloudsc2_tl.launches, tk.cloudsc2_ad.launches) == (
+        launches[0] + 1, launches[1] + 1)

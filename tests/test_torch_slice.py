@@ -169,6 +169,8 @@ def test_port_imports_no_jax():
         "import cloudsc2jax_torch.kernels.cloudsc2_kernel\n"
         "import cloudsc2jax_torch.drivers, cloudsc2jax_torch.state\n"
         "import cloudsc2jax_torch.convert, cloudsc2jax_torch.kernels.build\n"
+        "import cloudsc2jax_torch.ops, cloudsc2jax_torch.kernels.tlad_kernel\n"
+        "import cloudsc2jax_torch.kernels.emit\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'cloudsc2jax.'))"
         " or m == 'cloudsc2jax' for m in sys.modules), sorted(sys.modules)\n"
     )
