@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card: the
-nonlinear sweep and the TL+AD work unit.
+nonlinear sweep, the TL+AD work unit, and the standalone TL and AD variants
+(Taylor test, adjoint test, f32 verdicts through the kernels).
 
 Run from the root of a checkout, with no arguments::
 
@@ -10,8 +11,8 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. Card: a CUDA device must be present; print its name and power limit.
-2. Build: compile ``cloudsc2jax_torch/csrc/cloudsc2_{nl,tl,ad}.cu`` with
-   nvcc from the checkout's sources, the three builds started together;
+2. Build: compile ``cloudsc2jax_torch/csrc/cloudsc2_{nl,tl,tl_din,ad}.cu``
+   with nvcc from the checkout's sources, the four builds started together;
    print the build time and ptxas' registers and spills per kernel entry.
 3. NL kernel against its plain PyTorch version on the card, on the same
    inputs: the 100-column fixture and a ragged 5,000-column expansion,
@@ -45,6 +46,35 @@ and prints no result line):
    ``run_tlad`` call and the plain unit (one call), with each kernel's bytes
    and attained bandwidth.
 
+9. The checkpointing forward kernel and the streamed-increment TL kernel
+   against their plain versions on the card: 100 and a ragged 5,000
+   columns, f32 and f64, ldrain1d off and on, the TL with lregcl off and
+   on, pqs perturbed by up to 1% away from SATUR in the ragged f64 cases; the
+   AD kernel with lregcl off and unfolded seeds likewise; the forward
+   kernel against the TL kernel's own checkpoints and primal streams; then
+   the standalone paths' shapes (163,840 columns f32, 16,384 f64).
+   Tolerances as in 3 and 6.
+10. The standalone TL and AD paths through the CLI entry point on
+   ``cuda``: ``tl 1 16384 128 --dtype f64 --kernels`` (Taylor test on the
+   truth path, then the f32 parity of the TL kernel) and ``ad 1 16384 128
+   --dtype f64 --kernels`` (adjoint test, then the f32 identity through the
+   kernels), and ``measure_f32_verdicts`` at 163,840 f32 columns; the launch
+   counters of the forward, streamed-TL and AD kernels, zeroed just before,
+   must show that each ran.  Also printed: how far the TL kernel and the
+   truth path, both f32, sit from the truth path in f64.
+11. Timing with CUDA events at 327,680 columns f32 over distinct inputs:
+   the forward kernel, the streamed-increment TL kernel, the
+   standard-contract ``run_tlad`` on ``(ncol, nlev)``-contiguous inputs
+   (with its transposes) and on transposed views of levels-major inputs
+   (without), and the plain versions once.
+
+Each kernel's record holds its time beside its bound: the larger of the
+bytes it must move (every input read once, every output written once,
+from this run's tensors) over the card's published memory rate, and its
+operations (statements of its level body per level and column) over the
+card's published f32 rate.  No single PyTorch call computes one of these
+level-recurrent sweeps, so ``library_ms`` is null throughout.
+
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -59,7 +89,17 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
-LIBRARIES = ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_ad")
+LIBRARIES = ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_tl_din", "cloudsc2_ad")
+CSRC = ROOT / "cloudsc2jax_torch" / "csrc"
+
+# NVIDIA H100 SXM data sheet: device memory rate and f32 rate outside the
+# tensor cores; the bounds below are stated against these
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+# operations of the hand-written NL level body per level and column: ~292
+# flops and ~10 transcendentals (the count the reference's cost estimate of
+# the same body uses, cloudsc2jax/pallas/tlad_kernel.py:704-707)
+NL_OPS_PER_LEVEL_COLUMN = 302
 
 TOLERANCE = {"float32": 5e-6, "float64": 1e-12}
 TLAD_TOLERANCE = {"tl": {"float32": 1e-5, "float64": 1e-11},
@@ -76,6 +116,11 @@ TLAD_RUNS = (
     ["tlad", "1", "16384", "128", "--dtype", "f64"],
 )
 TLAD_SHAPES = ((163840, "float32", False), (16384, "float64", False))
+TEST_RUNS = (
+    ["tl", "1", "16384", "128", "--dtype", "f64", "--kernels"],
+    ["ad", "1", "16384", "128", "--dtype", "f64", "--kernels"],
+)
+VERDICT_NCOL = 163_840
 
 
 def _nvidia_smi(query: str) -> str:
@@ -96,6 +141,41 @@ def _max_rel_err(got, ref):
         rel = max(rel, d / scale)
         absolute = max(absolute, d)
     return rel, absolute
+
+
+def _nbytes(*trees) -> int:
+    """Bytes of every tensor in ``trees`` (nested tuples; None skipped)."""
+    total = 0
+    for t in trees:
+        if t is None:
+            continue
+        if hasattr(t, "numel"):
+            total += t.numel() * t.element_size()
+        else:
+            total += _nbytes(*t)
+    return total
+
+
+def _level_statements(kind: str, evap: bool, lregcl: bool) -> int:
+    """Statements of one generated level body, from the header's own count."""
+    import re
+
+    text = (CSRC / f"cloudsc2_{kind}_level.cuh").read_text()
+    flags = f"{str(evap).lower()}, {str(lregcl).lower()}"
+    m = re.search(rf"lregcl: {flags} \((\d+) statements\)", text)
+    if m is None:
+        raise AssertionError(f"no statement count for Level<{flags}> in {kind}")
+    return int(m.group(1))
+
+
+def _bound(nbytes: int, ops: float) -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    operations over its f32 rate, whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": ops, "library_ms": None}
 
 
 def _time_ms(fn, args_list, calls: int) -> float:
@@ -246,9 +326,17 @@ def _tlad_phases(state, params):
         print(line + f" at {ncol} columns f32")
     print(f"[8] after timing: {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    cells = nlev * ncol
+    bounds = {"tl": _bound(_nbytes(sets[0], pres[0], tls[0]),
+                           _level_statements("tl", False, True) * cells),
+              "ad": _bound(_nbytes(sets[0], pres[0], tls[0][1], tls[0][2])
+                           + _nbytes(sets[0]),
+                           _level_statements("ad", False, True) * cells)}
+
     def record(kind, replaces, plain):
         w = worst[kind]
         return {
+            **bounds[kind],
             "name": f"cloudsc2_{kind}",
             "route": "cuda",
             "source": f"cloudsc2jax_torch/csrc/cloudsc2_{kind}.cu",
@@ -270,12 +358,242 @@ def _tlad_phases(state, params):
                            "plain_ad")]
 
 
+def _test_variant_phases(state, params, ad_record):
+    """Phases 9-11: the checkpointing forward kernel and the
+    streamed-increment TL kernel against their plain versions, the
+    standalone TL and AD paths through the CLI, and their timing.  Returns
+    the two kernels' JSON records and adds this path's launches to the AD
+    kernel's record."""
+    import torch
+
+    from cloudsc2jax_torch import cli
+    from cloudsc2jax_torch.drivers import DSCALE, run_tlad
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import (
+        cloudsc2_fwd_ckpt,
+        cloudsc2_fwd_ckpt_reference,
+        kernel_prelude,
+        launch_cloudsc2_fwd_ckpt,
+    )
+    from cloudsc2jax_torch.kernels.tlad_kernel import (
+        cloudsc2_ad,
+        cloudsc2_ad_reference,
+        cloudsc2_tl,
+        cloudsc2_tl_din,
+        cloudsc2_tl_reference,
+        launch_cloudsc2_tl_din,
+    )
+    from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
+    from cloudsc2jax_torch.tlad import cloudsc2_tl as truth_tl
+
+    def increments(inputs, gen):
+        """Seeded increments of 0.5-1.5% of each input, not a multiple of it."""
+        return Cloudsc2Inputs(*(
+            DSCALE * x * (0.5 + torch.rand(x.shape, generator=gen,
+                                           device=x.device, dtype=x.dtype))
+            for x in inputs))
+
+    # -- 9. the new kernels against their plain versions on the card
+    worst = {"fwd": {}, "din": {}, "ad": {}}
+    counters = (cloudsc2_fwd_ckpt, cloudsc2_tl_din, cloudsc2_tl, cloudsc2_ad)
+    before = [f.launches for f in counters]
+    expected = [0, 0, 0, 0]
+    cases = [(ncol, name, ldrain1d)
+             for ncol in (100, 5000)
+             for name in ("float32", "float64")
+             for ldrain1d in (False, True)]
+    cases += TLAD_SHAPES
+    for ncol, name, ldrain1d in cases:
+        small = ncol <= 5000
+        # f64 only: there the comparison stays at rounding level, while in
+        # f32 the distance between a kernel and its plain version grows with
+        # the conditioning of the perturbed trajectory (PERF.md section 6)
+        perturbed = ncol == 5000 and name == "float64"
+        print(f"[9] ncol={ncol} {name} ldrain1d={ldrain1d} "
+              f"pqs {'perturbed' if perturbed else 'SATUR'}:")
+        gen = torch.Generator(device="cuda").manual_seed(ncol)
+        inputs = state.device_kernel_inputs(ncol, dtype=getattr(torch, name),
+                                            device="cuda", pqs=True)
+        if perturbed:
+            inputs = inputs._replace(pqs=inputs.pqs * (0.99 + 0.02 * torch.rand(
+                inputs.pqs.shape, generator=gen, device="cuda",
+                dtype=inputs.pqs.dtype)))
+        d_inputs = increments(inputs, gen)
+        tol_nl = TOLERANCE[name]
+        tol_tl, tol_ad = TLAD_TOLERANCE["tl"][name], TLAD_TOLERANCE["ad"][name]
+        out, ckpts = cloudsc2_fwd_ckpt(inputs, params, ldrain1d=ldrain1d)
+        r_out, r_ckpts = cloudsc2_fwd_ckpt_reference(inputs, params,
+                                                     ldrain1d=ldrain1d)
+        expected[0] += 1
+        _check("forward outputs", out, r_out, tol_nl, worst["fwd"], name)
+        _check("forward checkpoints", ckpts, r_ckpts, tol_nl, worst["fwd"], name)
+        # the TL kernel reads the same pqs: its checkpoints and primal
+        # streams are the forward kernel's, up to the two bodies' rounding
+        t_out, _, t_ckpts = cloudsc2_tl(inputs, params, dscale=DSCALE,
+                                        ldrain1d=ldrain1d)
+        expected[2] += 1
+        _check("forward vs TL kernel", (*out, *ckpts), (*t_out, *t_ckpts),
+               tol_nl if name == "float64" else tol_tl, {}, name)
+        for lregcl in ((False, True) if small else (False,)):
+            kw = dict(lregcl=lregcl, ldrain1d=ldrain1d)
+            p_out, p_dout = cloudsc2_tl_din(inputs, d_inputs, params, **kw)
+            rp_out, rp_dout, _ = cloudsc2_tl_reference(inputs, params,
+                                                       d_inputs=d_inputs, **kw)
+            expected[1] += 1
+            what = f"streamed TL lregcl={lregcl}"
+            _check(f"{what} primal", p_out, rp_out, tol_tl, worst["din"], name)
+            _check(f"{what} tangents", p_dout, rp_dout, tol_tl, worst["din"], name)
+        if small:
+            # the AD kernel's new instantiation: lregcl off, seeds as given
+            adj = cloudsc2_ad(inputs, rp_dout, r_ckpts, params, lregcl=False,
+                              ldrain1d=ldrain1d, fold_seeds=False)
+            r_adj = cloudsc2_ad_reference(inputs, rp_dout, r_ckpts, params,
+                                          lregcl=False, ldrain1d=ldrain1d,
+                                          fold_seeds=False)
+            expected[3] += 1
+            _check("AD lregcl=False, unfolded seeds", adj, r_adj, tol_ad,
+                   worst["ad"], name)
+        torch.cuda.synchronize()
+    if [f.launches - b for f, b in zip(counters, before)] != expected:
+        raise AssertionError("the comparison did not launch the kernels")
+    del inputs, d_inputs, out, ckpts, r_out, r_ckpts, t_out, t_ckpts
+    del p_out, p_dout, rp_out, rp_dout
+
+    # -- 10. the standalone TL and AD paths through the CLI entry point
+    path = {"fwd": cloudsc2_fwd_ckpt, "din": cloudsc2_tl_din, "ad": cloudsc2_ad}
+    for f in path.values():
+        f.launches = 0
+    for argv in TEST_RUNS:
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["--device", "cuda"])
+        print(f"[10] cli {' '.join(argv)}: rc={rc} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if rc != 0:
+            raise AssertionError(f"standalone path failed its checks: {argv}")
+    std = state.device_inputs(VERDICT_NCOL, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    verdicts = cli.measure_f32_verdicts(state, std, lregcl=True)
+    print(f"[10] measure_f32_verdicts at {VERDICT_NCOL} f32 columns "
+          f"({time.perf_counter() - t0:.1f} s): {verdicts}")
+    if not (verdicts["finite"]
+            and verdicts["tl_parity_rel_err"] < verdicts["tl_parity_tol"]
+            and verdicts["ad_identity_rel_err"] < verdicts["ad_identity_tol"]):
+        raise AssertionError("the f32 verdicts through the kernels failed")
+    launches = {k: f.launches for k, f in path.items()}
+    print(f"[10] kernel launches on the standalone TL and AD paths: {launches}")
+    if min(launches.values()) < len(TEST_RUNS) + 1:
+        raise AssertionError("the standalone paths did not run through "
+                             "every kernel")
+    # where the f32 parity's budget goes: the TL kernel and the truth path,
+    # both f32, each against the truth path in f64 (exact TL, lregcl off)
+    ncol = 16384
+    i64 = state.device_inputs(ncol, dtype=torch.float64, device="cuda")
+    i32 = Cloudsc2Inputs(*(x.float() for x in i64))
+    _, d64 = truth_tl(i64, Cloudsc2Inputs(*(DSCALE * x for x in i64)), params)
+    _, dk32, _ = run_tlad(i32, params, lregcl=False, backend="kernels")
+    _, dt32 = truth_tl(i32, Cloudsc2Inputs(*(DSCALE * x for x in i32)), params)
+    dist = {}
+    for label, got, ref in (("kernel f32 vs truth f64", dk32, d64),
+                            ("truth f32 vs truth f64", dt32, d64),
+                            ("kernel f32 vs truth f32", dk32, dt32)):
+        dist[label] = max(
+            ((g.double() - r.double()).abs().max()
+             / r.double().abs().max().clamp_min(1e-300)).item()
+            for g, r in zip(got, ref))
+        print(f"[10] TL tangents at {ncol} columns, {label}: max rel err "
+              f"{dist[label]:.3e}")
+    del i64, i32, d64, dk32, dt32, std
+
+    # -- 11. timing at the headline size, f32, distinct inputs per call
+    ncol = TIMING_NCOL
+    base = state.device_kernel_inputs(ncol, dtype=torch.float32, device="cuda",
+                                      pqs=True)
+    sets = [base] + [Cloudsc2Inputs(*(x.roll(s, dims=1) for x in base))
+                     for s in (37, 71)]
+    pres = [kernel_prelude(s, params) for s in sets]
+    dsets = [Cloudsc2Inputs(*(DSCALE * x for x in s)) for s in sets]
+    views = [Cloudsc2Inputs(*(x.T for x in s)) for s in sets]
+    ms = {
+        "fwd": _time_ms(lambda i, p: launch_cloudsc2_fwd_ckpt(i, p, params),
+                        list(zip(sets, pres)), 20),
+        "din": _time_ms(lambda i, d, p: launch_cloudsc2_tl_din(i, d, p, params),
+                        list(zip(sets, dsets, pres)), 20),
+        "run_tlad_kernels_views": _time_ms(
+            lambda i: run_tlad(i, params, backend="kernels"),
+            [(v,) for v in views], 10),
+        "plain_fwd": _time_ms(lambda i: cloudsc2_fwd_ckpt_reference(i, params),
+                              [(sets[0],)], 1),
+        "plain_din": _time_ms(
+            lambda i, d: cloudsc2_tl_reference(i, params, d_inputs=d, lregcl=False),
+            [(sets[0], dsets[0])], 1),
+    }
+    fwd0 = launch_cloudsc2_fwd_ckpt(sets[0], pres[0], params)
+    din0 = launch_cloudsc2_tl_din(sets[0], dsets[0], pres[0], params)
+    nlev = base.pt.shape[0]
+    bounds = {
+        "fwd": _bound(_nbytes(sets[0], pres[0], fwd0),
+                      NL_OPS_PER_LEVEL_COLUMN * nlev * ncol),
+        "din": _bound(_nbytes(sets[0], pres[0], dsets[0], din0),
+                      _level_statements("tl", False, False) * nlev * ncol),
+    }
+    del dsets, views, fwd0, din0
+    contiguous = [Cloudsc2Inputs(*(x.T.contiguous() for x in s)) for s in sets[:2]]
+    ms["run_tlad_kernels"] = _time_ms(
+        lambda i: run_tlad(i, params, backend="kernels"),
+        [(c,) for c in contiguous], 6)
+    for label, t in ms.items():
+        line = f"[11] {label}: {t:.4f} ms/call, {ncol / (t * 1e-3):.4e} cols/s"
+        if label in bounds:
+            b = bounds[label]
+            line += (f", {b['bytes'] / 1e9:.4f} GB, "
+                     f"{b['bytes'] / (t * 1e-3) / 1e9:.1f} GB/s, bound "
+                     f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+        print(line + f" at {ncol} columns f32")
+    print(f"[11] after timing: {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    ad_record["launches_standalone_paths"] = launches["ad"]
+    ad_record["max_rel_err_f32_lregcl_off"] = worst["ad"]["float32"]
+    ad_record["max_rel_err_f64_lregcl_off"] = worst["ad"]["float64"]
+
+    def record(kind, name, source, replaces, plain, **extra):
+        w = worst[kind]
+        return {
+            **bounds[kind],
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[kind],
+            "max_abs_err": w["abs"],
+            "max_rel_err_f32": w["float32"],
+            "max_rel_err_f64": w["float64"],
+            "ms": ms[kind],
+            "plain_ms": ms[plain],
+            "gb_per_s": bounds[kind]["bytes"] / (ms[kind] * 1e-3) / 1e9,
+            "ncol": ncol,
+            **extra,
+        }
+
+    return [
+        record("fwd", "cloudsc2_fwd_ckpt", "cloudsc2jax_torch/csrc/cloudsc2_nl.cu",
+               "cloudsc2jax/pallas/tlad_kernel.py:405", "plain_fwd"),
+        record("din", "cloudsc2_tl_din", "cloudsc2jax_torch/csrc/cloudsc2_tl_din.cu",
+               "cloudsc2jax/pallas/tlad_kernel.py:170", "plain_din",
+               run_tlad_kernels_ms=ms["run_tlad_kernels"],
+               run_tlad_kernels_views_ms=ms["run_tlad_kernels_views"],
+               tl_parity_rel_err=verdicts["tl_parity_rel_err"],
+               ad_identity_rel_err=verdicts["ad_identity_rel_err"],
+               tl_f32_vs_f64=dist),
+    ]
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+
+    t_start = time.perf_counter()
 
     from cloudsc2jax_torch import cli
     from cloudsc2jax_torch.drivers import run_nl
@@ -297,7 +615,7 @@ def main() -> int:
           f"{torch.version.cuda}, {count} device(s))")
     print(card)
 
-    # -- 2. build, the three nvcc runs together
+    # -- 2. build, the four nvcc runs together
     t0 = time.perf_counter()
     build.load_libraries(list(LIBRARIES))
     build_s = time.perf_counter() - t0
@@ -383,6 +701,8 @@ def main() -> int:
     print(f"[5] after timing: {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     nl_record = {
+        **_bound(_nbytes(sets[0], pres[0]) + 8 * _nbytes(base.pt),
+                 NL_OPS_PER_LEVEL_COLUMN * nlev * ncol),
         "name": "cloudsc2_nl",
         "route": "cuda",
         "source": "cloudsc2jax_torch/csrc/cloudsc2_nl.cu",
@@ -398,10 +718,13 @@ def main() -> int:
         "ncol": ncol,
         "build_s": build_s,
     }
+    del sets, pres, base
     tlad_records = _tlad_phases(state, params)
+    test_records = _test_variant_phases(state, params, tlad_records[1])
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": [nl_record, *tlad_records]}))
+    print(json.dumps({"kernels": [nl_record, *tlad_records, *test_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

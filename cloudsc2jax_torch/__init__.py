@@ -1,11 +1,13 @@
 """cloudsc2jax_torch — CLOUDSC2 on one NVIDIA GPU with PyTorch and CUDA.
 
 A port of :mod:`cloudsc2jax`, which stays the reference it is tested
-against.  This slice carries the nonlinear main path: input loading and
-expansion on the device, the fused SATUR+CLOUDSC2 sweep as a hand-written
-CUDA kernel (``csrc/cloudsc2_nl.cu``, with its plain PyTorch version in
-:mod:`cloudsc2jax_torch.kernels.cloudsc2_kernel`), and golden validation
-on the device.  Importing the package loads no physics and never JAX;
+against.  It carries the nonlinear main path (input loading and expansion
+on the device, the fused SATUR+CLOUDSC2 sweep, golden validation on the
+device), the TL+AD work unit, and the standalone TL and AD variants (the
+f64 truth path with the Taylor and adjoint tests, and the f32 verdicts
+through the kernels).  Every sweep is a hand-written CUDA kernel (``csrc/``)
+with its plain PyTorch version beside it in
+:mod:`cloudsc2jax_torch.kernels`.  Importing the package loads no physics and never JAX;
 import the submodules you need.
 """
 

@@ -14,7 +14,7 @@ import torch
 from .constants import Params, Yoethf, Yomcst, Yomncl, Yophnc, Yrecldp, Yrephli
 from .physics.cloudsc2 import Cloudsc2Inputs
 
-__all__ = ["params_from_jax", "inputs_from_numpy"]
+__all__ = ["params_from_jax", "inputs_from_numpy", "contract_from_numpy"]
 
 _GROUPS = {
     "yomcst": Yomcst,
@@ -46,4 +46,17 @@ def inputs_from_numpy(inputs_cm, device="cpu",
             np.ascontiguousarray(np.asarray(getattr(inputs_cm, name)).T)
         ).to(device=device, dtype=dtype)
         for name in Cloudsc2Inputs._fields
+    ))
+
+
+def contract_from_numpy(tree, cls=Cloudsc2Inputs, device="cpu",
+                        dtype: torch.dtype = torch.float64):
+    """A NamedTuple of ``(ncol, nlev)`` host arrays (a JAX-side
+    ``Cloudsc2Inputs``, increments, ``Cloudsc2Outputs`` cotangents) -> the
+    port's ``cls`` with the same fields, as tensors on ``device`` in the
+    same ``(ncol, nlev)`` layout: the standard contract of the truth path
+    and of the kernels' standard wrappers."""
+    return cls(*(
+        torch.from_numpy(np.array(getattr(tree, name))).to(device=device, dtype=dtype)
+        for name in cls._fields
     ))

@@ -2,20 +2,24 @@
 // shifted-view adjoints scattered in place: one thread owns one column.
 //
 // Replaces the TPU kernel `_rev_kernel` (cloudsc2jax/pallas/tlad_kernel.py:454)
-// in its in-place-scatter branch (:518-562), as the work unit runs it through
-// `cloudsc2_pallas_ad(checkpoints=..., fold_seeds=True)` (:613).  The
+// in its in-place-scatter branch (:518-562), as `cloudsc2_pallas_ad` (:613)
+// runs it: for the work unit with `checkpoints=..., fold_seeds=True`, and for
+// the standalone adjoint after the checkpointing forward sweep
+// (cloudsc2_fwd_ckpt_kernel in cloudsc2_nl.cu) with seed scales of 1.  The
 // statements of one level, primal recompute and transpose, are generated
 // from the port's level body by cloudsc2jax_torch/kernels/emit.py
-// (`torch.func.vjp` of `level_physics` with lregcl=True) into
-// cloudsc2_ad_level.cuh; this file is the hand-written schedule around them.
+// (`torch.func.vjp` of `level_physics`, once per setting of (levapls2 or
+// ldrain1d, lregcl)) into cloudsc2_ad_level.cuh; this file is the
+// hand-written schedule around them.
 //
 // Schedule.  The TPU grid ran the levels backwards with reversed index maps
 // and one extra flush step, and carried the adjoint in VMEM scratch.  Here
 // each thread runs k = nlev-1 ... 0 over its own column with the adjoint
 // carry in registers.  Each level reads the raw fields, the 3 carry-in
-// checkpoints the TL sweep wrote and the 8 seeds (the TL image), folds the
-// flux seeds by (1 + rlvtt^2) and (1 + rlstt^2) (folded in double on the
-// host), and runs the generated transpose.  The shifted views accumulate in
+// checkpoints a forward sweep wrote and the 8 seeds, scales the flux seeds
+// (by (1 + rlvtt^2) and (1 + rlstt^2), folded in double on the host, when
+// the seeds are the TL image; by 1 when the caller folded the 10-field
+// cotangent itself), and runs the generated transpose.  The shifted views accumulate in
 // the thread that owns the column: d_paph[k+1] = hi(k) + lo(k+1) with lo
 // carried one step; d_plu[k+1] = the plu(k+1) cotangent of level k, and
 // d_plu[0] = 0 (the clamped last-level read has a zero cotangent, as
@@ -77,7 +81,7 @@ struct Args {
   T k[cloudsc2_ad::kMaxConsts];
 };
 
-template <typename T, bool EVAP>
+template <typename T, bool EVAP, bool LREGCL>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
     cloudsc2_ad_kernel(const __grid_constant__ Args<T> a, const int ncol,
                        const int nlev) {
@@ -109,9 +113,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
     s[7] = s[7] * a.seed_sfl;
 
     T gx[17], gsfc, gr[3];
-    cloudsc2_ad::Level<EVAP>::run(a.k, __ldg(a.in[S_CETA] + k),
-                                  __ldg(a.in[S_ZSCALM] + k), k < nlev - 1, x,
-                                  c, r, s, sr, gx, gsfc, gr);
+    cloudsc2_ad::Level<EVAP, LREGCL>::run(a.k, __ldg(a.in[S_CETA] + k),
+                                          __ldg(a.in[S_ZSCALM] + k),
+                                          k < nlev - 1, x, c, r, s, sr, gx,
+                                          gsfc, gr);
 #pragma unroll
     for (int j = 0; j < kFields; ++j) a.out[j][i] = gx[j];
     if (k < nlev - 1) a.out[O_D_PLU][i + ncol] = gx[14];
@@ -132,21 +137,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
   a.out[O_D_PAPH][int64_t(nlev) * ncol + col] = top + dsfc;
 }
 
-template <typename T, bool EVAP>
+template <typename T, bool EVAP, bool LREGCL>
 int launch_variant(Args<T>& a, const double* params, int ncol, int nlev,
                    cudaStream_t s) {
+  using L = cloudsc2_ad::Level<EVAP, LREGCL>;
   double k[cloudsc2_ad::kMaxConsts];
-  cloudsc2_ad::Level<EVAP>::constants(params, k);
-  for (int j = 0; j < cloudsc2_ad::Level<EVAP>::kNumConsts; ++j) a.k[j] = T(k[j]);
+  L::constants(params, k);
+  for (int j = 0; j < L::kNumConsts; ++j) a.k[j] = T(k[j]);
   const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
-  cloudsc2_ad_kernel<T, EVAP><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+  cloudsc2_ad_kernel<T, EVAP, LREGCL><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* const* in, void* const* out, const double* params,
            double seed_rfl, double seed_sfl, int ncol, int nlev, int evap,
-           void* stream) {
+           int lregcl, void* stream) {
   if (ncol <= 0 || nlev <= 0) return int(cudaErrorInvalidValue);
   Args<T> a = {};
   for (int j = 0; j < N_STREAM; ++j) a.in[j] = static_cast<const T*>(in[j]);
@@ -154,8 +160,12 @@ int launch(const void* const* in, void* const* out, const double* params,
   a.seed_rfl = T(seed_rfl);
   a.seed_sfl = T(seed_sfl);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return evap ? launch_variant<T, true>(a, params, ncol, nlev, s)
-              : launch_variant<T, false>(a, params, ncol, nlev, s);
+  if (evap) {
+    return lregcl ? launch_variant<T, true, true>(a, params, ncol, nlev, s)
+                  : launch_variant<T, true, false>(a, params, ncol, nlev, s);
+  }
+  return lregcl ? launch_variant<T, false, true>(a, params, ncol, nlev, s)
+                : launch_variant<T, false, false>(a, params, ncol, nlev, s);
 }
 
 }  // namespace
@@ -180,16 +190,16 @@ const char* cloudsc2_ad_param_names() { return cloudsc2_ad::kParamNames; }
 // d_paph (nlev+1, ncol).
 int cloudsc2_ad_f32(const void* const* in, void* const* out,
                     const double* params, double seed_rfl, double seed_sfl,
-                    int ncol, int nlev, int evap, void* stream) {
+                    int ncol, int nlev, int evap, int lregcl, void* stream) {
   return launch<float>(in, out, params, seed_rfl, seed_sfl, ncol, nlev, evap,
-                       stream);
+                       lregcl, stream);
 }
 
 int cloudsc2_ad_f64(const void* const* in, void* const* out,
                     const double* params, double seed_rfl, double seed_sfl,
-                    int ncol, int nlev, int evap, void* stream) {
+                    int ncol, int nlev, int evap, int lregcl, void* stream) {
   return launch<double>(in, out, params, seed_rfl, seed_sfl, ncol, nlev, evap,
-                        stream);
+                        lregcl, stream);
 }
 
 }  // extern "C"

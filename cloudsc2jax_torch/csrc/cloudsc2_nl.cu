@@ -1,13 +1,24 @@
-// CLOUDSC2 nonlinear sweep, SATUR fused: one thread owns one column.
+// CLOUDSC2 nonlinear sweep: one thread owns one column.  Two kernels share
+// the hand-written level body below.
 //
-// Replaces the TPU kernel `_stream_kernel` (cloudsc2jax/pallas/
-// cloudsc2_kernel.py:348) run with fuse_satur=True, whose level body is
-// `_level_physics` (:78-345).  qsat is always SATUR of pt and pap, computed
-// in registers; no pqs stream is read.  The arithmetic below follows that body line
-// by line, with the same association and the same strict or non-strict
-// comparisons; constants that Python folds in double before they meet an
-// array (zcons2, zckcodtl, 1.9*rclcrit, rcpd*rvtmp2, ...) arrive folded
-// from the host in `Args::c` and are rounded to T once.
+// `cloudsc2_nl_kernel` replaces the TPU kernel `_stream_kernel`
+// (cloudsc2jax/pallas/cloudsc2_kernel.py:348) run with fuse_satur=True, whose
+// level body is `_level_physics` (:78-345).  qsat is SATUR of pt and pap,
+// computed in registers; no pqs stream is read.
+//
+// `cloudsc2_fwd_ckpt_kernel` replaces the TPU kernel `_fwd_ckpt_kernel`
+// (cloudsc2jax/pallas/tlad_kernel.py:405), the forward sweep of the
+// standalone adjoint: the same level body with pqs READ as a 16th stream
+// (pqs is one of the differentiated inputs, and the reverse sweep recomputes
+// each level from the streamed value, so the checkpoints must come from that
+// trajectory and not from SATUR of pt and pap), and with the carry going
+// INTO each level (rfl, sfl, covptot) written as 3 checkpoint streams.
+//
+// The arithmetic below follows `_level_physics` line by line, with the same
+// association and the same strict or non-strict comparisons; constants that
+// Python folds in double before they meet an array (zcons2, zckcodtl,
+// 1.9*rclcrit, rcpd*rvtmp2, ...) arrive folded from the host in `Args::c`
+// and are rounded to T once.
 //
 // Schedule.  On the TPU the grid ran (column block, level) in order and
 // carried rfl/sfl/covptot in VMEM scratch from one level step to the next.
@@ -20,8 +31,11 @@
 // level as in `_level_index_maps` (:522-536).
 //
 // What bounds it on this card: device-memory bytes.  Per level and column
-// the sweep reads 15 values and writes 8 (92 bytes in f32) for about 300
-// flops and 12 transcendentals, far below the H100's flop/byte balance.
+// the sweep reads 15 values and writes 8 (92 bytes in f32; the checkpointing
+// sweep 16 and 11, 108 bytes) for about 300 flops and 12 transcendentals,
+// far below the H100's flop/byte balance.  Measured on an NVIDIA H100 (700
+// W) at 327,680 f32 columns: 1.73 ms (NL) and 2.19-2.23 ms (checkpointing)
+// against bytes bounds of 1.23 and 1.45 ms (PERF.md).
 // The design therefore moves each byte once: no relayout before or after,
 // one read per stream, no intermediate written back, the carry in
 // registers.  Overlapping loads across levels (prefetch, TMA) is later
@@ -66,11 +80,18 @@ enum Const {
   N_CONST
 };
 
+// The checkpointing sweep's argument arrays: the streams above and then
+// pqs; the outputs above and then the 3 carry-in checkpoints.
+constexpr int kFwdStreams = N_STREAM + 1;
+constexpr int kFwdOutputs = N_OUTPUT + 3;
+
 template <typename T>
 struct Args {
   const T* in[N_STREAM];
   T* out[N_OUTPUT];
   T c[N_CONST];
+  const T* pqs;  // the checkpointing sweep only
+  T* ckpt[3];    // the checkpointing sweep only: rfl, sfl, covptot
 };
 
 __device__ __forceinline__ float xexp(float x) { return expf(x); }
@@ -120,10 +141,10 @@ __device__ __forceinline__ T crit_rel_humidity(T ceta_k, T zeta3) {
          (zrh2 - T(1.0)) * xsqrt(xmax((T(1.0) - ceta_k) / zdeta1, T(0.0)));
 }
 
-template <typename T, bool EVAP>
-__global__ void __launch_bounds__(kThreads)
-    cloudsc2_nl_kernel(const __grid_constant__ Args<T> a, const int ncol,
-                       const int nlev) {
+// The sweep of one column.  FWD_CKPT reads pqs and writes the checkpoints.
+template <typename T, bool EVAP, bool FWD_CKPT>
+__device__ __forceinline__ void sweep(const Args<T>& a, const int ncol,
+                                      const int nlev) {
   const int64_t col = int64_t(blockIdx.x) * kThreads + threadIdx.x;
   if (col >= ncol) return;
   const T* c = a.c;
@@ -157,7 +178,12 @@ __global__ void __launch_bounds__(kThreads)
     const T ceta_k = __ldg(a.in[S_CETA] + k);
     const T zscalm_k = __ldg(a.in[S_ZSCALM] + k);
     const bool not_last = k < nlev - 1;
-    const T pqs = satur(c, pap, pt);
+    const T pqs = FWD_CKPT ? __ldg(a.pqs + i) : satur(c, pap, pt);
+    if (FWD_CKPT) {
+      a.ckpt[0][i] = zrfl;
+      a.ckpt[1][i] = zsfl;
+      a.ckpt[2][i] = zcovptot;
+    }
 
     // first-guess state (:253-260) and layer thickness (:272)
     T ztp1 = pt + ptsphy * ten_t;
@@ -376,23 +402,45 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, bool EVAP>
+__global__ void __launch_bounds__(kThreads)
+    cloudsc2_nl_kernel(const __grid_constant__ Args<T> a, const int ncol,
+                       const int nlev) {
+  sweep<T, EVAP, false>(a, ncol, nlev);
+}
+
+template <typename T, bool EVAP>
+__global__ void __launch_bounds__(kThreads)
+    cloudsc2_fwd_ckpt_kernel(const __grid_constant__ Args<T> a, const int ncol,
+                             const int nlev) {
+  sweep<T, EVAP, true>(a, ncol, nlev);
+}
+
+template <typename T, bool EVAP, bool FWD_CKPT>
 int launch_variant(const Args<T>& a, int ncol, int nlev, cudaStream_t s) {
   const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
-  cloudsc2_nl_kernel<T, EVAP><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+  if (FWD_CKPT) {
+    cloudsc2_fwd_ckpt_kernel<T, EVAP><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+  } else {
+    cloudsc2_nl_kernel<T, EVAP><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+  }
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool FWD_CKPT>
 int launch(const void* const* in, void* const* out, const double* consts,
            int ncol, int nlev, int evap, void* stream) {
   if (ncol <= 0 || nlev <= 0) return int(cudaErrorInvalidValue);
-  Args<T> a;
+  Args<T> a = {};
   for (int j = 0; j < N_STREAM; ++j) a.in[j] = static_cast<const T*>(in[j]);
   for (int j = 0; j < N_OUTPUT; ++j) a.out[j] = static_cast<T*>(out[j]);
   for (int j = 0; j < N_CONST; ++j) a.c[j] = T(consts[j]);
+  if (FWD_CKPT) {
+    a.pqs = static_cast<const T*>(in[N_STREAM]);
+    for (int j = 0; j < 3; ++j) a.ckpt[j] = static_cast<T*>(out[N_OUTPUT + j]);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return evap ? launch_variant<T, true>(a, ncol, nlev, s)
-              : launch_variant<T, false>(a, ncol, nlev, s);
+  return evap ? launch_variant<T, true, FWD_CKPT>(a, ncol, nlev, s)
+              : launch_variant<T, false, FWD_CKPT>(a, ncol, nlev, s);
 }
 
 }  // namespace
@@ -414,13 +462,37 @@ int cloudsc2_nl_abi(int* counts) {
 int cloudsc2_nl_f32(const void* const* in, void* const* out,
                     const double* consts, int ncol, int nlev, int evap,
                     void* stream) {
-  return launch<float>(in, out, consts, ncol, nlev, evap, stream);
+  return launch<float, false>(in, out, consts, ncol, nlev, evap, stream);
 }
 
 int cloudsc2_nl_f64(const void* const* in, void* const* out,
                     const double* consts, int ncol, int nlev, int evap,
                     void* stream) {
-  return launch<double>(in, out, consts, ncol, nlev, evap, stream);
+  return launch<double, false>(in, out, consts, ncol, nlev, evap, stream);
+}
+
+// The lengths of the checkpointing sweep's argument arrays.
+int cloudsc2_fwd_ckpt_abi(int* counts) {
+  counts[0] = kFwdStreams;
+  counts[1] = kFwdOutputs;
+  counts[2] = N_CONST;
+  return 0;
+}
+
+// Launches the checkpointing forward sweep on `stream` and returns the
+// cudaError_t of the launch.  `in` holds kFwdStreams device pointers (the
+// NL streams, then pqs), `out` kFwdOutputs (the 8 outputs, then the 3
+// carry-in checkpoints, each (nlev, ncol)), `consts` N_CONST host doubles.
+int cloudsc2_fwd_ckpt_f32(const void* const* in, void* const* out,
+                          const double* consts, int ncol, int nlev, int evap,
+                          void* stream) {
+  return launch<float, true>(in, out, consts, ncol, nlev, evap, stream);
+}
+
+int cloudsc2_fwd_ckpt_f64(const void* const* in, void* const* out,
+                          const double* consts, int ncol, int nlev, int evap,
+                          void* stream) {
+  return launch<double, true>(in, out, consts, ncol, nlev, evap, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,215 @@
+// CLOUDSC2 tangent-linear sweep: one thread owns one column.  Shared by
+// cloudsc2_tl.cu (increments formed in registers) and cloudsc2_tl_din.cu
+// (increments streamed), which are built as two libraries so that their
+// nvcc runs overlap.
+//
+// Replaces the TPU kernel `_tl_kernel` (cloudsc2jax/pallas/tlad_kernel.py:170)
+// in both of its modes, as `cloudsc2_pallas_tl` (:272) runs them:
+//
+// * `dscale` (the work unit, `dscale=0.01, save_checkpoints=True,
+//   write_primal=...`): the increments are never streamed, dx = dscale*x is
+//   formed in registers for the 17 level values and paph_sfc, and the 3
+//   carry-in checkpoints are written for the reverse sweep.
+// * `d_inputs` (the standalone TL, :196-199, 240-242, 348-361): the 17 level
+//   tangents are READ from a second set of 16 streams laid out like the
+//   inputs (d_plu at k+1 clamped like plu, d_paph at k and k+1 with the k+1
+//   row carried over like paph), and the paph_sfc tangent is d_paph's last
+//   row.  No checkpoints are written.
+//
+// In both the tropopause eta has a zero tangent (tlad_kernel.py:238-245).
+// The statements of one level, primal and tangent, are generated from the
+// port's level body by cloudsc2jax_torch/kernels/emit.py (`torch.func.jvp`
+// of `level_physics`) into cloudsc2_tl_level.cuh, once per setting of
+// (levapls2 or ldrain1d, lregcl); this file is the hand-written schedule
+// around them.
+//
+// Schedule.  The TPU grid ran (column block, level) in order and carried
+// the primal and tangent carries in VMEM scratch.  Here each thread loops
+// over the levels of its own column with rfl/sfl/covptot and their tangents
+// in registers.  Arrays are levels-major (nlev, ncol) without padding, so a
+// warp's read of one level is one coalesced row segment; the ragged last
+// block masks its tail.  paph(k+1) of level k is kept as paph(k) of level
+// k+1, and plu is read only at k+1 (clamped at the last level, as
+// `_level_index_maps` does), so each of the 16 input streams (pqs included)
+// is read once per level, and each of the 16 tangent streams likewise.
+//
+// Traffic per level and column.  dscale: 16 reads; 8 tangent, 3 checkpoint
+// and, with WRITE_PRIMAL, 8 primal writes.  d_inputs: 32 reads; 8 tangent
+// and 8 primal writes.  The level body is ~1,000 statements, about 3x the
+// NL body, for 35-48 values moved; the design moves each byte once and
+// keeps everything else in registers.  What bounds it on this card is the
+// level body's dependent arithmetic, not bytes: on an NVIDIA H100 (700 W)
+// at 327,680 f32 columns both modes take 4.72 ms, though d_inputs reads
+// 2.3 GB more, against a bytes bound of 1.9 and 2.6 ms (PERF.md).
+//
+// Built with nvcc for sm_90a by cloudsc2jax_torch/kernels/build.py, without
+// fast math.  Params arrive as host doubles; the constants Python would fold
+// in double are folded on the host by Level<EVAP, LREGCL>::constants and
+// rounded to T once.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "cloudsc2_tl_level.cuh"
+
+namespace cloudsc2_tl {
+
+constexpr int kThreads = 128;
+constexpr int kFields = 14;  // level rows read at k; then plu, paph
+
+// Pointer order of Args::in (TL_STREAMS in kernels/tlad_kernel.py).
+enum Stream {
+  S_PT, S_PQ, S_PQS, S_PAP, S_PL, S_PI, S_PLUDE, S_PMFU, S_PMFD,
+  S_TEN_T, S_TEN_Q, S_TEN_L, S_TEN_I, S_PSUPSAT, S_PLU, S_PAPH,
+  S_CETA, S_ZSCALM, S_ZTRPAUS, S_PAPH_SFC,
+  N_STREAM
+};
+
+// Args::din (TL_TANGENT_STREAMS): the tangents of the first 16 streams, in
+// the same order and shapes.
+constexpr int kTangentStreams = S_PAPH + 1;
+
+// Pointer order of Args::out (TL_OUTPUTS): 8 tangents, 3 carry-in
+// checkpoints (null with D_INPUTS), 8 primal outputs (null unless
+// WRITE_PRIMAL).
+enum Output {
+  O_TANGENT = 0, O_CKPT = 8, O_PRIMAL = 11,
+  N_OUTPUT = 19
+};
+
+template <typename T>
+struct Args {
+  const T* in[N_STREAM];
+  const T* din[kTangentStreams];  // D_INPUTS only
+  T* out[N_OUTPUT];
+  T dscale;  // unused with D_INPUTS
+  T k[kMaxConsts];
+};
+
+template <typename T, bool EVAP, bool LREGCL, bool WRITE_PRIMAL, bool D_INPUTS>
+__device__ __forceinline__ void sweep(const Args<T>& a, const int ncol,
+                                      const int nlev) {
+  const int64_t col = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= ncol) return;
+  const T dscale = a.dscale;
+  const T c[2] = {__ldg(a.in[S_ZTRPAUS] + col), __ldg(a.in[S_PAPH_SFC] + col)};
+  const T dpaph_sfc =
+      D_INPUTS ? __ldg(a.din[S_PAPH] + int64_t(nlev) * ncol + col)
+               : dscale * c[1];
+  T r[3] = {T(0.0), T(0.0), T(0.0)};
+  T dr[3] = {T(0.0), T(0.0), T(0.0)};
+  T paph_lo = __ldg(a.in[S_PAPH] + col);
+  T dpaph_lo = D_INPUTS ? __ldg(a.din[S_PAPH] + col) : T(0.0);
+
+  for (int k = 0; k < nlev; ++k) {
+    const int64_t i = int64_t(k) * ncol + col;
+    const int64_t i1 = int64_t(k + 1 < nlev ? k + 1 : nlev - 1) * ncol + col;
+    const int64_t ihi = int64_t(k + 1) * ncol + col;
+    T x[17];
+#pragma unroll
+    for (int j = 0; j < kFields; ++j) x[j] = __ldg(a.in[j] + i);
+    x[14] = __ldg(a.in[S_PLU] + i1);
+    x[15] = paph_lo;
+    x[16] = __ldg(a.in[S_PAPH] + ihi);
+    T dx[17];
+    if (D_INPUTS) {
+#pragma unroll
+      for (int j = 0; j < kFields; ++j) dx[j] = __ldg(a.din[j] + i);
+      dx[14] = __ldg(a.din[S_PLU] + i1);
+      dx[15] = dpaph_lo;
+      dx[16] = __ldg(a.din[S_PAPH] + ihi);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 17; ++j) dx[j] = dscale * x[j];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) a.out[O_CKPT + j][i] = r[j];
+    }
+
+    T y[8], ry[3], dy[8], dry[3];
+    Level<EVAP, LREGCL>::run(a.k, __ldg(a.in[S_CETA] + k),
+                             __ldg(a.in[S_ZSCALM] + k), k < nlev - 1, x, c, r,
+                             dx, dpaph_sfc, dr, y, ry, dy, dry);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a.out[O_TANGENT + j][i] = dy[j];
+    if (WRITE_PRIMAL) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) a.out[O_PRIMAL + j][i] = y[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      r[j] = ry[j];
+      dr[j] = dry[j];
+    }
+    paph_lo = x[16];
+    dpaph_lo = dx[16];
+  }
+}
+
+template <typename T, bool EVAP, bool LREGCL, bool WRITE_PRIMAL>
+__global__ void __launch_bounds__(kThreads)
+    cloudsc2_tl_kernel(const __grid_constant__ Args<T> a, const int ncol,
+                       const int nlev) {
+  sweep<T, EVAP, LREGCL, WRITE_PRIMAL, false>(a, ncol, nlev);
+}
+
+template <typename T, bool EVAP, bool LREGCL>
+__global__ void __launch_bounds__(kThreads)
+    cloudsc2_tl_din_kernel(const __grid_constant__ Args<T> a, const int ncol,
+                           const int nlev) {
+  sweep<T, EVAP, LREGCL, true, true>(a, ncol, nlev);
+}
+
+template <typename T, bool EVAP, bool LREGCL, bool D_INPUTS>
+int launch_variant(Args<T>& a, const double* params, int ncol, int nlev,
+                   bool write_primal, cudaStream_t s) {
+  double k[kMaxConsts];
+  Level<EVAP, LREGCL>::constants(params, k);
+  for (int j = 0; j < Level<EVAP, LREGCL>::kNumConsts; ++j) a.k[j] = T(k[j]);
+  const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
+  if constexpr (D_INPUTS) {
+    cloudsc2_tl_din_kernel<T, EVAP, LREGCL><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+  } else if (write_primal) {
+    cloudsc2_tl_kernel<T, EVAP, LREGCL, true><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+  } else {
+    cloudsc2_tl_kernel<T, EVAP, LREGCL, false><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+  }
+  return int(cudaGetLastError());
+}
+
+// Fills Args from the launcher's pointer arrays and picks the variant.
+// `din` is read only with D_INPUTS, where the primal streams are always
+// written and no checkpoint is.
+template <typename T, bool D_INPUTS>
+int launch(const void* const* in, const void* const* din, void* const* out,
+           const double* params, double dscale, int ncol, int nlev, int evap,
+           int lregcl, int write_primal, void* stream) {
+  if (ncol <= 0 || nlev <= 0) return int(cudaErrorInvalidValue);
+  if (D_INPUTS && !write_primal) return int(cudaErrorInvalidValue);
+  Args<T> a = {};
+  for (int j = 0; j < N_STREAM; ++j) a.in[j] = static_cast<const T*>(in[j]);
+  if (D_INPUTS) {
+    for (int j = 0; j < kTangentStreams; ++j) {
+      a.din[j] = static_cast<const T*>(din[j]);
+      if (a.din[j] == nullptr) return int(cudaErrorInvalidValue);
+    }
+  }
+  for (int j = 0; j < N_OUTPUT; ++j) a.out[j] = static_cast<T*>(out[j]);
+  for (int j = 0; j < N_OUTPUT; ++j) {
+    const bool needed = j < O_CKPT || (j < O_PRIMAL ? !D_INPUTS : write_primal != 0);
+    if (needed && a.out[j] == nullptr) return int(cudaErrorInvalidValue);
+  }
+  a.dscale = T(dscale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wp = write_primal != 0;
+  if (evap) {
+    return lregcl ? launch_variant<T, true, true, D_INPUTS>(a, params, ncol, nlev, wp, s)
+                  : launch_variant<T, true, false, D_INPUTS>(a, params, ncol, nlev, wp, s);
+  }
+  return lregcl ? launch_variant<T, false, true, D_INPUTS>(a, params, ncol, nlev, wp, s)
+                : launch_variant<T, false, false, D_INPUTS>(a, params, ncol, nlev, wp, s);
+}
+
+}  // namespace cloudsc2_tl

@@ -1,4 +1,4 @@
-"""The fused SATUR + CLOUDSC2 nonlinear sweep: CUDA kernel and plain version.
+"""The CLOUDSC2 nonlinear sweeps: CUDA kernels and plain versions.
 
 Port of :mod:`cloudsc2jax.pallas.cloudsc2_kernel` (the ``_stream_kernel``
 path with ``fuse_satur=True``: qsat is always SATUR of pt and pap, computed
@@ -14,6 +14,13 @@ with no column padding.
 * :func:`cloudsc2_nl_reference` is the plain PyTorch version: a Python
   loop over levels calling :func:`level_physics`, a line-by-line port of
   ``_level_physics``.
+* :func:`cloudsc2_fwd_ckpt` is the wrapper of the checkpointing forward
+  sweep, the port of ``cloudsc2jax.pallas.tlad_kernel._fwd_ckpt_kernel``:
+  the same sweep with ``inputs.pqs`` READ as a stream (it is one of the
+  differentiated inputs, so the adjoint's trajectory must use the caller's
+  value) and the 3 carries going into each level written as checkpoints.
+  Its kernel shares ``csrc/cloudsc2_nl.cu``'s hand-written level body; its
+  plain version is :func:`cloudsc2_fwd_ckpt_reference`.
 * :func:`kernel_prelude` computes, in the working dtype and before the
   launch, the per-level and per-column scalars the kernel takes (ceta,
   zscalm, the tropopause eta, the surface pressure), as ``_Layout`` does.
@@ -25,12 +32,14 @@ with no column padding.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ..constants import Params
 from ..ops import damp_tangent
+from ..ops import maximum as _maximum
+from ..ops import minimum as _minimum
 from ..physics.cloudsc2 import (
     Cloudsc2Inputs,
     Cloudsc2Outputs,
@@ -46,9 +55,12 @@ __all__ = [
     "Cloudsc2StreamOutputs",
     "KernelPrelude",
     "check_operands",
+    "cloudsc2_fwd_ckpt",
+    "cloudsc2_fwd_ckpt_reference",
     "cloudsc2_nl",
     "cloudsc2_nl_reference",
     "kernel_prelude",
+    "launch_cloudsc2_fwd_ckpt",
     "launch_cloudsc2_nl",
     "level_physics",
     "tropopause_eta_lm",
@@ -70,6 +82,11 @@ KERNEL_STREAMS = tuple(n for n in _LEVEL_FIELDS if n != "pqs") + (
 KERNEL_OUTPUTS = (
     "tenl_t", "tenl_q", "tenl_l", "tenl_i", "pclc", "pcovptot", "rfln", "sfln",
 )
+# the checkpointing sweep appends pqs to the streams and the 3 carry-in
+# checkpoints to the outputs (kFwdStreams, kFwdOutputs in the source)
+CHECKPOINTS = ("ckpt_rfl", "ckpt_sfl", "ckpt_covptot")
+FWD_CKPT_STREAMS = KERNEL_STREAMS + ("pqs",)
+FWD_CKPT_OUTPUTS = KERNEL_OUTPUTS + CHECKPOINTS
 KERNEL_CONSTANTS = (
     "ptsphy", "rg", "rd", "rcpd", "retv", "rlvtt", "rlstt", "rlmlt", "rtt",
     "rcpd_rvtmp2", "inv_rcpd", "zcons2", "zcons3", "zmeltp2", "zqtmst",
@@ -94,6 +111,9 @@ class Cloudsc2StreamOutputs(NamedTuple):
     sfln: torch.Tensor
 
 
+Checkpoints = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
 class KernelPrelude(NamedTuple):
     """Scalars computed before the launch, in the working dtype."""
 
@@ -116,20 +136,6 @@ def _check_config(params: Params, ldrain1d: bool) -> None:
         )
 
 
-def _maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``jnp.maximum``: NaN-propagating max whose tangent and cotangent
-    select the larger operand's and split an exact tie evenly.
-    ``torch.maximum`` has the same values and cotangents, but its tangent
-    is ``b_t + w*(a_t - b_t)``, which rounds away the low bits of the
-    selected tangent when the other one is larger."""
-    return torch.where(a > b, a, torch.where(a < b, b, (a + b) * 0.5))
-
-
-def _minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``jnp.minimum``, as :func:`_maximum`."""
-    return torch.where(a < b, a, torch.where(a > b, b, (a + b) * 0.5))
-
-
 def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry,
                   lregcl: bool = False):
     """One level of CLOUDSC2 on ``(ncol,)`` tensors.
@@ -148,7 +154,7 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry,
     two 1/100 autoconversion damps (:323-324 with :754 and :794) and 0.7x
     vapour clipping (:994-1001).
 
-    Every max and min is :func:`_maximum`/:func:`_minimum`, against a
+    Every max and min is :func:`~cloudsc2jax_torch.ops.maximum`/``minimum``, against a
     tensor of the constant where JAX writes a constant: their derivative
     is that of ``jnp.maximum``/``jnp.minimum``, a select that splits an
     exact tie evenly, where ``clamp_min``/``clamp_max`` would pass a tie
@@ -439,6 +445,41 @@ def kernel_prelude(inputs: Cloudsc2Inputs, params: Params) -> KernelPrelude:
     )
 
 
+def _nl_sweep(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool,
+              fwd_ckpt: bool):
+    """The level loop of both plain versions: (8 output streams, 3
+    checkpoint streams | None).  ``fwd_ckpt`` reads ``inputs.pqs`` and
+    stores the carry going into each level; otherwise qsat is SATUR of pt
+    and pap, level by level, as the NL kernel computes it."""
+    _check_config(params, ldrain1d)
+    pre = kernel_prelude(inputs, params)
+    nlev = inputs.pt.shape[0]
+    zero = torch.zeros_like(inputs.pt[0])
+    carry = (zero, zero, zero)
+    outs = [torch.empty_like(inputs.pt) for _ in Cloudsc2StreamOutputs._fields]
+    ckpts = (tuple(torch.empty_like(inputs.pt) for _ in CHECKPOINTS)
+             if fwd_ckpt else None)
+    cols = (pre.ztrpaus, pre.paph_sfc)
+    for k in range(nlev):
+        row = {name: getattr(inputs, name)[k]
+               for name in _LEVEL_FIELDS if fwd_ckpt or name != "pqs"}
+        if not fwd_ckpt:
+            row["pqs"] = satur(row["pap"], row["pt"], params, lphylin=True,
+                               kflag=2)
+        fields = tuple(row[name] for name in _LEVEL_FIELDS) + (
+            inputs.plu[min(k + 1, nlev - 1)], inputs.paph[k], inputs.paph[k + 1],
+        )
+        if fwd_ckpt:
+            for buf, val in zip(ckpts, carry):
+                buf[k] = val
+        scalars = (pre.ceta[k], pre.zscalm[k], k < nlev - 1)
+        level_out, carry = level_physics(params, ldrain1d, scalars, fields,
+                                         cols, carry)
+        for buf, val in zip(outs, level_out):
+            buf[k] = val
+    return Cloudsc2StreamOutputs(*outs), ckpts
+
+
 def cloudsc2_nl_reference(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
 ) -> Cloudsc2StreamOutputs:
@@ -448,26 +489,19 @@ def cloudsc2_nl_reference(
     qsat is computed from pt and pap level by level, as the kernel does;
     ``inputs.pqs`` is not read and may be ``None``.
     """
-    _check_config(params, ldrain1d)
-    pre = kernel_prelude(inputs, params)
-    nlev = inputs.pt.shape[0]
-    zero = torch.zeros_like(inputs.pt[0])
-    carry = (zero, zero, zero)
-    outs = [torch.empty_like(inputs.pt) for _ in Cloudsc2StreamOutputs._fields]
-    cols = (pre.ztrpaus, pre.paph_sfc)
-    for k in range(nlev):
-        row = {name: getattr(inputs, name)[k]
-               for name in _LEVEL_FIELDS if name != "pqs"}
-        row["pqs"] = satur(row["pap"], row["pt"], params, lphylin=True, kflag=2)
-        fields = tuple(row[name] for name in _LEVEL_FIELDS) + (
-            inputs.plu[min(k + 1, nlev - 1)], inputs.paph[k], inputs.paph[k + 1],
-        )
-        scalars = (pre.ceta[k], pre.zscalm[k], k < nlev - 1)
-        level_out, carry = level_physics(params, ldrain1d, scalars, fields,
-                                         cols, carry)
-        for buf, val in zip(outs, level_out):
-            buf[k] = val
-    return Cloudsc2StreamOutputs(*outs)
+    return _nl_sweep(inputs, params, ldrain1d, fwd_ckpt=False)[0]
+
+
+def cloudsc2_fwd_ckpt_reference(
+    inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
+) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
+    """The plain PyTorch version of the checkpointing forward sweep, on any
+    device: ``(outputs, checkpoints)``.  ``inputs.pqs`` is read as it is;
+    ``checkpoints`` are the carries (rfl, sfl, covptot) going INTO each
+    level, ``(nlev, ncol)`` each."""
+    if inputs.pqs is None:
+        raise ValueError("the checkpointing forward sweep reads pqs")
+    return _nl_sweep(inputs, params, ldrain1d, fwd_ckpt=True)
 
 
 def _kernel_constants(params: Params, ldrain1d: bool):
@@ -545,6 +579,19 @@ def _load_kernel():
                 ctypes.c_void_p,  # stream
             ]
             fn.restype = ctypes.c_int
+        lib.cloudsc2_fwd_ckpt_abi.argtypes = lib.cloudsc2_nl_abi.argtypes
+        lib.cloudsc2_fwd_ckpt_abi.restype = ctypes.c_int
+        lib.cloudsc2_fwd_ckpt_abi(counts)
+        expected = (len(FWD_CKPT_STREAMS), len(FWD_CKPT_OUTPUTS),
+                    len(KERNEL_CONSTANTS))
+        if tuple(counts) != expected:
+            raise RuntimeError(
+                f"cloudsc2_nl.cu checkpointing layout {tuple(counts)} does "
+                f"not match the wrapper's {expected}"
+            )
+        for fn in (lib.cloudsc2_fwd_ckpt_f32, lib.cloudsc2_fwd_ckpt_f64):
+            fn.argtypes = lib.cloudsc2_nl_f32.argtypes
+            fn.restype = ctypes.c_int
         lib._cloudsc2_nl_bound = True
     return lib
 
@@ -573,6 +620,35 @@ def check_operands(tensors, names, like: torch.Tensor, what: str) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _launch(entry: str, streams, n_outputs: int, inputs: Cloudsc2Inputs,
+            pre: KernelPrelude, params: Params, ldrain1d: bool):
+    """Check the operands named by ``streams``, allocate ``n_outputs``
+    ``(nlev, ncol)`` outputs and launch ``<entry>_f32|f64`` of
+    ``csrc/cloudsc2_nl.cu`` on the current stream; raises if refused."""
+    if inputs.pt.device.type != "cuda":
+        raise ValueError(f"launch_{entry} needs CUDA tensors, got {inputs.pt.device}")
+    _check_config(params, ldrain1d)
+    operands = {**inputs._asdict(), **pre._asdict()}
+    check_operands(operands, streams, inputs.pt, entry)
+    lib = _load_kernel()
+    nlev, ncol = inputs.pt.shape
+    outs = [torch.empty_like(inputs.pt) for _ in range(n_outputs)]
+    in_ptrs = (ctypes.c_void_p * len(streams))(
+        *(operands[name].data_ptr() for name in streams))
+    out_ptrs = (ctypes.c_void_p * n_outputs)(*(x.data_ptr() for x in outs))
+    consts = (ctypes.c_double * len(KERNEL_CONSTANTS))(
+        *_kernel_constants(params, ldrain1d))
+    suffix = "f32" if inputs.pt.dtype == torch.float32 else "f64"
+    with torch.cuda.device(inputs.pt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"{entry}_{suffix}")(
+            in_ptrs, out_ptrs, consts, ncol, nlev,
+            int(_evap(params, ldrain1d)), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError_t {err}")
+    return outs
+
+
 def launch_cloudsc2_nl(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
     ldrain1d: bool = False,
@@ -583,30 +659,29 @@ def launch_cloudsc2_nl(
     and raises if the launch is refused.  Counts each launch in
     ``cloudsc2_nl.launches``.
     """
-    if inputs.pt.device.type != "cuda":
-        raise ValueError(f"launch_cloudsc2_nl needs CUDA tensors, got {inputs.pt.device}")
-    _check_config(params, ldrain1d)
-    operands = {**inputs._asdict(), **pre._asdict()}
-    check_operands(operands, KERNEL_STREAMS, inputs.pt, "cloudsc2_nl")
-    lib = _load_kernel()
-    nlev, ncol = inputs.pt.shape
-    outs = [torch.empty_like(inputs.pt) for _ in KERNEL_OUTPUTS]
-    in_ptrs = (ctypes.c_void_p * len(KERNEL_STREAMS))(
-        *(operands[name].data_ptr() for name in KERNEL_STREAMS))
-    out_ptrs = (ctypes.c_void_p * len(KERNEL_OUTPUTS))(
-        *(x.data_ptr() for x in outs))
-    consts = (ctypes.c_double * len(KERNEL_CONSTANTS))(
-        *_kernel_constants(params, ldrain1d))
-    fn = lib.cloudsc2_nl_f32 if inputs.pt.dtype == torch.float32 \
-        else lib.cloudsc2_nl_f64
-    with torch.cuda.device(inputs.pt.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(in_ptrs, out_ptrs, consts, ncol, nlev,
-                 int(_evap(params, ldrain1d)), stream)
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_nl kernel launch failed: cudaError_t {err}")
+    outs = _launch("cloudsc2_nl", KERNEL_STREAMS, len(KERNEL_OUTPUTS), inputs,
+                   pre, params, ldrain1d)
     cloudsc2_nl.launches += 1
     return Cloudsc2StreamOutputs(*outs)
+
+
+def launch_cloudsc2_fwd_ckpt(
+    inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
+    ldrain1d: bool = False,
+) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
+    """Launch the checkpointing forward kernel on CUDA tensors, on the
+    current stream: ``(outputs, checkpoints)`` like the plain version.
+
+    Checks device, dtype, shape and contiguity (pqs included), allocates
+    the 8 + 3 outputs, and raises if the launch is refused.  Counts each
+    launch in ``cloudsc2_fwd_ckpt.launches``.
+    """
+    if inputs.pqs is None:
+        raise ValueError("the checkpointing forward sweep reads pqs")
+    outs = _launch("cloudsc2_fwd_ckpt", FWD_CKPT_STREAMS, len(FWD_CKPT_OUTPUTS),
+                   inputs, pre, params, ldrain1d)
+    cloudsc2_fwd_ckpt.launches += 1
+    return Cloudsc2StreamOutputs(*outs[:8]), tuple(outs[8:])
 
 
 def cloudsc2_nl(
@@ -627,13 +702,36 @@ def cloudsc2_nl(
                               ldrain1d=ldrain1d)
 
 
+def cloudsc2_fwd_ckpt(
+    inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
+) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
+    """The checkpointing forward sweep on levels-major inputs with pqs:
+    ``(outputs, checkpoints)``.
+
+    CUDA tensors run the hand-written kernel
+    (:func:`launch_cloudsc2_fwd_ckpt`, after :func:`kernel_prelude`); CPU
+    tensors run the plain version :func:`cloudsc2_fwd_ckpt_reference`; any
+    other device raises.
+    """
+    device = inputs.pt.device
+    if device.type == "cpu":
+        return cloudsc2_fwd_ckpt_reference(inputs, params, ldrain1d=ldrain1d)
+    if device.type != "cuda":
+        raise ValueError(f"cloudsc2_fwd_ckpt runs on cuda or cpu tensors, not {device}")
+    return launch_cloudsc2_fwd_ckpt(inputs, kernel_prelude(inputs, params),
+                                    params, ldrain1d=ldrain1d)
+
+
 cloudsc2_nl.launches = 0
+cloudsc2_fwd_ckpt.launches = 0
 
 
-def unblock_outputs(out: Cloudsc2StreamOutputs, params: Params) -> Cloudsc2Outputs:
+def unblock_outputs(out: Cloudsc2StreamOutputs, params: Params,
+                    levels_major: bool = False) -> Cloudsc2Outputs:
     """Raw streams -> the :class:`Cloudsc2Outputs` contract (flux top row +
     enthalpy fluxes, cloudsc2.F90:694-735), as ``(ncol, nlev[+1])`` views
-    of levels-major tensors."""
+    of levels-major tensors, or those tensors themselves with
+    ``levels_major``.  Linear, so it assembles tangents too."""
     top = torch.zeros_like(out.rfln[:1])
     pfplsl = torch.cat([top, out.rfln], dim=0)
     pfplsn = torch.cat([top, out.sfln], dim=0)
@@ -645,4 +743,4 @@ def unblock_outputs(out: Cloudsc2StreamOutputs, params: Params) -> Cloudsc2Outpu
         pfhpsn=-pfplsn * params.yomcst.rlstt,
         pcovptot=out.pcovptot,
     )
-    return Cloudsc2Outputs(*(x.T for x in res))
+    return res if levels_major else Cloudsc2Outputs(*(x.T for x in res))

@@ -12,15 +12,17 @@ keeps that rule with a trace of its own level body:
 
 1. :func:`trace` runs ``make_fx`` over ``torch.func.jvp`` (TL) or
    ``torch.func.vjp`` (AD) of
-   :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.level_physics` with
-   ``lregcl=True``, on the CPU in float64.  ``functionalize`` removes the
+   :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.level_physics`, on the
+   CPU in float64.  ``functionalize`` removes the
    in-place and view ops of the autograd formulas, and
    ``eliminate_dead_code`` what no output needs.
 2. :func:`emit_header` prints one C++ statement per node into
    ``csrc/cloudsc2_tl_level.cuh`` (primal + tangent of one level) or
    ``csrc/cloudsc2_ad_level.cuh`` (primal recompute + transpose of one
-   level).  ``levapls2 or ldrain1d`` is decided at compile time: each
-   header holds both bodies (``Level<true>``, ``Level<false>``).
+   level).  ``levapls2 or ldrain1d`` and ``lregcl`` are decided at compile
+   time: each header holds the four bodies ``Level<EVAP, LREGCL>``.  With
+   ``lregcl`` off the five damp sites vanish from the trace, so that body
+   is the exact derivative the Taylor test needs.
 
 Every node gets one of three kinds:
 
@@ -42,7 +44,7 @@ The bookkeeping of the autograd formulas (``alias_copy``,
 name of the value they copy, and its zero tensors become ``T(0.0)``; ``where`` stays a select of two computed values.
 Any aten target without a rule raises, so no op can vanish silently.  The
 kernels' schedule, memory traffic, checkpoints and scatter are written by
-hand in ``csrc/cloudsc2_tl.cu`` and ``csrc/cloudsc2_ad.cu``.
+hand in ``csrc/cloudsc2_tl_sweep.cuh`` and ``csrc/cloudsc2_ad.cu``.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ import torch
 from ..constants import Params
 from .cloudsc2_kernel import level_physics
 
-__all__ = ["HEADERS", "REGENERATE", "Trace", "emit_header", "main",
+__all__ = ["HEADERS", "REGENERATE", "Trace", "VARIANTS", "emit_header", "main",
            "param_value", "render_header", "trace", "trace_params"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -116,9 +118,13 @@ def _names(prefix: str, n: int) -> List[str]:
     return [f"{prefix}[{i}]" for i in range(n)]
 
 
-def trace(kind: str, evap: bool) -> Trace:
+VARIANTS = tuple((evap, lregcl) for evap in (False, True)
+                 for lregcl in (False, True))
+
+
+def trace(kind: str, evap: bool, lregcl: bool = True) -> Trace:
     """Trace one level's jvp (``kind="tl"``) or vjp (``"ad"``) of
-    ``level_physics(lregcl=True)``, with ``ldrain1d=evap`` and LEVAPLS2 off.
+    ``level_physics``, with ``ldrain1d=evap`` and LEVAPLS2 off.
 
     TL inputs: params, ceta_k, zscalm_k, not_last, the 17 fields, the 2
     columns, the 3 carries, the 17 field tangents, the paph_sfc tangent and
@@ -144,7 +150,7 @@ def trace(kind: str, evap: bool) -> Trace:
     def level(pvals, ceta_k, zscalm_k, not_last):
         prm = _with_params(base, paths, pvals)
         return lambda fl, co, ca: level_physics(
-            prm, evap, (ceta_k, zscalm_k, not_last), fl, co, ca, lregcl=True)
+            prm, evap, (ceta_k, zscalm_k, not_last), fl, co, ca, lregcl=lregcl)
 
     scalars = (torch.tensor(0.5, dtype=torch.float64),
                torch.tensor(0.8, dtype=torch.float64), torch.tensor(True))
@@ -379,18 +385,18 @@ _SIGNATURE = {
 }
 
 _ABOUT = {
-    "tl": ("Primal and tangent of one level: torch.func.jvp of level_physics"
-           " (lregcl=True).\n// Inputs: x = the 17 fields (pt pq pqs pap pl pi"
+    "tl": ("Primal and tangent of one level: torch.func.jvp of level_physics."
+           "\n// Inputs: x = the 17 fields (pt pq pqs pap pl pi"
            " plude pmfu pmfd ten_t ten_q ten_l\n// ten_i psupsat plu_k1 paph_lo"
            " paph_hi), c = (ztrpaus, paph_sfc), r = the carry\n// (zrfl zsfl"
            " zcovptot), dx/dpaph_sfc/dr their tangents (ztrpaus has none).\n"
            "// Outputs: y = the 8 level outputs (tenl_t tenl_q tenl_l tenl_i pclc"
            " pcovptot\n// rfln sfln), ry = the new carry, dy/dry their tangents."),
     "ad": ("Primal recompute and transpose of one level: torch.func.vjp of"
-           " level_physics\n// (lregcl=True).  Inputs: x = the 17 fields (pt pq"
-           " pqs pap pl pi plude pmfu\n// pmfd ten_t ten_q ten_l ten_i psupsat"
-           " plu_k1 paph_lo paph_hi), c = (ztrpaus,\n// paph_sfc), r = the carry"
-           " into the level, s = the 8 output cotangents, sr =\n// the new-carry"
+           " level_physics.\n// Inputs: x = the 17 fields (pt pq"
+           " pqs pap pl pi plude pmfu pmfd ten_t\n// ten_q ten_l ten_i psupsat"
+           " plu_k1 paph_lo paph_hi), c = (ztrpaus, paph_sfc),\n// r = the carry"
+           " into the level, s = the 8 output cotangents, sr = the\n// new-carry"
            " cotangents.  Outputs: gx = the 17 field cotangents, gpaph_sfc,\n"
            "// gr = the carry-in cotangents (ztrpaus' is dropped)."),
 }
@@ -398,13 +404,14 @@ _ABOUT = {
 
 def emit_header(kind: str) -> str:
     """The text of the generated header for ``kind`` ("tl" or "ad")."""
-    return render_header(kind, {evap: trace(kind, evap) for evap in (False, True)})
+    return render_header(kind, {v: trace(kind, *v) for v in VARIANTS})
 
 
-def render_header(kind: str, traces: Dict[bool, Trace]) -> str:
-    """The header for ``kind`` from its two traces, keyed by ``evap``."""
-    printers = {evap: _Printer(traces[evap]) for evap in (False, True)}
-    paths = printers[False].tr.params
+def render_header(kind: str, traces: Dict[Tuple[bool, bool], Trace]) -> str:
+    """The header for ``kind`` from its four traces, keyed by ``(evap,
+    lregcl)``."""
+    printers = {v: _Printer(traces[v]) for v in VARIANTS}
+    paths = printers[VARIANTS[0]].tr.params
     used = {p for pr in printers.values() for p, _ in pr.used_params}
     order = [p for p in paths if p in used]
     index = {p: i for i, p in enumerate(order)}
@@ -416,7 +423,7 @@ def render_header(kind: str, traces: Dict[bool, Trace]) -> str:
         "// cloudsc2jax_torch/kernels/cloudsc2_kernel.py:level_physics; do not edit.",
         f"// {_ABOUT[kind]}",
         "//",
-        "// Level<E>::constants runs on the host in double; its k[] values reach",
+        "// Level<E, R>::constants runs on the host in double; its k[] values reach",
         "// the kernel rounded to T.  p[] holds the params named in kParamNames.",
         "#pragma once",
         "",
@@ -429,17 +436,18 @@ def render_header(kind: str, traces: Dict[bool, Trace]) -> str:
         "constexpr int kMaxConsts = "
         f"{max(len(pr.consts) for pr in printers.values())};",
         "",
-        "template <bool EVAP>",
+        "template <bool EVAP, bool LREGCL>",
         "struct Level;",
     ]
-    for evap in (False, True):
-        pr = printers[evap]
+    for evap, lregcl in VARIANTS:
+        pr = printers[evap, lregcl]
+        flags = f"{'true' if evap else 'false'}, {'true' if lregcl else 'false'}"
         lines += [
             "",
-            f"// levapls2 or ldrain1d: {'true' if evap else 'false'}"
+            f"// levapls2 or ldrain1d, lregcl: {flags}"
             f" ({len(pr.body)} statements)",
             "template <>",
-            f"struct Level<{'true' if evap else 'false'}> {{",
+            f"struct Level<{flags}> {{",
             f"  static constexpr int kNumConsts = {len(pr.consts)};",
             "",
             "  static void constants(const double* p, double* k) {",

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["damp_tangent"]
+__all__ = ["damp_tangent", "maximum", "minimum"]
 
 
 class _DampTangent(torch.autograd.Function):
@@ -55,3 +55,17 @@ def damp_tangent(x: torch.Tensor, factor) -> torch.Tensor:
     ``torch.func.vjp``.
     """
     return _DampTangent.apply(x, factor)
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum``: NaN-propagating max whose tangent and cotangent
+    select the larger operand's and split an exact tie evenly.
+    ``torch.maximum`` has the same values and cotangents, but its tangent
+    is ``b_t + w*(a_t - b_t)``, which rounds away the low bits of the
+    selected tangent when the other one is larger."""
+    return torch.where(a > b, a, torch.where(a < b, b, (a + b) * 0.5))
+
+
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum``, as :func:`maximum`."""
+    return torch.where(a < b, a, torch.where(a > b, b, (a + b) * 0.5))

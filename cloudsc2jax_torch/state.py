@@ -120,6 +120,22 @@ class Cloudsc2State:
         return Cloudsc2Inputs(
             *(None if x is None else x.index_select(1, idx) for x in base))
 
+    def device_inputs(
+        self, ngptot: Optional[int] = None, dtype: torch.dtype = torch.float64,
+        device="cuda",
+    ) -> Cloudsc2Inputs:
+        """The 16 inputs in the standard ``(ncol, nlev)`` contract (paph
+        ``(ncol, nlev+1)``) with ``pqs``, expanded to ``ngptot`` columns on
+        the device, as the JAX package's non-blocked
+        ``device_kernel_inputs`` returns them (``cloudsc2jax/state.py:170``).
+
+        Each field is the transposed view of the levels-major tensor
+        :meth:`device_kernel_inputs` builds, so the truth path reads one
+        level of all columns as a contiguous row, and the kernels' wrappers
+        get back to levels-major without a copy."""
+        lm = self.device_kernel_inputs(ngptot, dtype=dtype, device=device, pqs=True)
+        return Cloudsc2Inputs(*(x.T for x in lm))
+
     def output_dict(self, out: Cloudsc2Outputs) -> Dict[str, np.ndarray]:
         """Kernel outputs as host arrays under the golden-file field names.
 

@@ -136,8 +136,13 @@ def test_cuda_tlad_kernels_reject_bad_operands():
                               st.params)
     with pytest.raises(ValueError, match="pqs"):
         tk.launch_cloudsc2_tl(inputs._replace(pqs=None), pre, st.params, dscale=DSCALE)
-    with pytest.raises(NotImplementedError):
-        tk.launch_cloudsc2_tl(inputs, pre, st.params, dscale=DSCALE, lregcl=False)
+    bad_d = inputs._replace(paph=inputs.paph[:-1].contiguous())
+    with pytest.raises(ValueError):
+        tk.launch_cloudsc2_tl_din(inputs, bad_d, pre, st.params)
+    with pytest.raises(ValueError):
+        kmod.launch_cloudsc2_fwd_ckpt(bad, pre, st.params)
+    with pytest.raises(ValueError, match="pqs"):
+        kmod.launch_cloudsc2_fwd_ckpt(inputs._replace(pqs=None), pre, st.params)
 
 
 @pytest.mark.cuda
@@ -151,3 +156,57 @@ def test_cuda_cli_tlad_through_the_kernels(dtype):
                      "--device", "cuda"]) == 0
     assert (tk.cloudsc2_tl.launches, tk.cloudsc2_ad.launches) == (
         launches[0] + 1, launches[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lregcl", [False, True])
+def test_cuda_standalone_kernels_match_plain_versions(dtype, lregcl):
+    """The checkpointing forward kernel, the streamed-increment TL kernel
+    and the AD kernel with unfolded seeds, at both ``lregcl`` settings,
+    against their plain versions on a ragged column count, in f64 with pqs
+    moved away from SATUR (chip_smoke.py's phase 9)."""
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(1000, dtype=dtype, device="cuda", pqs=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(x):
+        return torch.rand(x.shape, generator=gen, device="cuda", dtype=dtype)
+
+    if dtype == torch.float64:
+        inputs = inputs._replace(pqs=inputs.pqs * (0.99 + 0.02 * rand(inputs.pqs)))
+    d_inputs = type(inputs)(*(0.01 * x * (0.5 + rand(x)) for x in inputs))
+    tol_nl = 5e-6 if dtype == torch.float32 else 1e-12
+    tol_tl, tol_ad = TLAD_TOL[dtype]
+    counters = (kmod.cloudsc2_fwd_ckpt, tk.cloudsc2_tl_din, tk.cloudsc2_ad)
+    before = [f.launches for f in counters]
+    out, ck = kmod.cloudsc2_fwd_ckpt(inputs, st.params)
+    r_out, r_ck = kmod.cloudsc2_fwd_ckpt_reference(inputs, st.params)
+    p_out, p_dout = tk.cloudsc2_tl_din(inputs, d_inputs, st.params, lregcl=lregcl)
+    rp_out, rp_dout, _ = tk.cloudsc2_tl_reference(inputs, st.params,
+                                                  d_inputs=d_inputs, lregcl=lregcl)
+    adj = tk.cloudsc2_ad(inputs, rp_dout, r_ck, st.params, lregcl=lregcl,
+                         fold_seeds=False)
+    r_adj = tk.cloudsc2_ad_reference(inputs, rp_dout, r_ck, st.params,
+                                     lregcl=lregcl, fold_seeds=False)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    assert _rel_err((*out, *ck), (*r_out, *r_ck)) <= tol_nl
+    assert _rel_err((*p_out, *p_dout), (*rp_out, *rp_dout)) <= tol_tl
+    assert all(torch.isfinite(x).all() for x in adj)
+    assert _rel_err(adj, r_adj) <= tol_ad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tl", "ad"])
+def test_cuda_cli_tl_ad_through_the_kernels(variant):
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    counters = (kmod.cloudsc2_fwd_ckpt, tk.cloudsc2_tl_din, tk.cloudsc2_ad)
+    before = [f.launches for f in counters]
+    assert cli.main([variant, "1", "2048", "128", "--dtype", "f64", "--kernels",
+                     "--device", "cuda"]) == 0
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]

@@ -1,14 +1,15 @@
 """The derivative emitter that writes the TL and AD kernels' level bodies.
 
-The four traces (TL and AD, each with ``levapls2 or ldrain1d`` off and on)
-are made once for the module, on the CPU in float64.  The tests hold:
+The eight traces (TL and AD, each with ``levapls2 or ldrain1d`` and
+``lregcl`` off and on) are made once for the module, on the CPU in float64.  The tests hold:
 
 * both generated headers byte for byte against what the emitter writes
   now, so an edit of ``level_physics`` that is not regenerated fails here;
 * each traced graph against the function it traced (``torch.func.jvp`` /
-  ``torch.func.vjp`` of ``level_physics``) on 16 fixture columns (the
-  trace saw 8 random ones) and with the fixture's params, to 1e-15
-  relative: the trace is general in the data and in every param;
+  ``torch.func.vjp`` of ``level_physics``) on fixture columns (the trace
+  saw random values; the graph keeps the trace's width) and with the
+  fixture's params, to 1e-15 relative: the trace is general in the data
+  and in every param;
 * the headers free of any value of the fixture's params;
 * an aten op without a rule raising instead of vanishing.
 
@@ -29,12 +30,11 @@ from cloudsc2jax_torch.physics import cloudsc2 as physics_cloudsc2
 from cloudsc2jax_torch.state import Cloudsc2State
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
-KINDS = [(kind, evap) for kind in ("tl", "ad") for evap in (False, True)]
 
 
 @pytest.fixture(scope="module")
 def traces():
-    return {kind: {evap: emit.trace(kind, evap) for evap in (False, True)}
+    return {kind: {v: emit.trace(kind, *v) for v in emit.VARIANTS}
             for kind in ("tl", "ad")}
 
 
@@ -49,6 +49,9 @@ def test_header_regenerates_byte_for_byte(traces, kind):
     assert text.startswith(f"// Generated by `{emit.REGENERATE}`")
     assert text == emit.HEADERS[kind].read_text(), (
         f"{emit.HEADERS[kind].name} is stale: run {emit.REGENERATE}")
+    for evap, lregcl in emit.VARIANTS:
+        flags = f"{str(evap).lower()}, {str(lregcl).lower()}"
+        assert f"struct Level<{flags}> {{" in text
 
 
 def _level_args(tr, kind, params, k: int = 60, ncol: int = 16):
@@ -76,6 +79,24 @@ def _level_args(tr, kind, params, k: int = 60, ncol: int = 16):
                        0.01 * c[1], tuple(rand(1e-6) for _ in r))
     return head + (x, c, r, tuple(rand(1.0) - 0.5 for _ in range(8)),
                    tuple(rand(1.0) - 0.5 for _ in r))
+
+
+@pytest.mark.parametrize("lregcl", [False, True])
+@pytest.mark.parametrize("evap", [False, True])
+@pytest.mark.parametrize("kind", ["tl", "ad"])
+def test_traced_graph_computes_the_traced_function(traces, fixture_params, kind,
+                                                   evap, lregcl):
+    """The graph the header is printed from against ``torch.func.jvp`` /
+    ``vjp`` of ``level_physics`` itself, on data and params the trace did
+    not see, to 1e-15 of each output's max."""
+    tr = traces[kind][evap, lregcl]
+    args = _level_args(tr, kind, fixture_params, ncol=emit._TRACE_WIDTH)
+    got = torch.utils._pytree.tree_leaves(tr.graph(*args))
+    want = torch.utils._pytree.tree_leaves(tr.fn(*args))
+    assert len(got) == len(want) == len(tr.outputs)
+    for a, b in zip(got, want):
+        scale = max(float(b.abs().max()), 1e-300)
+        assert float((a - b).abs().max()) / scale <= 1e-15
 
 
 def _source_literals():
