@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card: the
-nonlinear sweep, the TL+AD work unit, and the standalone TL and AD variants
-(Taylor test, adjoint test, f32 verdicts through the kernels).
+nonlinear sweep, the TL+AD work unit, the standalone TL and AD variants
+(Taylor test, adjoint test, f32 verdicts through the kernels), and the
+``kernel_ab`` harness over the work unit's schedules (two-kernel, fused,
+int16-encoded).
 
 Run from the root of a checkout, with no arguments::
 
@@ -11,9 +13,10 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. Card: a CUDA device must be present; print its name and power limit.
-2. Build: compile ``cloudsc2jax_torch/csrc/cloudsc2_{nl,tl,tl_din,ad}.cu``
-   with nvcc from the checkout's sources, the four builds started together;
-   print the build time and ptxas' registers and spills per kernel entry.
+2. Build: compile ``cloudsc2jax_torch/csrc/cloudsc2_{nl,tl,tl_din,ad,
+   tl_enc,ad_enc,tlad_fused}.cu`` with nvcc from the checkout's sources, the
+   seven builds started together; print the build time and ptxas' registers
+   and spills per kernel entry.
 3. NL kernel against its plain PyTorch version on the card, on the same
    inputs: the 100-column fixture and a ragged 5,000-column expansion,
    f32 and f64, ldrain1d off and on; then the main path's own shapes
@@ -67,6 +70,24 @@ and prints no result line):
    standard-contract ``run_tlad`` on ``(ncol, nlev)``-contiguous inputs
    (with its transposes) and on transposed views of levels-major inputs
    (without), and the plain versions once.
+12. The encoded TL kernel, the encoded AD kernel and the fused TL+AD kernel
+   against their plain versions on the card, f32: 100 columns with
+   ldrain1d off and on, a ragged 5,000, and an odd 5,001 (int16 rows then
+   start on odd half-words) with ldrain1d on, the encoded TL with and
+   without its primal streams; the fused kernel also in f64 (100 columns
+   with ldrain1d on, 5,001 with it off); then the harness's own shape,
+   163,840 f32 columns (16,384 f64 for the fused kernel).  Tolerances as in
+   6.  The fused kernel is also held against the two-kernel unit on the
+   same inputs, and the adjoint identity is checked through the encoded
+   pair (with dx = DSCALE x the decoded inputs) and through the fused unit.
+13. The harness as its users run it: ``kernel_ab.main(["two", "noprim",
+   "fused", "enc", "encnp", "two"])`` at 327,680 f32 columns; the launch
+   counters of the TL, AD, fused, encoded TL and encoded AD kernels, zeroed
+   just before, must equal the units each config ran (warm-up and reps).
+14. Timing with CUDA events at 327,680 columns f32 over distinct inputs:
+   the fused kernel, the encoded TL kernel with and without primal
+   streams, the encoded AD kernel, each with its bytes and attained
+   bandwidth, and the plain versions once.
 
 Each kernel's record holds its time beside its bound: the larger of the
 bytes it must move (every input read once, every output written once,
@@ -89,7 +110,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
-LIBRARIES = ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_tl_din", "cloudsc2_ad")
+LIBRARIES = ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_tl_din", "cloudsc2_ad",
+             "cloudsc2_tl_enc", "cloudsc2_ad_enc", "cloudsc2_tlad_fused")
 CSRC = ROOT / "cloudsc2jax_torch" / "csrc"
 
 # NVIDIA H100 SXM data sheet: device memory rate and f32 rate outside the
@@ -109,18 +131,27 @@ MAIN_PATH_RUNS = (
     ["nl", "1", "163840", "128", "--dtype", "f32", "--threshold", "10000"],
     ["nl", "1", "16384", "128", "--dtype", "f64"],
 )
-# (ncol, dtype, ldrain1d) of the sweep in each MAIN_PATH_RUNS entry
-MAIN_PATH_SHAPES = ((163840, "float32", False), (16384, "float64", False))
+# (ncol, dtype, ldrain1d) of the sweeps on the CLI's main paths, for the
+# kernel-against-plain comparisons of the NL, TL+AD and standalone phases
+COMPARE_SHAPES = [(163840, "float32", False), (16384, "float64", False)]
+# (ncol, dtype, ldrain1d) of the small comparisons of the TL and AD phases:
+# one block and a ragged grid, both dtypes, both evaporation settings
+SMALL_CASES = [(ncol, name, ldrain1d)
+               for ncol in (100, 5000)
+               for name in ("float32", "float64")
+               for ldrain1d in (False, True)]
 TLAD_RUNS = (
     ["tlad", "1", "163840", "128", "--dtype", "f32"],
     ["tlad", "1", "16384", "128", "--dtype", "f64"],
 )
-TLAD_SHAPES = ((163840, "float32", False), (16384, "float64", False))
 TEST_RUNS = (
     ["tl", "1", "16384", "128", "--dtype", "f64", "--kernels"],
     ["ad", "1", "16384", "128", "--dtype", "f64", "--kernels"],
 )
 VERDICT_NCOL = 163_840
+AB_CONFIGS = ["two", "noprim", "fused", "enc", "encnp", "two"]
+# (ncol, dtype) of the harness's shape in the comparisons of phase 12
+AB_SHAPES = ((163840, "float32"), (16384, "float64"))
 
 
 def _nvidia_smi(query: str) -> str:
@@ -196,6 +227,12 @@ def _time_ms(fn, args_list, calls: int) -> float:
     return start.elapsed_time(stop) / calls
 
 
+def _lap(phases: str, since: float) -> float:
+    now = time.perf_counter()
+    print(f"phases {phases}: {now - since:.1f} s")
+    return now
+
+
 def _check(what: str, got, ref, tol: float, worst: dict, name: str) -> None:
     import torch
 
@@ -231,11 +268,7 @@ def _tlad_phases(state, params):
     # -- 6. TL and AD kernels against their plain versions on the card
     worst = {"tl": {}, "ad": {}}
     tl0, ad0 = cloudsc2_tl.launches, cloudsc2_ad.launches
-    cases = [(ncol, name, ldrain1d)
-             for ncol in (100, 5000)
-             for name in ("float32", "float64")
-             for ldrain1d in (False, True)]
-    cases += TLAD_SHAPES
+    cases = SMALL_CASES + COMPARE_SHAPES
     for ncol, name, ldrain1d in cases:
         print(f"[6] ncol={ncol} {name} ldrain1d={ldrain1d}:")
         inputs = state.device_kernel_inputs(ncol, dtype=getattr(torch, name),
@@ -397,11 +430,7 @@ def _test_variant_phases(state, params, ad_record):
     counters = (cloudsc2_fwd_ckpt, cloudsc2_tl_din, cloudsc2_tl, cloudsc2_ad)
     before = [f.launches for f in counters]
     expected = [0, 0, 0, 0]
-    cases = [(ncol, name, ldrain1d)
-             for ncol in (100, 5000)
-             for name in ("float32", "float64")
-             for ldrain1d in (False, True)]
-    cases += TLAD_SHAPES
+    cases = SMALL_CASES + COMPARE_SHAPES
     for ncol, name, ldrain1d in cases:
         small = ncol <= 5000
         # f64 only: there the comparison stays at rounding level, while in
@@ -586,6 +615,227 @@ def _test_variant_phases(state, params, ad_record):
     ]
 
 
+def _experiment_phases(state, params):
+    """Phases 12-14: the encoded TL and AD kernels and the fused TL+AD
+    kernel against their plain versions, the ``kernel_ab`` harness, and
+    their timing.  Returns the three kernels' JSON records and the launches
+    the harness made of the TL and AD kernels."""
+    import os
+
+    import torch
+
+    from cloudsc2jax_torch import cli, kernel_ab
+    from cloudsc2jax_torch.drivers import DSCALE, run_tlad
+    from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import kernel_prelude
+    from cloudsc2jax_torch.kernels.tlad_kernel import cloudsc2_ad, cloudsc2_tl
+    from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
+
+    # -- 12. the three kernels against their plain versions on the card
+    worst = {"tl_enc": {}, "ad_enc": {}, "fused": {}}
+    counters = (ex.cloudsc2_tl_encoded, ex.cloudsc2_ad_encoded,
+                ex.cloudsc2_tlad_fused)
+    before = [f.launches for f in counters]
+    expected = [0, 0, 0]
+    cases = [(100, "float32", False), (100, "float32", True),
+             (5000, "float32", False), (5001, "float32", True),
+             (100, "float64", True), (5001, "float64", False)]
+    cases += [(ncol, name, False) for ncol, name in AB_SHAPES]
+    for ncol, name, ldrain1d in cases:
+        print(f"[12] ncol={ncol} {name} ldrain1d={ldrain1d}:")
+        inputs = state.device_kernel_inputs(ncol, dtype=getattr(torch, name),
+                                            device="cuda", pqs=True)
+        tol_tl, tol_ad = TLAD_TOLERANCE["tl"][name], TLAD_TOLERANCE["ad"][name]
+        n_terms = inputs.pt.numel()
+        id_tol = (1e-10 if name == "float64" else
+                  cli.scaled_identity_tol(cli.PALLAS_AD_IDENTITY_TOL, n_terms))
+        kw = dict(ldrain1d=ldrain1d)
+        out, dout, adj = ex.cloudsc2_tlad_fused(inputs, params, **kw)
+        r_out, r_dout, r_adj = ex.cloudsc2_tlad_fused_reference(inputs, params, **kw)
+        u_out, u_dout, u_adj = run_tlad(inputs, params, **kw)
+        expected[2] += 1
+        w = worst["fused"]
+        _check("fused primal", out, r_out, tol_tl, w, name)
+        _check("fused tangents", dout, r_dout, tol_tl, w, name)
+        _check("fused adjoints", adj, r_adj, tol_ad, w, name)
+        # the same two loops in one kernel: the two-kernel unit's results,
+        # bit for bit where nvcc contracts both builds alike (it does with
+        # ldrain1d off), else up to FMA contraction
+        _check("fused vs two-kernel TL", (*out, *dout), (*u_out, *u_dout),
+               tol_tl, {}, name)
+        _check("fused vs two-kernel AD", adj, u_adj, tol_ad, {}, name)
+        rel, finite = cli.adjoint_identity(inputs, dout, adj, params, DSCALE)
+        print(f"    fused adjoint identity rel err {rel:.3e} (tol {id_tol:g})")
+        if not (finite and rel < id_tol):
+            raise AssertionError("the fused unit fails the adjoint identity")
+        w["identity_" + name] = max(w.get("identity_" + name, 0.0), rel)
+        del out, dout, adj, r_out, r_dout, r_adj, u_out, u_dout, u_adj
+        if name != "float32":
+            continue
+        enc = ex.encode_blocked_inputs(inputs, params, fuse_satur=False)
+        out, dout, ckpts = ex.cloudsc2_tl_encoded(enc, params, dscale=DSCALE, **kw)
+        none, dout_n, ckpts_n = ex.cloudsc2_tl_encoded(
+            enc, params, dscale=DSCALE, write_primal=False, **kw)
+        r_out, r_dout, r_ckpts = ex.cloudsc2_tl_encoded_reference(
+            enc, params, dscale=DSCALE, **kw)
+        adj = ex.cloudsc2_ad_encoded(enc, r_dout, r_ckpts, params, **kw)
+        r_adj = ex.cloudsc2_ad_encoded_reference(enc, r_dout, r_ckpts, params, **kw)
+        expected[0] += 2
+        expected[1] += 1
+        if none is not None:
+            raise AssertionError("write_primal=False returned primal streams")
+        w = worst["tl_enc"]
+        _check("encoded TL primal", out, r_out, tol_tl, w, name)
+        _check("encoded TL tangents", dout, r_dout, tol_tl, w, name)
+        _check("encoded TL checkpoints", ckpts, r_ckpts, tol_tl, w, name)
+        _check("encoded TL tangents, no primal", dout_n, r_dout, tol_tl, w, name)
+        _check("encoded TL checkpoints, no primal", ckpts_n, r_ckpts, tol_tl, w, name)
+        _check("encoded AD adjoints", adj, r_adj, tol_ad, worst["ad_enc"], name)
+        # the pair as the harness chains it: the AD kernel on the TL kernel's
+        # own tangents and checkpoints, dx = DSCALE x the decoded inputs
+        pair = ex.cloudsc2_ad_encoded(enc, dout, ckpts, params, **kw)
+        expected[1] += 1
+        rel, finite = cli.adjoint_identity(ex.decode_inputs(enc), dout, pair,
+                                           params, DSCALE)
+        print(f"    encoded pair adjoint identity rel err {rel:.3e} (tol {id_tol:g})")
+        if not (finite and rel < id_tol):
+            raise AssertionError("the encoded pair fails the adjoint identity")
+        worst["ad_enc"]["identity"] = max(worst["ad_enc"].get("identity", 0.0), rel)
+        torch.cuda.synchronize()
+        del enc, out, dout, ckpts, dout_n, ckpts_n, r_out, r_dout, r_ckpts
+        del adj, r_adj, pair
+    if [f.launches - b for f, b in zip(counters, before)] != expected:
+        raise AssertionError("the comparison did not launch the kernels")
+    del inputs
+
+    # -- 13. the harness as its users run it
+    path = {"tl": cloudsc2_tl, "ad": cloudsc2_ad, "tl_enc": ex.cloudsc2_tl_encoded,
+            "ad_enc": ex.cloudsc2_ad_encoded, "fused": ex.cloudsc2_tlad_fused}
+    os.environ["CLOUDSC2_AB_NGPTOT"] = str(TIMING_NCOL)
+    for f in path.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    summary = kernel_ab.main(AB_CONFIGS)
+    launches = {k: f.launches for k, f in path.items()}
+    print(f"[13] kernel_ab {' '.join(AB_CONFIGS)} ({time.perf_counter() - t0:.1f} s); "
+          f"kernel launches: {launches}")
+    # per config a warm-up over the first (up to 4) variants, then the reps
+    per_config = min(4, summary["reps"]) + summary["reps"]
+    runs = {"tl": ("two", "noprim"), "ad": ("two", "noprim"), "fused": ("fused",),
+            "tl_enc": ("enc", "encnp"), "ad_enc": ("enc", "encnp")}
+    expected = {k: per_config * sum(AB_CONFIGS.count(c) for c in cfgs)
+                for k, cfgs in runs.items()}
+    if launches != expected:
+        raise AssertionError(f"the harness did not run every unit through its "
+                             f"kernels: expected {expected}")
+    if summary["platform"] != "gpu" or len(summary["configs"]) != len(AB_CONFIGS):
+        raise AssertionError(f"the harness's summary is incomplete: {summary}")
+
+    # -- 14. timing at the headline size, f32, distinct inputs per call
+    ncol = TIMING_NCOL
+    base = state.device_kernel_inputs(ncol, dtype=torch.float32, device="cuda",
+                                      pqs=True)
+    sets = [base] + [Cloudsc2Inputs(*(x.roll(s, dims=1) for x in base))
+                     for s in (37, 71)]
+    pres = [kernel_prelude(s, params) for s in sets]
+    encs = [ex.encode_blocked_inputs(s, params, fuse_satur=False) for s in sets]
+    tls = [ex.launch_cloudsc2_tl_encoded(e, params, dscale=DSCALE) for e in encs]
+    ms = {
+        "fused": _time_ms(lambda i, p: ex.launch_cloudsc2_tlad_fused(i, p, params),
+                          list(zip(sets, pres)), 12),
+        "tl_enc": _time_ms(
+            lambda e: ex.launch_cloudsc2_tl_encoded(e, params, dscale=DSCALE),
+            [(e,) for e in encs], 20),
+        "tl_enc_noprim": _time_ms(
+            lambda e: ex.launch_cloudsc2_tl_encoded(e, params, dscale=DSCALE,
+                                                    write_primal=False),
+            [(e,) for e in encs], 20),
+        "ad_enc": _time_ms(
+            lambda e, t: ex.launch_cloudsc2_ad_encoded(e, t[1], t[2], params),
+            list(zip(encs, tls)), 20),
+        "encode": _time_ms(
+            lambda i: ex.encode_blocked_inputs(i, params, fuse_satur=False),
+            [(s,) for s in sets], 3),
+        "plain_fused": _time_ms(
+            lambda i: ex.cloudsc2_tlad_fused_reference(i, params), [(sets[0],)], 1),
+        "plain_tl_enc": _time_ms(
+            lambda e: ex.cloudsc2_tl_encoded_reference(e, params, dscale=DSCALE),
+            [(encs[0],)], 1),
+        "plain_ad_enc": _time_ms(
+            lambda e, t: ex.cloudsc2_ad_encoded_reference(e, t[1], t[2], params),
+            [(encs[0], tls[0])], 1),
+    }
+    fused0 = ex.launch_cloudsc2_tlad_fused(sets[0], pres[0], params)
+    slots = ex.fused_slots(sets[0], params)
+    nlev = base.pt.shape[0]
+    cells = nlev * ncol
+    tl_ops = _level_statements("tl", False, True) * cells
+    ad_ops = _level_statements("ad", False, True) * cells
+    enc_in = _nbytes(encs[0].streams, encs[0].enc, pres[0])
+    bounds = {
+        "fused": _bound(_nbytes(sets[0], pres[0], fused0), tl_ops + ad_ops),
+        "tl_enc": _bound(enc_in + _nbytes(tls[0]), tl_ops),
+        "ad_enc": _bound(enc_in + _nbytes(tls[0][1], tls[0][2]) + _nbytes(sets[0]),
+                         ad_ops),
+    }
+    # what each kernel moves, where that differs from its bound's bytes: the
+    # fused kernel reads the 16 inputs in both phases and its 8 tangent
+    # streams back; the TL without primal streams writes 8 streams fewer
+    moved = {
+        "fused": bounds["fused"]["bytes"] + _nbytes(sets[0], pres[0], fused0[1]),
+        "tl_enc": bounds["tl_enc"]["bytes"],
+        "tl_enc_noprim": bounds["tl_enc"]["bytes"] - _nbytes(tls[0][0]),
+        "ad_enc": bounds["ad_enc"]["bytes"],
+    }
+    for label, t in ms.items():
+        line = f"[14] {label}: {t:.4f} ms/call, {ncol / (t * 1e-3):.4e} cols/s"
+        if label in moved:
+            line += (f", {moved[label] / 1e9:.4f} GB moved, "
+                     f"{moved[label] / (t * 1e-3) / 1e9:.1f} GB/s")
+        if label in bounds:
+            b = bounds[label]
+            line += f", bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
+        print(line + f" at {ncol} columns f32")
+    print(f"[14] fused kernel grid: {slots} resident threads, checkpoint scratch "
+          f"{3 * nlev * slots * 4 / 1e6:.1f} MB")
+    print(f"[14] after timing: {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    def record(kind, name, replaces, plain, **extra):
+        w = worst[kind]
+        return {
+            **bounds[kind],
+            "name": name,
+            "route": "cuda",
+            "source": f"cloudsc2jax_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches[kind],
+            "max_abs_err": w["abs"],
+            "max_rel_err_f32": w["float32"],
+            "ms": ms[kind],
+            "plain_ms": ms[plain],
+            "bytes_moved": moved[kind],
+            "gb_per_s": moved[kind] / (ms[kind] * 1e-3) / 1e9,
+            "ncol": ncol,
+            **extra,
+        }
+
+    records = [
+        record("fused", "cloudsc2_tlad_fused",
+               "cloudsc2jax/pallas/experiments.py:286", "plain_fused",
+               max_rel_err_f64=worst["fused"]["float64"],
+               identity_f32=worst["fused"]["identity_float32"],
+               identity_f64=worst["fused"]["identity_float64"],
+               resident_threads=slots, kernel_ab=summary),
+        record("tl_enc", "cloudsc2_tl_enc",
+               "cloudsc2jax/pallas/tlad_kernel.py:170", "plain_tl_enc",
+               ms_noprim=ms["tl_enc_noprim"], encode_ms=ms["encode"]),
+        record("ad_enc", "cloudsc2_ad_enc",
+               "cloudsc2jax/pallas/tlad_kernel.py:454", "plain_ad_enc",
+               identity_f32=worst["ad_enc"]["identity"]),
+    ]
+    return records, launches
+
+
 def main() -> int:
     import torch
 
@@ -615,7 +865,7 @@ def main() -> int:
           f"{torch.version.cuda}, {count} device(s))")
     print(card)
 
-    # -- 2. build, the four nvcc runs together
+    # -- 2. build, the seven nvcc runs together
     t0 = time.perf_counter()
     build.load_libraries(list(LIBRARIES))
     build_s = time.perf_counter() - t0
@@ -637,7 +887,7 @@ def main() -> int:
              for ncol in (100, 5000)
              for name in ("float32", "float64")
              for ldrain1d in (False, True)]
-    cases += MAIN_PATH_SHAPES
+    cases += COMPARE_SHAPES
     for ncol, name, ldrain1d in cases:
         inputs = state.device_kernel_inputs(ncol, dtype=getattr(torch, name),
                                             device="cuda")
@@ -719,12 +969,20 @@ def main() -> int:
         "build_s": build_s,
     }
     del sets, pres, base
+    t_phase = _lap("1-5", t_start)
     tlad_records = _tlad_phases(state, params)
+    t_phase = _lap("6-8", t_phase)
     test_records = _test_variant_phases(state, params, tlad_records[1])
+    t_phase = _lap("9-11", t_phase)
+    ab_records, ab_launches = _experiment_phases(state, params)
+    tlad_records[0]["launches_kernel_ab"] = ab_launches["tl"]
+    tlad_records[1]["launches_kernel_ab"] = ab_launches["ad"]
+    _lap("12-14", t_phase)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": [nl_record, *tlad_records, *test_records]}))
+    print(json.dumps({"kernels": [nl_record, *tlad_records, *test_records,
+                                  *ab_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

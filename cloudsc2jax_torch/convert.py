@@ -14,7 +14,8 @@ import torch
 from .constants import Params, Yoethf, Yomcst, Yomncl, Yophnc, Yrecldp, Yrephli
 from .physics.cloudsc2 import Cloudsc2Inputs
 
-__all__ = ["params_from_jax", "inputs_from_numpy", "contract_from_numpy"]
+__all__ = ["params_from_jax", "inputs_from_numpy", "contract_from_numpy",
+           "encoded_from_numpy"]
 
 _GROUPS = {
     "yomcst": Yomcst,
@@ -60,3 +61,27 @@ def contract_from_numpy(tree, cls=Cloudsc2Inputs, device="cpu",
         torch.from_numpy(np.array(getattr(tree, name))).to(device=device, dtype=dtype)
         for name in cls._fields
     ))
+
+
+def encoded_from_numpy(streams, enc, ztrpaus, paphsfc, device="cpu"):
+    """A JAX-side ``EncodedInputs`` as host arrays -> the port's
+    :class:`~cloudsc2jax_torch.kernels.experiments.EncodedInputs`, bit for
+    bit: blocked ``(nlev, nb, S, 128)`` payloads (int16 or f32) become
+    levels-major ``(nlev, ncol)``, the ``(n_streams+1, nlev+1, 2)`` table
+    loses its duplicated last row (the TPU kernel's second paph window),
+    and the blocked per-column operands become ``(ncol,)``."""
+    from .kernels.experiments import EncodedInputs
+
+    def lm(x, lead):
+        x = np.asarray(x)
+        return torch.from_numpy(
+            np.ascontiguousarray(x.reshape(*x.shape[:lead], -1))).to(device)
+
+    table = np.asarray(enc, np.float32)
+    if table.shape[0] != len(streams) + 1:
+        raise ValueError(f"expected a table of {len(streams) + 1} rows for "
+                         f"{len(streams)} streams, got {table.shape[0]}")
+    return EncodedInputs(
+        streams=tuple(lm(s, 1) for s in streams),
+        enc=torch.from_numpy(np.ascontiguousarray(table[:-1])).to(device),
+        ztrpaus=lm(ztrpaus, 0), paphsfc=lm(paphsfc, 0))

@@ -42,6 +42,13 @@
 // at 327,680 f32 columns both modes take 4.72 ms, though d_inputs reads
 // 2.3 GB more, against a bytes bound of 1.9 and 2.6 ms (PERF.md).
 //
+// Two more kernels run this schedule.  The int16-encoded sweep
+// (cloudsc2_tl_enc.cu) differs only in how a stream value is loaded: the
+// `Load` policy of cloudsc2_load.cuh.  The single-launch TL+AD unit
+// (cloudsc2_tlad_fused.cu) calls `sweep_column` for each column a thread
+// owns and sends the checkpoints to a scratch indexed by the thread's slot
+// instead of by the column (`ckpt_stride`, `ckpt_col`).
+//
 // Built with nvcc for sm_90a by cloudsc2jax_torch/kernels/build.py, without
 // fast math.  Params arrive as host doubles; the constants Python would fold
 // in double are folded on the host by Level<EVAP, LREGCL>::constants and
@@ -53,6 +60,7 @@
 
 #include <cstdint>
 
+#include "cloudsc2_load.cuh"
 #include "cloudsc2_tl_level.cuh"
 
 namespace cloudsc2_tl {
@@ -87,13 +95,22 @@ struct Args {
   T* out[N_OUTPUT];
   T dscale;  // unused with D_INPUTS
   T k[kMaxConsts];
+  // cloudsc2_load::Encoded only: the (16, table_rows, 2) [scale, offset]
+  // table and the streams that hold int16 payloads, bit j for in[j]
+  const float2* table;
+  int table_rows;
+  unsigned enc_mask;
 };
 
-template <typename T, bool EVAP, bool LREGCL, bool WRITE_PRIMAL, bool D_INPUTS>
-__device__ __forceinline__ void sweep(const Args<T>& a, const int ncol,
-                                      const int nlev) {
-  const int64_t col = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (col >= ncol) return;
+// The level loop of one column.  Checkpoint j of level k goes to
+// out[O_CKPT + j][k * ckpt_stride + ckpt_col]: (ncol, col) for the
+// checkpoint streams of the two-kernel unit.
+template <typename T, bool EVAP, bool LREGCL, bool WRITE_PRIMAL, bool D_INPUTS,
+          typename Load>
+__device__ __forceinline__ void sweep_column(const Args<T>& a, const int ncol,
+                                             const int nlev, const int64_t col,
+                                             const int64_t ckpt_stride,
+                                             const int64_t ckpt_col) {
   const T dscale = a.dscale;
   const T c[2] = {__ldg(a.in[S_ZTRPAUS] + col), __ldg(a.in[S_PAPH_SFC] + col)};
   const T dpaph_sfc =
@@ -101,19 +118,25 @@ __device__ __forceinline__ void sweep(const Args<T>& a, const int ncol,
                : dscale * c[1];
   T r[3] = {T(0.0), T(0.0), T(0.0)};
   T dr[3] = {T(0.0), T(0.0), T(0.0)};
-  T paph_lo = __ldg(a.in[S_PAPH] + col);
+  T paph_lo = Load::template value<T>(
+      a, S_PAPH, 0, Load::template fetch<T>(a, S_PAPH, col));
   T dpaph_lo = D_INPUTS ? __ldg(a.din[S_PAPH] + col) : T(0.0);
 
   for (int k = 0; k < nlev; ++k) {
     const int64_t i = int64_t(k) * ncol + col;
-    const int64_t i1 = int64_t(k + 1 < nlev ? k + 1 : nlev - 1) * ncol + col;
+    const int k1 = k + 1 < nlev ? k + 1 : nlev - 1;
+    const int64_t i1 = int64_t(k1) * ncol + col;
     const int64_t ihi = int64_t(k + 1) * ncol + col;
     T x[17];
 #pragma unroll
-    for (int j = 0; j < kFields; ++j) x[j] = __ldg(a.in[j] + i);
-    x[14] = __ldg(a.in[S_PLU] + i1);
+    for (int j = 0; j < kFields; ++j) x[j] = Load::template fetch<T>(a, j, i);
+    x[14] = Load::template fetch<T>(a, S_PLU, i1);
+    x[16] = Load::template fetch<T>(a, S_PAPH, ihi);
+#pragma unroll
+    for (int j = 0; j < kFields; ++j) x[j] = Load::template value<T>(a, j, k, x[j]);
+    x[14] = Load::template value<T>(a, S_PLU, k1, x[14]);
     x[15] = paph_lo;
-    x[16] = __ldg(a.in[S_PAPH] + ihi);
+    x[16] = Load::template value<T>(a, S_PAPH, k + 1, x[16]);
     T dx[17];
     if (D_INPUTS) {
 #pragma unroll
@@ -125,7 +148,9 @@ __device__ __forceinline__ void sweep(const Args<T>& a, const int ncol,
 #pragma unroll
       for (int j = 0; j < 17; ++j) dx[j] = dscale * x[j];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) a.out[O_CKPT + j][i] = r[j];
+      for (int j = 0; j < 3; ++j) {
+        a.out[O_CKPT + j][int64_t(k) * ckpt_stride + ckpt_col] = r[j];
+      }
     }
 
     T y[8], ry[3], dy[8], dry[3];
@@ -148,47 +173,78 @@ __device__ __forceinline__ void sweep(const Args<T>& a, const int ncol,
   }
 }
 
-template <typename T, bool EVAP, bool LREGCL, bool WRITE_PRIMAL>
+// One thread per column, the ragged last block masked.
+template <typename T, bool EVAP, bool LREGCL, bool WRITE_PRIMAL, bool D_INPUTS,
+          typename Load>
+__device__ __forceinline__ void sweep(const Args<T>& a, const int ncol,
+                                      const int nlev) {
+  const int64_t col = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= ncol) return;
+  sweep_column<T, EVAP, LREGCL, WRITE_PRIMAL, D_INPUTS, Load>(a, ncol, nlev,
+                                                              col, ncol, col);
+}
+
+template <typename T, bool EVAP, bool LREGCL, bool WRITE_PRIMAL, typename Load>
 __global__ void __launch_bounds__(kThreads)
     cloudsc2_tl_kernel(const __grid_constant__ Args<T> a, const int ncol,
                        const int nlev) {
-  sweep<T, EVAP, LREGCL, WRITE_PRIMAL, false>(a, ncol, nlev);
+  sweep<T, EVAP, LREGCL, WRITE_PRIMAL, false, Load>(a, ncol, nlev);
 }
 
 template <typename T, bool EVAP, bool LREGCL>
 __global__ void __launch_bounds__(kThreads)
     cloudsc2_tl_din_kernel(const __grid_constant__ Args<T> a, const int ncol,
                            const int nlev) {
-  sweep<T, EVAP, LREGCL, true, true>(a, ncol, nlev);
+  sweep<T, EVAP, LREGCL, true, true, cloudsc2_load::Exact>(a, ncol, nlev);
 }
 
-template <typename T, bool EVAP, bool LREGCL, bool D_INPUTS>
-int launch_variant(Args<T>& a, const double* params, int ncol, int nlev,
-                   bool write_primal, cudaStream_t s) {
+// Folds the level body's constants in double and rounds them to T once.
+template <typename T, bool EVAP, bool LREGCL>
+void fill_constants(Args<T>& a, const double* params) {
   double k[kMaxConsts];
   Level<EVAP, LREGCL>::constants(params, k);
   for (int j = 0; j < Level<EVAP, LREGCL>::kNumConsts; ++j) a.k[j] = T(k[j]);
+}
+
+template <typename T, bool EVAP, bool LREGCL, bool D_INPUTS, typename Load>
+int launch_variant(Args<T>& a, const double* params, int ncol, int nlev,
+                   bool write_primal, cudaStream_t s) {
+  fill_constants<T, EVAP, LREGCL>(a, params);
   const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
   if constexpr (D_INPUTS) {
     cloudsc2_tl_din_kernel<T, EVAP, LREGCL><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
   } else if (write_primal) {
-    cloudsc2_tl_kernel<T, EVAP, LREGCL, true><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+    cloudsc2_tl_kernel<T, EVAP, LREGCL, true, Load><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
   } else {
-    cloudsc2_tl_kernel<T, EVAP, LREGCL, false><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+    cloudsc2_tl_kernel<T, EVAP, LREGCL, false, Load><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
   }
   return int(cudaGetLastError());
 }
 
+static_assert((1u << S_PQ | 1u << S_PLU | 1u << S_PAPH) ==
+                  cloudsc2_load::kNeverEncoded,
+              "cloudsc2_load.cuh numbers the streams differently");
+
 // Fills Args from the launcher's pointer arrays and picks the variant.
 // `din` is read only with D_INPUTS, where the primal streams are always
-// written and no checkpoint is.
-template <typename T, bool D_INPUTS>
+// written and no checkpoint is.  `table` and `enc_mask` are read only with
+// cloudsc2_load::Encoded.
+template <typename T, bool D_INPUTS, typename Load = cloudsc2_load::Exact>
 int launch(const void* const* in, const void* const* din, void* const* out,
            const double* params, double dscale, int ncol, int nlev, int evap,
-           int lregcl, int write_primal, void* stream) {
+           int lregcl, int write_primal, void* stream,
+           const void* table = nullptr, unsigned enc_mask = 0u) {
   if (ncol <= 0 || nlev <= 0) return int(cudaErrorInvalidValue);
   if (D_INPUTS && !write_primal) return int(cudaErrorInvalidValue);
   Args<T> a = {};
+  a.table = static_cast<const float2*>(table);
+  a.table_rows = nlev + 1;
+  a.enc_mask = enc_mask;
+  if (enc_mask != 0u &&
+      (table == nullptr || (enc_mask & cloudsc2_load::kNeverEncoded) ||
+       enc_mask >> kTangentStreams)) {
+    return int(cudaErrorInvalidValue);
+  }
   for (int j = 0; j < N_STREAM; ++j) a.in[j] = static_cast<const T*>(in[j]);
   if (D_INPUTS) {
     for (int j = 0; j < kTangentStreams; ++j) {
@@ -205,11 +261,11 @@ int launch(const void* const* in, const void* const* din, void* const* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wp = write_primal != 0;
   if (evap) {
-    return lregcl ? launch_variant<T, true, true, D_INPUTS>(a, params, ncol, nlev, wp, s)
-                  : launch_variant<T, true, false, D_INPUTS>(a, params, ncol, nlev, wp, s);
+    return lregcl ? launch_variant<T, true, true, D_INPUTS, Load>(a, params, ncol, nlev, wp, s)
+                  : launch_variant<T, true, false, D_INPUTS, Load>(a, params, ncol, nlev, wp, s);
   }
-  return lregcl ? launch_variant<T, false, true, D_INPUTS>(a, params, ncol, nlev, wp, s)
-                : launch_variant<T, false, false, D_INPUTS>(a, params, ncol, nlev, wp, s);
+  return lregcl ? launch_variant<T, false, true, D_INPUTS, Load>(a, params, ncol, nlev, wp, s)
+                : launch_variant<T, false, false, D_INPUTS, Load>(a, params, ncol, nlev, wp, s);
 }
 
 }  // namespace cloudsc2_tl

@@ -63,6 +63,7 @@ __all__ = [
     "launch_cloudsc2_fwd_ckpt",
     "launch_cloudsc2_nl",
     "level_physics",
+    "level_scalars",
     "tropopause_eta_lm",
     "unblock_outputs",
 ]
@@ -429,13 +430,18 @@ def tropopause_eta_lm(ztp1_lm, ceta):
     return cand.amax(dim=0)
 
 
+def level_scalars(params: Params, like: torch.Tensor):
+    """(ceta, zscalm), ``(nlev,)`` each, in ``like``'s dtype on its device."""
+    ceta = torch.tensor(params.ceta, dtype=like.dtype, device=like.device)
+    return ceta, _ZSCAL * torch.clamp_min(ceta - 0.2, _ZEPS1) ** 0.2
+
+
 def kernel_prelude(inputs: Cloudsc2Inputs, params: Params) -> KernelPrelude:
     """ceta, zscalm, the tropopause eta and the surface pressure, in the
     working dtype on the inputs' device (``_Layout.__init__``, :582-591)."""
     pt = inputs.pt
     nlev = pt.shape[0]
-    ceta = torch.tensor(params.ceta, dtype=pt.dtype, device=pt.device)
-    zscalm = _ZSCAL * torch.clamp_min(ceta - 0.2, _ZEPS1) ** 0.2
+    ceta, zscalm = level_scalars(params, pt)
     ztp1 = pt + params.ptsphy * inputs.ten_t
     return KernelPrelude(
         ceta=ceta,

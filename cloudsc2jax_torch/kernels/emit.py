@@ -44,7 +44,7 @@ The bookkeeping of the autograd formulas (``alias_copy``,
 name of the value they copy, and its zero tensors become ``T(0.0)``; ``where`` stays a select of two computed values.
 Any aten target without a rule raises, so no op can vanish silently.  The
 kernels' schedule, memory traffic, checkpoints and scatter are written by
-hand in ``csrc/cloudsc2_tl_sweep.cuh`` and ``csrc/cloudsc2_ad.cu``.
+hand in ``csrc/cloudsc2_tl_sweep.cuh`` and ``csrc/cloudsc2_ad_sweep.cuh``.
 """
 
 from __future__ import annotations

@@ -88,7 +88,7 @@ __all__ = [
 ]
 
 # Argument arrays of the C launchers; names and order are those of the enums
-# in csrc/cloudsc2_tl_sweep.cuh and csrc/cloudsc2_ad.cu.
+# in csrc/cloudsc2_tl_sweep.cuh and csrc/cloudsc2_ad_sweep.cuh.
 _COMMON = ("plu", "paph", "ceta", "zscalm", "ztrpaus", "paph_sfc")
 TL_STREAMS = _LEVEL_FIELDS + _COMMON
 TL_TANGENT_STREAMS = _LEVEL_FIELDS + ("plu", "paph")
@@ -148,6 +148,7 @@ def cloudsc2_tl_reference(
     inputs: Cloudsc2Inputs, params: Params, *, dscale: Optional[float] = None,
     d_inputs: Optional[Cloudsc2Inputs] = None,
     lregcl: bool = True, ldrain1d: bool = False, write_primal: bool = True,
+    pre: Optional[KernelPrelude] = None,
 ) -> Tuple[Optional[Cloudsc2StreamOutputs], Cloudsc2StreamOutputs, Checkpoints]:
     """Plain TL sweep on any device: returns (outputs | None, tangents,
     checkpoints).
@@ -158,12 +159,13 @@ def cloudsc2_tl_reference(
     (``d_plu`` at k+1 clamped, ``d_paph`` at k and k+1, its last row the
     paph_sfc tangent).  The tropopause eta has a zero tangent
     (``tlad_kernel.py:238-245``).  ``checkpoints`` are the 3 carries (rfl,
-    sfl, covptot) going INTO each level, ``(nlev, ncol)`` each.
+    sfl, covptot) going INTO each level, ``(nlev, ncol)`` each.  ``pre``
+    replaces :func:`kernel_prelude` of ``inputs`` where the caller has it.
     """
     _one_increment(dscale, d_inputs)
     _check_config(params, ldrain1d)
     _need_pqs(inputs)
-    pre = kernel_prelude(inputs, params)
+    pre = kernel_prelude(inputs, params) if pre is None else pre
     nlev = inputs.pt.shape[0]
     zero = torch.zeros_like(inputs.pt[0])
     carry = dcarry = (zero, zero, zero)
@@ -198,6 +200,7 @@ def cloudsc2_ad_reference(
     inputs: Cloudsc2Inputs, d_outputs: Cloudsc2StreamOutputs,
     checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
     ldrain1d: bool = False, fold_seeds: bool = True,
+    pre: Optional[KernelPrelude] = None,
 ) -> Cloudsc2Inputs:
     """Plain reverse sweep on any device: the input adjoints, levels-major.
 
@@ -211,11 +214,12 @@ def cloudsc2_ad_reference(
     0: level 0 is never read as k+1, and the clamped last-level read has a
     zero cotangent), ``d_paph[k+1] = hi(k) + lo(k+1)``, ``d_paph[0] =
     lo(0)``, and the surface row adds the sum over levels of the paph_sfc
-    cotangent.
+    cotangent.  ``pre`` replaces :func:`kernel_prelude` of ``inputs`` where
+    the caller has it.
     """
     _check_config(params, ldrain1d)
     _need_pqs(inputs)
-    pre = kernel_prelude(inputs, params)
+    pre = kernel_prelude(inputs, params) if pre is None else pre
     nlev = inputs.pt.shape[0]
     srfl, ssfl = seed_scales(params) if fold_seeds else (1.0, 1.0)
     zero = torch.zeros_like(inputs.pt[0])
@@ -263,15 +267,17 @@ _LAYOUT = {
 }
 
 
-def _bind(name: str):
+def _bind(name: str, layout=None, suffixes=("f32", "f64")):
     """Load ``csrc/<name>.cu``, check its argument layout against the
-    wrapper's, and declare the launchers' argument types."""
+    wrapper's, and declare the launchers' argument types.  ``layout`` is an
+    entry like ``_LAYOUT``'s for a library of another module, ``suffixes``
+    the precisions it was built for."""
     from . import build
 
     lib = build.load_library(name)
     if getattr(lib, "_bound", False):
         return lib
-    arrays, scalars = _LAYOUT[name]
+    arrays, scalars = layout or _LAYOUT[name]
     abi = getattr(lib, f"{name}_abi")
     abi.argtypes = [ctypes.POINTER(ctypes.c_int)]
     abi.restype = ctypes.c_int
@@ -285,7 +291,7 @@ def _bind(name: str):
     if tuple(counts) != expected:
         raise RuntimeError(f"{name}.cu argument layout {tuple(counts)} does "
                            f"not match the wrapper's {expected}")
-    for suffix in ("f32", "f64"):
+    for suffix in suffixes:
         fn = getattr(lib, f"{name}_{suffix}")
         fn.argtypes = ([_PTRS] * len(arrays) + [ctypes.POINTER(ctypes.c_double)]
                        + scalars + [ctypes.c_void_p])  # ..., params, ..., stream

@@ -210,3 +210,144 @@ def test_cuda_cli_tl_ad_through_the_kernels(variant):
     assert cli.main([variant, "1", "2048", "128", "--dtype", "f64", "--kernels",
                      "--device", "cuda"]) == 0
     assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+
+
+# ------------------------------------------- the TL+AD scheduling experiments
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncol", [100, 5001])
+@pytest.mark.parametrize("keep_f32", [("pq", "plu", "paph"),
+                                      ("pq", "plu", "paph", "pt", "pmfu")])
+def test_cuda_encoded_kernels_match_plain_versions(ncol, keep_f32):
+    """The encoded TL (both write_primal settings) and AD kernels against
+    their plain versions (chip_smoke.py's phase 12), with the default
+    encoding and one that keeps two more streams f32 (the kernels read the
+    mask of encoded streams at run time); 5,001 columns start the int16
+    rows on odd half-words."""
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import experiments as ex
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(ncol, dtype=torch.float32, device="cuda",
+                                     pqs=True)
+    enc = ex.encode_blocked_inputs(inputs, st.params, fuse_satur=False,
+                                   keep_f32=keep_f32)
+    tol_tl, tol_ad = TLAD_TOL[torch.float32]
+    counters = (ex.cloudsc2_tl_encoded, ex.cloudsc2_ad_encoded)
+    before = [f.launches for f in counters]
+    out, dout, ck = ex.cloudsc2_tl_encoded(enc, st.params, dscale=DSCALE)
+    none, dout_n, ck_n = ex.cloudsc2_tl_encoded(enc, st.params, dscale=DSCALE,
+                                                write_primal=False)
+    r_out, r_dout, r_ck = ex.cloudsc2_tl_encoded_reference(enc, st.params,
+                                                           dscale=DSCALE)
+    adj = ex.cloudsc2_ad_encoded(enc, r_dout, r_ck, st.params)
+    r_adj = ex.cloudsc2_ad_encoded_reference(enc, r_dout, r_ck, st.params)
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 1]
+    assert none is None
+    for got, ref in ((out, r_out), (dout, r_dout), (ck, r_ck), (dout_n, r_dout),
+                     (ck_n, r_ck)):
+        assert all(torch.isfinite(x).all() for x in got)
+        assert _rel_err(got, ref) <= tol_tl
+    assert all(torch.isfinite(x).all() for x in adj)
+    assert _rel_err(adj, r_adj) <= tol_ad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ncol", [100, 5001])
+def test_cuda_fused_kernel_matches_plain_version_and_two_kernel_unit(dtype, ncol):
+    from cloudsc2jax_torch.drivers import DSCALE, run_tlad
+    from cloudsc2jax_torch.kernels import experiments as ex
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(ncol, dtype=dtype, device="cuda", pqs=True)
+    tol_tl, tol_ad = TLAD_TOL[dtype]
+    launches = ex.cloudsc2_tlad_fused.launches
+    out, dout, adj = ex.cloudsc2_tlad_fused(inputs, st.params)
+    assert ex.cloudsc2_tlad_fused.launches == launches + 1
+    r_out, r_dout, r_adj = ex.cloudsc2_tlad_fused_reference(inputs, st.params)
+    assert all(torch.isfinite(x).all() for x in (*out, *dout, *adj))
+    assert _rel_err(out, r_out) <= tol_tl and _rel_err(dout, r_dout) <= tol_tl
+    assert _rel_err(adj, r_adj) <= tol_ad
+    # the same two level loops in one kernel: the two-kernel unit's results
+    # up to the FMA contraction of two builds
+    for got, want, tol in zip((out, dout, adj), run_tlad(inputs, st.params),
+                              (tol_tl, tol_tl, tol_ad)):
+        assert _rel_err(got, want) <= tol
+    rel, finite = cli.adjoint_identity(inputs, dout, adj, st.params, DSCALE)
+    assert finite and rel < (2e-6 if dtype == torch.float32 else 1e-10)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernel_strides_over_column_batches():
+    """More than twice the columns the card holds threads for: each thread
+    sweeps several columns through one slot of the checkpoint scratch, the
+    last batch ragged."""
+    from cloudsc2jax_torch.drivers import run_tlad
+    from cloudsc2jax_torch.kernels import experiments as ex
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    ncol = 163_841
+    inputs = st.device_kernel_inputs(ncol, dtype=torch.float32, device="cuda",
+                                     pqs=True)
+    assert ex.fused_slots(inputs, st.params) < ncol / 2
+    got = ex.launch_cloudsc2_tlad_fused(
+        inputs, kmod.kernel_prelude(inputs, st.params), st.params)
+    for g, want, tol in zip(got, run_tlad(inputs, st.params), (1e-5, 1e-5, 1e-4)):
+        assert _rel_err(g, want) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_experiment_kernels_reject_bad_operands():
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import experiments as ex
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(300, dtype=torch.float32, device="cuda", pqs=True)
+    pre = kmod.kernel_prelude(inputs, st.params)
+    enc = ex.encode_blocked_inputs(inputs, st.params, fuse_satur=False)
+    _, dout, ck = ex.launch_cloudsc2_tl_encoded(enc, st.params, dscale=DSCALE)
+    streams = list(enc.streams)
+    strided = enc._replace(streams=tuple(
+        [streams[0].T.contiguous().T] + streams[1:]))
+    short = enc._replace(streams=tuple([streams[0][:-1].contiguous()] + streams[1:]))
+    for bad in (strided, short, enc._replace(enc=enc.enc[:, :-1].contiguous()),
+                enc._replace(ztrpaus=enc.ztrpaus[:-1])):
+        with pytest.raises(ValueError):
+            ex.launch_cloudsc2_tl_encoded(bad, st.params, dscale=DSCALE)
+        with pytest.raises(ValueError):
+            ex.launch_cloudsc2_ad_encoded(bad, dout, ck, st.params)
+    with pytest.raises(ValueError):
+        ex.launch_cloudsc2_ad_encoded(enc, dout, (ck[0].double(),) + ck[1:], st.params)
+    with pytest.raises(ValueError, match="fuse_satur=False"):
+        ex.launch_cloudsc2_tl_encoded(ex.encode_blocked_inputs(inputs, st.params),
+                                      st.params, dscale=DSCALE)
+    with pytest.raises(ValueError):
+        ex.launch_cloudsc2_tlad_fused(
+            inputs._replace(pqs=inputs.pqs.T.contiguous().T), pre, st.params)
+    with pytest.raises(ValueError, match="pqs"):
+        ex.launch_cloudsc2_tlad_fused(inputs._replace(pqs=None), pre, st.params)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_ab_runs_through_every_kernel(monkeypatch, capsys):
+    from cloudsc2jax_torch import kernel_ab
+    from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    monkeypatch.setenv("CLOUDSC2_AB_NGPTOT", "5001")
+    monkeypatch.setenv("CLOUDSC2_AB_REPS", "2")
+    counters = (tk.cloudsc2_tl, tk.cloudsc2_ad, ex.cloudsc2_tlad_fused,
+                ex.cloudsc2_tl_encoded, ex.cloudsc2_ad_encoded)
+    before = [f.launches for f in counters]
+    summary = kernel_ab.main(["two", "noprim", "fused", "enc", "encnp", "two"])
+    # per config: a warm-up over the (up to 4) first variants, then the reps
+    assert [f.launches - b for f, b in zip(counters, before)] == [12, 12, 4, 8, 8]
+    assert summary["platform"] == "gpu" and summary["device"]
+    assert list(summary["configs"]) == ["two", "noprim", "fused", "enc", "encnp",
+                                        "two#2"]
+    assert "two: " in capsys.readouterr().out
