@@ -66,16 +66,23 @@ def contract_from_numpy(tree, cls=Cloudsc2Inputs, device="cpu",
 def encoded_from_numpy(streams, enc, ztrpaus, paphsfc, device="cpu"):
     """A JAX-side ``EncodedInputs`` as host arrays -> the port's
     :class:`~cloudsc2jax_torch.kernels.experiments.EncodedInputs`, bit for
-    bit: blocked ``(nlev, nb, S, 128)`` payloads (int16 or f32) become
-    levels-major ``(nlev, ncol)``, the ``(n_streams+1, nlev+1, 2)`` table
+    bit: blocked ``(nlev, nb, S, 128)`` payloads (int16, bfloat16 or f32)
+    become levels-major ``(nlev, ncol)`` (numpy has no bfloat16 of its own:
+    a 2-byte float array that is not float16 is carried across as its bit
+    patterns), the ``(n_streams+1, nlev+1, 2)`` table
     loses its duplicated last row (the TPU kernel's second paph window),
     and the blocked per-column operands become ``(ncol,)``."""
     from .kernels.experiments import EncodedInputs
 
     def lm(x, lead):
         x = np.asarray(x)
-        return torch.from_numpy(
-            np.ascontiguousarray(x.reshape(*x.shape[:lead], -1))).to(device)
+        bf16 = x.dtype.kind not in "iu" and x.dtype.itemsize == 2 \
+            and x.dtype != np.float16
+        if bf16:
+            x = x.view(np.int16)
+        out = torch.from_numpy(
+            np.ascontiguousarray(x.reshape(*x.shape[:lead], -1)))
+        return (out.view(torch.bfloat16) if bf16 else out).to(device)
 
     table = np.asarray(enc, np.float32)
     if table.shape[0] != len(streams) + 1:

@@ -5,9 +5,15 @@ header, so ``nvcc`` compiles it in seconds into a shared library that
 :mod:`ctypes` loads (pointers come from ``Tensor.data_ptr()``, the stream
 from ``torch.cuda.current_stream().cuda_stream``).  The library goes to
 ``build/cloudsc2jax_torch/<hash>/`` under the checkout, keyed by a hash of
-the sources and flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  ``-Xptxas -v`` reports every kernel's registers and
-spills; the report is kept beside the library (:func:`ptxas_report`).
+the sources, flags and ``-D`` defines, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  ``-Xptxas -v`` reports every kernel's
+registers and spills; the report is kept beside the library
+(:func:`ptxas_report`).
+
+A source whose shapes are compile-time constants (``csrc/bw_probe.cu``) is
+built once per set of defines: wherever a function here takes a library's
+name it also takes ``(name, defines)`` with ``defines`` a tuple of
+``"KEY=value"`` strings, and each set is a library of its own.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import pathlib
 import re
 import shutil
 import subprocess
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple, Union
 
 __all__ = ["load_library", "load_libraries", "ptxas_report", "nvcc_path",
            "NVCC_FLAGS"]
@@ -31,7 +37,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LIBRARIES: Dict[str, ctypes.CDLL] = {}
+Spec = Union[str, Tuple[str, Sequence[str]]]
+_LIBRARIES: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+
+
+def _key(spec: Spec) -> Tuple[str, Tuple[str, ...]]:
+    if isinstance(spec, str):
+        return spec, ()
+    name, defines = spec
+    return name, tuple(defines)
 
 
 def nvcc_path() -> str:
@@ -47,34 +61,39 @@ def nvcc_path() -> str:
                        f"the kernels in {CSRC}")
 
 
-def _build_dir(name: str) -> pathlib.Path:
+def _build_dir(name: str, defines: Sequence[str] = ()) -> pathlib.Path:
     h = hashlib.sha256()
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join([*NVCC_FLAGS, *(f"-D{d}" for d in defines)]).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` unless this exact build exists, then load
-    it (once per process).  Raises with nvcc's output if the build fails."""
-    return load_libraries([name])[0]
+def load_library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` with ``-D`` for each of ``defines`` unless
+    this exact build exists, then load it (once per process).  Raises with
+    nvcc's output if the build fails."""
+    return load_libraries([(name, defines)])[0]
 
 
-def load_libraries(names: List[str]) -> List[ctypes.CDLL]:
-    """:func:`load_library` for several sources, their nvcc runs started
-    together so the builds overlap."""
+def load_libraries(specs: Sequence[Spec]) -> List[ctypes.CDLL]:
+    """:func:`load_library` for several sources (names, or ``(name,
+    defines)`` pairs), their nvcc runs started together so the builds
+    overlap."""
+    keys = [_key(spec) for spec in specs]
     running = []
-    for name in dict.fromkeys(names):
-        if name in _LIBRARIES:  # loaded: no hashing on the launch path
+    for key in dict.fromkeys(keys):
+        if key in _LIBRARIES:  # loaded: no hashing on the launch path
             continue
-        out_dir = _build_dir(name)
+        name, defines = key
+        out_dir = _build_dir(name, defines)
         if (out_dir / f"lib{name}.so").is_file():
             continue
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
         running.append((name, out_dir, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -82,16 +101,17 @@ def load_libraries(names: List[str]) -> List[ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed with exit code {proc.returncode} "
-                          f"building {name}.cu:\n{log}")
+                          f"building {name}.cu ({out_dir.name}):\n{log}")
             continue
         (out_dir / f"{name}.ptxas.txt").write_text(log)
         os.replace(tmp, out_dir / f"lib{name}.so")
     if failed:
         raise RuntimeError("\n".join(failed))
-    for name in names:
-        if name not in _LIBRARIES:
-            _LIBRARIES[name] = ctypes.CDLL(str(_build_dir(name) / f"lib{name}.so"))
-    return [_LIBRARIES[name] for name in names]
+    for key in keys:
+        if key not in _LIBRARIES:
+            _LIBRARIES[key] = ctypes.CDLL(
+                str(_build_dir(*key) / f"lib{key[0]}.so"))
+    return [_LIBRARIES[key] for key in keys]
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -100,11 +120,11 @@ _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
 _REGS = re.compile(r"Used (\d+) registers")
 
 
-def ptxas_report(name: str) -> List[dict]:
+def ptxas_report(name: str, defines: Sequence[str] = ()) -> List[dict]:
     """Registers and spills of every kernel entry in the built library,
     parsed from ``-Xptxas -v``: a list of ``{"entry", "registers",
     "stack_bytes", "spill_store_bytes", "spill_load_bytes"}``."""
-    text = (_build_dir(name) / f"{name}.ptxas.txt").read_text()
+    text = (_build_dir(name, defines) / f"{name}.ptxas.txt").read_text()
     entries: List[dict] = []
     for line in text.splitlines():
         m = _ENTRY.search(line)

@@ -19,8 +19,15 @@ with no column padding.
   the same sweep with ``inputs.pqs`` READ as a stream (it is one of the
   differentiated inputs, so the adjoint's trajectory must use the caller's
   value) and the 3 carries going into each level written as checkpoints.
-  Its kernel shares ``csrc/cloudsc2_nl.cu``'s hand-written level body; its
-  plain version is :func:`cloudsc2_fwd_ckpt_reference`.
+  Its kernel shares the hand-written level body
+  (``csrc/cloudsc2_nl_sweep.cuh``); its plain version is
+  :func:`cloudsc2_fwd_ckpt_reference`.
+* :func:`cloudsc2_nl_resident` is the wrapper of the shared-memory-staged
+  sweep, the port of ``_resident_kernel`` (``mode="resident"``): the sweep
+  with ``inputs.pqs`` read as a stream, no checkpoints, its kernel
+  ``csrc/cloudsc2_nl_res.cu`` copying ``depth`` levels of a ``tile``-column
+  block ahead of the arithmetic into a ring in shared memory; its plain
+  version is :func:`cloudsc2_nl_resident_reference`.
 * :func:`kernel_prelude` computes, in the working dtype and before the
   launch, the per-level and per-column scalars the kernel takes (ceta,
   zscalm, the tropopause eta, the surface pressure), as ``_Layout`` does.
@@ -59,9 +66,13 @@ __all__ = [
     "cloudsc2_fwd_ckpt_reference",
     "cloudsc2_nl",
     "cloudsc2_nl_reference",
+    "cloudsc2_nl_resident",
+    "cloudsc2_nl_resident_reference",
     "kernel_prelude",
     "launch_cloudsc2_fwd_ckpt",
     "launch_cloudsc2_nl",
+    "launch_cloudsc2_nl_resident",
+    "resident_ring",
     "level_physics",
     "level_scalars",
     "tropopause_eta_lm",
@@ -74,8 +85,8 @@ _LEVEL_FIELDS = (
     "ten_t", "ten_q", "ten_l", "ten_i", "psupsat",
 )
 
-# Argument arrays of the C launcher; the names and order are those of the
-# enums Stream, Output and Const in csrc/cloudsc2_nl.cu.  The kernel
+# Argument arrays of the C launcher; the names and order are those of
+# Order<false>, Output and Const in csrc/cloudsc2_nl_sweep.cuh.  The kernel
 # computes pqs in registers, so it reads no pqs stream.
 KERNEL_STREAMS = tuple(n for n in _LEVEL_FIELDS if n != "pqs") + (
     "plu", "paph", "ceta", "zscalm", "ztrpaus", "paph_sfc",
@@ -88,6 +99,14 @@ KERNEL_OUTPUTS = (
 CHECKPOINTS = ("ckpt_rfl", "ckpt_sfl", "ckpt_covptot")
 FWD_CKPT_STREAMS = KERNEL_STREAMS + ("pqs",)
 FWD_CKPT_OUTPUTS = KERNEL_OUTPUTS + CHECKPOINTS
+# the resident sweep takes pqs in its place among the level fields
+# (Order<true>), the order of the TL and AD sweeps
+RESIDENT_STREAMS = _LEVEL_FIELDS + KERNEL_STREAMS[len(_LEVEL_FIELDS) - 1:]
+# its default block and ring: 128 columns x 2 levels in flight, the fastest of
+# the rings measured on an NVIDIA H100 (PERF.md): a deeper ring takes shared
+# memory that costs more warps per SM than its lookahead gains
+RESIDENT_TILE = 128
+RESIDENT_DEPTH = 2
 KERNEL_CONSTANTS = (
     "ptsphy", "rg", "rd", "rcpd", "retv", "rlvtt", "rlstt", "rlmlt", "rtt",
     "rcpd_rvtmp2", "inv_rcpd", "zcons2", "zcons3", "zmeltp2", "zqtmst",
@@ -451,31 +470,35 @@ def kernel_prelude(inputs: Cloudsc2Inputs, params: Params) -> KernelPrelude:
     )
 
 
-def _nl_sweep(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool,
-              fwd_ckpt: bool):
-    """The level loop of both plain versions: (8 output streams, 3
-    checkpoint streams | None).  ``fwd_ckpt`` reads ``inputs.pqs`` and
-    stores the carry going into each level; otherwise qsat is SATUR of pt
-    and pap, level by level, as the NL kernel computes it."""
+def _nl_sweep(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool, *,
+              pqs_stream: bool, checkpoints: bool,
+              pre: "KernelPrelude | None" = None):
+    """The level loop of the plain versions: (8 output streams, 3
+    checkpoint streams | None).  ``pqs_stream`` reads ``inputs.pqs``;
+    otherwise qsat is SATUR of pt and pap, level by level, as the NL kernel
+    computes it.  ``checkpoints`` stores the carry going into each level.
+    ``pre`` replaces :func:`kernel_prelude` of ``inputs`` (the encoded sweep
+    takes the tropopause eta and surface pressure of the exact inputs)."""
     _check_config(params, ldrain1d)
-    pre = kernel_prelude(inputs, params)
+    if pre is None:
+        pre = kernel_prelude(inputs, params)
     nlev = inputs.pt.shape[0]
     zero = torch.zeros_like(inputs.pt[0])
     carry = (zero, zero, zero)
     outs = [torch.empty_like(inputs.pt) for _ in Cloudsc2StreamOutputs._fields]
     ckpts = (tuple(torch.empty_like(inputs.pt) for _ in CHECKPOINTS)
-             if fwd_ckpt else None)
+             if checkpoints else None)
     cols = (pre.ztrpaus, pre.paph_sfc)
     for k in range(nlev):
         row = {name: getattr(inputs, name)[k]
-               for name in _LEVEL_FIELDS if fwd_ckpt or name != "pqs"}
-        if not fwd_ckpt:
+               for name in _LEVEL_FIELDS if pqs_stream or name != "pqs"}
+        if not pqs_stream:
             row["pqs"] = satur(row["pap"], row["pt"], params, lphylin=True,
                                kflag=2)
         fields = tuple(row[name] for name in _LEVEL_FIELDS) + (
             inputs.plu[min(k + 1, nlev - 1)], inputs.paph[k], inputs.paph[k + 1],
         )
-        if fwd_ckpt:
+        if checkpoints:
             for buf, val in zip(ckpts, carry):
                 buf[k] = val
         scalars = (pre.ceta[k], pre.zscalm[k], k < nlev - 1)
@@ -495,7 +518,8 @@ def cloudsc2_nl_reference(
     qsat is computed from pt and pap level by level, as the kernel does;
     ``inputs.pqs`` is not read and may be ``None``.
     """
-    return _nl_sweep(inputs, params, ldrain1d, fwd_ckpt=False)[0]
+    return _nl_sweep(inputs, params, ldrain1d, pqs_stream=False,
+                     checkpoints=False)[0]
 
 
 def cloudsc2_fwd_ckpt_reference(
@@ -507,7 +531,25 @@ def cloudsc2_fwd_ckpt_reference(
     level, ``(nlev, ncol)`` each."""
     if inputs.pqs is None:
         raise ValueError("the checkpointing forward sweep reads pqs")
-    return _nl_sweep(inputs, params, ldrain1d, fwd_ckpt=True)
+    return _nl_sweep(inputs, params, ldrain1d, pqs_stream=True,
+                     checkpoints=True)
+
+
+def _need_pqs_stream(inputs: Cloudsc2Inputs) -> None:
+    if inputs.pqs is None:
+        raise ValueError("the resident sweep reads pqs as a stream: build the "
+                         "inputs with device_kernel_inputs(..., pqs=True)")
+
+
+def cloudsc2_nl_resident_reference(
+    inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
+) -> Cloudsc2StreamOutputs:
+    """The plain PyTorch version of the resident sweep, on any device: the
+    level loop of :func:`cloudsc2_fwd_ckpt_reference` (``inputs.pqs`` read as
+    it is), outputs only."""
+    _need_pqs_stream(inputs)
+    return _nl_sweep(inputs, params, ldrain1d, pqs_stream=True,
+                     checkpoints=False)[0]
 
 
 def _kernel_constants(params: Params, ldrain1d: bool):
@@ -559,47 +601,72 @@ def _kernel_constants(params: Params, ldrain1d: bool):
     return [float(values[name]) for name in KERNEL_CONSTANTS]
 
 
-def _load_kernel():
+_NL_ARGTYPES = [
+    ctypes.POINTER(ctypes.c_void_p),  # in
+    ctypes.POINTER(ctypes.c_void_p),  # out
+    ctypes.POINTER(ctypes.c_double),  # consts
+    ctypes.c_int, ctypes.c_int,  # ncol, nlev
+    ctypes.c_int,  # evap
+    ctypes.c_void_p,  # stream
+]
+
+
+def bind_library(name: str, layouts, launchers, defines=()):
+    """Load ``csrc/<name>.cu`` and, the first time, check its argument
+    layout against the wrapper's and declare its launchers.
+
+    ``layouts`` maps an ``*_abi`` function to the counts it must write;
+    ``launchers`` maps a launcher's name to its argument types (it returns
+    the launch's ``cudaError_t``)."""
     from . import build
 
-    lib = build.load_library("cloudsc2_nl")
-    if not getattr(lib, "_cloudsc2_nl_bound", False):
-        counts = (ctypes.c_int * 3)()
-        lib.cloudsc2_nl_abi.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.cloudsc2_nl_abi.restype = ctypes.c_int
-        lib.cloudsc2_nl_abi(counts)
-        expected = (len(KERNEL_STREAMS), len(KERNEL_OUTPUTS),
-                    len(KERNEL_CONSTANTS))
-        if tuple(counts) != expected:
+    lib = build.load_library(name, defines)
+    if getattr(lib, "_bound", False):
+        return lib
+    for abi, expected in layouts.items():
+        counts = (ctypes.c_int * len(expected))()
+        fn = getattr(lib, abi)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        fn(counts)
+        if tuple(counts) != tuple(expected):
             raise RuntimeError(
-                f"cloudsc2_nl.cu argument layout {tuple(counts)} does not "
-                f"match the wrapper's {expected}"
-            )
-        for fn in (lib.cloudsc2_nl_f32, lib.cloudsc2_nl_f64):
-            fn.argtypes = [
-                ctypes.POINTER(ctypes.c_void_p),  # in
-                ctypes.POINTER(ctypes.c_void_p),  # out
-                ctypes.POINTER(ctypes.c_double),  # consts
-                ctypes.c_int, ctypes.c_int,  # ncol, nlev
-                ctypes.c_int,  # evap
-                ctypes.c_void_p,  # stream
-            ]
-            fn.restype = ctypes.c_int
-        lib.cloudsc2_fwd_ckpt_abi.argtypes = lib.cloudsc2_nl_abi.argtypes
-        lib.cloudsc2_fwd_ckpt_abi.restype = ctypes.c_int
-        lib.cloudsc2_fwd_ckpt_abi(counts)
-        expected = (len(FWD_CKPT_STREAMS), len(FWD_CKPT_OUTPUTS),
-                    len(KERNEL_CONSTANTS))
-        if tuple(counts) != expected:
-            raise RuntimeError(
-                f"cloudsc2_nl.cu checkpointing layout {tuple(counts)} does "
-                f"not match the wrapper's {expected}"
-            )
-        for fn in (lib.cloudsc2_fwd_ckpt_f32, lib.cloudsc2_fwd_ckpt_f64):
-            fn.argtypes = lib.cloudsc2_nl_f32.argtypes
-            fn.restype = ctypes.c_int
-        lib._cloudsc2_nl_bound = True
+                f"{name}.cu: {abi} gives the layout {tuple(counts)}, the "
+                f"wrapper expects {tuple(expected)}")
+    for fn_name, argtypes in launchers.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib._bound = True
     return lib
+
+
+def _load_kernel():
+    n_out, n_const = len(KERNEL_OUTPUTS), len(KERNEL_CONSTANTS)
+    return bind_library(
+        "cloudsc2_nl",
+        {"cloudsc2_nl_abi": (len(KERNEL_STREAMS), n_out, n_const),
+         "cloudsc2_fwd_ckpt_abi": (len(FWD_CKPT_STREAMS), len(FWD_CKPT_OUTPUTS),
+                                   n_const)},
+        {f"{entry}_{suffix}": _NL_ARGTYPES
+         for entry in ("cloudsc2_nl", "cloudsc2_fwd_ckpt")
+         for suffix in ("f32", "f64")})
+
+
+# streams staged per level and the largest block of csrc/cloudsc2_nl_res.cu
+_RESIDENT_STAGED = len(_LEVEL_FIELDS) + 2
+_RESIDENT_MAX_TILE = 256
+
+
+def _load_resident_kernel():
+    argtypes = _NL_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return bind_library(
+        "cloudsc2_nl_res",
+        {"cloudsc2_nl_res_abi": (len(RESIDENT_STREAMS), len(KERNEL_OUTPUTS),
+                                 len(KERNEL_CONSTANTS), _RESIDENT_STAGED,
+                                 _RESIDENT_MAX_TILE)},
+        {"cloudsc2_nl_res_f32": argtypes, "cloudsc2_nl_res_f64": argtypes,
+         "cloudsc2_nl_res_max_ring_bytes": [ctypes.POINTER(ctypes.c_int)]})
 
 
 def check_operands(tensors, names, like: torch.Tensor, what: str) -> None:
@@ -627,16 +694,19 @@ def check_operands(tensors, names, like: torch.Tensor, what: str) -> None:
 
 
 def _launch(entry: str, streams, n_outputs: int, inputs: Cloudsc2Inputs,
-            pre: KernelPrelude, params: Params, ldrain1d: bool):
+            pre: KernelPrelude, params: Params, ldrain1d: bool,
+            lib=None, extra=()):
     """Check the operands named by ``streams``, allocate ``n_outputs``
-    ``(nlev, ncol)`` outputs and launch ``<entry>_f32|f64`` of
-    ``csrc/cloudsc2_nl.cu`` on the current stream; raises if refused."""
+    ``(nlev, ncol)`` outputs and launch ``<entry>_f32|f64`` of ``lib``
+    (``csrc/cloudsc2_nl.cu`` unless given) on the current stream, ``extra``
+    going between ``evap`` and the stream; raises if refused."""
     if inputs.pt.device.type != "cuda":
         raise ValueError(f"launch_{entry} needs CUDA tensors, got {inputs.pt.device}")
     _check_config(params, ldrain1d)
     operands = {**inputs._asdict(), **pre._asdict()}
     check_operands(operands, streams, inputs.pt, entry)
-    lib = _load_kernel()
+    if lib is None:
+        lib = _load_kernel()
     nlev, ncol = inputs.pt.shape
     outs = [torch.empty_like(inputs.pt) for _ in range(n_outputs)]
     in_ptrs = (ctypes.c_void_p * len(streams))(
@@ -649,7 +719,7 @@ def _launch(entry: str, streams, n_outputs: int, inputs: Cloudsc2Inputs,
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, f"{entry}_{suffix}")(
             in_ptrs, out_ptrs, consts, ncol, nlev,
-            int(_evap(params, ldrain1d)), stream)
+            int(_evap(params, ldrain1d)), *extra, stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError_t {err}")
     return outs
@@ -688,6 +758,87 @@ def launch_cloudsc2_fwd_ckpt(
                    inputs, pre, params, ldrain1d)
     cloudsc2_fwd_ckpt.launches += 1
     return Cloudsc2StreamOutputs(*outs[:8]), tuple(outs[8:])
+
+
+def resident_ring(nlev: int, dtype: torch.dtype, tile=None, depth=None):
+    """The resident sweep's block and ring for ``nlev`` levels of ``dtype``:
+    ``(tile, depth, bytes)``.  ``tile`` columns to a block (default
+    ``RESIDENT_TILE``), ``depth`` levels staged ahead, at most ``nlev``
+    (default ``RESIDENT_DEPTH``); 16 streams of ``tile`` values per level."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    tile = RESIDENT_TILE if tile is None else int(tile)
+    if not 1 <= tile <= _RESIDENT_MAX_TILE:
+        raise ValueError(f"tile must lie in 1..{_RESIDENT_MAX_TILE}, got {tile}")
+    level_bytes = _RESIDENT_STAGED * itemsize * tile
+    depth = RESIDENT_DEPTH if depth is None else int(depth)
+    if depth < 1:
+        raise ValueError(f"depth must be at least 1, got {depth}")
+    depth = min(depth, nlev)
+    return tile, depth, level_bytes * depth
+
+
+def launch_cloudsc2_nl_resident(
+    inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
+    ldrain1d: bool = False, tile=None, depth=None,
+) -> Cloudsc2StreamOutputs:
+    """Launch the resident kernel on CUDA tensors, on the current stream.
+
+    Checks device, dtype, shape and contiguity (pqs included), allocates the
+    8 outputs, and raises, before launching, when the ring of
+    :func:`resident_ring` exceeds the shared memory a block may have on the
+    device, and after it if the launch is refused.  Counts each launch in
+    ``cloudsc2_nl_resident.launches``."""
+    _need_pqs_stream(inputs)
+    if inputs.pt.device.type != "cuda":
+        raise ValueError("launch_cloudsc2_nl_resident needs CUDA tensors, got "
+                         f"{inputs.pt.device}")
+    if inputs.pt.dim() != 2:
+        raise ValueError("expected levels-major (nlev, ncol) inputs, got "
+                         f"{tuple(inputs.pt.shape)}")
+    tile, depth, ring = resident_ring(inputs.pt.shape[0], inputs.pt.dtype,
+                                      tile, depth)
+    lib = _load_resident_kernel()
+    limit = ctypes.c_int()
+    with torch.cuda.device(inputs.pt.device):
+        err = lib.cloudsc2_nl_res_max_ring_bytes(ctypes.byref(limit))
+    if err != 0:
+        raise RuntimeError(f"cloudsc2_nl_res: device query failed: cudaError_t {err}")
+    if ring > limit.value:
+        raise ValueError(
+            f"a ring of {depth} levels x {tile} columns of {inputs.pt.dtype} "
+            f"takes {ring} bytes of shared memory; a block may have "
+            f"{limit.value}: lower tile or depth")
+    outs = _launch("cloudsc2_nl_res", RESIDENT_STREAMS, len(KERNEL_OUTPUTS),
+                   inputs, pre, params, ldrain1d, lib=lib, extra=(tile, depth))
+    cloudsc2_nl_resident.launches += 1
+    return Cloudsc2StreamOutputs(*outs)
+
+
+def cloudsc2_nl_resident(
+    inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
+    tile=None, depth=None,
+) -> Cloudsc2StreamOutputs:
+    """The NL sweep with pqs streamed and the inputs staged through shared
+    memory (``cloudsc2_pallas(mode="resident")``), on levels-major inputs
+    with pqs.
+
+    CUDA tensors run the hand-written kernel
+    (:func:`launch_cloudsc2_nl_resident`, after :func:`kernel_prelude`) with
+    blocks of ``tile`` columns and ``depth`` levels in flight
+    (:func:`resident_ring`; ``depth >= nlev`` holds every level on chip before
+    the first is computed); CPU tensors run the plain version
+    :func:`cloudsc2_nl_resident_reference`, which has no ring; any other
+    device raises."""
+    _need_pqs_stream(inputs)
+    device = inputs.pt.device
+    if device.type == "cpu":
+        resident_ring(inputs.pt.shape[0], inputs.pt.dtype, tile, depth)
+        return cloudsc2_nl_resident_reference(inputs, params, ldrain1d=ldrain1d)
+    if device.type != "cuda":
+        raise ValueError(f"cloudsc2_nl_resident runs on cuda or cpu tensors, not {device}")
+    return launch_cloudsc2_nl_resident(
+        inputs, kernel_prelude(inputs, params), params, ldrain1d=ldrain1d,
+        tile=tile, depth=depth)
 
 
 def cloudsc2_nl(
@@ -730,6 +881,7 @@ def cloudsc2_fwd_ckpt(
 
 cloudsc2_nl.launches = 0
 cloudsc2_fwd_ckpt.launches = 0
+cloudsc2_nl_resident.launches = 0
 
 
 def unblock_outputs(out: Cloudsc2StreamOutputs, params: Params,

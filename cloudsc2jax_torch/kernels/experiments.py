@@ -1,37 +1,49 @@
-"""The TL+AD scheduling experiments: the int16 stream encoder, the encoded
-TL and AD sweeps, and the single-launch fused TL+AD unit.
+"""The scheduling experiments over 16-bit-encoded streams and the fused
+unit: the stream encoder, the encoded NL, TL and AD sweeps, and the
+single-launch fused TL+AD unit.
 
-Port of the TL/AD half of :mod:`cloudsc2jax.pallas.experiments`.  None of
-these is on a production path; :mod:`cloudsc2jax_torch.kernel_ab` runs them
+Port of :mod:`cloudsc2jax.pallas.experiments`.  None of these is on a
+production path; :mod:`cloudsc2jax_torch.kernel_ab` runs the TL+AD ones
 beside the two-kernel unit (:func:`~cloudsc2jax_torch.drivers.run_tlad`) on
-one set of inputs and prints one timing line per schedule.
+one set of inputs and prints one timing line per schedule, and
+``chip_smoke.py`` times the encoded NL sweep beside the exact one.
 
 * :class:`EncodedInputs` and :func:`encode_blocked_inputs` (the JAX
   package's names; "blocked" is its word for the stream contract, which
   here is levels-major ``(nlev, ncol)``): per stream and level an affine
-  int16 anomaly, ``offset`` the midrange and ``scale`` the halfrange over
-  32767 across all columns.  Plain PyTorch on the inputs' device, as the
-  JAX package computes it outside any kernel.  The table is the compact
-  ``(n_streams, nlev+1, 2)`` f32 ``[scale, offset]`` array: the TPU's
-  lane-broadcast rows and its duplicated paph(k+1) row have no counterpart,
-  a thread reads two scalars per stream and level.
+  16-bit anomaly, ``offset`` the midrange and ``scale`` the halfrange over
+  32767 across all columns, stored as int16 or, with
+  ``payload_dtype=torch.bfloat16``, as the bfloat16 nearest to the same
+  rounded anomaly (the JAX package's convert-cost control: same bytes, a
+  shift in place of a convert, 64x coarser).  Plain PyTorch on the inputs'
+  device, as the JAX package computes it outside any kernel.  The table is
+  the compact ``(n_streams, nlev+1, 2)`` f32 ``[scale, offset]`` array: the
+  TPU's lane-broadcast rows (``enc_table_rows``) and its duplicated
+  paph(k+1) row have no counterpart, a thread reads two scalars per stream
+  and level.
 * :func:`decode_inputs` and the plain versions
+  :func:`cloudsc2_nl_encoded_reference` (decode, then the plain NL sweep,
+  with SATUR or the decoded pqs stream as the encoding has it),
   :func:`cloudsc2_tl_encoded_reference`, :func:`cloudsc2_ad_encoded_reference`
-  (decode, then the plain TL / AD sweep on the decoded trajectory with the
-  encoder's exact tropopause eta and surface pressure) and
+  (decode, then the plain TL / AD sweep), each on the decoded trajectory with
+  the encoder's exact tropopause eta and surface pressure, and
   :func:`cloudsc2_tlad_fused_reference` (the plain TL then the plain AD with
   folded seeds, after one :func:`kernel_prelude`).
-* :func:`cloudsc2_tl_encoded`, :func:`cloudsc2_ad_encoded` and
-  :func:`cloudsc2_tlad_fused` are the wrappers.  CUDA tensors go to the
-  hand-written kernels (``csrc/cloudsc2_tl_enc.cu``,
+* :func:`cloudsc2_nl_encoded`, :func:`cloudsc2_tl_encoded`,
+  :func:`cloudsc2_ad_encoded` and :func:`cloudsc2_tlad_fused` are the
+  wrappers.  CUDA tensors go to the hand-written kernels
+  (``csrc/cloudsc2_nl_enc.cu``, ``csrc/cloudsc2_tl_enc.cu``,
   ``csrc/cloudsc2_ad_enc.cu``, ``csrc/cloudsc2_tlad_fused.cu``), CPU tensors
   to the plain versions, any other device raises.  Each counts its kernel
   launches in ``.launches``.
 
-The encoded sweeps are f32 only and keep ``pq``, ``plu`` and ``paph`` as f32
-streams, as in the JAX package (``_EncGeometry``,
-``experiments.py:519-533``); the fused unit runs in float and double.  The
-``bfloat16`` payload (the JAX package's convert-cost control) is not ported.
+The encoded sweeps are f32 only.  The NL sweep takes any subset of its
+streams encoded, plu and paph included, either payload, and both
+``fuse_satur`` settings (``cloudsc2_pallas_encoded``,
+``experiments.py:164``).  The TL and AD sweeps keep ``pq``, ``plu`` and
+``paph`` as f32 streams and take int16 payloads only, as in the JAX package
+(``_EncGeometry``, ``experiments.py:519-533``); the fused unit runs in float
+and double.
 """
 
 from __future__ import annotations
@@ -45,12 +57,18 @@ from ..constants import Params
 from ..physics.cloudsc2 import Cloudsc2Inputs
 from . import tlad_kernel as tk
 from .cloudsc2_kernel import (
+    KERNEL_CONSTANTS,
     KERNEL_OUTPUTS,
     Checkpoints,
     Cloudsc2StreamOutputs,
     KernelPrelude,
     _LEVEL_FIELDS,
+    _NL_ARGTYPES,
+    _check_config,
     _evap,
+    _kernel_constants,
+    _nl_sweep,
+    bind_library,
     check_operands,
     kernel_prelude,
     level_scalars,
@@ -62,6 +80,8 @@ __all__ = [
     "EncodedInputs",
     "cloudsc2_ad_encoded",
     "cloudsc2_ad_encoded_reference",
+    "cloudsc2_nl_encoded",
+    "cloudsc2_nl_encoded_reference",
     "cloudsc2_tl_encoded",
     "cloudsc2_tl_encoded_reference",
     "cloudsc2_tlad_fused",
@@ -70,6 +90,7 @@ __all__ = [
     "encode_blocked_inputs",
     "fused_slots",
     "launch_cloudsc2_ad_encoded",
+    "launch_cloudsc2_nl_encoded",
     "launch_cloudsc2_tl_encoded",
     "launch_cloudsc2_tlad_fused",
 ]
@@ -78,6 +99,7 @@ __all__ = [
 # order (the first 16 of TL_STREAMS)
 ENCODED_STREAMS = _LEVEL_FIELDS + ("plu", "paph")
 _KEEP_F32 = ("pq", "plu", "paph")
+PAYLOAD_DTYPES = (torch.int16, torch.bfloat16)
 # pointer order of the fused launcher's outputs (enum Output in
 # csrc/cloudsc2_tlad_fused.cu)
 FUSED_OUTPUTS = (KERNEL_OUTPUTS + tuple("d_" + n for n in KERNEL_OUTPUTS)
@@ -86,12 +108,13 @@ FUSED_OUTPUTS = (KERNEL_OUTPUTS + tuple("d_" + n for n in KERNEL_OUTPUTS)
 
 # ------------------------------------------------------------------ encoder
 class EncodedInputs(NamedTuple):
-    """Stream-contract operands with int16 affine-encoded level streams.
+    """Stream-contract operands with 16-bit affine-encoded level streams.
 
     ``streams`` follows the kernels' operand order: the 14 level fields
     (``pqs`` dropped when ``fuse_satur``), then plu, paph; each is a
     levels-major ``(nlev, ncol)`` tensor (paph ``(nlev+1, ncol)``), int16
-    where encoded and f32 where kept.  ``enc`` is the ``(n_streams, nlev+1,
+    (or bfloat16, one payload dtype per encoding) where encoded and f32
+    where kept.  ``enc`` is the ``(n_streams, nlev+1,
     2)`` f32 ``[scale, offset]`` table, row (1, 0) for a kept stream and
     for the level a stream does not have.  ``ztrpaus`` and ``paphsfc`` are
     the per-column f32 operands, computed before quantisation.
@@ -116,19 +139,28 @@ class EncodedInputs(NamedTuple):
 def encode_blocked_inputs(
     inputs: Cloudsc2Inputs, params: Params, *,
     keep_f32: Sequence[str] = _KEEP_F32, fuse_satur: bool = True,
+    payload_dtype: torch.dtype = torch.int16,
 ) -> EncodedInputs:
-    """Quantise levels-major input streams to int16 per-(field, level)
+    """Quantise levels-major input streams to 16-bit per-(field, level)
     affine anomalies (``encode_blocked_inputs``, ``experiments.py:97``).
 
     For each stream and level, over all columns, in f32: ``offset = 0.5 *
     (max + min)``, ``scale = max((max - min) / 65534, 1e-30)``, payload
-    ``clip(round_half_even((x - offset) / scale), -32767, 32767)``.
-    Streams named in ``keep_f32`` stay f32.  ``fuse_satur`` drops ``pqs``
+    ``clip(round_half_even((x - offset) / scale), -32767, 32767)`` stored
+    as ``payload_dtype``: int16 holds it exactly, bfloat16 rounds it to 8
+    significant bits (the encoded NL sweep's convert-cost control).
+    Streams named in ``keep_f32`` stay f32, any subset of the names.  ``fuse_satur`` drops ``pqs``
     (the NL sweep computes it); the TL and AD sweeps need it kept.  The
     tropopause eta and the surface pressure come from the exact inputs
     (:func:`kernel_prelude`), before quantisation.
     """
+    if payload_dtype not in PAYLOAD_DTYPES:
+        raise TypeError(f"payload_dtype must be torch.int16 or torch.bfloat16, "
+                        f"got {payload_dtype}")
     names = [n for n in ENCODED_STREAMS if not (fuse_satur and n == "pqs")]
+    unknown = sorted(set(keep_f32) - set(ENCODED_STREAMS))
+    if unknown:
+        raise ValueError(f"keep_f32 names no stream: {unknown}")
     exact = Cloudsc2Inputs(*(None if x is None else x.float() for x in inputs))
     nlev = exact.pt.shape[0]
     enc = exact.pt.new_zeros((len(names), nlev + 1, 2))
@@ -147,7 +179,7 @@ def encode_blocked_inputs(
         off = 0.5 * (hi + lo)
         scale = torch.clamp_min((hi - lo) / 65534.0, 1e-30)
         payload = torch.round((x - off[:, None]) / scale[:, None])
-        streams.append(payload.clamp_(-32767, 32767).to(torch.int16))
+        streams.append(payload.clamp_(-32767, 32767).to(payload_dtype))
         enc[i, : x.shape[0], 0] = scale
         enc[i, : x.shape[0], 1] = off
     pre = kernel_prelude(exact, params)
@@ -157,12 +189,12 @@ def encode_blocked_inputs(
 
 def decode_inputs(enc: EncodedInputs) -> Cloudsc2Inputs:
     """The f32 trajectory the encoded sweeps run on: ``float(q) * scale +
-    offset`` per level for an int16 stream, multiply and add rounded
-    separately; a kept stream as it is; ``pqs`` ``None`` for a
+    offset`` per level for an int16 or bfloat16 stream, multiply and add
+    rounded separately; a kept stream as it is; ``pqs`` ``None`` for a
     ``fuse_satur`` encoding."""
     out = {"pqs": None}
     for i, (name, s) in enumerate(zip(enc.names, enc.streams)):
-        if s.dtype == torch.int16:
+        if s.dtype in PAYLOAD_DTYPES:
             rows = enc.enc[i, : s.shape[0]]
             s = s.float() * rows[:, 0:1] + rows[:, 1:2]
         out[name] = s
@@ -183,6 +215,9 @@ def _check_encoded(enc: EncodedInputs, what: str) -> None:
                          f"kept): {len(ENCODED_STREAMS)} streams, got "
                          f"{len(enc.streams)}")
     for name, s in zip(ENCODED_STREAMS, enc.streams):
+        if s.dtype == torch.bfloat16:
+            raise TypeError(f"{what} takes int16 payloads only: {name} is "
+                            f"bfloat16, the encoded NL sweep's payload")
         if s.dtype not in (torch.int16, torch.float32):
             raise TypeError(f"{what} is f32 only: {name} is {s.dtype}")
         if name in _KEEP_F32 and s.dtype != torch.float32:
@@ -193,7 +228,46 @@ def _check_encoded(enc: EncodedInputs, what: str) -> None:
             raise TypeError(f"{what} is f32 only: {name} is {x.dtype}")
 
 
+def _check_nl_encoded(enc: EncodedInputs, what: str):
+    """The contract of the encoded NL sweep (``cloudsc2_pallas_encoded``):
+    15 or 16 streams, each f32 or a 16-bit payload, one payload dtype for
+    the encoding, everything else f32.  Returns the payload dtype (int16
+    where nothing is encoded)."""
+    if len(enc.streams) not in (len(ENCODED_STREAMS) - 1, len(ENCODED_STREAMS)):
+        raise ValueError(f"{what} takes {len(ENCODED_STREAMS) - 1} streams "
+                         f"(fuse_satur) or {len(ENCODED_STREAMS)}, got "
+                         f"{len(enc.streams)}")
+    payloads = set()
+    for name, s in zip(enc.names, enc.streams):
+        if s.dtype in PAYLOAD_DTYPES:
+            payloads.add(s.dtype)
+        elif s.dtype != torch.float32:
+            raise TypeError(f"{what} is f32 only: {name} is {s.dtype}")
+    if len(payloads) > 1:
+        raise TypeError(f"{what} takes one payload dtype per encoding, got "
+                        f"int16 and bfloat16 streams")
+    for name, x in (("enc", enc.enc), ("ztrpaus", enc.ztrpaus),
+                    ("paphsfc", enc.paphsfc)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{what} is f32 only: {name} is {x.dtype}")
+    return payloads.pop() if payloads else torch.int16
+
+
 # ------------------------------------------------------------ plain versions
+def cloudsc2_nl_encoded_reference(
+    enc: EncodedInputs, params: Params, *, ldrain1d: bool = False,
+) -> Cloudsc2StreamOutputs:
+    """Plain encoded NL sweep on any device: decode, then the plain NL level
+    loop on the decoded trajectory, with qsat SATUR of the decoded pt and
+    pap for a ``fuse_satur`` encoding and the decoded pqs stream otherwise,
+    and with the encoder's exact tropopause eta and surface pressure.
+    Returns the 8 f32 output streams."""
+    _check_nl_encoded(enc, "cloudsc2_nl_encoded")
+    return _nl_sweep(decode_inputs(enc), params, ldrain1d,
+                     pqs_stream=not enc.fuse_satur, checkpoints=False,
+                     pre=_prelude(enc, params))[0]
+
+
 def cloudsc2_tl_encoded_reference(
     enc: EncodedInputs, params: Params, *, dscale: float, lregcl: bool = True,
     ldrain1d: bool = False, write_primal: bool = True,
@@ -291,6 +365,73 @@ def _encoded_operands(enc: EncodedInputs, params: Params, ldrain1d: bool,
             raise ValueError(f"{name} must be contiguous")
     mask = sum(1 << ENCODED_STREAMS.index(n) for n in encoded)
     return operands, mask
+
+
+def _bind_nl_encoded():
+    n = len(ENCODED_STREAMS) + 4  # then ceta, zscalm, ztrpaus, paph_sfc
+    return bind_library(
+        "cloudsc2_nl_enc",
+        {"cloudsc2_nl_enc_abi": (n - 1, n, len(KERNEL_OUTPUTS),
+                                 len(KERNEL_CONSTANTS))},
+        # in, out, consts; table, enc_mask, payload_bf16, pqs_stream; ncol
+        # nlev evap; stream
+        {"cloudsc2_nl_enc_f32": _NL_ARGTYPES[:3] + [
+            ctypes.c_void_p, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+        ] + _NL_ARGTYPES[3:]})
+
+
+def launch_cloudsc2_nl_encoded(
+    enc: EncodedInputs, params: Params, *, ldrain1d: bool = False,
+) -> Cloudsc2StreamOutputs:
+    """Launch the encoded NL kernel on CUDA tensors, on the current stream:
+    returns the 8 f32 output streams like the plain version.
+
+    Checks the encoding's contract, devices, dtypes, shapes and contiguity,
+    allocates the outputs, and raises if the launch is refused.  Counts
+    each launch in ``cloudsc2_nl_encoded.launches``."""
+    what = "cloudsc2_nl_encoded"
+    payload = _check_nl_encoded(enc, what)
+    device = enc.paphsfc.device
+    if device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {device}")
+    _check_config(params, ldrain1d)
+    names = enc.names
+    if enc.streams[0].dim() != 2:
+        raise ValueError(f"expected levels-major (nlev, ncol) streams, got "
+                         f"{tuple(enc.streams[0].shape)}")
+    nlev, ncol = enc.streams[0].shape
+    pre = _prelude(enc, params)
+    operands = {**dict(zip(names, enc.streams)), **pre._asdict()}
+    shapes = {**{n: (nlev, ncol) for n in names}, "paph": (nlev + 1, ncol),
+              "ceta": (nlev,), "zscalm": (nlev,), "ztrpaus": (ncol,),
+              "paph_sfc": (ncol,), "enc": (len(names), nlev + 1, 2)}
+    for name, x in {**operands, "enc": enc.enc}.items():
+        if x.device != device or tuple(x.shape) != shapes[name]:
+            raise ValueError(f"{name}: shape {tuple(x.shape)} on {x.device}, "
+                             f"expected {shapes[name]} on {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    mask = sum(1 << j for j, s in enumerate(enc.streams)
+               if s.dtype in PAYLOAD_DTYPES)
+    lib = _bind_nl_encoded()
+    outs = [torch.empty((nlev, ncol), dtype=torch.float32, device=device)
+            for _ in KERNEL_OUTPUTS]
+    order = names + tuple(KernelPrelude._fields)
+    in_ptrs = (ctypes.c_void_p * len(order))(
+        *(operands[n].data_ptr() for n in order))
+    out_ptrs = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
+    consts = (ctypes.c_double * len(KERNEL_CONSTANTS))(
+        *_kernel_constants(params, ldrain1d))
+    with torch.cuda.device(device):
+        err = lib.cloudsc2_nl_enc_f32(
+            in_ptrs, out_ptrs, consts, enc.enc.data_ptr(), mask,
+            int(payload == torch.bfloat16), int(not enc.fuse_satur), ncol,
+            nlev, int(_evap(params, ldrain1d)),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")
+    cloudsc2_nl_encoded.launches += 1
+    return Cloudsc2StreamOutputs(*outs)
 
 
 def launch_cloudsc2_tl_encoded(
@@ -415,6 +556,22 @@ def _enc_device(enc: EncodedInputs, what: str) -> str:
     return kind
 
 
+def cloudsc2_nl_encoded(
+    enc: EncodedInputs, params: Params, *, ldrain1d: bool = False,
+) -> Cloudsc2StreamOutputs:
+    """The NL sweep over 16-bit-encoded level streams, decoded in registers
+    (``cloudsc2_pallas_encoded``, ``experiments.py:164``): returns the 8
+    exact f32 output streams of the decoded trajectory.  ``LPHYLIN=False``
+    without ``ldrain1d`` is refused, as there.
+
+    CUDA tensors run the hand-written kernel
+    (:func:`launch_cloudsc2_nl_encoded`); CPU tensors run the plain version
+    :func:`cloudsc2_nl_encoded_reference`; any other device raises."""
+    if _enc_device(enc, "cloudsc2_nl_encoded") == "cpu":
+        return cloudsc2_nl_encoded_reference(enc, params, ldrain1d=ldrain1d)
+    return launch_cloudsc2_nl_encoded(enc, params, ldrain1d=ldrain1d)
+
+
 def cloudsc2_tl_encoded(
     enc: EncodedInputs, params: Params, *, dscale: float, lregcl: bool = True,
     ldrain1d: bool = False, write_primal: bool = True,
@@ -471,6 +628,7 @@ def cloudsc2_tlad_fused(
                                       params, **kw)
 
 
+cloudsc2_nl_encoded.launches = 0
 cloudsc2_tl_encoded.launches = 0
 cloudsc2_ad_encoded.launches = 0
 cloudsc2_tlad_fused.launches = 0

@@ -351,3 +351,148 @@ def test_cuda_kernel_ab_runs_through_every_kernel(monkeypatch, capsys):
     assert list(summary["configs"]) == ["two", "noprim", "fused", "enc", "encnp",
                                         "two#2"]
     assert "two: " in capsys.readouterr().out
+
+
+# ------------------------------------------------- the NL-side experiments
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse_satur", [True, False])
+@pytest.mark.parametrize("keep_f32,payload", [
+    (("pq", "plu", "paph"), torch.int16),
+    (("pq",), torch.int16),
+    ((), torch.bfloat16),
+    (("pq",), torch.bfloat16),
+])
+@pytest.mark.parametrize("ncol,ldrain1d", [(100, False), (5001, True)])
+def test_cuda_encoded_nl_kernel_matches_plain_version(ncol, ldrain1d, keep_f32,
+                                                      payload, fuse_satur):
+    """The encoded NL kernel against its plain version on the decoded
+    trajectory (chip_smoke.py's phase 15); 5,001 columns start the 16-bit rows
+    on odd half-words.  2e-5 against the plain version: the decoded
+    trajectories are worse conditioned than the exact one (worst reading
+    4.712e-6, where f32 rounding alone moves the plain version 5.0e-6 from
+    its f64 self; probes/nl_enc_fmad.py on an NVIDIA H100).  The tight check
+    is against the exact kernel on the same decoded inputs."""
+    from cloudsc2jax_torch.kernels import experiments as ex
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(ncol, dtype=torch.float32, device="cuda",
+                                     pqs=True)
+    enc = ex.encode_blocked_inputs(inputs, st.params, keep_f32=keep_f32,
+                                   fuse_satur=fuse_satur, payload_dtype=payload)
+    launches = ex.cloudsc2_nl_encoded.launches
+    got = ex.cloudsc2_nl_encoded(enc, st.params, ldrain1d=ldrain1d)
+    ref = ex.cloudsc2_nl_encoded_reference(enc, st.params, ldrain1d=ldrain1d)
+    assert ex.cloudsc2_nl_encoded.launches == launches + 1
+    assert all(torch.isfinite(x).all() for x in got)
+    assert _rel_err(got, ref) <= 2e-5
+    decoded, pre = ex.decode_inputs(enc), ex._prelude(enc, st.params)
+    twin = (kmod.launch_cloudsc2_nl(decoded, pre, st.params, ldrain1d=ldrain1d)
+            if fuse_satur else kmod.launch_cloudsc2_fwd_ckpt(
+                decoded, pre, st.params, ldrain1d=ldrain1d)[0])
+    assert _rel_err(got, twin) <= 5e-6
+
+
+@pytest.mark.cuda
+def test_cuda_all_f32_encoding_gives_the_exact_kernels_results():
+    from cloudsc2jax_torch.kernels import experiments as ex
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(1000, dtype=torch.float32, device="cuda",
+                                     pqs=True)
+    enc = ex.encode_blocked_inputs(inputs, st.params, keep_f32=ex.ENCODED_STREAMS)
+    got = ex.cloudsc2_nl_encoded(enc, st.params)
+    assert _rel_err(got, kmod.cloudsc2_nl(inputs, st.params)) <= 5e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("tile,depth", [(None, None), (128, 8), (64, 3), ("widest", 137),
+                                        (256, 1), (7, 500)])
+def test_cuda_resident_kernel_matches_plain_version(dtype, tol, tile, depth):
+    """Rings whose depth divides the levels or not, a ragged last block, a
+    block of less than a warp, every level resident, and depth past nlev."""
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(1000, dtype=dtype, device="cuda", pqs=True)
+    if tile == "widest":
+        tile = 232_448 // kmod.resident_ring(137, dtype, 1, 137)[2]
+    launches = kmod.cloudsc2_nl_resident.launches
+    got = kmod.cloudsc2_nl_resident(inputs, st.params, ldrain1d=True, tile=tile,
+                                    depth=depth)
+    assert kmod.cloudsc2_nl_resident.launches == launches + 1
+    ref = kmod.cloudsc2_nl_resident_reference(inputs, st.params, ldrain1d=True)
+    fwd, _ = kmod.cloudsc2_fwd_ckpt(inputs, st.params, ldrain1d=True)
+    assert all(torch.isfinite(x).all() for x in got)
+    assert _rel_err(got, ref) <= tol
+    assert _rel_err(got, fwd) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_nl_experiment_kernels_reject_bad_operands():
+    from cloudsc2jax_torch.kernels import experiments as ex
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(300, dtype=torch.float32, device="cuda", pqs=True)
+    pre = kmod.kernel_prelude(inputs, st.params)
+    launches = kmod.cloudsc2_nl_resident.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        kmod.launch_cloudsc2_nl_resident(inputs, pre, st.params, tile=128, depth=137)
+    with pytest.raises(ValueError, match="tile"):
+        kmod.launch_cloudsc2_nl_resident(inputs, pre, st.params, tile=512)
+    with pytest.raises(ValueError, match="pqs=True"):
+        kmod.launch_cloudsc2_nl_resident(inputs._replace(pqs=None), pre, st.params)
+    with pytest.raises(ValueError):
+        kmod.launch_cloudsc2_nl_resident(
+            inputs._replace(pqs=inputs.pqs.T.contiguous().T), pre, st.params)
+    assert kmod.cloudsc2_nl_resident.launches == launches
+    enc = ex.encode_blocked_inputs(inputs, st.params, keep_f32=("pq",))
+    streams = list(enc.streams)
+    for bad in (enc._replace(streams=tuple([streams[0].T.contiguous().T] + streams[1:])),
+                enc._replace(streams=tuple([streams[0][:-1].contiguous()] + streams[1:])),
+                enc._replace(enc=enc.enc[:, :-1].contiguous()),
+                enc._replace(ztrpaus=enc.ztrpaus[:-1]),
+                enc._replace(streams=tuple(streams[:-1] + [streams[-1][:-1].contiguous()]))):
+        with pytest.raises(ValueError):
+            ex.launch_cloudsc2_nl_encoded(bad, st.params)
+    with pytest.raises(TypeError, match="f32 only"):
+        ex.launch_cloudsc2_nl_encoded(enc._replace(enc=enc.enc.double()), st.params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows,rev,compute", [
+    ("3x2", "0", "0,0"), ("3x2", "1", "2,10"), ("5x2", "1", "0,0"),
+    ("2x5", "0", "1,6"),
+])
+def test_cuda_bw_probe_checks_and_times_its_kernel(monkeypatch, capsys, windows,
+                                                   rev, compute):
+    """The entry point on the card: the kernel held against the plain version
+    forward and reversed (5x2 reads three arrays no output uses), then
+    timed; the launch counter shows every launch."""
+    from cloudsc2jax_torch import bw_probe
+
+    _need_cuda()
+    for key, value in dict(WINDOWS=windows, NLEV="7", NB="3", SUBLANES="2",
+                           REPEATS="3", REV=rev, COMPUTE=compute).items():
+        monkeypatch.setenv("CLOUDSC2_BW_PROBE_" + key, value)
+    launches = bw_probe.window_stream.launches
+    rec = bw_probe.main([])
+    assert bw_probe.window_stream.launches == launches + 2 + bw_probe.WARMUP + 3
+    reads, writes = (int(x) for x in windows.split("x"))
+    assert rec["platform"] == "gpu" and rec["device"] and rec["power_limit"]
+    assert rec["windows"] == windows and rec["rev"] == (rev == "1")
+    assert rec["traffic_bytes"] == (reads + writes) * 7 * 768 * 4
+    assert rec["self_check_max_abs_err"] < 1e-6 and rec["ms_per_call"] > 0
+    assert '"mode": "windows"' in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_cuda_encoding_study_runs_on_the_card(capsys):
+    from cloudsc2jax_torch import encoding_study
+
+    _need_cuda()
+    table = encoding_study.main([])
+    capsys.readouterr()
+    assert 1e-4 < table["encodings"]["i16"]["max_field_relerr"] < 2e-4

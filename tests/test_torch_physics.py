@@ -214,19 +214,30 @@ def test_wrapper_dispatch(state, tparams):
         kmod.cloudsc2_nl(inputs, no_phylin)
 
 
-def _enum(source, name):
+def _enum(source, name, prefix=True):
     body = re.search(r"enum " + name + r" \{(.*?)\};", source, re.S).group(1)
-    names = [t.strip() for t in body.replace("\n", " ").split(",") if t.strip()]
-    return [n.split("_", 1)[1].lower() for n in names if not n.startswith("N_")]
+    body = re.sub(r"//[^\n]*", "", body)
+    names = [t.split("=")[0].strip() for t in body.replace("\n", " ").split(",")
+             if t.strip()]
+    names = [n for n in names if n != "N" and not n.startswith("N_")]
+    return [(n.split("_", 1)[1] if prefix else n).lower() for n in names]
 
 
 def test_kernel_argument_order_matches_cuda_source():
     """The wrapper fills the launcher's three argument arrays by position:
-    its name lists must follow the enums of the CUDA source."""
-    src = (pathlib.Path(kmod.__file__).parents[1] / "csrc" / "cloudsc2_nl.cu").read_text()
-    assert _enum(src, "Stream") == list(kmod.KERNEL_STREAMS)
+    its name lists must follow the enums of the CUDA source (the sweep
+    header the NL kernels share: `Order` lists the streams with pqs in its
+    place, and the order without pqs is that list less pqs)."""
+    src = (pathlib.Path(kmod.__file__).parents[1] / "csrc"
+           / "cloudsc2_nl_sweep.cuh").read_text()
+    order = _enum(src, ": int", prefix=False)
+    assert order == list(kmod.RESIDENT_STREAMS)
+    assert [n for n in order if n != "pqs"] == list(kmod.KERNEL_STREAMS)
+    assert kmod.FWD_CKPT_STREAMS == kmod.KERNEL_STREAMS + ("pqs",)
     assert _enum(src, "Output") == list(kmod.KERNEL_OUTPUTS)
     assert _enum(src, "Const") == list(kmod.KERNEL_CONSTANTS)
+    assert _enum(src, "Value") == list(kmod._LEVEL_FIELDS) + [
+        "plu_k1", "paph_lo", "paph_hi"]
     consts = kmod._kernel_constants(params_from_jax(
         JaxState.synthetic(ngptot=4, nlev=5).params), ldrain1d=True)
     assert len(consts) == len(kmod.KERNEL_CONSTANTS)

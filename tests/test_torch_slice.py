@@ -171,6 +171,9 @@ def test_port_imports_no_jax():
         "import cloudsc2jax_torch.convert, cloudsc2jax_torch.kernels.build\n"
         "import cloudsc2jax_torch.ops, cloudsc2jax_torch.kernels.tlad_kernel\n"
         "import cloudsc2jax_torch.kernels.emit\n"
+        "import cloudsc2jax_torch.kernels.experiments\n"
+        "import cloudsc2jax_torch.kernel_ab, cloudsc2jax_torch.bw_probe\n"
+        "import cloudsc2jax_torch.encoding_study, cloudsc2jax_torch.tlad\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'cloudsc2jax.'))"
         " or m == 'cloudsc2jax' for m in sys.modules), sorted(sys.modules)\n"
     )
