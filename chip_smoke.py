@@ -28,14 +28,18 @@ and prints no result line):
    |kernel - plain| over the field's max |plain| within 1e-12 (f64) and
    5e-6 (f32).
 4. Main path through the CLI entry point on ``cuda``:
-   ``nl 1 163840 128 --dtype f32 --threshold 10000`` and
-   ``nl 1 16384 128 --dtype f64``, both validating against the golden
-   file; the kernel's launch counter, zeroed just before, must show that
-   both ran through the kernel.
+   ``nl 1 163840 128 --dtype f32 --threshold 10000 --kernels`` and
+   ``nl 1 16384 128 --dtype f64 --kernels``, both validating against the
+   golden file (the stream contract, assembled once after the timed loop);
+   the kernel's launch counter, zeroed just before, must show that both
+   ran through the kernel; then ``nl 1 16384 128 --dtype f64``, the truth
+   path, against the same golden file.
 5. Timing with CUDA events at 327,680 columns f32 over distinct inputs:
-   the kernel, the pre-kernel PyTorch work, the whole ``run_nl`` call and
-   the plain version, with the bytes the sweep must move and the attained
-   bandwidth.
+   the kernel, the pre-kernel PyTorch work, the whole ``run_nl`` call on
+   the stream contract, the output contract's assembly (``unblock_outputs``,
+   paid once where a caller validates), ``run_nl(backend="kernels")`` on
+   transposed views, and the plain version, with the bytes the sweep must
+   move and the attained bandwidth.
 6. TL and AD kernels against their plain versions on the card: 100 and a
    ragged 5,000 columns, f32 and f64, ldrain1d off and on, the TL kernel
    with and without its primal streams; then the TL+AD path's own shapes
@@ -68,7 +72,10 @@ and prints no result line):
    kernels), and ``measure_f32_verdicts`` at 163,840 f32 columns; the launch
    counters of the forward, streamed-TL and AD kernels, zeroed just before,
    must show that each ran.  Also printed: how far the TL kernel and the
-   truth path, both f32, sit from the truth path in f64.
+   truth path, both f32, sit from the truth path in f64; and the JAX
+   package's f32 TL parity, 1e-6, held by the streamed-increment TL kernel
+   built with ``-fmad=false`` (the shipped build contracts multiply-adds and
+   is held to 1e-5), at 16,384 columns with ``lregcl`` off and on.
 11. Timing with CUDA events at 327,680 columns f32 over distinct inputs:
    the forward kernel, the streamed-increment TL kernel, the
    standard-contract ``run_tlad`` on ``(ncol, nlev)``-contiguous inputs
@@ -126,6 +133,15 @@ and prints no result line):
    columns; then the probe's 15x8 mix as the one PyTorch call that computes
    it (``torch._foreach_add`` over the 8 outputs), between two timings of the
    probe's kernel on the same arrays (``library_ms``).
+18. The traced schedule against the shipped one, in one process and in
+   turns traced, shipped, shipped, traced, at 327,680 f32 columns: the AD
+   kernel and both TL modes rebuilt with the schedule the shipped one
+   replaced (the AD bodies rendered by the emitter in the traced order, AD
+   at 3 blocks per SM, TL bounded by the block size alone) against the
+   shipped builds, with both builds' registers and spills; then
+   ``run_tlad`` on the stream contract in six processes of their own, the
+   two schedules in turns, and each side's median
+   (``cloudsc2jax_torch/probes/tlad_budget.py``).
 
 The comparisons of phases 6, 9, 12 and 15 are bound by the host, so each
 runs in a process of its own (``chip_smoke.py --compare <name>``, started
@@ -191,9 +207,15 @@ TLAD_TOLERANCE = {"tl": {"float32": 1e-5, "float64": 1e-11},
                   "ad": {"float32": 1e-4, "float64": 1e-11}}
 TIMING_NCOL = 327_680
 MAIN_PATH_RUNS = (
-    ["nl", "1", "163840", "128", "--dtype", "f32", "--threshold", "10000"],
-    ["nl", "1", "16384", "128", "--dtype", "f64"],
+    ["nl", "1", "163840", "128", "--dtype", "f32", "--threshold", "10000",
+     "--kernels"],
+    ["nl", "1", "16384", "128", "--dtype", "f64", "--kernels"],
 )
+# the NL truth path through the CLI, against the same golden file
+TRUTH_RUNS = (["nl", "1", "16384", "128", "--dtype", "f64"],)
+# the JAX package's f32 TL parity (cloudsc2jax/cli.py:288), which the TL
+# kernel built without FMA contraction holds (PERF.md)
+NOFMA_TL_PARITY_TOL = 1e-6
 # (ncol, dtype, ldrain1d) of the sweeps on the CLI's main paths, for the
 # kernel-against-plain comparisons of the NL, TL+AD and standalone phases
 COMPARE_SHAPES = [(163840, "float32", False), (16384, "float64", False)]
@@ -286,7 +308,7 @@ def _level_statements(kind: str, evap: bool, lregcl: bool) -> int:
 
     text = (CSRC / f"cloudsc2_{kind}_level.cuh").read_text()
     flags = f"{str(evap).lower()}, {str(lregcl).lower()}"
-    m = re.search(rf"lregcl: {flags} \((\d+) statements\)", text)
+    m = re.search(rf"lregcl: {flags} \((\d+) statements", text)
     if m is None:
         raise AssertionError(f"no statement count for Level<{flags}> in {kind}")
     return int(m.group(1))
@@ -687,9 +709,27 @@ def cli_variants(state, params):
             for g, r in zip(got, ref))
         print(f"[10] TL tangents at {ncol} columns, {label}: max rel err "
               f"{dist[label]:.3e}")
-    del i64, i32, d64, dk32, dt32, std
+    # the reference's 1e-6 TL parity, held by the TL kernel built without
+    # FMA contraction (its own library beside the shipped one)
+    from cloudsc2jax_torch.kernels import build
+    from cloudsc2jax_torch.kernels.tlad_kernel import cloudsc2_kernel_tl
 
-    return {"launches": launches, "verdicts": verdicts, "dist": dist}
+    nofma = {}
+    d32 = Cloudsc2Inputs(*(DSCALE * x for x in i32))
+    with build.variant("cloudsc2_tl_din", flags=("-fmad=false",)):
+        for lregcl in (False, True):
+            _, dk = cloudsc2_kernel_tl(i32, d32, params, lregcl=lregcl)
+            nofma[f"lregcl={lregcl}"] = cli.tl_parity(i32, dk, params, lregcl=lregcl)
+            print(f"[10] TL parity at {ncol} f32 columns, -fmad=false, "
+                  f"lregcl={lregcl}: {nofma[f'lregcl={lregcl}']:.3e} "
+                  f"(tol {NOFMA_TL_PARITY_TOL:g})")
+    if not max(nofma.values()) < NOFMA_TL_PARITY_TOL:
+        raise AssertionError("the TL kernel without FMA contraction misses "
+                             "the reference's TL parity")
+    del i64, i32, d64, dk32, dt32, std, d32
+
+    return {"launches": launches, "verdicts": verdicts, "dist": dist,
+            "tl_parity_nofma": nofma}
 
 
 def time_variants(state, params, compared, ran, ad_record):
@@ -785,6 +825,7 @@ def time_variants(state, params, compared, ran, ad_record):
                run_tlad_kernels_ms=ms["run_tlad_kernels"],
                run_tlad_kernels_views_ms=ms["run_tlad_kernels_views"],
                tl_parity_rel_err=verdicts["tl_parity_rel_err"],
+               tl_parity_rel_err_nofma=ran["tl_parity_nofma"],
                ad_identity_rel_err=verdicts["ad_identity_rel_err"],
                tl_f32_vs_f64=dist),
     ]
@@ -1491,7 +1532,48 @@ def _nl_compare_and_cli(state, params):
     print(f"[4] kernel launches on the main path: {main_launches}")
     if main_launches < len(MAIN_PATH_RUNS):
         raise AssertionError("the main path did not run through the kernel")
+    for argv in TRUTH_RUNS:
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["--device", "cuda"])
+        print(f"[4] cli {' '.join(argv)} (truth path): rc={rc} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if rc != 0:
+            raise AssertionError(f"the truth path failed validation: {argv}")
     return worst_abs, worst_rel, main_launches
+
+
+def _tlad_budget():
+    """The budget probe (cloudsc2jax_torch/probes/tlad_budget.py), which
+    holds the traced schedule and the A/B's timing."""
+    import importlib.util
+
+    path = ROOT / "cloudsc2jax_torch" / "probes" / "tlad_budget.py"
+    spec = importlib.util.spec_from_file_location("tlad_budget", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def ab_schedules(state, tlad_budget, traced):
+    """Phase 18: the traced schedule of the AD and both TL kernels against
+    the shipped one, in turns, then ``run_tlad`` in processes of their own.
+    Returns the probe's A/B result, keyed by ``tlad_budget.OLD`` and
+    ``tlad_budget.NEW``."""
+    # -- 18. the traced schedule against the shipped one
+    old, new = tlad_budget.OLD, tlad_budget.NEW
+    result = {"kernels": tlad_budget.ab_kernels(state, traced),
+              "run_tlad": tlad_budget.ab_units(traced, ROOT)}
+    for kind, r in result["kernels"].items():
+        print(f"[18] {kind}: {old} {r[old]} ms, {new} {r[new]} ms; "
+              f"ptxas {old} {r['ptxas'][old]['registers']} registers "
+              f"{r['ptxas'][old]['spill_store_bytes']} B spill stores, {new} "
+              f"{r['ptxas'][new]['registers']} registers "
+              f"{r['ptxas'][new]['spill_store_bytes']} B spill stores")
+    u = result["run_tlad"]
+    print(f"[18] run_tlad medians over {len(u[old])} processes each: {old} "
+          f"{u[old + '_median']:.4f} ms, {new} {u[new + '_median']:.4f} ms")
+    print(f"[18] after timing: {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    return result
 
 
 # The comparisons of phases 6, 9, 12 and 15 are bound by the host (a plain TL
@@ -1572,10 +1654,10 @@ def main(argv=None) -> int:
     from cloudsc2jax_torch.drivers import run_nl
     from cloudsc2jax_torch.kernels import build
     from cloudsc2jax_torch.kernels.cloudsc2_kernel import (
-        cloudsc2_nl,
         cloudsc2_nl_reference,
         kernel_prelude,
         launch_cloudsc2_nl,
+        unblock_outputs,
     )
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
     from cloudsc2jax_torch.state import Cloudsc2State
@@ -1588,19 +1670,36 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}, {count} device(s))")
     print(card)
 
-    # -- 2. build, every nvcc run together
+    # -- 2. build, every nvcc run together: the shipped libraries, the probe's
+    # mixes, the TL kernel without FMA contraction (phase 10) and the
+    # traced schedule of the TL and AD kernels (phase 18)
+    # (the traced AD bodies are rendered while the others build)
+    import concurrent.futures
+
     t0 = time.perf_counter()
-    specs = [(lib, ()) for lib in LIBRARIES if lib != "bw_probe"]
+    tlad_budget = _tlad_budget()
+    specs = [(lib, (), ()) for lib in LIBRARIES if lib != "bw_probe"]
     for _, reads, writes, _, weighted in PROBE_MIXES:
-        specs += [("bw_probe", probe_defines(reads, writes, c))
+        specs += [("bw_probe", probe_defines(reads, writes, c), ())
                   for c in ((0, 0), weighted) if c is not None]
-    build.load_libraries(specs)
+    specs += [("cloudsc2_tl_din", (), ("-fmad=false",))]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build.load_libraries, specs)
+        traced = tlad_budget.traced_variants()
+        render_s = time.perf_counter() - t0
+        building.result()
+    traced_specs = [(lib, defines, flags) for lib, (defines, flags) in traced.items()]
+    build.load_libraries(traced_specs)
+    specs += traced_specs
     build_s = time.perf_counter() - t0
-    print(f"[2] build: {build_s:.1f} s for {len(specs)} libraries "
+    print(f"[2] build: {build_s:.1f} s for {len(specs)} libraries, the traced "
+          f"AD bodies rendered meanwhile in {render_s:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
-    for lib, defines in specs:
-        for e in build.ptxas_report(lib, defines):
-            print(f"    ptxas {' '.join(d.split('_', 2)[2] for d in defines)} "
+    for lib, defines, flags in specs:
+        tag = " ".join([*(d.split("_", 2)[2] for d in defines),
+                        *(f for f in flags if not f.startswith("-I"))])
+        for e in build.ptxas_report(lib, defines, flags):
+            print(f"    ptxas {tag} "
                   f"{e['entry']}: {e.get('registers')} registers, "
                   f"{e.get('stack_bytes')} B stack, "
                   f"{e.get('spill_store_bytes')} B spill stores, "
@@ -1644,15 +1743,23 @@ def main(argv=None) -> int:
         lambda i, p: launch_cloudsc2_nl(i, p, params), list(zip(sets, pres)), 30)
     prelude_ms = _time_ms(lambda i: kernel_prelude(i, params),
                           [(s,) for s in sets], 30)
-    wrapper_ms = _time_ms(lambda i: cloudsc2_nl(i, params),
-                          [(s,) for s in sets], 30)
     run_nl_ms = _time_ms(lambda i: run_nl(i, params), [(s,) for s in sets], 30)
+    streams = [run_nl(s, params) for s in sets]
+    contract_ms = _time_ms(lambda o: unblock_outputs(o, params),
+                           [(o,) for o in streams], 30)
+    del streams
+    views = [Cloudsc2Inputs(*(None if x is None else x.T for x in s)) for s in sets]
+    run_nl_kernels_ms = _time_ms(lambda i: run_nl(i, params, backend="kernels"),
+                                 [(v,) for v in views], 30)
+    del views
     plain_ms = _time_once_ms(lambda i: cloudsc2_nl_reference(i, params), sets[0])
     nlev = base.pt.shape[0]
     nbytes = (15 * nlev + 1 + 8 * nlev) * ncol * 4
     for label, ms in (("kernel", kernel_ms), ("pre-kernel torch", prelude_ms),
-                      ("wrapper (pre-kernel + kernel)", wrapper_ms),
-                      ("run_nl (wrapper + output contract)", run_nl_ms),
+                      ("run_nl (stream contract: pre-kernel + kernel)", run_nl_ms),
+                      ("output contract (unblock_outputs, once per validation)",
+                       contract_ms),
+                      ("run_nl(backend='kernels') on transposed views", run_nl_kernels_ms),
                       ("plain version", plain_ms)):
         print(f"[5] {label}: {ms:.4f} ms/call, {ncol / (ms * 1e-3):.4e} cols/s"
               f" at {ncol} columns f32")
@@ -1675,6 +1782,8 @@ def main(argv=None) -> int:
         "plain_ms": plain_ms,
         "prelude_ms": prelude_ms,
         "run_nl_ms": run_nl_ms,
+        "contract_ms": contract_ms,
+        "run_nl_kernels_ms": run_nl_kernels_ms,
         "ncol": ncol,
         "build_s": build_s,
     }
@@ -1694,7 +1803,14 @@ def main(argv=None) -> int:
     nl_records = time_nl_experiments(state, params, compared["nl_experiments"],
                                      nl_ran)
     probes = nl_ran["probes"]
-    _lap("16-17", t_phase)
+    t_phase = _lap("16-17", t_phase)
+    ab = ab_schedules(state, tlad_budget, traced)
+    ab_kind = {"cloudsc2_tl": "tl", "cloudsc2_ad": "ad", "cloudsc2_tl_din": "din"}
+    for rec in tlad_records + test_records:
+        if rec["name"] in ab_kind:
+            rec["ab"] = ab["kernels"][ab_kind[rec["name"]]]
+    tlad_records[0]["ab_run_tlad"] = ab["run_tlad"]
+    _lap("18", t_phase)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     records = [nl_record, *tlad_records, *test_records, *ab_records, *nl_records]

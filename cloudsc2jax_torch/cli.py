@@ -3,7 +3,7 @@
 Port of :mod:`cloudsc2jax.cli` on one device (reference
 ``src/cloudsc2_{nl,tl,ad}/dwarf_cloudsc.F90``)::
 
-    python -m cloudsc2jax_torch nl <numdev> <ngptot> <nproma>
+    python -m cloudsc2jax_torch nl <numdev> <ngptot> <nproma> [--kernels]
     python -m cloudsc2jax_torch tl <numdev> <ngptot> <nproma> [--kernels]
     python -m cloudsc2jax_torch ad <numdev> <ngptot> <nproma> [--kernels]
     python -m cloudsc2jax_torch tlad <numdev> <ngptot> <nproma>
@@ -12,16 +12,21 @@ Port of :mod:`cloudsc2jax.cli` on one device (reference
 statistics and of the reporting table (the kernels own one column per
 thread).  The input is expanded on the device.
 
-* ``nl`` runs the fused SATUR+CLOUDSC2 sweep ``--repeat`` times and
-  validates the outputs on the device against the golden file.
+* ``nl`` runs the NL sweep ``--repeat`` times and validates the outputs on
+  the device against the golden file: the truth path
+  (``run_nl(backend="truth")``, the JAX package's ``xla``), or with
+  ``--kernels`` the main path, the fused SATUR+CLOUDSC2 kernel on the
+  stream contract (``backend="streams"``, JAX's ``--pallas``), whose
+  streams are assembled into the ``(ncol, nlev)`` contract once, after the
+  timed loop, for the validation.
 * ``tl`` runs the Taylor test (``drivers.taylor_test``, LREGCL off) on the
   truth path, ``torch.func.jvp`` of ``physics.cloudsc2.cloudsc2``, and
   prints the reference's report ("TEST PASSED, penalty ...").
 * ``ad`` runs the adjoint symmetry test (``drivers.adjoint_test``, LREGCL
   on) on the truth path and prints "TEST OK"; ``--threshold`` is in
   working-precision epsilons (default 1e4).
-* ``--kernels`` (the JAX package's ``--pallas``) adds the f32 verdict
-  through the hand-written kernels on the standard contract
+* ``--kernels`` (the JAX package's ``--pallas``) on ``tl`` and ``ad`` adds
+  the f32 verdict through the hand-written kernels on the standard contract
   (``run_tlad(backend="kernels")``): for ``tl`` the parity of the TL
   kernel's tangents with ``jvp`` of the truth path on the same f32 inputs,
   for ``ad`` the adjoint identity through the TL and AD kernels.  It is
@@ -64,9 +69,10 @@ def _build_parser():
                    help="working precision (JPRB double / -DSINGLE analogue)")
     p.add_argument("--repeat", type=int, default=1, help="benchmark repetitions")
     p.add_argument("--kernels", action="store_true",
-                   help="tl/ad: add the f32 verdict through the CUDA "
-                        "kernels on the standard contract (their plain "
-                        "versions with --device cpu)")
+                   help="nl: run the CUDA kernel on the stream contract "
+                        "instead of the truth path; tl/ad: add the f32 "
+                        "verdict through the CUDA kernels on the standard "
+                        "contract (their plain versions with --device cpu)")
     p.add_argument("--threshold", type=float, default=None,
                    help="tolerance in units of the working precision's "
                         "machine epsilon; defaults per variant: 10 for nl "
@@ -236,12 +242,13 @@ def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     if args.numdev != 1:
         raise SystemExit("cloudsc2jax_torch runs on one device: numdev must be 1")
-    if args.kernels and args.variant not in ("tl", "ad"):
-        raise SystemExit("--kernels applies to the tl and ad variants")
+    if args.kernels and args.variant == "tlad":
+        raise SystemExit("--kernels applies to the nl, tl and ad variants")
 
     import torch
 
     from .drivers import DSCALE, run_nl, run_tlad
+    from .kernels.cloudsc2_kernel import unblock_outputs
     from .state import Cloudsc2State
     from .timer import PerformanceTimer
 
@@ -261,11 +268,12 @@ def main(argv=None) -> int:
     )
     state.ngptot = ngptot
     tlad = args.variant == "tlad"
-    if args.variant in ("tl", "ad"):
-        inputs = state.device_inputs(ngptot, dtype=dtype, device=device)
-    else:
+    streams = tlad or args.kernels and args.variant == "nl"
+    if streams:
         inputs = state.device_kernel_inputs(ngptot, dtype=dtype, device=device,
                                             pqs=tlad)
+    else:
+        inputs = state.device_inputs(ngptot, dtype=dtype, device=device)
     print(
         f"     NUMPROC=1, NUMDEV=1, NGPTOTG={ngptot}, NPROMA={args.nproma},"
         f" NGPBLKS={ngpblks}",
@@ -279,7 +287,8 @@ def main(argv=None) -> int:
     timer.thread_start(0)
     for _ in range(args.repeat):
         out = (run_tlad(inputs, state.params, lregcl=True) if tlad
-               else run_nl(inputs, state.params))
+               else run_nl(inputs, state.params,
+                           backend="streams" if streams else "truth"))
         timer.thread_log(0, ngptot)
     timer.thread_end(0)
     timer.end()
@@ -301,6 +310,12 @@ def main(argv=None) -> int:
 
     ok = True
     if not args.no_validate and reference_path.exists():
+        if streams:
+            # the (ncol, nlev) contract, assembled once, outside the timing
+            out = unblock_outputs(out, state.params)
+        else:
+            # validate_device reads the levels-major tensors behind the views
+            inputs = type(inputs)(*(x.T for x in inputs))
         ok = state.validate_device(
             out, inputs, reference_path,
             threshold=10.0 if args.threshold is None else args.threshold)

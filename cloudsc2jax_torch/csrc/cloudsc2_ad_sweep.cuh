@@ -28,12 +28,25 @@
 // (the TPU path's `.at[nlev].add`, tlad_kernel.py:763).
 //
 // Traffic per level and column: 27 reads (16 input, 3 checkpoint, 8 seed
-// streams) and 16 writes.  The level body recomputes the level and then
-// transposes it, ~1,000 statements with most intermediates live at the
-// turn, so register pressure and spills are the first thing to read in
-// ptxas' report; bytes are the bound the design works to: each stream is
-// read once and each result written once, with paph(k+1) carried from the
-// step before.
+// streams) and 16 writes; each stream is read once and each result written
+// once, with paph(k+1) carried from the step before.  What bounds the
+// kernel on this card is not those bytes but the warps per SM its registers
+// allow: the level body recomputes the level and transposes it, and printed
+// in the traced order (all of the primal, then all of the transpose) it
+// holds ~180 values at the turn, so the kernel compiled to 164-168
+// registers (12 warps per SM) and ran at 29% of its bytes bound (PERF.md).
+// Recomputing those values near their reads instead cost more issue slots
+// than the warps it bought (PERF.md).  The emitter now prints the
+// body with each primal statement sunk to its first read and the
+// longest-lived values parked in shared memory (kernels/emit.py: 94 values
+// live in registers for 184, 75 slots of 4 bytes per thread in f32, +16%
+// statements), and the kernel asks for CLOUDSC2_AD_MIN_BLOCKS_F32 blocks of
+// 128 threads per SM, chosen by probes/tlad_budget.py, which builds the
+// kernel once per budget through that define.  Each thread's slots are a
+// column of its own with a stride of kStashStride values (cloudsc2_math.cuh).
+// Staging the next levels' 27 values in shared memory by `cp.async` while a
+// level computes lost or tied at every budget, so the loads stay plain
+// (PERF.md).
 //
 // Two more kernels run this schedule.  The int16-encoded sweep
 // (cloudsc2_ad_enc.cu) differs only in how an input stream value is loaded:
@@ -54,20 +67,28 @@
 
 #include <cstdint>
 
+// The rebuild of an earlier schedule's body for an A/B on the card
+// (probes/tlad_budget.py) puts its header first on the include path.
+#ifdef CLOUDSC2_LEVEL_FROM_INCLUDE_PATH
+#include <cloudsc2_ad_level.cuh>
+#else
 #include "cloudsc2_ad_level.cuh"
+#endif
 #include "cloudsc2_load.cuh"
+
+#ifndef CLOUDSC2_AD_MIN_BLOCKS_F32
+#define CLOUDSC2_AD_MIN_BLOCKS_F32 5
+#endif
 
 namespace cloudsc2_ad {
 
 constexpr int kThreads = 128;
 constexpr int kFields = 14;  // level rows read at k; then plu, paph
 
-// Blocks per SM the register budget must allow.  Unbounded, ptxas gives
-// the f32 body ~176 registers, which fits 2 blocks (8 warps) per SM; a
-// bound of 3 caps it at 168 registers and 12 warps.  The f64 body needs
-// 255 registers and spills either way, so it is left unbounded.
+// Blocks per SM the register budget must allow (f32); the f64 body, the
+// validation path, is left unbounded.
 template <typename T>
-constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 1;
+constexpr int kMinBlocks = sizeof(T) == 4 ? CLOUDSC2_AD_MIN_BLOCKS_F32 : 1;
 
 // Pointer order of Args::in (AD_STREAMS in kernels/tlad_kernel.py).
 enum Stream {
@@ -105,14 +126,26 @@ __device__ __forceinline__ T load_produced(const T* p) {
   return PRODUCED_HERE ? *p : __ldg(p);
 }
 
+// This thread's first slot of a level body's shared-memory slots that start
+// at `base`: slot j lies kStashStride * j values after it (stash_bytes).
+template <typename T, bool EVAP, bool LREGCL>
+__device__ __forceinline__ T* stash_of(unsigned char* base) {
+  const int t = threadIdx.x;
+  return reinterpret_cast<T*>(base) +
+         (t / kStashStride) * kStashStride * Level<EVAP, LREGCL>::kStashSlots +
+         t % kStashStride;
+}
+
 // The reverse level loop of one column.  Checkpoint j of level k is read at
 // in[S_CKPT + j][k * ckpt_stride + ckpt_col]: (ncol, col) for the checkpoint
-// streams of the two-kernel unit.
+// streams of the two-kernel unit.  `stash` is this thread's first slot of
+// the level body's (stash_of).
 template <typename T, bool EVAP, bool LREGCL, typename Load, bool PRODUCED_HERE>
 __device__ __forceinline__ void sweep_column(const Args<T>& a, const int ncol,
                                              const int nlev, const int64_t col,
                                              const int64_t ckpt_stride,
-                                             const int64_t ckpt_col) {
+                                             const int64_t ckpt_col,
+                                             T* const stash) {
   const T c[2] = {__ldg(a.in[S_ZTRPAUS] + col), __ldg(a.in[S_PAPH_SFC] + col)};
   T sr[3] = {T(0.0), T(0.0), T(0.0)};  // adjoint of the carry out of level k
   T dlo = T(0.0);   // lo(k+1): the paph(k+1) cotangent of level k+1
@@ -153,7 +186,7 @@ __device__ __forceinline__ void sweep_column(const Args<T>& a, const int ncol,
     T gx[17], gsfc, gr[3];
     Level<EVAP, LREGCL>::run(a.k, __ldg(a.in[S_CETA] + k),
                              __ldg(a.in[S_ZSCALM] + k), k < nlev - 1, x, c, r,
-                             s, sr, gx, gsfc, gr);
+                             s, sr, gx, gsfc, gr, stash);
 #pragma unroll
     for (int j = 0; j < kFields; ++j) a.out[j][i] = gx[j];
     if (k < nlev - 1) a.out[O_D_PLU][i + ncol] = gx[14];
@@ -179,9 +212,29 @@ template <typename T, bool EVAP, bool LREGCL, typename Load>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
     cloudsc2_ad_kernel(const __grid_constant__ Args<T> a, const int ncol,
                        const int nlev) {
+  extern __shared__ __align__(16) unsigned char smem[];  // the body's slots
   const int64_t col = int64_t(blockIdx.x) * kThreads + threadIdx.x;
   if (col >= ncol) return;
-  sweep_column<T, EVAP, LREGCL, Load, false>(a, ncol, nlev, col, ncol, col);
+  sweep_column<T, EVAP, LREGCL, Load, false>(a, ncol, nlev, col, ncol, col,
+                                              stash_of<T, EVAP, LREGCL>(smem));
+}
+
+// Bytes of the level body's shared-memory slots for a block of `threads`:
+// threads are grouped by kStashStride, each group owning kStashSlots rows.
+template <typename T, bool EVAP, bool LREGCL>
+constexpr size_t stash_bytes(const int threads) {
+  return size_t((threads + kStashStride - 1) / kStashStride) * kStashStride *
+         Level<EVAP, LREGCL>::kStashSlots * sizeof(T);
+}
+
+// Sets the dynamic shared memory `kernel` may use to `bytes`; returns the
+// cudaError_t and clears it, so that the next launch does not inherit it.
+template <typename Kernel>
+inline int allow_shared(Kernel kernel, const size_t bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) cudaGetLastError();
+  return int(err);
 }
 
 // Folds the level body's constants in double and rounds them to T once.
@@ -198,7 +251,11 @@ int launch_variant(Args<T>& a, const double* params, int ncol, int nlev,
                    cudaStream_t s) {
   fill_constants<T, EVAP, LREGCL>(a, params);
   const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
-  cloudsc2_ad_kernel<T, EVAP, LREGCL, Load><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+  constexpr size_t bytes = stash_bytes<T, EVAP, LREGCL>(kThreads);
+  auto kernel = cloudsc2_ad_kernel<T, EVAP, LREGCL, Load>;
+  const int err = allow_shared(kernel, bytes);
+  if (err != 0) return err;
+  kernel<<<blocks, kThreads, bytes, s>>>(a, ncol, nlev);
   return int(cudaGetLastError());
 }
 

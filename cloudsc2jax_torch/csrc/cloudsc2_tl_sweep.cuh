@@ -37,10 +37,18 @@
 // and, with WRITE_PRIMAL, 8 primal writes.  d_inputs: 32 reads; 8 tangent
 // and 8 primal writes.  The level body is ~1,000 statements, about 3x the
 // NL body, for 35-48 values moved; the design moves each byte once and
-// keeps everything else in registers.  What bounds it on this card is the
-// level body's dependent arithmetic, not bytes: on an NVIDIA H100 (700 W)
-// at 327,680 f32 columns both modes take 4.72 ms, though d_inputs reads
-// 2.3 GB more, against a bytes bound of 1.9 and 2.6 ms (PERF.md).
+// keeps everything else in registers.  What bounds it on this card is not
+// bytes: on an NVIDIA H100 (700 W) at 327,680 f32 columns both modes took
+// 4.72 ms, though d_inputs reads 2.3 GB more, against a bytes bound of 1.9
+// and 2.6 ms, at 128 registers and 16 warps per SM, while the body holds
+// at most ~60 values live (PERF.md): declared with no minimum of blocks,
+// the kernel let ptxas spend registers on instruction-level parallelism
+// and pay for it in warps.  Each mode now asks for a minimum of blocks of
+// 128 threads per SM (CLOUDSC2_TL_MIN_BLOCKS_F32, CLOUDSC2_TL_DIN_MIN_
+// BLOCKS_F32), chosen by probes/tlad_budget.py, which builds each budget
+// through these defines.  Staging the next levels' rows in shared memory by
+// `cp.async` while a level computes lost or tied at every budget, so the
+// loads stay plain (PERF.md).
 //
 // Two more kernels run this schedule.  The int16-encoded sweep
 // (cloudsc2_tl_enc.cu) differs only in how a stream value is loaded: the
@@ -63,6 +71,13 @@
 #include "cloudsc2_load.cuh"
 #include "cloudsc2_tl_level.cuh"
 
+#ifndef CLOUDSC2_TL_MIN_BLOCKS_F32
+#define CLOUDSC2_TL_MIN_BLOCKS_F32 8
+#endif
+#ifndef CLOUDSC2_TL_DIN_MIN_BLOCKS_F32
+#define CLOUDSC2_TL_DIN_MIN_BLOCKS_F32 7
+#endif
+
 namespace cloudsc2_tl {
 
 constexpr int kThreads = 128;
@@ -79,6 +94,25 @@ enum Stream {
 // Args::din (TL_TANGENT_STREAMS): the tangents of the first 16 streams, in
 // the same order and shapes.
 constexpr int kTangentStreams = S_PAPH + 1;
+
+// Blocks of kThreads per SM the register budget must allow (f32), by mode;
+// the f64 kernels are left unbounded.  A budget of 0 declares the block
+// size alone, as the kernels first did: ptxas then gave the f32
+// kernels 128 registers, where a minimum of 1 block lets it take 156-188.
+template <typename T, bool D_INPUTS>
+constexpr int kMinBlocks =
+    sizeof(T) != 4 ? 1 : D_INPUTS ? CLOUDSC2_TL_DIN_MIN_BLOCKS_F32
+                                  : CLOUDSC2_TL_MIN_BLOCKS_F32;
+#if CLOUDSC2_TL_MIN_BLOCKS_F32 > 0
+#define CLOUDSC2_TL_BOUNDS(T) __launch_bounds__(kThreads, (kMinBlocks<T, false>))
+#else
+#define CLOUDSC2_TL_BOUNDS(T) __launch_bounds__(kThreads)
+#endif
+#if CLOUDSC2_TL_DIN_MIN_BLOCKS_F32 > 0
+#define CLOUDSC2_TL_DIN_BOUNDS(T) __launch_bounds__(kThreads, (kMinBlocks<T, true>))
+#else
+#define CLOUDSC2_TL_DIN_BOUNDS(T) __launch_bounds__(kThreads)
+#endif
 
 // Pointer order of Args::out (TL_OUTPUTS): 8 tangents, 3 carry-in
 // checkpoints (null with D_INPUTS), 8 primal outputs (null unless
@@ -185,14 +219,14 @@ __device__ __forceinline__ void sweep(const Args<T>& a, const int ncol,
 }
 
 template <typename T, bool EVAP, bool LREGCL, bool WRITE_PRIMAL, typename Load>
-__global__ void __launch_bounds__(kThreads)
+__global__ void CLOUDSC2_TL_BOUNDS(T)
     cloudsc2_tl_kernel(const __grid_constant__ Args<T> a, const int ncol,
                        const int nlev) {
   sweep<T, EVAP, LREGCL, WRITE_PRIMAL, false, Load>(a, ncol, nlev);
 }
 
 template <typename T, bool EVAP, bool LREGCL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void CLOUDSC2_TL_DIN_BOUNDS(T)
     cloudsc2_tl_din_kernel(const __grid_constant__ Args<T> a, const int ncol,
                            const int nlev) {
   sweep<T, EVAP, LREGCL, true, true, cloudsc2_load::Exact>(a, ncol, nlev);

@@ -100,30 +100,43 @@ template <typename T, bool EVAP, bool LREGCL>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
     cloudsc2_tlad_fused_kernel(const __grid_constant__ Args<T> a,
                                const int ncol, const int nlev) {
+  extern __shared__ __align__(16) unsigned char smem[];  // the AD body's slots
+  T* const stash = ad::stash_of<T, EVAP, LREGCL>(smem);
   const int64_t slots = int64_t(gridDim.x) * kThreads;
   const int64_t slot = int64_t(blockIdx.x) * kThreads + threadIdx.x;
   for (int64_t col = slot; col < ncol; col += slots) {
     tl::sweep_column<T, EVAP, LREGCL, true, false, cloudsc2_load::Exact>(
         a.tl, ncol, nlev, col, slots, slot);
     ad::sweep_column<T, EVAP, LREGCL, cloudsc2_load::Exact, true>(
-        a.ad, ncol, nlev, col, slots, slot);
+        a.ad, ncol, nlev, col, slots, slot, stash);
   }
 }
+
+// Bytes of shared memory a block of the fused kernel takes.
+template <typename T, bool EVAP, bool LREGCL>
+constexpr size_t kSharedBytes = ad::stash_bytes<T, EVAP, LREGCL>(kThreads);
 
 template <typename T, bool EVAP, bool LREGCL>
 int launch_variant(Args<T>& a, const double* params, int ncol, int nlev,
                    int slots, cudaStream_t s) {
   tl::fill_constants<T, EVAP, LREGCL>(a.tl, params);
   ad::fill_constants<T, EVAP, LREGCL>(a.ad, params);
-  cloudsc2_tlad_fused_kernel<T, EVAP, LREGCL>
-      <<<unsigned(slots / kThreads), kThreads, 0, s>>>(a, ncol, nlev);
+  auto kernel = cloudsc2_tlad_fused_kernel<T, EVAP, LREGCL>;
+  constexpr size_t bytes = kSharedBytes<T, EVAP, LREGCL>;
+  const int err = ad::allow_shared(kernel, bytes);
+  if (err != 0) return err;
+  kernel<<<unsigned(slots / kThreads), kThreads, bytes, s>>>(a, ncol, nlev);
   return int(cudaGetLastError());
 }
 
 template <typename T, bool EVAP, bool LREGCL>
 int blocks_per_sm(int* blocks) {
-  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, cloudsc2_tlad_fused_kernel<T, EVAP, LREGCL>, kThreads, 0));
+  auto kernel = cloudsc2_tlad_fused_kernel<T, EVAP, LREGCL>;
+  constexpr size_t bytes = kSharedBytes<T, EVAP, LREGCL>;
+  const int err = ad::allow_shared(kernel, bytes);
+  if (err != 0) return err;
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                           kThreads, bytes));
 }
 
 template <typename T>

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .constants import Params
-from .kernels.cloudsc2_kernel import cloudsc2_nl, unblock_outputs
+from .kernels.cloudsc2_kernel import cloudsc2_nl, kernel_prelude, unblock_outputs
 from .kernels.tlad_kernel import (
     cloudsc2_ad,
     cloudsc2_kernel_ad,
@@ -26,7 +26,7 @@ from .kernels.tlad_kernel import (
     cloudsc2_tl,
     to_levels_major,
 )
-from .physics.cloudsc2 import Cloudsc2Inputs, Cloudsc2Outputs, cloudsc2
+from .physics.cloudsc2 import Cloudsc2Inputs, cloudsc2
 
 __all__ = ["DSCALE", "AdjointResult", "TaylorResult", "adjoint_test", "run_nl",
            "run_tlad", "taylor_test"]
@@ -42,12 +42,37 @@ def run_nl(
     params: Params,
     *,
     ldrain1d: bool = False,
-) -> Cloudsc2Outputs:
+    backend: str = "streams",
+):
     """Forward (nonlinear) run over all columns
-    (cloudsc_driver_mod.F90:73-119): the SATUR+CLOUDSC2 sweep on levels-major
-    inputs (the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors), returned as the ``(ncol, nlev)`` contract."""
-    return unblock_outputs(cloudsc2_nl(inputs, params, ldrain1d=ldrain1d), params)
+    (cloudsc_driver_mod.F90:73-119).  CUDA tensors run the kernel, CPU
+    tensors its plain version.
+
+    ``backend`` (the JAX package's name in brackets):
+
+    * ``"streams"`` [``"pallas_blocked"``], the default and the main path:
+      levels-major inputs (``device_kernel_inputs``) through the fused
+      SATUR+CLOUDSC2 sweep; returns its 8 levels-major streams
+      (``Cloudsc2StreamOutputs``).  A caller that needs the ``(ncol,
+      nlev)`` contract assembles it once with
+      :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.unblock_outputs`,
+      as the CLI does before validating.
+    * ``"kernels"`` [``"pallas"``]: the standard ``(ncol, nlev)`` contract
+      in and out, through the same sweep; the inputs are made levels-major
+      once (no copy for transposed views of levels-major tensors, as
+      ``state.device_inputs`` builds them).
+    * ``"truth"`` [``"xla"``]: :func:`~cloudsc2jax_torch.physics.cloudsc2.
+      cloudsc2` on the standard contract, the level loop in PyTorch.
+    """
+    if backend == "streams":
+        return cloudsc2_nl(inputs, params, ldrain1d=ldrain1d)
+    if backend == "kernels":
+        lm = to_levels_major(inputs._replace(pqs=None))
+        return unblock_outputs(cloudsc2_nl(lm, params, ldrain1d=ldrain1d), params)
+    if backend == "truth":
+        return cloudsc2(inputs, params, ldrain1d=ldrain1d)
+    raise ValueError(f"backend must be 'streams', 'kernels' or 'truth', "
+                     f"not {backend!r}")
 
 
 def run_tlad(
@@ -67,6 +92,9 @@ def run_tlad(
     their plain versions.
 
     ``backend`` (the JAX package's name in brackets):
+
+    Both kernel backends compute :func:`kernel_prelude` once per unit and
+    hand it to both sweeps.
 
     * ``"streams"`` [``"pallas_blocked"``], the default: ``inputs`` are
       levels-major with ``pqs`` (``device_kernel_inputs(..., pqs=True)``).
@@ -90,15 +118,18 @@ def run_tlad(
         raise ValueError("write_primal=False requires backend='streams' "
                          f"(got {backend!r})")
     if backend == "streams":
+        pre = kernel_prelude(inputs, params)
         out, dout, ckpts = cloudsc2_tl(inputs, params, dscale=DSCALE, lregcl=lregcl,
-                                       ldrain1d=ldrain1d, write_primal=write_primal)
+                                       ldrain1d=ldrain1d, write_primal=write_primal,
+                                       pre=pre)
         adj = cloudsc2_ad(inputs, dout, ckpts, params, lregcl=lregcl,
-                          ldrain1d=ldrain1d)
+                          ldrain1d=ldrain1d, pre=pre)
         return out, dout, adj
     if backend == "kernels":
         lm = to_levels_major(inputs)
         d_lm = Cloudsc2Inputs(*(DSCALE * x for x in lm))
-        kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, levels_major=True)
+        kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, levels_major=True,
+                  pre=kernel_prelude(lm, params))
         out, dout = cloudsc2_kernel_tl(lm, d_lm, params, **kw)
         _, adj = cloudsc2_kernel_ad(lm, dout, params, **kw)
         return tuple(type(t)(*(x.T for x in t)) for t in (out, dout, adj))

@@ -524,15 +524,17 @@ def cloudsc2_nl_reference(
 
 def cloudsc2_fwd_ckpt_reference(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
+    pre: "KernelPrelude | None" = None,
 ) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
     """The plain PyTorch version of the checkpointing forward sweep, on any
     device: ``(outputs, checkpoints)``.  ``inputs.pqs`` is read as it is;
     ``checkpoints`` are the carries (rfl, sfl, covptot) going INTO each
-    level, ``(nlev, ncol)`` each."""
+    level, ``(nlev, ncol)`` each.  ``pre`` replaces :func:`kernel_prelude`
+    of ``inputs`` where the caller has it."""
     if inputs.pqs is None:
         raise ValueError("the checkpointing forward sweep reads pqs")
     return _nl_sweep(inputs, params, ldrain1d, pqs_stream=True,
-                     checkpoints=True)
+                     checkpoints=True, pre=pre)
 
 
 def _need_pqs_stream(inputs: Cloudsc2Inputs) -> None:

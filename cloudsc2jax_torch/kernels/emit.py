@@ -45,12 +45,31 @@ name of the value they copy, and its zero tensors become ``T(0.0)``; ``where`` s
 Any aten target without a rule raises, so no op can vanish silently.  The
 kernels' schedule, memory traffic, checkpoints and scatter are written by
 hand in ``csrc/cloudsc2_tl_sweep.cuh`` and ``csrc/cloudsc2_ad_sweep.cuh``.
+
+The order of the statements sets the registers a body needs, so the AD
+bodies are rescheduled before they are printed (:func:`reschedule`).
+``vjp`` traces all of the primal recompute, then all of the transpose:
+printed in that order, ~180 values wait across the turn for the transpose
+that reads them (:func:`live_peak` counts them), and the kernel needed 168
+registers.  The rescheduled graph runs the transpose in its traced order
+with each primal statement sunk to just before its first read, and parks
+the values with the longest gaps between reads in shared memory
+(:func:`stash`, read back by :func:`unstash`; printed ``xstash`` and
+``xunstash``, volatile shared-memory accesses the compiler cannot fold back
+into a register) until at most ``LIVE_BUDGET`` values are live in
+registers.  No statement is computed twice, and the derivative is still
+the traced one: the rescheduled graph is a graph of the same aten ops and
+identities, held to the traced function by the tests.  (Recomputing the
+long-lived values near their reads instead bought the same registers for
+~1.75x the arithmetic and ran slower on the card: PERF.md.)  The TL
+bodies keep the traced order: their peak is ~60 values.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import pathlib
+import weakref
 from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
@@ -58,8 +77,10 @@ import torch
 from ..constants import Params
 from .cloudsc2_kernel import level_physics
 
-__all__ = ["HEADERS", "REGENERATE", "Trace", "VARIANTS", "emit_header", "main",
-           "param_value", "render_header", "trace", "trace_params"]
+__all__ = ["HEADERS", "LIVE_BUDGET", "REGENERATE", "SCHEDULES", "Trace",
+           "VARIANTS", "emit_header", "live_peak", "main", "param_value",
+           "render_header", "reschedule", "shared_slots", "stash", "trace",
+           "trace_params", "unstash"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 HEADERS = {"tl": CSRC / "cloudsc2_tl_level.cuh", "ad": CSRC / "cloudsc2_ad_level.cuh"}
@@ -193,6 +214,292 @@ def trace(kind: str, evap: bool, lregcl: bool = True) -> Trace:
     return Trace(gm, inputs, outputs, paths, fn)
 
 
+# ---------------------------------------------------------------- scheduling
+def stash(x):
+    """The identity, as a graph target: ``x`` stored to a shared-memory
+    slot of the thread (printed ``xstash``)."""
+    return x
+
+
+def unstash(x):
+    """The identity, as a graph target: the value of a :func:`stash` read
+    back into a register (printed ``xunstash``)."""
+    return x
+
+
+class _Kinds(NamedTuple):
+    params: set  # placeholders and nodes computed from params only: host code
+    constants: set  # literals, and values of literals and params only
+    root: Dict[torch.fx.Node, torch.fx.Node]  # copy -> the value it copies
+    inputs: List[torch.fx.Node]  # the body's arguments (x, c, r, s, ...)
+    values: List[torch.fx.Node]  # the statements that compute a value
+
+
+def _name(node) -> str:
+    if node.target is stash:
+        return "stash"
+    if node.target is unstash:
+        return "unstash"
+    return _op_name(node)[0]
+
+
+def _kinds(tr: Trace) -> _Kinds:
+    nodes = tr.graph.graph.nodes
+    places = [n for n in nodes if n.op == "placeholder"]
+    npar = len(tr.params)
+    params, constants, root, values = set(places[:npar]), set(), {}, []
+    for n in nodes:
+        if n.op != "call_function":
+            continue
+        name = _name(n)
+        deps = [root.get(d, d) for d in n.all_input_nodes]
+        if name in _COPIES:
+            src = deps[0]
+            root[n] = src
+            for group in (params, constants):
+                if src in group:
+                    group.add(n)
+        elif name in _CONSTANTS:
+            constants.add(n)
+        elif deps and all(d in params for d in deps):
+            params.add(n)
+        elif all(d in params or d in constants for d in deps):
+            constants.add(n)
+        else:
+            values.append(n)
+    return _Kinds(params, constants, root, places[npar:], values)
+
+
+def _reads(node, kinds: _Kinds):
+    """The values and inputs ``node`` reads (a literal's shape argument is
+    not read)."""
+    if _name(node) in _CONSTANTS:
+        return []
+    return [kinds.root.get(d, d) for d in node.all_input_nodes]
+
+
+def _lifetimes(tr: Trace, k: _Kinds):
+    """Each value's and input's (first, last) statement index in printed
+    order: inputs from -1, a value from its statement, to its last read (an
+    output's to the end of the body)."""
+    pos = {n: i for i, n in enumerate(k.values)}
+    last = {v: -1 for v in k.inputs}
+    last.update(pos)
+    for n in k.values:
+        for d in _reads(n, k):
+            if d in last:
+                last[d] = max(last[d], pos[n])
+    for d in tr.graph.graph.output_node().all_input_nodes:
+        d = k.root.get(d, d)
+        if d in last:
+            last[d] = len(k.values)
+    return {v: (pos.get(v, -1), max(stop, pos.get(v, -1))) for v, stop in last.items()}
+
+
+def _peak(spans, n: int) -> int:
+    delta = [0] * (n + 3)
+    for start, stop in spans:
+        delta[start + 1] += 1
+        delta[stop + 2] -= 1
+    peak = live = 0
+    for step in delta:
+        live += step
+        peak = max(peak, live)
+    return peak
+
+
+def live_peak(tr: Trace) -> int:
+    """The largest number of values held in registers at any statement of
+    ``tr``'s body in its printed order: T and bool values from their
+    statement to their last read (an output's to the end of the body),
+    inputs from the start to their last read.  Params (host code), literals
+    and values parked in shared memory by :func:`stash` do not count; a
+    value read back by :func:`unstash` counts from the read."""
+    k = _kinds(tr)
+    spans = _lifetimes(tr, k)
+    return _peak([s for v, s in spans.items() if v.target is not stash],
+                 len(k.values))
+
+
+def shared_slots(tr: Trace) -> int:
+    """The most values parked in shared memory at once (from each
+    :func:`stash` to its last :func:`unstash`): the slots per thread the
+    body needs."""
+    k = _kinds(tr)
+    spans = _lifetimes(tr, k)
+    return _peak([s for v, s in spans.items() if v.target is stash], len(k.values))
+
+
+def _split(tr: Trace, k: _Kinds):
+    """The statements of an AD trace's body in two lists, each in printed
+    order: the primal recompute, and the transpose (every statement that
+    reads a seed, ``s`` or ``sr``, or a statement that does)."""
+    names = dict(zip((n for n in tr.graph.graph.nodes if n.op == "placeholder"),
+                     tr.inputs))
+    seeds = {n for n in k.inputs if names[n].startswith(("s[", "sr["))}
+    back: set = set()
+    for n in k.values:
+        if any(d in seeds or d in back for d in _reads(n, k)):
+            back.add(n)
+    return ([n for n in k.values if n not in back],
+            [n for n in k.values if n in back])
+
+
+# the most values an AD body may hold in registers: at 96 the f32 kernel
+# fits the 102 registers of 5 blocks of 128 threads per SM without spilling
+# (95 registers; PERF.md).  The evaporating bodies park more values for it
+# (~130 slots), so their shared memory bounds them to 3 blocks per SM.
+LIVE_BUDGET = 96
+# reads of a parked value closer together than this many statements share
+# one read back
+_GROUP = 8
+_SCHEDULED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def reschedule(tr: Trace) -> Trace:
+    """``tr``, an AD trace, in the order the kernel runs it: the primal
+    statements sunk to the transpose's first read (:func:`_sink`), then as
+    few of the longest-lived values parked in shared memory as bring the
+    registers' live peak within ``LIVE_BUDGET`` (:func:`_park`)."""
+    if tr.graph in _SCHEDULED:
+        return _SCHEDULED[tr.graph]
+    sunk = _sink(tr)
+    k = _kinds(sunk)
+    spans = _lifetimes(sunk, k)
+    uses: Dict[torch.fx.Node, List[int]] = {v: [] for v in spans}
+    pos = {n: i for i, n in enumerate(k.values)}
+    for n in k.values:
+        for d in set(_reads(n, k)):
+            if d in uses:
+                uses[d].append(pos[n])
+    end = len(k.values)
+    for d in sunk.graph.graph.output_node().all_input_nodes:
+        d = k.root.get(d, d)
+        if d in uses:
+            uses[d].append(end)
+
+    def gap(v):
+        marks = [spans[v][0], *sorted(set(uses[v]))]
+        return max((b - a for a, b in zip(marks, marks[1:])), default=0)
+
+    order = sorted((v for v in spans if v.meta["val"].dtype != torch.bool
+                    and gap(v) > _GROUP),
+                   key=lambda v: (-gap(v), spans[v][0]))
+    for n in range(0, len(order) + 5, 5):
+        parked = _park(sunk, k, set(order[:n]), uses)
+        if live_peak(parked) <= LIVE_BUDGET:
+            break
+    _SCHEDULED[tr.graph] = parked
+    return parked
+
+
+def _sink(tr: Trace) -> Trace:
+    """The transpose in its traced order, each primal statement moved down
+    to just before the first transpose statement that needs it (with any of
+    its primal operands not yet computed): every statement runs once."""
+    k = _kinds(tr)
+    g = tr.graph.graph
+    fwd, order = _split(tr, k)
+    primal = set(fwd)
+    new = torch.fx.Graph()
+    new.set_codegen(g._codegen)
+    env: Dict[torch.fx.Node, torch.fx.Node] = {}
+    for p in (n for n in g.nodes if n.op == "placeholder"):
+        env[p] = new.placeholder(p.name)
+        env[p].meta = dict(p.meta)
+    shape_of = env[next(p for p, name in zip(
+        (n for n in g.nodes if n.op == "placeholder"), tr.inputs) if name == "x[0]")]
+    for n in g.nodes:  # host code and literals first: they hold no register
+        if n.op == "call_function" and (n in k.params or n in k.constants):
+            literal = _name(n) in _CONSTANTS  # reads its argument's shape only
+            env[n] = new.node_copy(n, lambda a: env.get(k.root.get(a, a), shape_of)
+                                   if literal else env[k.root.get(a, a)])
+
+    def mapped(a):
+        return env[k.root.get(a, a)]
+
+    def make(f):
+        for d in _reads(f, k):
+            if d in primal and d not in env:
+                make(d)
+        env[f] = new.node_copy(f, mapped)
+
+    for b in order:
+        for d in _reads(b, k):
+            if d in primal and d not in env:
+                make(d)
+        env[b] = new.node_copy(b, mapped)
+    new.output(torch.fx.node.map_arg(g.output_node().args[0], mapped))
+    return Trace(torch.fx.GraphModule(tr.graph, new), tr.inputs, tr.outputs,
+                 tr.params, tr.fn)
+
+
+def _park(tr: Trace, k: _Kinds, parked: set, uses) -> Trace:
+    """``tr`` with each value of ``parked`` stored to shared memory right
+    after its statement (inputs at the start) and read back before each
+    group of its reads that is not within ``_GROUP`` statements of the
+    previous read."""
+    g = tr.graph.graph
+    new = torch.fx.Graph()
+    new.set_codegen(g._codegen)
+    env: Dict[torch.fx.Node, torch.fx.Node] = {}
+    pos = {n: i for i, n in enumerate(k.values)}
+    slot: Dict[torch.fx.Node, torch.fx.Node] = {}
+    # read -> the value's register copy it reads, per parked value
+    reader: Dict[Tuple[torch.fx.Node, int], str] = {}
+    for v in parked:
+        start = pos.get(v, -1)
+        marks = sorted(set(uses[v]))
+        prev = start
+        group = "first"
+        for u in marks:
+            if u - prev > _GROUP:
+                group = u
+            reader[v, u] = group
+            prev = u
+    current: Dict[torch.fx.Node, Tuple[object, torch.fx.Node]] = {}
+
+    def park(v, node):
+        slot[v] = new.call_function(stash, (node,))
+        slot[v].meta = dict(v.meta)
+        current[v] = ("first", node)
+
+    def read(v, u):
+        group = reader[v, u]
+        if current[v][0] != group:
+            node = new.call_function(unstash, (slot[v],))
+            node.meta = dict(v.meta)
+            current[v] = (group, node)
+        return current[v][1]
+
+    for p in (n for n in g.nodes if n.op == "placeholder"):
+        env[p] = new.placeholder(p.name)
+        env[p].meta = dict(p.meta)
+    for p in k.inputs:
+        if p in parked:
+            park(p, env[p])
+    for n in g.nodes:
+        if n.op != "call_function":
+            continue
+        here = pos.get(n)
+        env[n] = new.node_copy(n, lambda a: (
+            read(k.root.get(a, a), here) if here is not None
+            and k.root.get(a, a) in parked else env[a]))
+        if n in parked:
+            park(n, env[n])
+    end = len(k.values)
+    new.output(torch.fx.node.map_arg(
+        g.output_node().args[0],
+        lambda a: read(k.root.get(a, a), end) if k.root.get(a, a) in parked else env[a]))
+    return Trace(torch.fx.GraphModule(tr.graph, new), tr.inputs, tr.outputs,
+                 tr.params, tr.fn)
+
+
+# how the statements of each kind of body are ordered: "trace" prints the
+# traced order, "stash" the schedule of :func:`reschedule`
+SCHEDULES = {"tl": "trace", "ad": "stash"}
+
+
 # ------------------------------------------------------------------ printing
 # Rules for the aten targets the four traces hold; any other target raises.
 _BINARY = {
@@ -288,7 +595,12 @@ class _Printer:
         return f"T({lit})"
 
     def statement(self, node) -> None:
-        name, overload = _op_name(node)
+        if node.target is stash:
+            self.param[node] = False
+            self.name[node] = str(self.slot[node])
+            self.body.append(f"xstash(stash, {self.slot[node]}, {self.arg(node.args[0], 'T')});")
+            return
+        name, overload = ("unstash", "") if node.target is unstash else _op_name(node)
         deps = [a for a in node.all_input_nodes]
         is_param = bool(deps) and all(self.param[d] for d in deps) \
             and name not in _CONSTANTS
@@ -332,6 +644,8 @@ class _Printer:
         elif name == "tanh_backward":
             one = "1.0" if ctype == "double" else "T(1.0)"
             expr = f"{r(a[0])} * ({one} - {r(a[1])} * {r(a[1])})"
+        elif name == "unstash":
+            expr = f"xunstash(stash, {self.name[a[0]]})"
         elif name == "where":
             expr = f"{r(a[0])} ? {r(a[1])} : {r(a[2])}"
         elif name == "clamp_min":
@@ -359,9 +673,30 @@ class _Printer:
             return f"std::pow({x}, {_lit(e)})"
         return f"xpow({x}, T({_lit(e)}))"
 
+    def _slots(self) -> None:
+        """A shared-memory slot for each stash: the lowest free one at the
+        stash, free again after its last read back."""
+        nodes = [n for n in self.tr.graph.graph.nodes if n.op == "call_function"]
+        index = {n: i for i, n in enumerate(nodes)}
+        self.slot: Dict[torch.fx.Node, int] = {}
+        self.slots = 0
+        free: List[int] = []
+        release: Dict[int, List[int]] = {}
+        for i, n in enumerate(nodes):
+            if n.target is stash:
+                if free:
+                    self.slot[n] = free.pop(0)
+                else:
+                    self.slot[n] = self.slots
+                    self.slots += 1
+                last = max((index[u] for u in n.users), default=i)
+                release.setdefault(last, []).append(self.slot[n])
+            free = sorted(free + release.pop(i, []))
+
     def run(self, param_index: Dict[str, int]) -> None:
         for path, node in self.used_params:
             self.name[node] = f"p[{param_index[path]}]"
+        self._slots()
         for node in self.tr.graph.graph.nodes:
             if node.op == "call_function":
                 self.statement(node)
@@ -381,7 +716,7 @@ _SIGNATURE = {
     "tl": ("const T* x, const T* c, const T* r, const T* dx, const T dpaph_sfc,"
            " const T* dr,\n      T* y, T* ry, T* dy, T* dry"),
     "ad": ("const T* x, const T* c, const T* r, const T* s, const T* sr,\n"
-           "      T* gx, T& gpaph_sfc, T* gr"),
+           "      T* gx, T& gpaph_sfc, T* gr, T* __restrict__ stash"),
 }
 
 _ABOUT = {
@@ -402,14 +737,24 @@ _ABOUT = {
 }
 
 
-def emit_header(kind: str) -> str:
-    """The text of the generated header for ``kind`` ("tl" or "ad")."""
-    return render_header(kind, {v: trace(kind, *v) for v in VARIANTS})
+def emit_header(kind: str, schedule: str = "") -> str:
+    """The text of the generated header for ``kind`` ("tl" or "ad"), its
+    bodies in the order ``schedule`` names (default ``SCHEDULES[kind]``)."""
+    return render_header(kind, {v: trace(kind, *v) for v in VARIANTS}, schedule)
 
 
-def render_header(kind: str, traces: Dict[Tuple[bool, bool], Trace]) -> str:
+def render_header(kind: str, traces: Dict[Tuple[bool, bool], Trace],
+                  schedule: str = "") -> str:
     """The header for ``kind`` from its four traces, keyed by ``(evap,
-    lregcl)``."""
+    lregcl)``: ``schedule`` "trace" prints each traced graph as it is,
+    "stash" (AD only) the schedule of :func:`reschedule`; the default is
+    ``SCHEDULES[kind]``."""
+    schedule = schedule or SCHEDULES[kind]
+    if schedule not in ("trace", "stash") or (schedule == "stash" and kind != "ad"):
+        raise ValueError(f"schedule must be 'trace' or, for 'ad', 'stash', "
+                         f"not {schedule!r}")
+    if schedule == "stash":
+        traces = {v: reschedule(tr) for v, tr in traces.items()}
     printers = {v: _Printer(traces[v]) for v in VARIANTS}
     paths = printers[VARIANTS[0]].tr.params
     used = {p for pr in printers.values() for p, _ in pr.used_params}
@@ -445,10 +790,15 @@ def render_header(kind: str, traces: Dict[Tuple[bool, bool], Trace]) -> str:
         lines += [
             "",
             f"// levapls2 or ldrain1d, lregcl: {flags}"
-            f" ({len(pr.body)} statements)",
+            f" ({len(pr.body)} statements, live peak {live_peak(pr.tr)},"
+            + (f" {pr.slots} shared slots," if kind == "ad" else "")
+            + f" {schedule} order)",
             "template <>",
             f"struct Level<{flags}> {{",
             f"  static constexpr int kNumConsts = {len(pr.consts)};",
+            *([] if kind != "ad" else [
+                "  // shared-memory slots per thread, kStashStride values apart",
+                f"  static constexpr int kStashSlots = {pr.slots};"]),
             "",
             "  static void constants(const double* p, double* k) {",
             *(f"    {s}" for s in pr.host),

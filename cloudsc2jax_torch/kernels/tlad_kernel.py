@@ -429,56 +429,64 @@ def _device(inputs: Cloudsc2Inputs, what: str) -> str:
 def cloudsc2_tl(
     inputs: Cloudsc2Inputs, params: Params, *, dscale: float,
     lregcl: bool = True, ldrain1d: bool = False, write_primal: bool = True,
+    pre: Optional[KernelPrelude] = None,
 ):
     """The TL sweep with in-register increments ``dscale·x``: returns
     (outputs | None, tangents, checkpoints).
 
-    CUDA tensors run the hand-written kernel (:func:`launch_cloudsc2_tl`,
-    after :func:`kernel_prelude`); CPU tensors run the plain version
-    :func:`cloudsc2_tl_reference`; any other device raises."""
+    CUDA tensors run the hand-written kernel (:func:`launch_cloudsc2_tl`);
+    CPU tensors run the plain version :func:`cloudsc2_tl_reference`; any
+    other device raises.  ``pre`` is :func:`kernel_prelude` of ``inputs``
+    where the caller has it (computed here otherwise)."""
     kw = dict(dscale=dscale, lregcl=lregcl, ldrain1d=ldrain1d,
               write_primal=write_primal)
     if _device(inputs, "cloudsc2_tl") == "cpu":
-        return cloudsc2_tl_reference(inputs, params, **kw)
-    return launch_cloudsc2_tl(inputs, kernel_prelude(inputs, params), params, **kw)
+        return cloudsc2_tl_reference(inputs, params, pre=pre, **kw)
+    pre = kernel_prelude(inputs, params) if pre is None else pre
+    return launch_cloudsc2_tl(inputs, pre, params, **kw)
 
 
 def cloudsc2_tl_din(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
     lregcl: bool = False, ldrain1d: bool = False,
+    pre: Optional[KernelPrelude] = None,
 ) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2StreamOutputs]:
     """The TL sweep with streamed increments ``d_inputs`` (levels-major,
     shaped like ``inputs``): returns (outputs, tangents), 8 streams each.
 
     CUDA tensors run the hand-written kernel
-    (:func:`launch_cloudsc2_tl_din`, after :func:`kernel_prelude`); CPU
-    tensors run the plain version :func:`cloudsc2_tl_reference`; any other
-    device raises."""
+    (:func:`launch_cloudsc2_tl_din`); CPU tensors run the plain version
+    :func:`cloudsc2_tl_reference`; any other device raises.  ``pre`` as for
+    :func:`cloudsc2_tl`."""
     if _device(inputs, "cloudsc2_tl_din") == "cpu":
         out, dout, _ = cloudsc2_tl_reference(
-            inputs, params, d_inputs=d_inputs, lregcl=lregcl, ldrain1d=ldrain1d)
+            inputs, params, d_inputs=d_inputs, lregcl=lregcl, ldrain1d=ldrain1d,
+            pre=pre)
         return out, dout
-    return launch_cloudsc2_tl_din(inputs, d_inputs, kernel_prelude(inputs, params),
-                                  params, lregcl=lregcl, ldrain1d=ldrain1d)
+    pre = kernel_prelude(inputs, params) if pre is None else pre
+    return launch_cloudsc2_tl_din(inputs, d_inputs, pre, params, lregcl=lregcl,
+                                  ldrain1d=ldrain1d)
 
 
 def cloudsc2_ad(
     inputs: Cloudsc2Inputs, d_outputs: Cloudsc2StreamOutputs,
     checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
     ldrain1d: bool = False, fold_seeds: bool = True,
+    pre: Optional[KernelPrelude] = None,
 ) -> Cloudsc2Inputs:
     """The reverse sweep from a forward sweep's carry checkpoints, seeded
     with 8 raw cotangent streams: returns the input adjoints, levels-major.
     With ``fold_seeds`` the seeds are the TL image and are folded in-sweep.
 
-    CUDA tensors run the hand-written kernel (:func:`launch_cloudsc2_ad`,
-    after :func:`kernel_prelude`); CPU tensors run the plain version
-    :func:`cloudsc2_ad_reference`; any other device raises."""
+    CUDA tensors run the hand-written kernel (:func:`launch_cloudsc2_ad`);
+    CPU tensors run the plain version :func:`cloudsc2_ad_reference`; any
+    other device raises.  ``pre`` as for :func:`cloudsc2_tl`."""
     kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, fold_seeds=fold_seeds)
     if _device(inputs, "cloudsc2_ad") == "cpu":
-        return cloudsc2_ad_reference(inputs, d_outputs, checkpoints, params, **kw)
-    return launch_cloudsc2_ad(inputs, kernel_prelude(inputs, params), d_outputs,
-                              checkpoints, params, **kw)
+        return cloudsc2_ad_reference(inputs, d_outputs, checkpoints, params,
+                                     pre=pre, **kw)
+    pre = kernel_prelude(inputs, params) if pre is None else pre
+    return launch_cloudsc2_ad(inputs, pre, d_outputs, checkpoints, params, **kw)
 
 
 cloudsc2_tl.launches = 0
@@ -491,8 +499,8 @@ def to_levels_major(tree):
     """``(ncol, nlev)`` fields -> contiguous levels-major ``(nlev, ncol)``
     tensors, as the same NamedTuple.  A field that already is a transposed
     view of a levels-major tensor (as :class:`Cloudsc2State` builds them)
-    is not copied."""
-    return type(tree)(*(x.T.contiguous() for x in tree))
+    is not copied; ``None`` stays ``None``."""
+    return type(tree)(*(None if x is None else x.T.contiguous() for x in tree))
 
 
 def seed_streams(d_outputs: Cloudsc2Outputs, params: Params,
@@ -516,6 +524,7 @@ def seed_streams(d_outputs: Cloudsc2Outputs, params: Params,
 def cloudsc2_kernel_tl(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
     lregcl: bool = False, ldrain1d: bool = False, levels_major: bool = False,
+    pre: Optional[KernelPrelude] = None,
 ) -> Tuple[Cloudsc2Outputs, Cloudsc2Outputs]:
     """Tangent-linear CLOUDSC2 through the streamed-increment sweep:
     returns (outputs, d_outputs) in the 10-field contract.
@@ -524,11 +533,12 @@ def cloudsc2_kernel_tl(
     LPHYLIN=True: ``(ncol, nlev)`` inputs and increments (paph ``(ncol,
     nlev+1)``), or levels-major ones with ``levels_major``, which come back
     in the same layout.  CUDA tensors run :func:`cloudsc2_tl_din`'s kernel,
-    CPU tensors its plain version."""
+    CPU tensors its plain version.  ``pre`` is :func:`kernel_prelude` of the
+    levels-major inputs where the caller has it."""
     if not levels_major:
         inputs, d_inputs = to_levels_major(inputs), to_levels_major(d_inputs)
     out, dout = cloudsc2_tl_din(inputs, d_inputs, params, lregcl=lregcl,
-                                ldrain1d=ldrain1d)
+                                ldrain1d=ldrain1d, pre=pre)
     return (unblock_outputs(out, params, levels_major),
             unblock_outputs(dout, params, levels_major))
 
@@ -536,6 +546,7 @@ def cloudsc2_kernel_tl(
 def cloudsc2_kernel_ad(
     inputs: Cloudsc2Inputs, d_outputs: Cloudsc2Outputs, params: Params, *,
     lregcl: bool = True, ldrain1d: bool = False, levels_major: bool = False,
+    pre: Optional[KernelPrelude] = None,
 ) -> Tuple[Cloudsc2Outputs, Cloudsc2Inputs]:
     """Adjoint CLOUDSC2 through the checkpointing forward sweep and the
     reverse sweep: returns (outputs, input_adjoints).
@@ -545,17 +556,18 @@ def cloudsc2_kernel_ad(
     ``d_outputs`` is a cotangent on the 10-field contract;
     :func:`seed_streams` folds it into the 8 seed streams, so the reverse
     sweep applies no (1 + L²) fold of its own.  CUDA tensors run the two
-    kernels after one :func:`kernel_prelude` for both, CPU tensors their
-    plain versions."""
+    kernels after one :func:`kernel_prelude` for both (``pre`` where the
+    caller has it), CPU tensors their plain versions."""
     if not levels_major:
         inputs = to_levels_major(inputs)
     seeds = seed_streams(d_outputs, params, levels_major)
     kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, fold_seeds=False)
     if _device(inputs, "cloudsc2_kernel_ad") == "cpu":
-        out, ckpts = cloudsc2_fwd_ckpt_reference(inputs, params, ldrain1d=ldrain1d)
-        adj = cloudsc2_ad_reference(inputs, seeds, ckpts, params, **kw)
+        out, ckpts = cloudsc2_fwd_ckpt_reference(inputs, params, ldrain1d=ldrain1d,
+                                                 pre=pre)
+        adj = cloudsc2_ad_reference(inputs, seeds, ckpts, params, pre=pre, **kw)
     else:
-        pre = kernel_prelude(inputs, params)
+        pre = kernel_prelude(inputs, params) if pre is None else pre
         out, ckpts = launch_cloudsc2_fwd_ckpt(inputs, pre, params,
                                               ldrain1d=ldrain1d)
         adj = launch_cloudsc2_ad(inputs, pre, seeds, ckpts, params, **kw)

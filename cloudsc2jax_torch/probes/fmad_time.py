@@ -20,7 +20,10 @@ def main() -> None:
     from cloudsc2jax_torch.kernels import build
     tag = "fmad"
     if len(sys.argv) > 1 and sys.argv[1] == "nofmad":
-        build.NVCC_FLAGS = build.NVCC_FLAGS + ("-fmad=false",)
+        build.VARIANTS["cloudsc2_nl"] = ((), ("-fmad=false",))
+        build.VARIANTS["cloudsc2_tl"] = ((), ("-fmad=false",))
+        build.VARIANTS["cloudsc2_tl_din"] = ((), ("-fmad=false",))
+        build.VARIANTS["cloudsc2_ad"] = ((), ("-fmad=false",))
         tag = "nofmad"
     from cloudsc2jax_torch.kernels import tlad_kernel as tk, cloudsc2_kernel as km
     from cloudsc2jax_torch.state import Cloudsc2State

@@ -64,7 +64,7 @@ def main() -> None:
         threads, min_blocks = (int(x) for x in cfg.split(":"))
         build.NVCC_FLAGS = flags + (f"-DCLOUDSC2_FUSED_THREADS={threads}",
                                     f"-DCLOUDSC2_FUSED_MIN_BLOCKS_F32={min_blocks}")
-        build._LIBRARIES.pop(("cloudsc2_tlad_fused", ()), None)
+        build._LIBRARIES.pop(("cloudsc2_tlad_fused", (), ()), None)
         full = fused_slots(base, p)  # builds and binds this variant
         entry = next(e for e in build.ptxas_report("cloudsc2_tlad_fused")
                      if "IfLb0ELb1E" in e["entry"])

@@ -82,7 +82,7 @@ def main() -> None:
             raise AssertionError("cloudsc2_nl_enc.cu no longer sets kMinBlocks")
         source.write_text(text)
         build.CSRC = copy.resolve()
-        build._LIBRARIES.pop(("cloudsc2_nl_enc", ()), None)
+        build._LIBRARIES.pop(("cloudsc2_nl_enc", (), ()), None)
         ms = {label: time_ms(lambda e: ex.launch_cloudsc2_nl_encoded(e, p),
                              [(e,) for e in es])
               for label, es in encs.items()}

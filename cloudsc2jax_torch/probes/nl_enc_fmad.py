@@ -75,7 +75,7 @@ def main() -> None:
     flags = build.NVCC_FLAGS
     for tag, extra in (("fmad", ()), ("nofmad", ("-fmad=false",))):
         build.NVCC_FLAGS = flags + extra
-        for key in (("cloudsc2_nl_enc", ()), ("cloudsc2_nl", ())):
+        for key in (("cloudsc2_nl_enc", (), ()), ("cloudsc2_nl", (), ())):
             build._LIBRARIES.pop(key, None)
         top = {"enc": ("", 0.0, ""), "exact": ("", 0.0, "")}
         top_case = None

@@ -100,7 +100,7 @@ class Cloudsc2State:
 
     def device_kernel_inputs(
         self, ngptot: Optional[int] = None, dtype: torch.dtype = torch.float32,
-        device="cuda", pqs: bool = False,
+        device="cuda", pqs: bool = False, col_offset: int = 0,
     ) -> Cloudsc2Inputs:
         """Levels-major kernel inputs expanded to ``ngptot`` columns ON THE
         DEVICE.  Only the ``klon_file`` stored columns cross to the device
@@ -112,11 +112,16 @@ class Cloudsc2State:
         itself) leaves ``pqs`` as ``None``.  ``pqs=True`` (the TL/AD sweeps,
         which read it as an independent input) runs SATUR on the stored
         columns in ``dtype`` and tiles the result like the other fields, as
-        the JAX package does (``cloudsc2jax/state.py:147-215``)."""
+        the JAX package does (``cloudsc2jax/state.py:147-215``).
+
+        ``col_offset`` starts the cyclic expansion at that global column:
+        column i holds stored column ``(col_offset + i) % klon_file``, so a
+        process or a chunk that materialises the global columns [o, o+n)
+        passes ``col_offset=o`` (expand_mod.F90:30-46)."""
         ngptot = ngptot or self.ngptot
         base = (self.kernel_inputs(dtype, device) if pqs
                 else self._stored_inputs(dtype, device))
-        idx = torch.arange(ngptot, device=base.pt.device) % self.klon_file
+        idx = (col_offset + torch.arange(ngptot, device=base.pt.device)) % self.klon_file
         return Cloudsc2Inputs(
             *(None if x is None else x.index_select(1, idx) for x in base))
 

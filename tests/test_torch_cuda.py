@@ -63,8 +63,9 @@ def test_cuda_kernel_rejects_bad_operands():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("argv", [
-    ["nl", "1", "4096", "128", "--dtype", "f32", "--threshold", "10000"],
-    ["nl", "1", "4096", "128", "--dtype", "f64"],
+    ["nl", "1", "4096", "128", "--dtype", "f32", "--threshold", "10000",
+     "--kernels"],
+    ["nl", "1", "4096", "128", "--dtype", "f64", "--kernels"],
 ])
 def test_cuda_cli_validates_through_the_kernel(argv):
     _need_cuda()
@@ -210,6 +211,130 @@ def test_cuda_cli_tl_ad_through_the_kernels(variant):
     assert cli.main([variant, "1", "2048", "128", "--dtype", "f64", "--kernels",
                      "--device", "cuda"]) == 0
     assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+
+
+# ------------------------------ the rescheduled AD body and register budgets
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lregcl", [False, True])
+@pytest.mark.parametrize("ldrain1d", [False, True])
+def test_cuda_rescheduled_kernels_match_plain_versions(dtype, lregcl, ldrain1d):
+    """The TL kernel (both modes) and the AD kernel as built with their
+    register budgets and the rescheduled AD bodies, against
+    their plain versions in all four ``Level<EVAP, LREGCL>`` bodies, on a
+    ragged grid of 5,001 columns (5,001 = 39 blocks of 128 and 9 columns)."""
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(5001, dtype=dtype, device="cuda", pqs=True)
+    d_inputs = type(inputs)(*(DSCALE * x for x in inputs))
+    tol_tl, tol_ad = TLAD_TOL[dtype]
+    kw = dict(lregcl=lregcl, ldrain1d=ldrain1d)
+    out, dout, ck = tk.cloudsc2_tl(inputs, st.params, dscale=DSCALE, **kw)
+    r_out, r_dout, r_ck = tk.cloudsc2_tl_reference(inputs, st.params,
+                                                   dscale=DSCALE, **kw)
+    p_out, p_dout = tk.cloudsc2_tl_din(inputs, d_inputs, st.params, **kw)
+    rp_out, rp_dout, _ = tk.cloudsc2_tl_reference(inputs, st.params,
+                                                  d_inputs=d_inputs, **kw)
+    adj = tk.cloudsc2_ad(inputs, r_dout, r_ck, st.params, **kw)
+    r_adj = tk.cloudsc2_ad_reference(inputs, r_dout, r_ck, st.params, **kw)
+    for got, ref in ((out, r_out), (dout, r_dout), (ck, r_ck), (p_out, rp_out),
+                     (p_dout, rp_dout)):
+        assert all(torch.isfinite(x).all() for x in got)
+        assert _rel_err(got, ref) <= tol_tl
+    assert all(torch.isfinite(x).all() for x in adj)
+    assert _rel_err(adj, r_adj) <= tol_ad
+
+
+@pytest.mark.cuda
+def test_cuda_rescheduled_kernels_match_plain_versions_at_the_unit_shape():
+    """The TL+AD unit's two kernels against their plain versions at 163,840
+    f32 columns, where every SM runs its full budget of blocks."""
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(163_840, dtype=torch.float32, device="cuda",
+                                     pqs=True)
+    out, dout, ck = tk.cloudsc2_tl(inputs, st.params, dscale=DSCALE)
+    r_out, r_dout, r_ck = tk.cloudsc2_tl_reference(inputs, st.params, dscale=DSCALE)
+    adj = tk.cloudsc2_ad(inputs, r_dout, r_ck, st.params)
+    r_adj = tk.cloudsc2_ad_reference(inputs, r_dout, r_ck, st.params)
+    assert _rel_err((*out, *dout, *ck), (*r_out, *r_dout, *r_ck)) <= 1e-5
+    assert _rel_err(adj, r_adj) <= 1e-4
+
+
+def _budget(source: str, macro: str) -> int:
+    import re
+
+    text = (pathlib.Path(kmod.__file__).resolve().parents[1] / "csrc" / source).read_text()
+    return int(re.search(rf"#define {macro} (\d+)", text).group(1))
+
+
+# spill bytes (stores, loads) the budgets chosen by time allow per entry: the
+# AD kernel none; the TL kernels at 8 and 7 blocks spilled 12-88 B of stores
+# and 16-140 B of loads in the sweep (PERF.md)
+SPILL_LIMIT = {"cloudsc2_ad": (0, 0), "cloudsc2_tl": (128, 192),
+               "cloudsc2_tl_din": (128, 192)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lib,source,macro,entry", [
+    ("cloudsc2_ad", "cloudsc2_ad_sweep.cuh", "CLOUDSC2_AD_MIN_BLOCKS_F32",
+     "cloudsc2_ad_kernelIf"),
+    ("cloudsc2_tl", "cloudsc2_tl_sweep.cuh", "CLOUDSC2_TL_MIN_BLOCKS_F32",
+     "cloudsc2_tl_kernelIf"),
+    ("cloudsc2_tl_din", "cloudsc2_tl_sweep.cuh", "CLOUDSC2_TL_DIN_MIN_BLOCKS_F32",
+     "cloudsc2_tl_din_kernelIf"),
+])
+def test_cuda_shipped_f32_kernels_meet_their_register_budget(lib, source, macro,
+                                                             entry):
+    """ptxas' report of every f32 entry of the shipped TL and AD kernels:
+    registers within 64K / (128 threads x the chosen blocks per SM), and no
+    more spill than SPILL_LIMIT."""
+    from cloudsc2jax_torch.kernels import build
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    tk._bind(lib)
+    blocks = _budget(source, macro)
+    limit = 65536 // (128 * blocks)
+    entries = [e for e in build.ptxas_report(lib) if entry in e["entry"]]
+    assert len(entries) == (8 if lib == "cloudsc2_tl" else 4)
+    stores, loads = SPILL_LIMIT[lib]
+    for e in entries:
+        assert e["registers"] <= limit, e
+        assert e["spill_store_bytes"] <= stores and e["spill_load_bytes"] <= loads, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lregcl", [False, True])
+def test_cuda_tl_parity_without_fma_contraction(lregcl):
+    """The TL kernel built with ``-fmad=false`` holds the JAX package's f32
+    TL parity, 1e-6 (cloudsc2jax/cli.py:288), against ``jvp`` of the truth
+    path on the same f32 inputs; the shipped build keeps contraction and
+    ``cli.PALLAS_TL_PARITY_TOL`` (1e-5)."""
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import build
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+    from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    i32 = Cloudsc2Inputs(*(x.float() for x in st.device_inputs(
+        2048, dtype=torch.float64, device="cuda")))
+    d32 = Cloudsc2Inputs(*(DSCALE * x for x in i32))
+    with build.variant("cloudsc2_tl_din", flags=("-fmad=false",)):
+        launches = tk.cloudsc2_tl_din.launches
+        _, dout = tk.cloudsc2_kernel_tl(i32, d32, st.params, lregcl=lregcl)
+        assert tk.cloudsc2_tl_din.launches == launches + 1
+        assert "-fmad=false" in build._key("cloudsc2_tl_din")[2]
+    assert cli.tl_parity(i32, dout, st.params, lregcl=lregcl) < 1e-6
+    _, dout = tk.cloudsc2_kernel_tl(i32, d32, st.params, lregcl=lregcl)
+    assert cli.tl_parity(i32, dout, st.params, lregcl=lregcl) < cli.PALLAS_TL_PARITY_TOL
 
 
 # ------------------------------------------- the TL+AD scheduling experiments

@@ -10,6 +10,13 @@ The eight traces (TL and AD, each with ``levapls2 or ldrain1d`` and
   saw random values; the graph keeps the trace's width) and with the
   fixture's params, to 1e-15 relative: the trace is general in the data
   and in every param;
+* the AD bodies' schedule (:func:`emit.reschedule`: primal statements
+  sunk to their first read, the longest-lived values parked in shared
+  memory) against the traced function to 1e-15, its registers' live peak
+  within the budget (at most 100 values for ``Level<false, *>``, 120 for
+  ``Level<true, *>``, from 183-224 in the traced order), every traced
+  statement computed once, and its shared-memory slots held without
+  overlap;
 * the headers free of any value of the fixture's params;
 * an aten op without a rule raising instead of vanishing.
 
@@ -97,6 +104,94 @@ def test_traced_graph_computes_the_traced_function(traces, fixture_params, kind,
     for a, b in zip(got, want):
         scale = max(float(b.abs().max()), 1e-300)
         assert float((a - b).abs().max()) / scale <= 1e-15
+
+
+@pytest.mark.parametrize("lregcl", [False, True])
+@pytest.mark.parametrize("evap", [False, True])
+def test_rescheduled_graph_computes_the_traced_function(traces, fixture_params,
+                                                       evap, lregcl):
+    """The AD body as it is printed (primal statements sunk, values parked
+    in shared memory and read back) against ``torch.func.vjp`` of
+    ``level_physics``, to 1e-15 of each output's max."""
+    tr = emit.reschedule(traces["ad"][evap, lregcl])
+    assert tr.graph is not traces["ad"][evap, lregcl].graph
+    args = _level_args(tr, "ad", fixture_params, ncol=emit._TRACE_WIDTH)
+    got = torch.utils._pytree.tree_leaves(tr.graph(*args))
+    want = torch.utils._pytree.tree_leaves(tr.fn(*args))
+    assert len(got) == len(want) == len(tr.outputs)
+    for a, b in zip(got, want):
+        scale = max(float(b.abs().max()), 1e-300)
+        assert float((a - b).abs().max()) / scale <= 1e-15
+
+
+@pytest.mark.parametrize("lregcl", [False, True])
+@pytest.mark.parametrize("evap", [False, True])
+def test_rescheduled_body_fits_its_budget(traces, evap, lregcl):
+    """The printed AD body holds at most ``emit.LIVE_BUDGET`` values in
+    registers (100 at most for ``Level<false, *>``, 120 for ``Level<true,
+    *>``; 183-224 in the traced order), computes every traced statement
+    once and no more, needs at most twice the traced statements, and its
+    header states its live peak and shared slots (the few primal statements
+    no transpose statement reads, whose values only lend a literal its
+    shape, are dropped); the TL body keeps its
+    traced order, whose peak is below either budget."""
+    traced = traces["ad"][evap, lregcl]
+    tr = emit.reschedule(traced)
+    peak, traced_peak = emit.live_peak(tr), emit.live_peak(traced)
+    assert peak <= emit.LIVE_BUDGET <= (120 if evap else 100) < traced_peak
+    k, k0 = emit._kinds(tr), emit._kinds(traced)
+    ops = [n for n in k.values if n.target not in (emit.stash, emit.unstash)]
+    assert len(k0.values) - 10 <= len(ops) <= len(k0.values)  # none recomputed
+    assert len(k.values) <= 2 * len(k0.values)
+    slots = emit.shared_slots(tr)
+    assert 0 < slots * 4 * 128 <= 232_448 // 3 - 1024  # 3 f32 blocks fit an SM
+    flags = f"{str(evap).lower()}, {str(lregcl).lower()}"
+    ad = emit.HEADERS["ad"].read_text()
+    assert re.search(rf"lregcl: {flags} \((\d+) statements, live peak {peak}, "
+                     rf"{slots} shared slots, stash order\)", ad)
+    tl_peak = emit.live_peak(traces["tl"][evap, lregcl])
+    assert tl_peak <= 64
+    assert f"live peak {tl_peak}, trace order)" in emit.HEADERS["tl"].read_text()
+
+
+@pytest.mark.parametrize("evap", [False, True])
+def test_parked_values_keep_their_slots(traces, evap):
+    """Each parked value is read back and holds its shared-memory slot
+    from its store to its last read; no two values share a slot at once,
+    and the printer uses no more slots than are parked at once."""
+    tr = emit.reschedule(traces["ad"][evap, True])
+    pr = emit._Printer(tr)
+    pr._slots()
+    nodes = [n for n in tr.graph.graph.nodes if n.op == "call_function"]
+    index = {n: i for i, n in enumerate(nodes)}
+    held = {}
+    for n, slot in pr.slot.items():
+        assert n.users and all(u.target is emit.unstash for u in n.users)
+        span = (index[n], max(index[u] for u in n.users))
+        for other in held.get(slot, []):
+            assert span[0] > other[1] or span[1] < other[0]
+        held.setdefault(slot, []).append(span)
+    assert pr.slots == emit.shared_slots(tr)
+    text = emit.HEADERS["ad"].read_text()
+    assert "xstash(stash, " in text and "xunstash(stash, " in text
+    assert "stash" not in emit.HEADERS["tl"].read_text().split("#pragma once")[1]
+
+
+def test_trace_schedule_renders_the_traced_order(traces):
+    """``schedule="trace"`` prints the AD bodies as traced (the parent's
+    bodies, for an A/B on the card): the statement count of the trace and
+    no shared slot."""
+    text = emit.render_header("ad", traces["ad"], schedule="trace")
+    assert "xstash" not in text
+    for evap, lregcl in emit.VARIANTS:
+        tr = traces["ad"][evap, lregcl]
+        flags = f"{str(evap).lower()}, {str(lregcl).lower()}"
+        assert f"lregcl: {flags} (" in text
+        assert f"live peak {emit.live_peak(tr)}, 0 shared slots, trace order)" in text
+    with pytest.raises(ValueError, match="schedule"):
+        emit.render_header("ad", traces["ad"], schedule="greedy")
+    with pytest.raises(ValueError, match="schedule"):
+        emit.render_header("tl", traces["tl"], schedule="stash")
 
 
 def _source_literals():

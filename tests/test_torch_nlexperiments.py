@@ -337,7 +337,7 @@ def test_build_hash_covers_the_defines():
     chain = build._build_dir("bw_probe", bw_probe.probe_defines(15, 8, (10, 292)))
     assert len({plain, other, chain, build._build_dir("bw_probe")}) == 4
     assert plain == build._build_dir("bw_probe", list(bw_probe.probe_defines(15, 8)))
-    assert build._key("cloudsc2_nl") == ("cloudsc2_nl", ())
+    assert build._key("cloudsc2_nl") == ("cloudsc2_nl", (), ())
 
 
 # ------------------------------------------------------------------- probe

@@ -36,6 +36,7 @@ from cloudsc2jax_torch import io as tio
 from cloudsc2jax_torch import validate as tval
 from cloudsc2jax_torch.convert import inputs_from_numpy, params_from_jax
 from cloudsc2jax_torch.drivers import run_nl
+from cloudsc2jax_torch.kernels.cloudsc2_kernel import unblock_outputs
 from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
 from cloudsc2jax_torch.physics.satur import satur
 
@@ -142,7 +143,7 @@ def test_reference_sweep_matches_pallas_interpret():
 
 
 def test_run_nl_matches_jax_cloudsc2_fixture_f64(state, inputs, nl_outputs, tparams):
-    out = run_nl(inputs_from_numpy(inputs), tparams)
+    out = unblock_outputs(run_nl(inputs_from_numpy(inputs), tparams), tparams)
     for name, a, b in zip(out._fields, out, nl_outputs):
         assert tuple(a.shape) == np.shape(b), name
         assert _rel(a.numpy(), b) < 1e-12, name
@@ -156,8 +157,9 @@ def test_run_nl_matches_jax_cloudsc2_random_f32(seed, nlev, ncol, ldrain1d):
     st = JaxState.synthetic(ngptot=ncol, nlev=nlev, seed=seed)
     inputs = st.kernel_inputs(dtype=np.float32)
     ref = cloudsc2(inputs, st.params, ldrain1d=ldrain1d)
-    out = run_nl(inputs_from_numpy(inputs, dtype=torch.float32),
-                 params_from_jax(st.params), ldrain1d=ldrain1d)
+    params = params_from_jax(st.params)
+    out = unblock_outputs(run_nl(inputs_from_numpy(inputs, dtype=torch.float32),
+                                 params, ldrain1d=ldrain1d), params)
     for name, a, b in zip(out._fields, out, ref):
         assert a.dtype == torch.float32
         assert tuple(a.shape) == np.shape(b), name
@@ -168,7 +170,8 @@ def test_run_nl_matches_jax_cloudsc2_random_f32(seed, nlev, ncol, ldrain1d):
     (False, "reference.npz"), (True, "reference_ldrain1d.npz")])
 def test_port_f64_passes_golden(state, inputs, tparams, ldrain1d, golden):
     """The reference's own validation at 10 x eps64 on the fixture."""
-    out = run_nl(inputs_from_numpy(inputs), tparams, ldrain1d=ldrain1d)
+    out = unblock_outputs(run_nl(inputs_from_numpy(inputs), tparams,
+                                 ldrain1d=ldrain1d), tparams)
     from cloudsc2jax_torch.state import Cloudsc2State
 
     st = Cloudsc2State.load(FIXTURES / "input.npz")

@@ -19,6 +19,7 @@ from cloudsc2jax_torch import cli
 from cloudsc2jax_torch import validate as tval
 from cloudsc2jax_torch.convert import inputs_from_numpy
 from cloudsc2jax_torch.drivers import run_nl
+from cloudsc2jax_torch.kernels.cloudsc2_kernel import unblock_outputs
 from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Outputs
 from cloudsc2jax_torch.state import Cloudsc2State
 from cloudsc2jax_torch.timer import PerformanceTimer
@@ -65,9 +66,8 @@ def test_device_kernel_inputs_match_blockify(state, tstate, dtype):
 
 def test_run_nl_matches_jax_xla(tstate, state, jax_inputs_300):
     ref = jrun_nl(jax_inputs_300, state.params, backend="xla")
-    out = run_nl(tstate.device_kernel_inputs(NCOL, dtype=torch.float64,
-                                             device="cpu"),
-                 tstate.params)
+    out = unblock_outputs(run_nl(tstate.device_kernel_inputs(
+        NCOL, dtype=torch.float64, device="cpu"), tstate.params), tstate.params)
     for name, a, b in zip(out._fields, out, ref):
         b = np.asarray(b)
         assert tuple(a.shape) == b.shape, name
@@ -109,7 +109,7 @@ def test_validate_device_matches_jax(monkeypatch, state, jax_inputs_300):
 
 def test_validate_device_flags_a_wrong_field(tstate):
     inputs = tstate.device_kernel_inputs(NCOL, dtype=torch.float64, device="cpu")
-    out = run_nl(inputs, tstate.params)
+    out = unblock_outputs(run_nl(inputs, tstate.params), tstate.params)
     assert tstate.validate_device(out, inputs, FIXTURES / "reference.npz",
                                   quiet=True)
     bad = out._replace(tenl_t=out.tenl_t * (1.0 + 1e-12))
@@ -119,7 +119,8 @@ def test_validate_device_flags_a_wrong_field(tstate):
 
 def test_output_dict_shapes(tstate):
     inputs = tstate.device_kernel_inputs(NCOL, dtype=torch.float32, device="cpu")
-    res = tstate.output_dict(run_nl(inputs, tstate.params))
+    res = tstate.output_dict(unblock_outputs(run_nl(inputs, tstate.params),
+                                             tstate.params))
     assert res["TENDENCY_LOC_CLD"].shape == (NCOL, 5, 137)
     assert res["PFPLSL"].shape == (NCOL, 138)
     assert res["PLUDE"].shape == (NCOL, 137)

@@ -298,6 +298,6 @@ def test_cli_kernels_verdict_gates_the_exit_code(monkeypatch, capsys, variant, k
     verdict[key], verdict[other] = 1e-8, 1e-3
     assert cli.main(argv) == 0
     with pytest.raises(SystemExit):
-        cli.main(["nl", "1", "8", "8", "--device", "cpu", "--kernels"])
+        cli.main(["tlad", "1", "8", "8", "--device", "cpu", "--kernels"])
 
 
