@@ -19,7 +19,9 @@ and prints no result line):
    tl_enc,ad_enc,tlad_fused,nl_enc,nl_res}.cu`` and ``bw_probe.cu`` (one
    build per probe mix of phase 16) with nvcc from the checkout's sources,
    all builds started together; print the build time and ptxas' registers
-   and spills per kernel entry.
+   and spills per kernel entry, and for the fused kernel, whose ptxas count
+   is the launch count, each warpgroup role's registers and local-memory
+   spills read from its region of the SASS.
 3. NL kernel against its plain PyTorch version on the card, on the same
    inputs: the 100-column fixture and a ragged 5,000-column expansion,
    f32 and f64, ldrain1d off and on; then the main path's own shapes
@@ -87,10 +89,12 @@ and prints no result line):
    start on odd half-words) with ldrain1d on, the encoded TL with and
    without its primal streams; the fused kernel also in f64 (100 columns
    with ldrain1d on, 5,001 with it off); then the harness's own shape,
-   163,840 f32 columns (16,384 f64 for the fused kernel).  Tolerances as in
+   163,840 f32 columns (16,384 f64 for the fused kernel), and the fused
+   kernel's four ``lregcl``-off variants at 100 columns.  Tolerances as in
    6.  The fused kernel is also held against the two-kernel unit on the
-   same inputs, and the adjoint identity is checked through the encoded
-   pair (with dx = DSCALE x the decoded inputs) and through the fused unit.
+   same inputs, bit for bit in f32 with ldrain1d off, and the adjoint identity is
+   checked through the encoded pair (with dx = DSCALE x the decoded inputs)
+   and through the fused unit.
 13. The harness as its users run it: ``kernel_ab.main(["two", "noprim",
    "fused", "enc", "encnp", "two"])`` at 327,680 f32 columns; the launch
    counters of the TL, AD, fused, encoded TL and encoded AD kernels, zeroed
@@ -98,7 +102,8 @@ and prints no result line):
 14. Timing with CUDA events at 327,680 columns f32 over distinct inputs:
    the fused kernel, the encoded TL kernel with and without primal
    streams, the encoded AD kernel, each with its bytes and attained
-   bandwidth, and the plain versions once.
+   bandwidth, and the plain versions once; the fused record carries its
+   launch plan (split, budgets, ring, grid, scratch) and role registers.
 
 15. The encoded NL kernel, the resident NL kernel against their plain
    versions on the card.  Encoded (f32): 100 columns with every combination
@@ -133,16 +138,6 @@ and prints no result line):
    columns; then the probe's 15x8 mix as the one PyTorch call that computes
    it (``torch._foreach_add`` over the 8 outputs), between two timings of the
    probe's kernel on the same arrays (``library_ms``).
-18. The traced schedule against the shipped one, in one process and in
-   turns traced, shipped, shipped, traced, at 327,680 f32 columns: the AD
-   kernel and both TL modes rebuilt with the schedule the shipped one
-   replaced (the AD bodies rendered by the emitter in the traced order, AD
-   at 3 blocks per SM, TL bounded by the block size alone) against the
-   shipped builds, with both builds' registers and spills; then
-   ``run_tlad`` on the stream contract in six processes of their own, the
-   two schedules in turns, and each side's median
-   (``cloudsc2jax_torch/probes/tlad_budget.py``).
-
 The comparisons of phases 6, 9, 12 and 15 are bound by the host, so each
 runs in a process of its own (``chip_smoke.py --compare <name>``, started
 after the build) beside phases 3, 4, 7 and 10 of the main process; the
@@ -848,12 +843,15 @@ def compare_experiments(state, params):
                 ex.cloudsc2_tlad_fused)
     before = [f.launches for f in counters]
     expected = [0, 0, 0]
-    cases = [(100, "float32", False), (100, "float32", True),
-             (5000, "float32", False), (5001, "float32", True),
-             (100, "float64", True), (5001, "float64", False)]
-    cases += [(ncol, name, False) for ncol, name in AB_SHAPES]
-    for ncol, name, ldrain1d in cases:
-        print(f"[12] ncol={ncol} {name} ldrain1d={ldrain1d}:")
+    cases = [(100, "float32", False, True), (100, "float32", True, True),
+             (5000, "float32", False, True), (5001, "float32", True, True),
+             (100, "float64", True, True), (5001, "float64", False, True)]
+    # the fused kernel's other four variants (lregcl off), one tile each
+    cases += [(100, name, ldrain1d, False) for name in ("float32", "float64")
+              for ldrain1d in (False, True)]
+    cases += [(ncol, name, False, True) for ncol, name in AB_SHAPES]
+    for ncol, name, ldrain1d, lregcl in cases:
+        print(f"[12] ncol={ncol} {name} ldrain1d={ldrain1d} lregcl={lregcl}:")
         inputs = state.device_kernel_inputs(ncol, dtype=getattr(torch, name),
                                             device="cuda", pqs=True)
         tol_tl, tol_ad = TLAD_TOLERANCE["tl"][name], TLAD_TOLERANCE["ad"][name]
@@ -861,28 +859,35 @@ def compare_experiments(state, params):
         id_tol = (1e-10 if name == "float64" else
                   cli.scaled_identity_tol(cli.PALLAS_AD_IDENTITY_TOL, n_terms))
         kw = dict(ldrain1d=ldrain1d)
-        out, dout, adj = ex.cloudsc2_tlad_fused(inputs, params, **kw)
+        fkw = dict(kw, lregcl=lregcl)
+        out, dout, adj = ex.cloudsc2_tlad_fused(inputs, params, **fkw)
         (r_out, r_dout, r_adj), t_fused = _timed(
-            lambda: ex.cloudsc2_tlad_fused_reference(inputs, params, **kw))
-        u_out, u_dout, u_adj = run_tlad(inputs, params, **kw)
+            lambda: ex.cloudsc2_tlad_fused_reference(inputs, params, **fkw))
+        u_out, u_dout, u_adj = run_tlad(inputs, params, **fkw)
         expected[2] += 1
         w = worst["fused"]
         _check("fused primal", out, r_out, tol_tl, w, name)
         _check("fused tangents", dout, r_dout, tol_tl, w, name)
         _check("fused adjoints", adj, r_adj, tol_ad, w, name)
         # the same two loops in one kernel: the two-kernel unit's results,
-        # bit for bit where nvcc contracts both builds alike (it does with
-        # ldrain1d off), else up to FMA contraction
+        # bit for bit where nvcc contracts both builds alike (it does in f32
+        # with ldrain1d off), else up to FMA contraction
         _check("fused vs two-kernel TL", (*out, *dout), (*u_out, *u_dout),
                tol_tl, {}, name)
         _check("fused vs two-kernel AD", adj, u_adj, tol_ad, {}, name)
+        same = all(torch.equal(a, b) for a, b in zip(
+            (*out, *dout, *adj), (*u_out, *u_dout, *u_adj)))
+        print(f"    fused vs two-kernel unit bit for bit: {same}")
+        if name == "float32" and not ldrain1d and not same:
+            raise AssertionError("the fused kernel differs from the two-kernel "
+                                 "unit with ldrain1d off")
         rel, finite = cli.adjoint_identity(inputs, dout, adj, params, DSCALE)
         print(f"    fused adjoint identity rel err {rel:.3e} (tol {id_tol:g})")
         if not (finite and rel < id_tol):
             raise AssertionError("the fused unit fails the adjoint identity")
         w["identity_" + name] = max(w.get("identity_" + name, 0.0), rel)
         del out, dout, adj, r_out, r_dout, r_adj, u_out, u_dout, u_adj
-        if name != "float32":
+        if name != "float32" or not lregcl:
             continue
         enc = ex.encode_blocked_inputs(inputs, params, fuse_satur=False)
         out, dout, ckpts = ex.cloudsc2_tl_encoded(enc, params, dscale=DSCALE, **kw)
@@ -961,7 +966,7 @@ def cli_experiments():
     return {"launches": launches, "summary": summary}
 
 
-def time_experiments(state, params, compared, ran):
+def time_experiments(state, params, compared, ran, fused_roles):
     """Phase 14: timing at the headline size, f32, distinct inputs per call.
     Returns the three kernels' JSON records."""
     import torch
@@ -1000,7 +1005,7 @@ def time_experiments(state, params, compared, ran):
             [(s,) for s in sets], 3),
     }
     fused0 = ex.launch_cloudsc2_tlad_fused(sets[0], pres[0], params)
-    slots = ex.fused_slots(sets[0], params)
+    plan = ex.fused_launch_plan(sets[0], params)
     nlev = base.pt.shape[0]
     cells = nlev * ncol
     tl_ops = _level_statements("tl", False, True) * cells
@@ -1014,9 +1019,11 @@ def time_experiments(state, params, compared, ran):
     }
     # what each kernel moves, where that differs from its bound's bytes: the
     # fused kernel reads the 16 inputs in both phases and its 8 tangent
-    # streams back; the TL without primal streams writes 8 streams fewer
+    # streams back, and writes and reads its 3 checkpoints per level through
+    # the ring; the TL without primal streams writes 8 streams fewer
     moved = {
-        "fused": bounds["fused"]["bytes"] + _nbytes(sets[0], pres[0], fused0[1]),
+        "fused": (bounds["fused"]["bytes"] + _nbytes(sets[0], pres[0], fused0[1])
+                  + 2 * 3 * _nbytes(base.pt)),
         "tl_enc": bounds["tl_enc"]["bytes"],
         "tl_enc_noprim": bounds["tl_enc"]["bytes"] - _nbytes(tls[0][0]),
         "ad_enc": bounds["ad_enc"]["bytes"],
@@ -1030,8 +1037,12 @@ def time_experiments(state, params, compared, ran):
             b = bounds[label]
             line += f", bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
         print(line + f" at {ncol} columns f32")
-    print(f"[14] fused kernel grid: {slots} resident threads, checkpoint scratch "
-          f"{3 * nlev * slots * 4 / 1e6:.1f} MB")
+    print(f"[14] fused kernel: {plan['tl_groups']}+{plan['ad_groups']} warpgroups "
+          f"per block, {plan['blocks_per_sm']} blocks per SM, launched at "
+          f"{plan['launch_registers']} registers (ptxas {plan['kernel_registers']}), "
+          f"TL role {plan['tl_registers']}, AD role {plan['ad_registers']}, ring "
+          f"depth {plan['depth']}, {plan['blocks']} blocks, {plan['shared_bytes']} B "
+          f"shared per block, checkpoint ring {plan['scratch_bytes'] / 1e6:.1f} MB")
     for label, t in plain.items():
         print(f"[14] plain_{label}: {t:.4f} ms/call at {PLAIN_NCOL} columns f32, in "
               f"the comparison of phase 12")
@@ -1063,7 +1074,7 @@ def time_experiments(state, params, compared, ran):
                max_rel_err_f64=worst["fused"]["float64"],
                identity_f32=worst["fused"]["identity_float32"],
                identity_f64=worst["fused"]["identity_float64"],
-               resident_threads=slots, kernel_ab=summary),
+               plan=plan, roles=fused_roles, kernel_ab=summary),
         record("tl_enc", "cloudsc2_tl_enc",
                "cloudsc2jax/pallas/tlad_kernel.py:170",
                ms_noprim=ms["tl_enc_noprim"], encode_ms=ms["encode"]),
@@ -1542,40 +1553,6 @@ def _nl_compare_and_cli(state, params):
     return worst_abs, worst_rel, main_launches
 
 
-def _tlad_budget():
-    """The budget probe (cloudsc2jax_torch/probes/tlad_budget.py), which
-    holds the traced schedule and the A/B's timing."""
-    import importlib.util
-
-    path = ROOT / "cloudsc2jax_torch" / "probes" / "tlad_budget.py"
-    spec = importlib.util.spec_from_file_location("tlad_budget", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def ab_schedules(state, tlad_budget, traced):
-    """Phase 18: the traced schedule of the AD and both TL kernels against
-    the shipped one, in turns, then ``run_tlad`` in processes of their own.
-    Returns the probe's A/B result, keyed by ``tlad_budget.OLD`` and
-    ``tlad_budget.NEW``."""
-    # -- 18. the traced schedule against the shipped one
-    old, new = tlad_budget.OLD, tlad_budget.NEW
-    result = {"kernels": tlad_budget.ab_kernels(state, traced),
-              "run_tlad": tlad_budget.ab_units(traced, ROOT)}
-    for kind, r in result["kernels"].items():
-        print(f"[18] {kind}: {old} {r[old]} ms, {new} {r[new]} ms; "
-              f"ptxas {old} {r['ptxas'][old]['registers']} registers "
-              f"{r['ptxas'][old]['spill_store_bytes']} B spill stores, {new} "
-              f"{r['ptxas'][new]['registers']} registers "
-              f"{r['ptxas'][new]['spill_store_bytes']} B spill stores")
-    u = result["run_tlad"]
-    print(f"[18] run_tlad medians over {len(u[old])} processes each: {old} "
-          f"{u[old + '_median']:.4f} ms, {new} {u[new + '_median']:.4f} ms")
-    print(f"[18] after timing: {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    return result
-
-
 # The comparisons of phases 6, 9, 12 and 15 are bound by the host (a plain TL
 # or AD sweep is ~140,000 small launches), so each runs in a process of its
 # own beside the main process's phases 3, 4, 7 and 10; nothing is timed for
@@ -1671,29 +1648,16 @@ def main(argv=None) -> int:
     print(card)
 
     # -- 2. build, every nvcc run together: the shipped libraries, the probe's
-    # mixes, the TL kernel without FMA contraction (phase 10) and the
-    # traced schedule of the TL and AD kernels (phase 18)
-    # (the traced AD bodies are rendered while the others build)
-    import concurrent.futures
-
+    # mixes and the TL kernel without FMA contraction (phase 10)
     t0 = time.perf_counter()
-    tlad_budget = _tlad_budget()
     specs = [(lib, (), ()) for lib in LIBRARIES if lib != "bw_probe"]
     for _, reads, writes, _, weighted in PROBE_MIXES:
         specs += [("bw_probe", probe_defines(reads, writes, c), ())
                   for c in ((0, 0), weighted) if c is not None]
     specs += [("cloudsc2_tl_din", (), ("-fmad=false",))]
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        building = pool.submit(build.load_libraries, specs)
-        traced = tlad_budget.traced_variants()
-        render_s = time.perf_counter() - t0
-        building.result()
-    traced_specs = [(lib, defines, flags) for lib, (defines, flags) in traced.items()]
-    build.load_libraries(traced_specs)
-    specs += traced_specs
+    build.load_libraries(specs)
     build_s = time.perf_counter() - t0
-    print(f"[2] build: {build_s:.1f} s for {len(specs)} libraries, the traced "
-          f"AD bodies rendered meanwhile in {render_s:.1f} s "
+    print(f"[2] build: {build_s:.1f} s for {len(specs)} libraries "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     for lib, defines, flags in specs:
         tag = " ".join([*(d.split("_", 2)[2] for d in defines),
@@ -1704,6 +1668,17 @@ def main(argv=None) -> int:
                   f"{e.get('stack_bytes')} B stack, "
                   f"{e.get('spill_store_bytes')} B spill stores, "
                   f"{e.get('spill_load_bytes')} B spill loads")
+    # ptxas reports the fused kernel's launch count; each role's own
+    # registers and spills are read from its region of the SASS
+    fused_roles = {}
+    for e in build.ptxas_report("cloudsc2_tlad_fused"):
+        roles = build.role_registers("cloudsc2_tlad_fused", [e["entry"]])
+        fused_roles[e["entry"]] = roles
+        print(f"    SASS {e['entry']}: launch {e.get('registers')} registers; "
+              + "; ".join(f"{role.upper()} role {r['registers']} registers, "
+                          f"{r['stl']} STL, {r['ldl']} LDL"
+                          for role, r in roles.items() if role != "setmaxreg")
+              + f" ({roles['setmaxreg']} SETMAXREG)")
 
     state = Cloudsc2State.load(FIXTURES / "input.npz")
     params = state.params
@@ -1795,7 +1770,8 @@ def main(argv=None) -> int:
                                  ad_record=tlad_records[1])
     t_phase = _lap("11", t_phase)
     ab_ran = cli_experiments()
-    ab_records = time_experiments(state, params, compared["experiments"], ab_ran)
+    ab_records = time_experiments(state, params, compared["experiments"], ab_ran,
+                                  fused_roles)
     tlad_records[0]["launches_kernel_ab"] = ab_ran["launches"]["tl"]
     tlad_records[1]["launches_kernel_ab"] = ab_ran["launches"]["ad"]
     t_phase = _lap("13-14", t_phase)
@@ -1803,14 +1779,7 @@ def main(argv=None) -> int:
     nl_records = time_nl_experiments(state, params, compared["nl_experiments"],
                                      nl_ran)
     probes = nl_ran["probes"]
-    t_phase = _lap("16-17", t_phase)
-    ab = ab_schedules(state, tlad_budget, traced)
-    ab_kind = {"cloudsc2_tl": "tl", "cloudsc2_ad": "ad", "cloudsc2_tl_din": "din"}
-    for rec in tlad_records + test_records:
-        if rec["name"] in ab_kind:
-            rec["ab"] = ab["kernels"][ab_kind[rec["name"]]]
-    tlad_records[0]["ab_run_tlad"] = ab["run_tlad"]
-    _lap("18", t_phase)
+    _lap("16-17", t_phase)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     records = [nl_record, *tlad_records, *test_records, *ab_records, *nl_records]

@@ -51,12 +51,13 @@
 // Two more kernels run this schedule.  The int16-encoded sweep
 // (cloudsc2_ad_enc.cu) differs only in how an input stream value is loaded:
 // the `Load` policy of cloudsc2_load.cuh.  The single-launch TL+AD unit
-// (cloudsc2_tlad_fused.cu) calls `sweep_column` right after the TL loop of
-// the same column, with PRODUCED_HERE: the checkpoints then come from a
-// scratch indexed by the thread's slot (`ckpt_stride`, `ckpt_col`), and they
+// (cloudsc2_tlad_fused.cu) calls `sweep_column` in its AD warpgroups on a
+// tile its TL warpgroup has swept, with PRODUCED_HERE: the checkpoints then
+// come from a ring slot in a scratch (`ckpt_stride`, `ckpt_col`), and they
 // and the seeds, both written by this very kernel, are read with plain
 // loads, since the read-only path (`__ldg`) is undefined on data the
-// running kernel wrote.
+// running kernel wrote.  Its stash is indexed by the thread's place among
+// the AD warpgroups (stash_at), not in the block.
 //
 // Built with nvcc for sm_90a by cloudsc2jax_torch/kernels/build.py, without
 // fast math.
@@ -67,13 +68,7 @@
 
 #include <cstdint>
 
-// The rebuild of an earlier schedule's body for an A/B on the card
-// (probes/tlad_budget.py) puts its header first on the include path.
-#ifdef CLOUDSC2_LEVEL_FROM_INCLUDE_PATH
-#include <cloudsc2_ad_level.cuh>
-#else
 #include "cloudsc2_ad_level.cuh"
-#endif
 #include "cloudsc2_load.cuh"
 
 #ifndef CLOUDSC2_AD_MIN_BLOCKS_F32
@@ -126,14 +121,20 @@ __device__ __forceinline__ T load_produced(const T* p) {
   return PRODUCED_HERE ? *p : __ldg(p);
 }
 
-// This thread's first slot of a level body's shared-memory slots that start
-// at `base`: slot j lies kStashStride * j values after it (stash_bytes).
+// The first slot of thread `t` of a level body's shared-memory slots that
+// start at `base`: slot j lies kStashStride * j values after it
+// (stash_bytes).
 template <typename T, bool EVAP, bool LREGCL>
-__device__ __forceinline__ T* stash_of(unsigned char* base) {
-  const int t = threadIdx.x;
+__device__ __forceinline__ T* stash_at(unsigned char* base, const int t) {
   return reinterpret_cast<T*>(base) +
          (t / kStashStride) * kStashStride * Level<EVAP, LREGCL>::kStashSlots +
          t % kStashStride;
+}
+
+// This thread's first slot, indexed by its place in the block.
+template <typename T, bool EVAP, bool LREGCL>
+__device__ __forceinline__ T* stash_of(unsigned char* base) {
+  return stash_at<T, EVAP, LREGCL>(base, threadIdx.x);
 }
 
 // The reverse level loop of one column.  Checkpoint j of level k is read at

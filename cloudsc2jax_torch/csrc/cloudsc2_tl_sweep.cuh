@@ -53,9 +53,10 @@
 // Two more kernels run this schedule.  The int16-encoded sweep
 // (cloudsc2_tl_enc.cu) differs only in how a stream value is loaded: the
 // `Load` policy of cloudsc2_load.cuh.  The single-launch TL+AD unit
-// (cloudsc2_tlad_fused.cu) calls `sweep_column` for each column a thread
-// owns and sends the checkpoints to a scratch indexed by the thread's slot
-// instead of by the column (`ckpt_stride`, `ckpt_col`).
+// (cloudsc2_tlad_fused.cu) calls `sweep_column` in its TL warpgroups, one
+// tile of 128 columns at a time, and sends the checkpoints to a ring slot
+// in a scratch instead of to (nlev, ncol) streams (`ckpt_stride`,
+// `ckpt_col`).
 //
 // Built with nvcc for sm_90a by cloudsc2jax_torch/kernels/build.py, without
 // fast math.  Params arrive as host doubles; the constants Python would fold
@@ -96,23 +97,11 @@ enum Stream {
 constexpr int kTangentStreams = S_PAPH + 1;
 
 // Blocks of kThreads per SM the register budget must allow (f32), by mode;
-// the f64 kernels are left unbounded.  A budget of 0 declares the block
-// size alone, as the kernels first did: ptxas then gave the f32
-// kernels 128 registers, where a minimum of 1 block lets it take 156-188.
+// the f64 kernels are left unbounded.
 template <typename T, bool D_INPUTS>
 constexpr int kMinBlocks =
     sizeof(T) != 4 ? 1 : D_INPUTS ? CLOUDSC2_TL_DIN_MIN_BLOCKS_F32
                                   : CLOUDSC2_TL_MIN_BLOCKS_F32;
-#if CLOUDSC2_TL_MIN_BLOCKS_F32 > 0
-#define CLOUDSC2_TL_BOUNDS(T) __launch_bounds__(kThreads, (kMinBlocks<T, false>))
-#else
-#define CLOUDSC2_TL_BOUNDS(T) __launch_bounds__(kThreads)
-#endif
-#if CLOUDSC2_TL_DIN_MIN_BLOCKS_F32 > 0
-#define CLOUDSC2_TL_DIN_BOUNDS(T) __launch_bounds__(kThreads, (kMinBlocks<T, true>))
-#else
-#define CLOUDSC2_TL_DIN_BOUNDS(T) __launch_bounds__(kThreads)
-#endif
 
 // Pointer order of Args::out (TL_OUTPUTS): 8 tangents, 3 carry-in
 // checkpoints (null with D_INPUTS), 8 primal outputs (null unless
@@ -219,14 +208,14 @@ __device__ __forceinline__ void sweep(const Args<T>& a, const int ncol,
 }
 
 template <typename T, bool EVAP, bool LREGCL, bool WRITE_PRIMAL, typename Load>
-__global__ void CLOUDSC2_TL_BOUNDS(T)
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, false>))
     cloudsc2_tl_kernel(const __grid_constant__ Args<T> a, const int ncol,
                        const int nlev) {
   sweep<T, EVAP, LREGCL, WRITE_PRIMAL, false, Load>(a, ncol, nlev);
 }
 
 template <typename T, bool EVAP, bool LREGCL>
-__global__ void CLOUDSC2_TL_DIN_BOUNDS(T)
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, true>))
     cloudsc2_tl_din_kernel(const __grid_constant__ Args<T> a, const int ncol,
                            const int nlev) {
   sweep<T, EVAP, LREGCL, true, true, cloudsc2_load::Exact>(a, ncol, nlev);

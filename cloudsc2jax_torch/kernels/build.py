@@ -12,7 +12,8 @@ every kernel's registers and spills; the report is kept beside the library
 (:func:`ptxas_report`).
 
 A source whose shapes or budgets are compile-time constants
-(``csrc/bw_probe.cu``, the register budgets of the TL and AD sweeps) is built once per set of defines: wherever a function here takes a
+(``csrc/bw_probe.cu``, the register budgets of the TL and AD sweeps, the
+fused kernel's split) is built once per set of defines: wherever a function here takes a
 library's name it also takes ``(name, defines)`` or ``(name, defines,
 flags)``, with ``defines`` a tuple of ``"KEY=value"`` strings and ``flags``
 a tuple of extra nvcc flags (``-fmad=false``, ``-I<dir>``), and each such
@@ -32,7 +33,8 @@ import subprocess
 from typing import Dict, List, Sequence, Tuple, Union
 
 __all__ = ["NVCC_FLAGS", "VARIANTS", "load_libraries", "load_library",
-           "nvcc_path", "nvcc_version", "ptxas_report", "variant"]
+           "nvcc_path", "nvcc_version", "ptxas_report", "role_registers",
+           "sass", "variant"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cloudsc2jax_torch"
@@ -50,6 +52,17 @@ _NVCC_VERSION: List[str] = []
 # names none itself (the register budgets of probes/tlad_budget.py,
 # -fmad=false for the TL parity check)
 VARIANTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {}
+
+
+def _shipped_defines(name: str) -> Tuple[str, ...]:
+    """The defines a library is built with where nothing names others: the
+    fused kernel's splits (kernels/fused_plan.py), which it cannot build
+    without."""
+    if name == "cloudsc2_tlad_fused":
+        from .fused_plan import defines
+
+        return defines()
+    return ()
 
 
 @contextlib.contextmanager
@@ -75,7 +88,7 @@ def _key(spec: Spec) -> Key:
     name, defines, *flags = spec
     flags = tuple(flags[0]) if flags else ()
     if not defines and not flags:
-        defines, flags = VARIANTS.get(name, ((), ()))
+        defines, flags = VARIANTS.get(name, (_shipped_defines(name), ()))
     return name, tuple(defines), flags
 
 
@@ -198,3 +211,81 @@ def ptxas_report(name: str, defines: Sequence[str] = (),
         if m and "registers" not in entries[-1]:
             entries[-1]["registers"] = int(m.group(1))
     return entries
+
+
+def sass(name: str, defines: Sequence[str] = (), flags: Sequence[str] = ()) -> str:
+    """The SASS of a built library, as ``cuobjdump -sass`` prints it."""
+    lib = _build_dir(*_key((name, defines, flags))) / f"lib{name}.so"
+    tool = shutil.which("cuobjdump") or str(pathlib.Path(nvcc_path()).parent
+                                             / "cuobjdump")
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+_FUNCTION = re.compile(r"Function : (\S+)")
+_INSTRUCTION = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s*(.*?)\s*;")
+_TARGET = re.compile(r"\b0x([0-9a-f]+)\b")
+_REGISTER = re.compile(r"\bR(\d+)\b")
+
+
+def _successors(code: List[Tuple[int, str]], index: Dict[int, int], i: int):
+    """Where control goes after instruction ``i``: a branch's or call's
+    target, and the next instruction unless the branch or exit is
+    unconditional."""
+    text = code[i][1]
+    predicated = text.startswith("@")
+    op = text.split()[1 if predicated else 0].split(".")[0]
+    nxt = [i + 1] if i + 1 < len(code) else []
+    if op in ("BRA", "CALL"):
+        m = _TARGET.search(text)
+        target = [index[int(m.group(1), 16)]] if m and int(m.group(1), 16) in index else []
+        return target + (nxt if predicated or op == "CALL" else [])
+    if op in ("EXIT", "RET"):
+        return nxt if predicated else []
+    return nxt
+
+
+def role_registers(name: str, marks: Sequence[str], defines: Sequence[str] = (),
+                   flags: Sequence[str] = ()) -> dict:
+    """Registers and local-memory spills per warpgroup role of the first
+    kernel entry of ``name`` whose mangled name holds every one of
+    ``marks``, read from its SASS: ptxas' report gives the launch count
+    only.  A role's code is every instruction reachable from its
+    ``SETMAXREG`` (``DEALLOC`` lowers, the TL role's; ``TRY_ALLOC`` raises,
+    the AD role's), following branches; per role the highest register index
+    used plus one, the count of ``STL`` and ``LDL`` instructions and of
+    instructions.  ``{"setmaxreg": n, "tl": {...}, "ad": {...}}``
+    (``setmaxreg`` 0: ptxas dropped the instruction, and no role is
+    reported)."""
+    code: List[Tuple[int, str]] = []
+    found = False
+    for line in sass(name, defines, flags).splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            if found:
+                break
+            found = all(mark in m.group(1) for mark in marks)
+            continue
+        m = _INSTRUCTION.match(line)
+        if found and m:
+            code.append((int(m.group(1), 16), m.group(2)))
+    if not found:
+        raise AssertionError(f"no kernel entry of {name} matches {marks}")
+    index = {addr: i for i, (addr, _) in enumerate(code)}
+    starts = [i for i, (_, text) in enumerate(code) if "SETMAXREG" in text]
+    out: dict = {"setmaxreg": len(starts)}
+    for start in starts:
+        role = "tl" if "DEALLOC" in code[start][1] else "ad"
+        seen, todo = set(), [start]
+        while todo:
+            i = todo.pop()
+            if i not in seen:
+                seen.add(i)
+                todo += _successors(code, index, i)
+        texts = [code[i][1] for i in seen]
+        ops = [t.split()[1 if t.startswith("@") else 0].split(".")[0] for t in texts]
+        regs = [int(r) for t in texts for r in _REGISTER.findall(t)]
+        out[role] = {"registers": max(regs, default=-1) + 1,
+                     "stl": ops.count("STL"), "ldl": ops.count("LDL"),
+                     "instructions": len(texts)}
+    return out

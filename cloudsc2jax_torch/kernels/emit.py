@@ -77,7 +77,7 @@ import torch
 from ..constants import Params
 from .cloudsc2_kernel import level_physics
 
-__all__ = ["HEADERS", "LIVE_BUDGET", "REGENERATE", "SCHEDULES", "Trace",
+__all__ = ["HEADERS", "LIVE_BUDGET", "REGENERATE", "Trace",
            "VARIANTS", "emit_header", "live_peak", "main", "param_value",
            "render_header", "reschedule", "shared_slots", "stash", "trace",
            "trace_params", "unstash"]
@@ -495,11 +495,6 @@ def _park(tr: Trace, k: _Kinds, parked: set, uses) -> Trace:
                  tr.params, tr.fn)
 
 
-# how the statements of each kind of body are ordered: "trace" prints the
-# traced order, "stash" the schedule of :func:`reschedule`
-SCHEDULES = {"tl": "trace", "ad": "stash"}
-
-
 # ------------------------------------------------------------------ printing
 # Rules for the aten targets the four traces hold; any other target raises.
 _BINARY = {
@@ -737,23 +732,17 @@ _ABOUT = {
 }
 
 
-def emit_header(kind: str, schedule: str = "") -> str:
-    """The text of the generated header for ``kind`` ("tl" or "ad"), its
-    bodies in the order ``schedule`` names (default ``SCHEDULES[kind]``)."""
-    return render_header(kind, {v: trace(kind, *v) for v in VARIANTS}, schedule)
+def emit_header(kind: str) -> str:
+    """The text of the generated header for ``kind`` ("tl" or "ad")."""
+    return render_header(kind, {v: trace(kind, *v) for v in VARIANTS})
 
 
-def render_header(kind: str, traces: Dict[Tuple[bool, bool], Trace],
-                  schedule: str = "") -> str:
+def render_header(kind: str, traces: Dict[Tuple[bool, bool], Trace]) -> str:
     """The header for ``kind`` from its four traces, keyed by ``(evap,
-    lregcl)``: ``schedule`` "trace" prints each traced graph as it is,
-    "stash" (AD only) the schedule of :func:`reschedule`; the default is
-    ``SCHEDULES[kind]``."""
-    schedule = schedule or SCHEDULES[kind]
-    if schedule not in ("trace", "stash") or (schedule == "stash" and kind != "ad"):
-        raise ValueError(f"schedule must be 'trace' or, for 'ad', 'stash', "
-                         f"not {schedule!r}")
-    if schedule == "stash":
+    lregcl)``: the TL bodies in their traced order, the AD bodies in the
+    schedule of :func:`reschedule` ("stash order" in their comments)."""
+    printed = "stash" if kind == "ad" else "trace"
+    if kind == "ad":
         traces = {v: reschedule(tr) for v, tr in traces.items()}
     printers = {v: _Printer(traces[v]) for v in VARIANTS}
     paths = printers[VARIANTS[0]].tr.params
@@ -792,7 +781,7 @@ def render_header(kind: str, traces: Dict[Tuple[bool, bool], Trace],
             f"// levapls2 or ldrain1d, lregcl: {flags}"
             f" ({len(pr.body)} statements, live peak {live_peak(pr.tr)},"
             + (f" {pr.slots} shared slots," if kind == "ad" else "")
-            + f" {schedule} order)",
+            + f" {printed} order)",
             "template <>",
             f"struct Level<{flags}> {{",
             f"  static constexpr int kNumConsts = {len(pr.consts)};",

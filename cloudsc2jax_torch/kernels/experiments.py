@@ -55,6 +55,7 @@ import torch
 
 from ..constants import Params
 from ..physics.cloudsc2 import Cloudsc2Inputs
+from . import fused_plan
 from . import tlad_kernel as tk
 from .cloudsc2_kernel import (
     KERNEL_CONSTANTS,
@@ -88,7 +89,7 @@ __all__ = [
     "cloudsc2_tlad_fused_reference",
     "decode_inputs",
     "encode_blocked_inputs",
-    "fused_slots",
+    "fused_launch_plan",
     "launch_cloudsc2_ad_encoded",
     "launch_cloudsc2_nl_encoded",
     "launch_cloudsc2_tl_encoded",
@@ -329,8 +330,9 @@ _LAYOUT = {
         + [ctypes.c_int] * 4),
     "cloudsc2_tlad_fused": (
         (tk.TL_STREAMS, FUSED_OUTPUTS),
-        # scratch, slots; dscale, seed scales; ncol nlev evap lregcl
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_double] * 3
+        # scratch, tile counter, blocks; dscale, seed scales; ncol nlev evap
+        # lregcl
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_double] * 3
         + [ctypes.c_int] * 4),
 }
 
@@ -493,26 +495,52 @@ def launch_cloudsc2_ad_encoded(
     return Cloudsc2Inputs(plu=outs[-2], paph=outs[-1], **d)
 
 
-def fused_slots(inputs: Cloudsc2Inputs, params: Params, *, lregcl: bool = True,
-                ldrain1d: bool = False) -> int:
-    """Threads of the fused kernel's persistent grid for these inputs on
-    their device: block size x min(SMs x blocks per SM, blocks the columns
-    need), with the blocks per SM the occupancy calculator says one SM
-    holds of this kernel variant."""
+_PLAN_FIELDS = ("tl_groups", "ad_groups", "blocks_per_sm", "tl_registers",
+                "ad_registers", "depth", "launch_registers", "shared_bytes",
+                "kernel_registers")
+
+
+def fused_launch_plan(inputs: Cloudsc2Inputs, params: Params, *,
+                      lregcl: bool = True, ldrain1d: bool = False) -> dict:
+    """How the fused kernel runs these inputs on their device, as the
+    library was built (``kernels/fused_plan.py`` by default): warpgroups per
+    block by role, blocks per SM, each role's register budget, ring depth,
+    launch registers, the registers ptxas gave the kernel, shared bytes per
+    block, SM count, warps per SM by role, the grid's blocks and the bytes
+    of the checkpoint ring in device memory.  Raises where the roles'
+    budgets do not fit the registers the kernel was given (the launch would
+    be refused)."""
     lib = _bind("cloudsc2_tlad_fused")
-    fn = lib.cloudsc2_tlad_fused_resident
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
-    fn.restype = ctypes.c_int
-    threads, blocks, sms = (ctypes.c_int() for _ in range(3))
-    with torch.cuda.device(inputs.pt.device):
-        err = fn(int(inputs.pt.dtype == torch.float64),
-                 int(_evap(params, ldrain1d)), int(lregcl), ctypes.byref(threads),
-                 ctypes.byref(blocks), ctypes.byref(sms))
-    if err != 0 or blocks.value < 1:
-        raise RuntimeError(f"cloudsc2_tlad_fused occupancy query failed: "
-                           f"cudaError_t {err}, {blocks.value} blocks per SM")
-    needed = -(-inputs.pt.shape[1] // threads.value)
-    return threads.value * min(sms.value * blocks.value, needed)
+    dtype = "float64" if inputs.pt.dtype == torch.float64 else "float32"
+    key = (dtype, bool(_evap(params, ldrain1d)), bool(lregcl))
+    cache = lib.__dict__.setdefault("plans", {})
+    if key not in cache:
+        fn = lib.cloudsc2_tlad_fused_plan
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        values = (ctypes.c_int * len(_PLAN_FIELDS))()
+        with torch.cuda.device(inputs.pt.device):
+            err = fn(int(dtype == "float64"), int(key[1]), int(key[2]), values)
+        if err != 0:
+            raise RuntimeError(f"cloudsc2_tlad_fused plan query failed: "
+                               f"cudaError_t {err}")
+        plan = dict(zip(_PLAN_FIELDS, values))
+        split = fused_plan.Split(*(plan[f] for f in _PLAN_FIELDS[:6]))
+        given = -(-plan["kernel_registers"] // 8) * 8
+        if (split.tl_registers > given or split.ad_registers < given
+                or split.role_registers > split.threads * given):
+            raise RuntimeError(
+                f"cloudsc2_tlad_fused {key}: ptxas gave the kernel "
+                f"{plan['kernel_registers']} registers, which the roles' budgets "
+                f"(TL {split.tl_registers}, AD {split.ad_registers}) do not fit")
+        plan["warps_per_sm"] = split.warps_per_sm()
+        cache[key] = (split, plan)
+    split, plan = cache[key]
+    nlev, ncol = inputs.pt.shape
+    sms = torch.cuda.get_device_properties(inputs.pt.device).multi_processor_count
+    blocks = split.blocks(ncol, sms)
+    return {**plan, "sms": sms, "blocks": blocks,
+            "scratch_bytes": split.scratch_bytes(blocks, nlev, dtype)}
 
 
 def launch_cloudsc2_tlad_fused(
@@ -522,24 +550,27 @@ def launch_cloudsc2_tlad_fused(
     """Launch the fused TL+AD kernel on CUDA tensors, on the current stream:
     returns (outputs, tangents, input adjoints) like the plain version.
 
-    Checks device, dtype, shape and contiguity, allocates the 32 outputs
-    and the checkpoint scratch ``(3, nlev, slots)`` with ``slots`` from
-    :func:`fused_slots` (no ``(nlev, ncol)`` checkpoint tensor exists on
-    this path), and raises if the launch is refused.  Counts each launch in
+    Checks device, dtype, shape and contiguity, allocates the 32 outputs,
+    the checkpoint ring and the tile counter from
+    :func:`fused_launch_plan` (no ``(nlev, ncol)`` checkpoint tensor exists
+    on this path; the launcher zeroes the counter on the stream), and raises
+    if the launch is refused.  Counts each launch in
     ``cloudsc2_tlad_fused.launches``."""
     tk._check_launch(inputs, params, ldrain1d, "launch_cloudsc2_tlad_fused")
     operands = {**inputs._asdict(), **pre._asdict()}
     check_operands(operands, tk.TL_STREAMS, inputs.pt, "cloudsc2_tlad_fused")
     nlev, ncol = inputs.pt.shape
     lib = _bind("cloudsc2_tlad_fused")
-    slots = fused_slots(inputs, params, lregcl=lregcl, ldrain1d=ldrain1d)
-    scratch = inputs.pt.new_empty((3, nlev, slots))
+    plan = fused_launch_plan(inputs, params, lregcl=lregcl, ldrain1d=ldrain1d)
+    scratch = inputs.pt.new_empty(plan["scratch_bytes"] // inputs.pt.element_size())
+    next_tile = torch.empty(1, dtype=torch.int32, device=inputs.pt.device)
     outs = [torch.empty_like(inputs.pt) for _ in range(8 + 8 + len(_LEVEL_FIELDS))]
     outs += [torch.empty_like(inputs.plu), torch.empty_like(inputs.paph)]
     tk._call(lib, "cloudsc2_tlad_fused", inputs.pt,
              ([operands[n] for n in tk.TL_STREAMS], outs),
-             tk._param_array(lib, params), scratch.data_ptr(), slots,
-             float(dscale), *tk.seed_scales(params), ncol, nlev,
+             tk._param_array(lib, params), scratch.data_ptr(),
+             next_tile.data_ptr(), plan["blocks"], float(dscale),
+             *tk.seed_scales(params), ncol, nlev,
              int(_evap(params, ldrain1d)), int(lregcl))
     cloudsc2_tlad_fused.launches += 1
     d = dict(zip(_LEVEL_FIELDS, outs[16:]))

@@ -377,10 +377,21 @@ def test_cuda_encoded_kernels_match_plain_versions(ncol, keep_f32):
     assert _rel_err(adj, r_adj) <= tol_ad
 
 
+def _equal(got, want):
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("ncol", [100, 5001])
-def test_cuda_fused_kernel_matches_plain_version_and_two_kernel_unit(dtype, ncol):
+@pytest.mark.parametrize("ldrain1d", [False, True])
+@pytest.mark.parametrize("lregcl", [False, True])
+def test_cuda_fused_kernel_matches_plain_version_and_two_kernel_unit(
+        dtype, ncol, ldrain1d, lregcl):
+    """Every variant (f32/f64 x evaporation x lregcl) below one tile (100
+    columns) and ragged (5,001) against the plain version, and against the
+    two-kernel unit: bit for bit in f32 with ldrain1d off, where nvcc
+    contracts both builds alike, else up to FMA contraction."""
     from cloudsc2jax_torch.drivers import DSCALE, run_tlad
     from cloudsc2jax_torch.kernels import experiments as ex
 
@@ -388,40 +399,77 @@ def test_cuda_fused_kernel_matches_plain_version_and_two_kernel_unit(dtype, ncol
     st = Cloudsc2State.load(FIXTURES / "input.npz")
     inputs = st.device_kernel_inputs(ncol, dtype=dtype, device="cuda", pqs=True)
     tol_tl, tol_ad = TLAD_TOL[dtype]
+    kw = dict(lregcl=lregcl, ldrain1d=ldrain1d)
     launches = ex.cloudsc2_tlad_fused.launches
-    out, dout, adj = ex.cloudsc2_tlad_fused(inputs, st.params)
+    out, dout, adj = ex.cloudsc2_tlad_fused(inputs, st.params, **kw)
     assert ex.cloudsc2_tlad_fused.launches == launches + 1
-    r_out, r_dout, r_adj = ex.cloudsc2_tlad_fused_reference(inputs, st.params)
+    r_out, r_dout, r_adj = ex.cloudsc2_tlad_fused_reference(inputs, st.params, **kw)
     assert all(torch.isfinite(x).all() for x in (*out, *dout, *adj))
     assert _rel_err(out, r_out) <= tol_tl and _rel_err(dout, r_dout) <= tol_tl
     assert _rel_err(adj, r_adj) <= tol_ad
-    # the same two level loops in one kernel: the two-kernel unit's results
-    # up to the FMA contraction of two builds
-    for got, want, tol in zip((out, dout, adj), run_tlad(inputs, st.params),
-                              (tol_tl, tol_tl, tol_ad)):
+    unit = run_tlad(inputs, st.params, **kw)
+    for got, want, tol in zip((out, dout, adj), unit, (tol_tl, tol_tl, tol_ad)):
         assert _rel_err(got, want) <= tol
+        assert ldrain1d or dtype == torch.float64 or _equal(got, want)
     rel, finite = cli.adjoint_identity(inputs, dout, adj, st.params, DSCALE)
     assert finite and rel < (2e-6 if dtype == torch.float32 else 1e-10)
 
 
 @pytest.mark.cuda
 def test_cuda_fused_kernel_strides_over_column_batches():
-    """More than twice the columns the card holds threads for: each thread
-    sweeps several columns through one slot of the checkpoint scratch, the
-    last batch ragged."""
+    """Many tiles per block (327,680 columns, 2,560 tiles for 396 TL
+    warpgroups): the two-kernel unit's results bit for bit; two launches
+    bit-identical whichever block took which tile (the dynamic scheduler);
+    a launch after a launch of another size (the counter's reset)."""
     from cloudsc2jax_torch.drivers import run_tlad
     from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import fused_plan as fp
 
     _need_cuda()
     st = Cloudsc2State.load(FIXTURES / "input.npz")
-    ncol = 163_841
+    ncol = 327_680
     inputs = st.device_kernel_inputs(ncol, dtype=torch.float32, device="cuda",
                                      pqs=True)
-    assert ex.fused_slots(inputs, st.params) < ncol / 2
-    got = ex.launch_cloudsc2_tlad_fused(
-        inputs, kmod.kernel_prelude(inputs, st.params), st.params)
-    for g, want, tol in zip(got, run_tlad(inputs, st.params), (1e-5, 1e-5, 1e-4)):
-        assert _rel_err(g, want) <= tol
+    pre = kmod.kernel_prelude(inputs, st.params)
+    plan = ex.fused_launch_plan(inputs, st.params)
+    split = fp.PLANS["float32", False, True]
+    assert [plan[f] for f in ("tl_groups", "ad_groups", "blocks_per_sm",
+                              "tl_registers", "ad_registers", "depth")] == [
+        split.tl_groups, split.ad_groups, split.blocks_per_sm,
+        split.tl_registers, split.ad_registers, split.depth]
+    assert plan["blocks"] * split.tl_groups * 2 < ncol // 128
+    assert plan["scratch_bytes"] == split.scratch_bytes(plan["blocks"], 137, "float32")
+    first = ex.launch_cloudsc2_tlad_fused(inputs, pre, st.params)
+    assert all(_equal(g, w) for g, w in zip(first, run_tlad(inputs, st.params)))
+    again = ex.launch_cloudsc2_tlad_fused(inputs, pre, st.params)
+    assert all(_equal(g, w) for g, w in zip(again, first))
+    small = st.device_kernel_inputs(5001, dtype=torch.float32, device="cuda", pqs=True)
+    ex.launch_cloudsc2_tlad_fused(small, kmod.kernel_prelude(small, st.params),
+                                  st.params)
+    after = ex.launch_cloudsc2_tlad_fused(inputs, pre, st.params)
+    assert all(_equal(g, w) for g, w in zip(after, first))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernel_roles_keep_their_budgets():
+    """The AD and TL roles' registers read from SASS stay within their
+    setmaxnreg budgets, and ptxas' count is the launch count the split
+    assumes (no role can wait for registers that are not there)."""
+    from cloudsc2jax_torch.kernels import build
+    from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import fused_plan as fp
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    inputs = st.device_kernel_inputs(100, dtype=torch.float32, device="cuda", pqs=True)
+    plan = ex.fused_launch_plan(inputs, st.params)
+    split = fp.PLANS["float32", False, True]
+    assert -(-plan["kernel_registers"] // 8) * 8 == split.launch_registers
+    roles = build.role_registers("cloudsc2_tlad_fused",
+                                 ["cloudsc2_tlad_fused_kernel", "IfLb0ELb1E"])
+    assert roles["setmaxreg"] >= 2
+    assert roles["tl"]["registers"] <= split.tl_registers
+    assert roles["ad"]["registers"] <= split.ad_registers
 
 
 @pytest.mark.cuda

@@ -177,23 +177,6 @@ def test_parked_values_keep_their_slots(traces, evap):
     assert "stash" not in emit.HEADERS["tl"].read_text().split("#pragma once")[1]
 
 
-def test_trace_schedule_renders_the_traced_order(traces):
-    """``schedule="trace"`` prints the AD bodies as traced (the parent's
-    bodies, for an A/B on the card): the statement count of the trace and
-    no shared slot."""
-    text = emit.render_header("ad", traces["ad"], schedule="trace")
-    assert "xstash" not in text
-    for evap, lregcl in emit.VARIANTS:
-        tr = traces["ad"][evap, lregcl]
-        flags = f"{str(evap).lower()}, {str(lregcl).lower()}"
-        assert f"lregcl: {flags} (" in text
-        assert f"live peak {emit.live_peak(tr)}, 0 shared slots, trace order)" in text
-    with pytest.raises(ValueError, match="schedule"):
-        emit.render_header("ad", traces["ad"], schedule="greedy")
-    with pytest.raises(ValueError, match="schedule"):
-        emit.render_header("tl", traces["tl"], schedule="stash")
-
-
 def _source_literals():
     """repr of every float literal in the level body's source."""
     found = set()
