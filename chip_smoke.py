@@ -21,7 +21,8 @@ and prints no result line):
    all builds started together; print the build time and ptxas' registers
    and spills per kernel entry, and for the fused kernel, whose ptxas count
    is the launch count, each warpgroup role's registers and local-memory
-   spills read from its region of the SASS.
+   spills read from its region of the SASS.  Under the nvcc release they
+   were recorded with, the exact kernels' SASS must equal ``EXACT_SASS``.
 3. NL kernel against its plain PyTorch version on the card, on the same
    inputs: the 100-column fixture and a ragged 5,000-column expansion,
    f32 and f64, ldrain1d off and on; then the main path's own shapes
@@ -87,7 +88,10 @@ and prints no result line):
    against their plain versions on the card, f32: 100 columns with
    ldrain1d off and on, a ragged 5,000, and an odd 5,001 (int16 rows then
    start on odd half-words) with ldrain1d on, the encoded TL with and
-   without its primal streams; the fused kernel also in f64 (100 columns
+   without its primal streams, each encoded kernel for the default encoding
+   (whose mask has a kernel of its own) and for one that keeps pt and pmfu
+   f32 too, and equal bit for bit to the exact kernels on the decoded
+   inputs; the fused kernel also in f64 (100 columns
    with ldrain1d on, 5,001 with it off); then the harness's own shape,
    163,840 f32 columns (16,384 f64 for the fused kernel), and the fused
    kernel's four ``lregcl``-off variants at 100 columns.  Tolerances as in
@@ -230,6 +234,10 @@ TEST_RUNS = (
 )
 VERDICT_NCOL = 163_840
 AB_CONFIGS = ["two", "noprim", "fused", "enc", "encnp", "two"]
+# keep_f32 of the encoded TL and AD comparisons of phase 12: the default
+# encoding (its mask has a kernel of its own) and one whose mask the kernels
+# read at run time
+ENC_TLAD_KEEPS = (("pq", "plu", "paph"), ("pq", "plu", "paph", "pt", "pmfu"))
 # (ncol, dtype) of the harness's shape in the comparisons of phase 12
 AB_SHAPES = ((163840, "float32"), (16384, "float64"))
 # the window mixes of phase 16: label, reads, writes, reversed, and the
@@ -262,6 +270,31 @@ ENC_L1_BUDGET = 5e-4  # tests/test_pallas.py:150-154, int16 payloads
 RESIDENT_LIMIT_BYTES = 232_448
 # columns at which phase 17 times the new kernels' plain versions
 PLAIN_NCOL = 163_840
+# The exact kernels' code (#1-#5, #7, #6 and the window probe at its NL mix):
+# per library, build.library_digest of the SASS of its entries, recorded on
+# an NVIDIA H100 from the tree before the encoded TL and AD kernels' load
+# policy was redesigned (cloudsc2jax_torch/probes/enc_ab.py) and under the
+# nvcc release named.  Phase 2 fails if a build differs under that release;
+# under another release it says that it did not check.
+EXACT_SASS_RELEASE = "release 12.9, V12.9.86"
+EXACT_SASS = {
+    "cloudsc2_nl":
+        "b2c4a9637915d6568094fc4306ec116494c72ef31eafd672e5f1f43025f7af60",
+    "cloudsc2_nl_res":
+        "4b38e00514a94c1f16680fd404533d0e6a179384878723d990d173ca1ddd4154",
+    "cloudsc2_nl_enc":
+        "ccb18b7133dc976efdf4dd6eee3164e7c540253ecb3e44a4dfe828ff73a6ac86",
+    "cloudsc2_tl":
+        "cbba2c4115e373e581b4ef161242bfc1f2981263125c58f42cfc53e3e07dbfc6",
+    "cloudsc2_tl_din":
+        "ab85341aedb9b8ec11ea38b72f16c47ef28d5bd744259d818d5703b4f0144740",
+    "cloudsc2_ad":
+        "927e675bcceda99b119f0d4d09b29d05baeb99919f838b6e909cdff0dd148e05",
+    "cloudsc2_tlad_fused":
+        "f3a81d0e5389348a8943ebfd072bacec3ef19e7652c2dc4c605e3501ea2ad8fb",
+    "bw_probe BW_PROBE_R=15 BW_PROBE_W=8 BW_PROBE_TANH=0 BW_PROBE_FLOPS=0":
+        "1135bc6ea617882236b667ce6bdb0c9e881a9697576534d37b240de51c1321cc",
+}
 
 
 def _nvidia_smi(query: str) -> str:
@@ -835,6 +868,10 @@ def compare_experiments(state, params):
     from cloudsc2jax_torch import cli
     from cloudsc2jax_torch.drivers import DSCALE, run_tlad
     from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels.tlad_kernel import (
+        launch_cloudsc2_ad,
+        launch_cloudsc2_tl,
+    )
 
     plain_ms = {}
     # -- 12. the three kernels against their plain versions on the card
@@ -889,42 +926,66 @@ def compare_experiments(state, params):
         del out, dout, adj, r_out, r_dout, r_adj, u_out, u_dout, u_adj
         if name != "float32" or not lregcl:
             continue
-        enc = ex.encode_blocked_inputs(inputs, params, fuse_satur=False)
-        out, dout, ckpts = ex.cloudsc2_tl_encoded(enc, params, dscale=DSCALE, **kw)
-        none, dout_n, ckpts_n = ex.cloudsc2_tl_encoded(
-            enc, params, dscale=DSCALE, write_primal=False, **kw)
-        (r_out, r_dout, r_ckpts), t_tl = _timed(
-            lambda: ex.cloudsc2_tl_encoded_reference(enc, params, dscale=DSCALE,
-                                                     **kw))
-        adj = ex.cloudsc2_ad_encoded(enc, r_dout, r_ckpts, params, **kw)
-        r_adj, t_ad = _timed(lambda: ex.cloudsc2_ad_encoded_reference(
-            enc, r_dout, r_ckpts, params, **kw))
-        if ncol == PLAIN_NCOL:
-            plain_ms.update(fused=t_fused, tl_enc=t_tl, ad_enc=t_ad)
-        expected[0] += 2
-        expected[1] += 1
-        if none is not None:
-            raise AssertionError("write_primal=False returned primal streams")
-        w = worst["tl_enc"]
-        _check("encoded TL primal", out, r_out, tol_tl, w, name)
-        _check("encoded TL tangents", dout, r_dout, tol_tl, w, name)
-        _check("encoded TL checkpoints", ckpts, r_ckpts, tol_tl, w, name)
-        _check("encoded TL tangents, no primal", dout_n, r_dout, tol_tl, w, name)
-        _check("encoded TL checkpoints, no primal", ckpts_n, r_ckpts, tol_tl, w, name)
-        _check("encoded AD adjoints", adj, r_adj, tol_ad, worst["ad_enc"], name)
-        # the pair as the harness chains it: the AD kernel on the TL kernel's
-        # own tangents and checkpoints, dx = DSCALE x the decoded inputs
-        pair = ex.cloudsc2_ad_encoded(enc, dout, ckpts, params, **kw)
-        expected[1] += 1
-        rel, finite = cli.adjoint_identity(ex.decode_inputs(enc), dout, pair,
-                                           params, DSCALE)
-        print(f"    encoded pair adjoint identity rel err {rel:.3e} (tol {id_tol:g})")
-        if not (finite and rel < id_tol):
-            raise AssertionError("the encoded pair fails the adjoint identity")
-        worst["ad_enc"]["identity"] = max(worst["ad_enc"].get("identity", 0.0), rel)
-        torch.cuda.synchronize()
-        del enc, out, dout, ckpts, dout_n, ckpts_n, r_out, r_dout, r_ckpts
-        del adj, r_adj, pair
+        for keep in ENC_TLAD_KEEPS:
+            print(f"    encoded TL and AD, keep_f32={keep}:")
+            enc = ex.encode_blocked_inputs(inputs, params, fuse_satur=False,
+                                           keep_f32=keep)
+            out, dout, ckpts = ex.cloudsc2_tl_encoded(enc, params, dscale=DSCALE,
+                                                      **kw)
+            none, dout_n, ckpts_n = ex.cloudsc2_tl_encoded(
+                enc, params, dscale=DSCALE, write_primal=False, **kw)
+            (r_out, r_dout, r_ckpts), t_tl = _timed(
+                lambda: ex.cloudsc2_tl_encoded_reference(enc, params,
+                                                         dscale=DSCALE, **kw))
+            adj = ex.cloudsc2_ad_encoded(enc, r_dout, r_ckpts, params, **kw)
+            r_adj, t_ad = _timed(lambda: ex.cloudsc2_ad_encoded_reference(
+                enc, r_dout, r_ckpts, params, **kw))
+            if ncol == PLAIN_NCOL and keep == ENC_TLAD_KEEPS[0]:
+                plain_ms.update(fused=t_fused, tl_enc=t_tl, ad_enc=t_ad)
+            expected[0] += 2
+            expected[1] += 1
+            if none is not None:
+                raise AssertionError("write_primal=False returned primal streams")
+            w = worst["tl_enc"]
+            _check("encoded TL primal", out, r_out, tol_tl, w, name)
+            _check("encoded TL tangents", dout, r_dout, tol_tl, w, name)
+            _check("encoded TL checkpoints", ckpts, r_ckpts, tol_tl, w, name)
+            _check("encoded TL tangents, no primal", dout_n, r_dout, tol_tl, w, name)
+            _check("encoded TL checkpoints, no primal", ckpts_n, r_ckpts, tol_tl,
+                   w, name)
+            _check("encoded AD adjoints", adj, r_adj, tol_ad, worst["ad_enc"], name)
+            # the exact kernels on the decoded trajectory, under the same
+            # flags: the same results bit for bit
+            decoded, pre = ex.decode_inputs(enc), ex._prelude(enc, params)
+            x_out, x_dout, x_ckpts = launch_cloudsc2_tl(decoded, pre, params,
+                                                        dscale=DSCALE, **kw)
+            _, x_dout_n, x_ckpts_n = launch_cloudsc2_tl(
+                decoded, pre, params, dscale=DSCALE, write_primal=False, **kw)
+            x_adj = launch_cloudsc2_ad(decoded, pre, r_dout, r_ckpts, params, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(
+                (*out, *dout, *ckpts, *dout_n, *ckpts_n, *adj),
+                (*x_out, *x_dout, *x_ckpts, *x_dout_n, *x_ckpts_n, *x_adj)))
+            print(f"    encoded TL and AD vs the exact kernels on the decoded "
+                  f"inputs bit for bit: {same}")
+            if not same:
+                raise AssertionError("the encoded kernels differ from the exact "
+                                     "kernels on the decoded inputs")
+            # the pair as the harness chains it: the AD kernel on the TL
+            # kernel's own tangents and checkpoints, dx = DSCALE x the decoded
+            # inputs
+            pair = ex.cloudsc2_ad_encoded(enc, dout, ckpts, params, **kw)
+            expected[1] += 1
+            rel, finite = cli.adjoint_identity(decoded, dout, pair, params, DSCALE)
+            print(f"    encoded pair adjoint identity rel err {rel:.3e} "
+                  f"(tol {id_tol:g})")
+            if not (finite and rel < id_tol):
+                raise AssertionError("the encoded pair fails the adjoint identity")
+            worst["ad_enc"]["identity"] = max(worst["ad_enc"].get("identity", 0.0),
+                                              rel)
+            torch.cuda.synchronize()
+            del enc, out, dout, ckpts, dout_n, ckpts_n, r_out, r_dout, r_ckpts
+            del adj, r_adj, pair, decoded, x_out, x_dout, x_ckpts, x_dout_n
+            del x_ckpts_n, x_adj
     if [f.launches - b for f, b in zip(counters, before)] != expected:
         raise AssertionError("the comparison did not launch the kernels")
     del inputs
@@ -1077,11 +1138,42 @@ def time_experiments(state, params, compared, ran, fused_roles):
                plan=plan, roles=fused_roles, kernel_ab=summary),
         record("tl_enc", "cloudsc2_tl_enc",
                "cloudsc2jax/pallas/tlad_kernel.py:170",
-               ms_noprim=ms["tl_enc_noprim"], encode_ms=ms["encode"]),
+               ms_noprim=ms["tl_enc_noprim"], encode_ms=ms["encode"],
+               **_ptxas_of("cloudsc2_tl_enc", "cloudsc2_tl_enc_kernel",
+                           "Lb0ELb1ELb1E", "ILj16381E")),
         record("ad_enc", "cloudsc2_ad_enc",
                "cloudsc2jax/pallas/tlad_kernel.py:454",
-               identity_f32=worst["ad_enc"]["identity"]),
+               identity_f32=worst["ad_enc"]["identity"],
+               **_ptxas_of("cloudsc2_ad_enc", "cloudsc2_ad_enc_kernel",
+                           "Lb0ELb1E", "ILj16381E")),
     ]
+
+
+def check_exact_sass(specs) -> None:
+    """Phase 2: the exact kernels' SASS against EXACT_SASS, where the build
+    ran under the release it was recorded with."""
+    import re
+
+    from cloudsc2jax_torch.kernels import build
+
+    m = re.search(r"release ([\d.]+), V([\d.]+)", build.nvcc_version())
+    release = m.group(0) if m else "unknown"
+    if release != EXACT_SASS_RELEASE:
+        print(f"[2] exact kernels' SASS not checked: nvcc {release}, digests "
+              f"recorded under {EXACT_SASS_RELEASE}")
+        return
+    changed = []
+    for lib, defines, flags in specs:
+        key = lib if lib != "bw_probe" else "bw_probe " + " ".join(defines)
+        if key not in EXACT_SASS or flags:
+            continue
+        digest = build.library_digest(build.sass_digests(build.sass(lib, defines)))
+        if digest != EXACT_SASS[key]:
+            changed.append(key)
+    print(f"[2] exact kernels' SASS: {len(EXACT_SASS) - len(changed)} of "
+          f"{len(EXACT_SASS)} libraries as recorded (nvcc {release})")
+    if changed:
+        raise AssertionError(f"the exact kernels' code changed: {changed}")
 
 
 def _ptxas_of(lib: str, *marks: str) -> dict:
@@ -1668,6 +1760,7 @@ def main(argv=None) -> int:
                   f"{e.get('stack_bytes')} B stack, "
                   f"{e.get('spill_store_bytes')} B spill stores, "
                   f"{e.get('spill_load_bytes')} B spill loads")
+    check_exact_sass(specs)
     # ptxas reports the fused kernel's launch count; each role's own
     # registers and spills are read from its region of the SASS
     fused_roles = {}

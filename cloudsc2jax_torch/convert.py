@@ -71,8 +71,9 @@ def encoded_from_numpy(streams, enc, ztrpaus, paphsfc, device="cpu"):
     a 2-byte float array that is not float16 is carried across as its bit
     patterns), the ``(n_streams+1, nlev+1, 2)`` table
     loses its duplicated last row (the TPU kernel's second paph window),
-    and the blocked per-column operands become ``(ncol,)``."""
-    from .kernels.experiments import EncodedInputs
+    and the blocked per-column operands become ``(ncol,)``; ``levels`` is
+    the table level-major."""
+    from .kernels.experiments import EncodedInputs, level_major
 
     def lm(x, lead):
         x = np.asarray(x)
@@ -88,7 +89,8 @@ def encoded_from_numpy(streams, enc, ztrpaus, paphsfc, device="cpu"):
     if table.shape[0] != len(streams) + 1:
         raise ValueError(f"expected a table of {len(streams) + 1} rows for "
                          f"{len(streams)} streams, got {table.shape[0]}")
+    compact = torch.from_numpy(np.ascontiguousarray(table[:-1])).to(device)
     return EncodedInputs(
-        streams=tuple(lm(s, 1) for s in streams),
-        enc=torch.from_numpy(np.ascontiguousarray(table[:-1])).to(device),
-        ztrpaus=lm(ztrpaus, 0), paphsfc=lm(paphsfc, 0))
+        streams=tuple(lm(s, 1) for s in streams), enc=compact,
+        ztrpaus=lm(ztrpaus, 0), paphsfc=lm(paphsfc, 0),
+        levels=level_major(compact))

@@ -108,8 +108,9 @@ struct Args {
   T* out[N_OUTPUT];
   T seed_rfl, seed_sfl;
   T k[kMaxConsts];
-  // cloudsc2_load::Encoded only: the (16, table_rows, 2) [scale, offset]
-  // table and the streams that hold int16 payloads, bit j for in[j]
+  // cloudsc2_load::EncodedLevels only: the level-major (table_rows, 16, 2)
+  // [scale, offset] table on the device and the streams that hold int16
+  // payloads, bit j for in[j]
   const float2* table;
   int table_rows;
   unsigned enc_mask;
@@ -247,13 +248,13 @@ void fill_constants(Args<T>& a, const double* params) {
   for (int j = 0; j < L::kNumConsts; ++j) a.k[j] = T(k[j]);
 }
 
-template <typename T, bool EVAP, bool LREGCL, typename Load>
+template <typename T, bool EVAP, bool LREGCL>
 int launch_variant(Args<T>& a, const double* params, int ncol, int nlev,
                    cudaStream_t s) {
   fill_constants<T, EVAP, LREGCL>(a, params);
   const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
   constexpr size_t bytes = stash_bytes<T, EVAP, LREGCL>(kThreads);
-  auto kernel = cloudsc2_ad_kernel<T, EVAP, LREGCL, Load>;
+  auto kernel = cloudsc2_ad_kernel<T, EVAP, LREGCL, cloudsc2_load::Exact>;
   const int err = allow_shared(kernel, bytes);
   if (err != 0) return err;
   kernel<<<blocks, kThreads, bytes, s>>>(a, ncol, nlev);
@@ -264,34 +265,44 @@ static_assert((1u << S_PQ | 1u << S_PLU | 1u << S_PAPH) ==
                   cloudsc2_load::kNeverEncoded,
               "cloudsc2_load.cuh numbers the streams differently");
 
-// Fills Args from the launcher's pointer arrays and picks the variant.
-// `table` and `enc_mask` are read only with cloudsc2_load::Encoded.
-template <typename T, typename Load = cloudsc2_load::Exact>
-int launch(const void* const* in, void* const* out, const double* params,
-           double seed_rfl, double seed_sfl, int ncol, int nlev, int evap,
-           int lregcl, void* stream, const void* table = nullptr,
-           unsigned enc_mask = 0u) {
+// Fills Args from the launcher's pointer arrays; returns a cudaError_t.
+// `table` and `enc_mask` are the encoded kernel's
+// (cloudsc2_load::EncodedLevels); the mask may set none of
+// cloudsc2_load::kNeverEncoded.
+template <typename T>
+int fill_args(Args<T>& a, const void* const* in, void* const* out,
+              double seed_rfl, double seed_sfl, int ncol, int nlev,
+              const void* table = nullptr, unsigned enc_mask = 0u) {
   if (ncol <= 0 || nlev <= 0) return int(cudaErrorInvalidValue);
-  Args<T> a = {};
+  if ((enc_mask & cloudsc2_load::kNeverEncoded) || enc_mask >> (S_PAPH + 1)) {
+    return int(cudaErrorInvalidValue);
+  }
   a.table = static_cast<const float2*>(table);
   a.table_rows = nlev + 1;
   a.enc_mask = enc_mask;
-  if (enc_mask != 0u &&
-      (table == nullptr || (enc_mask & cloudsc2_load::kNeverEncoded) ||
-       enc_mask >> (S_PAPH + 1))) {
-    return int(cudaErrorInvalidValue);
-  }
   for (int j = 0; j < N_STREAM; ++j) a.in[j] = static_cast<const T*>(in[j]);
   for (int j = 0; j < N_OUTPUT; ++j) a.out[j] = static_cast<T*>(out[j]);
   a.seed_rfl = T(seed_rfl);
   a.seed_sfl = T(seed_sfl);
+  return 0;
+}
+
+// Fills Args from the launcher's pointer arrays and picks the variant of
+// the exact kernel.
+template <typename T>
+int launch(const void* const* in, void* const* out, const double* params,
+           double seed_rfl, double seed_sfl, int ncol, int nlev, int evap,
+           int lregcl, void* stream) {
+  Args<T> a = {};
+  const int err = fill_args<T>(a, in, out, seed_rfl, seed_sfl, ncol, nlev);
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (evap) {
-    return lregcl ? launch_variant<T, true, true, Load>(a, params, ncol, nlev, s)
-                  : launch_variant<T, true, false, Load>(a, params, ncol, nlev, s);
+    return lregcl ? launch_variant<T, true, true>(a, params, ncol, nlev, s)
+                  : launch_variant<T, true, false>(a, params, ncol, nlev, s);
   }
-  return lregcl ? launch_variant<T, false, true, Load>(a, params, ncol, nlev, s)
-                : launch_variant<T, false, false, Load>(a, params, ncol, nlev, s);
+  return lregcl ? launch_variant<T, false, true>(a, params, ncol, nlev, s)
+                : launch_variant<T, false, false>(a, params, ncol, nlev, s);
 }
 
 }  // namespace cloudsc2_ad

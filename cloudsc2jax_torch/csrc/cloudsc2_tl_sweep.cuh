@@ -118,8 +118,9 @@ struct Args {
   T* out[N_OUTPUT];
   T dscale;  // unused with D_INPUTS
   T k[kMaxConsts];
-  // cloudsc2_load::Encoded only: the (16, table_rows, 2) [scale, offset]
-  // table and the streams that hold int16 payloads, bit j for in[j]
+  // cloudsc2_load::EncodedLevels only: the level-major (table_rows, 16, 2)
+  // [scale, offset] table on the device and the streams that hold int16
+  // payloads, bit j for in[j]
   const float2* table;
   int table_rows;
   unsigned enc_mask;
@@ -229,9 +230,10 @@ void fill_constants(Args<T>& a, const double* params) {
   for (int j = 0; j < Level<EVAP, LREGCL>::kNumConsts; ++j) a.k[j] = T(k[j]);
 }
 
-template <typename T, bool EVAP, bool LREGCL, bool D_INPUTS, typename Load>
+template <typename T, bool EVAP, bool LREGCL, bool D_INPUTS>
 int launch_variant(Args<T>& a, const double* params, int ncol, int nlev,
                    bool write_primal, cudaStream_t s) {
+  using Load = cloudsc2_load::Exact;
   fill_constants<T, EVAP, LREGCL>(a, params);
   const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
   if constexpr (D_INPUTS) {
@@ -248,26 +250,24 @@ static_assert((1u << S_PQ | 1u << S_PLU | 1u << S_PAPH) ==
                   cloudsc2_load::kNeverEncoded,
               "cloudsc2_load.cuh numbers the streams differently");
 
-// Fills Args from the launcher's pointer arrays and picks the variant.
+// Fills Args from the launcher's pointer arrays; returns a cudaError_t.
 // `din` is read only with D_INPUTS, where the primal streams are always
-// written and no checkpoint is.  `table` and `enc_mask` are read only with
-// cloudsc2_load::Encoded.
-template <typename T, bool D_INPUTS, typename Load = cloudsc2_load::Exact>
-int launch(const void* const* in, const void* const* din, void* const* out,
-           const double* params, double dscale, int ncol, int nlev, int evap,
-           int lregcl, int write_primal, void* stream,
-           const void* table = nullptr, unsigned enc_mask = 0u) {
+// written and no checkpoint is.  `table` and `enc_mask` are the encoded
+// kernels' (cloudsc2_load::EncodedLevels); the mask may set none of
+// cloudsc2_load::kNeverEncoded.
+template <typename T, bool D_INPUTS>
+int fill_args(Args<T>& a, const void* const* in, const void* const* din,
+              void* const* out, double dscale, int ncol, int nlev,
+              int write_primal, const void* table = nullptr,
+              unsigned enc_mask = 0u) {
   if (ncol <= 0 || nlev <= 0) return int(cudaErrorInvalidValue);
   if (D_INPUTS && !write_primal) return int(cudaErrorInvalidValue);
-  Args<T> a = {};
+  if ((enc_mask & cloudsc2_load::kNeverEncoded) || enc_mask >> kTangentStreams) {
+    return int(cudaErrorInvalidValue);
+  }
   a.table = static_cast<const float2*>(table);
   a.table_rows = nlev + 1;
   a.enc_mask = enc_mask;
-  if (enc_mask != 0u &&
-      (table == nullptr || (enc_mask & cloudsc2_load::kNeverEncoded) ||
-       enc_mask >> kTangentStreams)) {
-    return int(cudaErrorInvalidValue);
-  }
   for (int j = 0; j < N_STREAM; ++j) a.in[j] = static_cast<const T*>(in[j]);
   if (D_INPUTS) {
     for (int j = 0; j < kTangentStreams; ++j) {
@@ -281,14 +281,27 @@ int launch(const void* const* in, const void* const* din, void* const* out,
     if (needed && a.out[j] == nullptr) return int(cudaErrorInvalidValue);
   }
   a.dscale = T(dscale);
+  return 0;
+}
+
+// Fills Args from the launcher's pointer arrays and picks the variant of
+// the exact kernels.
+template <typename T, bool D_INPUTS>
+int launch(const void* const* in, const void* const* din, void* const* out,
+           const double* params, double dscale, int ncol, int nlev, int evap,
+           int lregcl, int write_primal, void* stream) {
+  Args<T> a = {};
+  const int err =
+      fill_args<T, D_INPUTS>(a, in, din, out, dscale, ncol, nlev, write_primal);
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wp = write_primal != 0;
   if (evap) {
-    return lregcl ? launch_variant<T, true, true, D_INPUTS, Load>(a, params, ncol, nlev, wp, s)
-                  : launch_variant<T, true, false, D_INPUTS, Load>(a, params, ncol, nlev, wp, s);
+    return lregcl ? launch_variant<T, true, true, D_INPUTS>(a, params, ncol, nlev, wp, s)
+                  : launch_variant<T, true, false, D_INPUTS>(a, params, ncol, nlev, wp, s);
   }
-  return lregcl ? launch_variant<T, false, true, D_INPUTS, Load>(a, params, ncol, nlev, wp, s)
-                : launch_variant<T, false, false, D_INPUTS, Load>(a, params, ncol, nlev, wp, s);
+  return lregcl ? launch_variant<T, false, true, D_INPUTS>(a, params, ncol, nlev, wp, s)
+                : launch_variant<T, false, false, D_INPUTS>(a, params, ncol, nlev, wp, s);
 }
 
 }  // namespace cloudsc2_tl

@@ -33,8 +33,8 @@ import subprocess
 from typing import Dict, List, Sequence, Tuple, Union
 
 __all__ = ["NVCC_FLAGS", "VARIANTS", "load_libraries", "load_library",
-           "nvcc_path", "nvcc_version", "ptxas_report", "role_registers",
-           "sass", "variant"]
+           "library_digest", "loop_census", "nvcc_path", "nvcc_version", "ptxas_report",
+           "role_registers", "sass", "sass_digests", "variant"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cloudsc2jax_torch"
@@ -234,7 +234,7 @@ def _successors(code: List[Tuple[int, str]], index: Dict[int, int], i: int):
     unconditional."""
     text = code[i][1]
     predicated = text.startswith("@")
-    op = text.split()[1 if predicated else 0].split(".")[0]
+    op = _opcode(text)
     nxt = [i + 1] if i + 1 < len(code) else []
     if op in ("BRA", "CALL"):
         m = _TARGET.search(text)
@@ -243,6 +243,89 @@ def _successors(code: List[Tuple[int, str]], index: Dict[int, int], i: int):
     if op in ("EXIT", "RET"):
         return nxt if predicated else []
     return nxt
+
+
+def _entry_code(text: str, marks: Sequence[str]) -> List[Tuple[int, str]]:
+    """(address, instruction) of the first kernel entry in the SASS ``text``
+    whose mangled name holds every one of ``marks``."""
+    code: List[Tuple[int, str]] = []
+    found = False
+    for line in text.splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            if found:
+                break
+            found = all(mark in m.group(1) for mark in marks)
+            continue
+        m = _INSTRUCTION.match(line)
+        if found and m:
+            code.append((int(m.group(1), 16), m.group(2)))
+    if not found:
+        raise AssertionError(f"no kernel entry matches {marks}")
+    return code
+
+
+def _opcode(text: str) -> str:
+    return text.split()[1 if text.startswith("@") else 0].split(".")[0]
+
+
+# the anonymous namespace of a translation unit in a mangled name, which
+# holds hashes of the unit's path and contents
+_ANONYMOUS = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_[0-9a-f]{8}(?=\d)")
+
+
+def sass_digests(text: str) -> Dict[str, str]:
+    """Per kernel entry in the SASS ``text`` (:func:`sass`), the sha256 of
+    its instructions as ``cuobjdump -sass`` prints them (addresses and
+    encodings included): equal digests, equal code.  Entries are keyed by
+    their mangled names with any anonymous namespace written
+    ``_GLOBAL__N_``, so that builds of one source from two places compare."""
+    out: Dict[str, str] = {}
+    entry, h = None, None
+    for line in text.splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            entry, h = _ANONYMOUS.sub("_GLOBAL__N_", m.group(1)), hashlib.sha256()
+            out[entry] = ""
+            continue
+        m = _INSTRUCTION.match(line)
+        if entry is not None and m:
+            h.update(line.strip().encode())
+            out[entry] = h.hexdigest()
+    return out
+
+
+def library_digest(digests: Dict[str, str]) -> str:
+    """One sha256 over a library's entries and their :func:`sass_digests`."""
+    h = hashlib.sha256()
+    for entry in sorted(digests):
+        h.update(f"{entry} {digests[entry]}\n".encode())
+    return h.hexdigest()
+
+
+def loop_census(text: str, marks: Sequence[str]) -> dict:
+    """The instructions of the outermost loop of the first kernel entry in
+    the SASS ``text`` whose mangled name holds every one of ``marks`` (the
+    code between the backward branch that spans the most instructions and
+    its target: a sweep's level loop, whose body is unrolled): their count
+    and the count of each opcode, ``{"instructions": n, "ops": {op: n}}``."""
+    code = _entry_code(text, marks)
+    index = {addr: i for i, (addr, _) in enumerate(code)}
+    best = None
+    for i, (_, text) in enumerate(code):
+        if _opcode(text) != "BRA":
+            continue
+        m = _TARGET.search(text)
+        j = index.get(int(m.group(1), 16)) if m else None
+        if j is not None and j <= i and (best is None or i - j > best[1] - best[0]):
+            best = (j, i)
+    if best is None:
+        raise AssertionError(f"no loop in the kernel entry matching {marks}")
+    ops: Dict[str, int] = {}
+    for _, text in code[best[0]:best[1] + 1]:
+        op = _opcode(text)
+        ops[op] = ops.get(op, 0) + 1
+    return {"instructions": best[1] - best[0] + 1, "ops": ops}
 
 
 def role_registers(name: str, marks: Sequence[str], defines: Sequence[str] = (),
@@ -257,20 +340,7 @@ def role_registers(name: str, marks: Sequence[str], defines: Sequence[str] = (),
     instructions.  ``{"setmaxreg": n, "tl": {...}, "ad": {...}}``
     (``setmaxreg`` 0: ptxas dropped the instruction, and no role is
     reported)."""
-    code: List[Tuple[int, str]] = []
-    found = False
-    for line in sass(name, defines, flags).splitlines():
-        m = _FUNCTION.search(line)
-        if m:
-            if found:
-                break
-            found = all(mark in m.group(1) for mark in marks)
-            continue
-        m = _INSTRUCTION.match(line)
-        if found and m:
-            code.append((int(m.group(1), 16), m.group(2)))
-    if not found:
-        raise AssertionError(f"no kernel entry of {name} matches {marks}")
+    code = _entry_code(sass(name, defines, flags), marks)
     index = {addr: i for i, (addr, _) in enumerate(code)}
     starts = [i for i, (_, text) in enumerate(code) if "SETMAXREG" in text]
     out: dict = {"setmaxreg": len(starts)}
@@ -283,7 +353,7 @@ def role_registers(name: str, marks: Sequence[str], defines: Sequence[str] = (),
                 seen.add(i)
                 todo += _successors(code, index, i)
         texts = [code[i][1] for i in seen]
-        ops = [t.split()[1 if t.startswith("@") else 0].split(".")[0] for t in texts]
+        ops = [_opcode(t) for t in texts]
         regs = [int(r) for t in texts for r in _REGISTER.findall(t)]
         out[role] = {"registers": max(regs, default=-1) + 1,
                      "stl": ops.count("STL"), "ldl": ops.count("LDL"),

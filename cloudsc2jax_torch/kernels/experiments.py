@@ -20,7 +20,9 @@ one set of inputs and prints one timing line per schedule, and
   the compact ``(n_streams, nlev+1, 2)`` f32 ``[scale, offset]`` array: the
   TPU's lane-broadcast rows (``enc_table_rows``) and its duplicated
   paph(k+1) row have no counterpart, a thread reads two scalars per stream
-  and level.
+  and level.  The encoder also keeps it level-major
+  (``EncodedInputs.levels``, :func:`level_major`), made once per encoding:
+  the encoded TL and AD kernels read one level's pairs from one line.
 * :func:`decode_inputs` and the plain versions
   :func:`cloudsc2_nl_encoded_reference` (decode, then the plain NL sweep,
   with SATUR or the decoded pqs stream as the encoding has it),
@@ -49,7 +51,7 @@ and double.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -89,11 +91,13 @@ __all__ = [
     "cloudsc2_tlad_fused_reference",
     "decode_inputs",
     "encode_blocked_inputs",
+    "encoded_mask",
     "fused_launch_plan",
     "launch_cloudsc2_ad_encoded",
     "launch_cloudsc2_nl_encoded",
     "launch_cloudsc2_tl_encoded",
     "launch_cloudsc2_tlad_fused",
+    "level_major",
 ]
 
 # the 16 streams of a `fuse_satur=False` encoding, in the kernels' pointer
@@ -118,13 +122,18 @@ class EncodedInputs(NamedTuple):
     where kept.  ``enc`` is the ``(n_streams, nlev+1,
     2)`` f32 ``[scale, offset]`` table, row (1, 0) for a kept stream and
     for the level a stream does not have.  ``ztrpaus`` and ``paphsfc`` are
-    the per-column f32 operands, computed before quantisation.
+    the per-column f32 operands, computed before quantisation.  ``levels``
+    is :func:`level_major` of ``enc``: the same table level-major,
+    ``(nlev+1, n_streams, 2)``, on the same device, which the encoded TL and
+    AD kernels read (None: the encoding cannot be launched there; the plain
+    versions do not read it).
     """
 
     streams: Tuple[torch.Tensor, ...]
     enc: torch.Tensor
     ztrpaus: torch.Tensor
     paphsfc: torch.Tensor
+    levels: Optional[torch.Tensor] = None
 
     @property
     def fuse_satur(self) -> bool:
@@ -185,7 +194,16 @@ def encode_blocked_inputs(
         enc[i, : x.shape[0], 1] = off
     pre = kernel_prelude(exact, params)
     return EncodedInputs(streams=tuple(streams), enc=enc,
-                         ztrpaus=pre.ztrpaus, paphsfc=pre.paph_sfc.contiguous())
+                         ztrpaus=pre.ztrpaus, paphsfc=pre.paph_sfc.contiguous(),
+                         levels=level_major(enc))
+
+
+def level_major(enc: torch.Tensor) -> torch.Tensor:
+    """The ``(n_streams, nlev+1, 2)`` table ``enc`` level-major, ``(nlev+1,
+    n_streams, 2)`` contiguous on its device: one level's pairs side by
+    side, as the encoded TL and AD kernels read them.  The encoder makes it
+    once per encoding, outside any launch."""
+    return enc.transpose(0, 1).contiguous()
 
 
 def decode_inputs(enc: EncodedInputs) -> Cloudsc2Inputs:
@@ -321,11 +339,12 @@ def cloudsc2_tlad_fused_reference(
 _LAYOUT = {
     "cloudsc2_tl_enc": (
         (tk.TL_STREAMS, tk.TL_OUTPUTS),
-        # table, enc_mask; dscale; ncol nlev evap lregcl write_primal
+        # level-major table, enc_mask; dscale; ncol nlev evap lregcl
+        # write_primal
         [ctypes.c_void_p, ctypes.c_uint, ctypes.c_double] + [ctypes.c_int] * 5),
     "cloudsc2_ad_enc": (
         (tk.AD_STREAMS, tk.AD_OUTPUTS),
-        # table, enc_mask; seed scales; ncol nlev evap lregcl
+        # level-major table, enc_mask; seed scales; ncol nlev evap lregcl
         [ctypes.c_void_p, ctypes.c_uint] + [ctypes.c_double] * 2
         + [ctypes.c_int] * 4),
     "cloudsc2_tlad_fused": (
@@ -358,15 +377,29 @@ def _encoded_operands(enc: EncodedInputs, params: Params, ldrain1d: bool,
     encoded = [n for n in ENCODED_STREAMS if operands[n].dtype == torch.int16]
     check_operands(operands, [n for n in operands if n not in encoded], like, what)
     nlev, ncol = like.shape
+    if enc.levels is None:
+        raise ValueError(f"{what} needs the encoding's level-major table "
+                         f"(EncodedInputs.levels = level_major(enc.enc))")
     for name, x, shape in [(n, operands[n], (nlev, ncol)) for n in encoded] + [
-            ("enc", enc.enc, (len(ENCODED_STREAMS), nlev + 1, 2))]:
+            ("enc", enc.enc, (len(ENCODED_STREAMS), nlev + 1, 2)),
+            ("levels", enc.levels, (nlev + 1, len(ENCODED_STREAMS), 2))]:
         if x.device != like.device or tuple(x.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(x.shape)} on {x.device}, "
                              f"expected {shape} on {like.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    mask = sum(1 << ENCODED_STREAMS.index(n) for n in encoded)
-    return operands, mask
+    if enc.levels.dtype != torch.float32:
+        raise TypeError(f"{what} is f32 only: levels is {enc.levels.dtype}")
+    if enc.levels.data_ptr() % 16:
+        raise ValueError(f"{what} reads levels as float4: it must be 16 B aligned")
+    return operands, encoded_mask(enc)
+
+
+def encoded_mask(enc: EncodedInputs) -> int:
+    """The launchers' ``enc_mask``: bit j set where stream j holds int16
+    payloads (the default encoding's is ``kDefaultMask`` of
+    ``csrc/cloudsc2_load.cuh``, which has a kernel of its own)."""
+    return sum(1 << j for j, s in enumerate(enc.streams) if s.dtype == torch.int16)
 
 
 def _bind_nl_encoded():
@@ -456,7 +489,7 @@ def launch_cloudsc2_tl_encoded(
     prim = [torch.empty_like(like) if write_primal else None for _ in range(8)]
     tk._call(lib, "cloudsc2_tl_enc", like,
              ([operands[n] for n in tk.TL_STREAMS], new + prim),
-             tk._param_array(lib, params), enc.enc.data_ptr(), mask,
+             tk._param_array(lib, params), enc.levels.data_ptr(), mask,
              float(dscale), ncol, nlev, int(_evap(params, ldrain1d)),
              int(lregcl), int(write_primal))
     cloudsc2_tl_encoded.launches += 1
@@ -488,7 +521,7 @@ def launch_cloudsc2_ad_encoded(
     scales = tk.seed_scales(params) if fold_seeds else (1.0, 1.0)
     tk._call(lib, "cloudsc2_ad_enc", like,
              ([operands[n] for n in tk.AD_STREAMS], outs),
-             tk._param_array(lib, params), enc.enc.data_ptr(), mask, *scales,
+             tk._param_array(lib, params), enc.levels.data_ptr(), mask, *scales,
              ncol, nlev, int(_evap(params, ldrain1d)), int(lregcl))
     cloudsc2_ad_encoded.launches += 1
     d = dict(zip(_LEVEL_FIELDS, outs))

@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, on a machine with one card::
 
-    python3 cloudsc2jax_torch/probes/tlad_budget.py [sweep] [ad|tl|din ...]
+    python3 cloudsc2jax_torch/probes/tlad_budget.py [sweep] [ad|tl|din|tl_enc|ad_enc ...]
 
 It builds each kernel once per budget (blocks of 128 threads per SM that
 the register budget must allow, ``-DCLOUDSC2_*_MIN_BLOCKS_F32``), all nvcc
@@ -14,8 +14,10 @@ block, 16 blocks of 128 threads), the shared bytes per block and the
 kernel's time by CUDA events over 20 launches on three input sets.  Kinds:
 ``ad`` (cloudsc2_ad.cu), ``tl`` (cloudsc2_tl.cu, in-register increments,
 primal streams written), ``din`` (cloudsc2_tl_din.cu, streamed
-increments).  A block's shared memory is the AD body's slots.  Every line
-carries the card's name and power limit.
+increments), ``tl_enc`` (cloudsc2_tl_enc.cu, the int16-encoded TL with
+primal streams, default encoding) and ``ad_enc`` (cloudsc2_ad_enc.cu, the
+encoded AD from the encoded TL's checkpoints).  A block's shared memory is
+the AD body's slots.  Every line carries the card's name and power limit.
 """
 import json
 import pathlib
@@ -25,13 +27,21 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 NCOL = 327_680
 # min blocks of each kind's sweep
-SWEEP = {"ad": (3, 4, 5, 6), "tl": (5, 6, 7, 8), "din": (6, 7, 8)}
-LIBRARY = {"ad": "cloudsc2_ad", "tl": "cloudsc2_tl", "din": "cloudsc2_tl_din"}
-_MACRO = {"ad": "CLOUDSC2_AD", "tl": "CLOUDSC2_TL", "din": "CLOUDSC2_TL_DIN"}
-# the f32 entry of the work unit's body (evap off, lregcl on; TL with primal)
+SWEEP = {"ad": (3, 4, 5, 6), "tl": (5, 6, 7, 8), "din": (6, 7, 8),
+         "tl_enc": (6, 7, 8, 9), "ad_enc": (4, 5, 6)}
+LIBRARY = {"ad": "cloudsc2_ad", "tl": "cloudsc2_tl", "din": "cloudsc2_tl_din",
+           "tl_enc": "cloudsc2_tl_enc", "ad_enc": "cloudsc2_ad_enc"}
+_MACRO = {"ad": "CLOUDSC2_AD", "tl": "CLOUDSC2_TL", "din": "CLOUDSC2_TL_DIN",
+          "tl_enc": "CLOUDSC2_TL_ENC", "ad_enc": "CLOUDSC2_AD_ENC"}
+# the f32 entry of the work unit's body (evap off, lregcl on; TL with primal;
+# the encoded kernels at the default encoding's mask, 0x3FFD, which has a
+# kernel of its own)
+_DEFAULT_MASK = "N13cloudsc2_load14EncodedLevelsTILj16381EEE"
 ENTRY = {"ad": ("cloudsc2_ad_kernel", "IfLb0ELb1EN13cloudsc2_load5ExactE"),
          "tl": ("cloudsc2_tl_kernel", "IfLb0ELb1ELb1EN13cloudsc2_load5ExactE"),
-         "din": ("cloudsc2_tl_din_kernel", "IfLb0ELb1EE")}
+         "din": ("cloudsc2_tl_din_kernel", "IfLb0ELb1EE"),
+         "tl_enc": ("cloudsc2_tl_enc_kernel", "ILb0ELb1ELb1E" + _DEFAULT_MASK),
+         "ad_enc": ("cloudsc2_ad_enc_kernel", "ILb0ELb1E" + _DEFAULT_MASK)}
 
 
 def card() -> str:
@@ -95,12 +105,14 @@ def time_ms(fn, n_sets: int, calls: int = 20) -> float:
 
 class Unit:
     """Three distinct f32 input sets at ``ncol`` columns, their preludes,
-    increments and TL images, and a launcher per kind."""
+    increments, TL images, encodings and encoded TL images (by the default
+    builds), and a launcher per kind."""
 
     def __init__(self, state, ncol: int = NCOL):
         import torch
 
         from cloudsc2jax_torch.drivers import DSCALE
+        from cloudsc2jax_torch.kernels import experiments as ex
         from cloudsc2jax_torch.kernels import tlad_kernel as tk
         from cloudsc2jax_torch.kernels.cloudsc2_kernel import kernel_prelude
         from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
@@ -114,6 +126,10 @@ class Unit:
         self.dsets = [Cloudsc2Inputs(*(DSCALE * x for x in s)) for s in self.sets]
         self.tls = [tk.launch_cloudsc2_tl(i, q, p, dscale=DSCALE)
                     for i, q in zip(self.sets, self.pres)]
+        self.encs = [ex.encode_blocked_inputs(s, p, fuse_satur=False)
+                     for s in self.sets]
+        self.enc_tls = [ex.launch_cloudsc2_tl_encoded(e, p, dscale=DSCALE)
+                        for e in self.encs]
         self.launch = {
             "ad": lambda i: tk.launch_cloudsc2_ad(
                 self.sets[i], self.pres[i], self.tls[i][1], self.tls[i][2], p),
@@ -121,6 +137,10 @@ class Unit:
                                                   dscale=DSCALE),
             "din": lambda i: tk.launch_cloudsc2_tl_din(
                 self.sets[i], self.dsets[i], self.pres[i], p, lregcl=True),
+            "tl_enc": lambda i: ex.launch_cloudsc2_tl_encoded(
+                self.encs[i], p, dscale=DSCALE),
+            "ad_enc": lambda i: ex.launch_cloudsc2_ad_encoded(
+                self.encs[i], self.enc_tls[i][1], self.enc_tls[i][2], p),
         }
 
     def time(self, kind: str, calls: int = 20) -> float:
@@ -131,12 +151,13 @@ def sweep(kinds, state) -> list:
     """The budget table of ``kinds``: one dict per build."""
     from cloudsc2jax_torch.kernels import build
 
-    build.load_libraries([(LIBRARY[k], budget_defines(k, b))
-                          for k in kinds for b in SWEEP[k]])
+    build.load_libraries(["cloudsc2_tl", "cloudsc2_tl_enc"]
+                         + [(LIBRARY[k], budget_defines(k, b))
+                            for k in kinds for b in SWEEP[k]])
     unit = Unit(state)
     rows = []
     for kind in kinds:
-        slots = stash_slots() if kind == "ad" else 0
+        slots = stash_slots() if kind in ("ad", "ad_enc") else 0
         for blocks in SWEEP[kind]:
             defines = budget_defines(kind, blocks)
             e = entry_report(kind, defines)

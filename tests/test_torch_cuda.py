@@ -339,17 +339,20 @@ def test_cuda_tl_parity_without_fma_contraction(lregcl):
 
 # ------------------------------------------- the TL+AD scheduling experiments
 @pytest.mark.cuda
-@pytest.mark.parametrize("ncol", [100, 5001])
+@pytest.mark.parametrize("ncol", [100, 5001, 163840])
 @pytest.mark.parametrize("keep_f32", [("pq", "plu", "paph"),
                                       ("pq", "plu", "paph", "pt", "pmfu")])
 def test_cuda_encoded_kernels_match_plain_versions(ncol, keep_f32):
     """The encoded TL (both write_primal settings) and AD kernels against
     their plain versions (chip_smoke.py's phase 12), with the default
-    encoding and one that keeps two more streams f32 (the kernels read the
-    mask of encoded streams at run time); 5,001 columns start the int16
-    rows on odd half-words."""
+    encoding (whose mask has a kernel of its own) and one that keeps two
+    more streams f32 (the kernels read that mask at run time); 5,001 columns
+    start the int16 rows on odd half-words.  Each equals the exact kernel
+    run on the decoded inputs bit for bit, and the pair passes the adjoint
+    identity."""
     from cloudsc2jax_torch.drivers import DSCALE
     from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
 
     _need_cuda()
     st = Cloudsc2State.load(FIXTURES / "input.npz")
@@ -367,7 +370,8 @@ def test_cuda_encoded_kernels_match_plain_versions(ncol, keep_f32):
                                                            dscale=DSCALE)
     adj = ex.cloudsc2_ad_encoded(enc, r_dout, r_ck, st.params)
     r_adj = ex.cloudsc2_ad_encoded_reference(enc, r_dout, r_ck, st.params)
-    assert [f.launches - b for f, b in zip(counters, before)] == [2, 1]
+    pair = ex.cloudsc2_ad_encoded(enc, dout, ck, st.params)
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2]
     assert none is None
     for got, ref in ((out, r_out), (dout, r_dout), (ck, r_ck), (dout_n, r_dout),
                      (ck_n, r_ck)):
@@ -375,6 +379,19 @@ def test_cuda_encoded_kernels_match_plain_versions(ncol, keep_f32):
         assert _rel_err(got, ref) <= tol_tl
     assert all(torch.isfinite(x).all() for x in adj)
     assert _rel_err(adj, r_adj) <= tol_ad
+    # the exact kernels on the decoded trajectory, under the same flags
+    decoded, pre = ex.decode_inputs(enc), ex._prelude(enc, st.params)
+    x_out, x_dout, x_ck = tk.launch_cloudsc2_tl(decoded, pre, st.params,
+                                                dscale=DSCALE)
+    _, x_dout_n, x_ck_n = tk.launch_cloudsc2_tl(decoded, pre, st.params,
+                                                dscale=DSCALE, write_primal=False)
+    x_adj = tk.launch_cloudsc2_ad(decoded, pre, r_dout, r_ck, st.params)
+    assert _equal((*out, *dout, *ck), (*x_out, *x_dout, *x_ck))
+    assert _equal((*dout_n, *ck_n), (*x_dout_n, *x_ck_n))
+    assert _equal(adj, x_adj)
+    rel, finite = cli.adjoint_identity(decoded, dout, pair, st.params, DSCALE)
+    assert finite and rel < cli.scaled_identity_tol(cli.PALLAS_AD_IDENTITY_TOL,
+                                                    inputs.pt.numel())
 
 
 def _equal(got, want):
@@ -484,11 +501,17 @@ def test_cuda_experiment_kernels_reject_bad_operands():
     enc = ex.encode_blocked_inputs(inputs, st.params, fuse_satur=False)
     _, dout, ck = ex.launch_cloudsc2_tl_encoded(enc, st.params, dscale=DSCALE)
     streams = list(enc.streams)
+    # the level-major table 8 B past a 16 B boundary: contiguous, misaligned
+    shifted = torch.empty(enc.levels.numel() + 2, device="cuda")[2:].view(
+        enc.levels.shape).copy_(enc.levels)
     strided = enc._replace(streams=tuple(
         [streams[0].T.contiguous().T] + streams[1:]))
     short = enc._replace(streams=tuple([streams[0][:-1].contiguous()] + streams[1:]))
     for bad in (strided, short, enc._replace(enc=enc.enc[:, :-1].contiguous()),
-                enc._replace(ztrpaus=enc.ztrpaus[:-1])):
+                enc._replace(ztrpaus=enc.ztrpaus[:-1]),
+                enc._replace(levels=None), enc._replace(levels=enc.levels.cpu()),
+                enc._replace(levels=enc.levels[:-1].contiguous()),
+                enc._replace(levels=shifted)):
         with pytest.raises(ValueError):
             ex.launch_cloudsc2_tl_encoded(bad, st.params, dscale=DSCALE)
         with pytest.raises(ValueError):

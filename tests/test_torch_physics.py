@@ -57,13 +57,47 @@ def tparams(state):
     return params_from_jax(state.params)
 
 
-@pytest.mark.parametrize("lphylin,kflag", [(True, 2), (False, 1), (False, 2)])
-def test_satur_matches_jax(state, tparams, lphylin, kflag):
+def _numpy_satur(pap, t, params, lphylin, kflag):
+    """SATUR in numpy float64 (libm's exp), the formulas of
+    ``cloudsc2jax.physics.satur`` and ``cloudsc2jax.thermo``: a third
+    evaluation beside the two packages'."""
+    cst, thf = params.yomcst, params.yoethf
+    lo, rr = (thf.rticecu, thf.rtwat_rticecu_r) if (not lphylin and kflag == 1) \
+        else (thf.rtice, thf.rtwat_rtice_r)
+    alfa = np.minimum(1.0, ((np.maximum(lo, np.minimum(thf.rtwat, t)) - lo) * rr) ** 2)
+    ew = np.exp(thf.r3les * (t - cst.rtt) / (t - thf.r4les))
+    ei = np.exp(thf.r3ies * (t - cst.rtt) / (t - thf.r4ies))
+    if lphylin:
+        e = alfa * (thf.r2es * ew) + (1.0 - alfa) * (thf.r2es * ei)
+    else:
+        e = thf.r2es * (alfa * ew + (1.0 - alfa) * ei)
+    qs = np.minimum(e / pap, 0.5)
+    return qs / (1.0 - cst.retv * qs)
+
+
+def _satur_sides(state, tparams, lphylin, kflag):
+    """(port, JAX package, numpy) SATUR of the fixture state."""
     pap, pt = state.fields["PAP"], state.fields["PT"]
     mine = satur(torch.from_numpy(pap), torch.from_numpy(pt), tparams,
                  lphylin=lphylin, kflag=kflag).numpy()
     ref = np.asarray(jsatur(pap, pt, state.params, lphylin=lphylin, kflag=kflag))
-    assert _rel(mine, ref) < 1e-13
+    return mine, ref, _numpy_satur(pap, pt, state.params, lphylin, kflag)
+
+
+@pytest.mark.parametrize("lphylin,kflag", [(True, 2), (False, 1), (False, 2)])
+def test_satur_sides_match_a_numpy_evaluation(state, tparams, lphylin, kflag):
+    """Each package's SATUR against a third evaluation at the same bound, so
+    that a miss of ``test_satur_matches_jax`` names the side that moved."""
+    mine, ref, oracle = _satur_sides(state, tparams, lphylin, kflag)
+    assert _rel(mine, oracle) < 1e-13, "the port's SATUR"
+    assert _rel(ref, oracle) < 1e-13, "the JAX package's SATUR"
+
+
+@pytest.mark.parametrize("lphylin,kflag", [(True, 2), (False, 1), (False, 2)])
+def test_satur_matches_jax(state, tparams, lphylin, kflag):
+    mine, ref, oracle = _satur_sides(state, tparams, lphylin, kflag)
+    assert _rel(mine, ref) < 1e-13, (
+        f"port - numpy {_rel(mine, oracle):.3e}, jax - numpy {_rel(ref, oracle):.3e}")
 
 
 def test_satur_matches_golden(state, tparams):
