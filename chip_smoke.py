@@ -22,7 +22,8 @@ and prints no result line):
    and spills per kernel entry, and for the fused kernel, whose ptxas count
    is the launch count, each warpgroup role's registers and local-memory
    spills read from its region of the SASS.  Under the nvcc release they
-   were recorded with, the exact kernels' SASS must equal ``EXACT_SASS``.
+   were recorded with, the SASS of every library but the encoded NL one must
+   equal ``EXACT_SASS``; the encoded NL library's digest is printed.
 3. NL kernel against its plain PyTorch version on the card, on the same
    inputs: the 100-column fixture and a ragged 5,000-column expansion,
    f32 and f64, ldrain1d off and on; then the main path's own shapes
@@ -113,12 +114,15 @@ and prints no result line):
    versions on the card.  Encoded (f32): 100 columns with every combination
    of ``fuse_satur``, ``keep_f32`` (default, ``("pq",)``, all names, none) and
    payload (int16, bfloat16); then 100 columns with ldrain1d on, a ragged
-   5,000, an odd 5,001 with ldrain1d on and 163,840 columns over six of the
-   combinations; 2e-5 of the field's max against the plain version on the
-   decoded trajectory (``ENC_NL_TOLERANCE`` says why), 5e-6 (and, printed,
-   whether bit for bit) against the exact kernel launched on the same decoded
-   inputs, and, printed, the distance to the exact sweep by the JAX test's
-   metric (sum|a-b|/sum|b|, below 5e-4 for int16).  Resident: 100
+   5,000, an odd 5,001 with ldrain1d on and 163,840 columns over seven of the
+   combinations (the default keep in both stream orders, whose masks have
+   kernels of their own, and five that run the runtime-mask kernel); each
+   case prints which kernel ran; 2e-5 of the field's max against the plain
+   version on the decoded trajectory (``ENC_NL_TOLERANCE`` says why), bit for
+   bit against the exact kernel (pqs computed) or the forward-checkpoint
+   kernel (pqs streamed) launched on the same decoded inputs, and, printed,
+   the distance to the exact sweep by the JAX test's metric (sum|a-b|/sum|b|,
+   below 5e-4 for int16).  Resident: 100
    columns f32 and f64 with ldrain1d off and on, 5,000 f32, 5,001 f64, at
    the default ring, at a ring whose depth does not divide the levels, and
    with every level on chip first (``depth = nlev`` at the widest block
@@ -135,7 +139,8 @@ and prints no result line):
    327,680 f32 columns.
 17. Timing with CUDA events at 327,680 columns f32 over distinct inputs, in
    this order: exact NL, encoded (default keep), encoded ``("pq",)``,
-   encoded bfloat16, the all-f32 control, resident at the default ring, at
+   encoded bfloat16, the all-f32 control (each labelled with the kernel it
+   ran, fixed or runtime mask), resident at the default ring, at
    128 columns x 8 levels and with every level resident, exact NL again (a
    drift control); each with its bytes, attained bandwidth, bound, registers
    and spills; one encoding's time and the plain versions once at 163,840
@@ -263,27 +268,28 @@ KERNEL_MIX = {
 # the first case, which runs every combination
 ENC_SUBSET = ((True, "default", "int16"), (False, "pq", "int16"),
               (True, "all", "int16"), (False, "none", "int16"),
-              (True, "pq", "bfloat16"), (False, "default", "bfloat16"))
+              (True, "pq", "bfloat16"), (False, "default", "bfloat16"),
+              (False, "default", "int16"))
 ENC_KEEPS = ("default", "pq", "all", "none")
 ENC_L1_BUDGET = 5e-4  # tests/test_pallas.py:150-154, int16 payloads
 # dynamic shared memory a block may opt into on an H100 (227 KB)
 RESIDENT_LIMIT_BYTES = 232_448
 # columns at which phase 17 times the new kernels' plain versions
 PLAIN_NCOL = 163_840
-# The exact kernels' code (#1-#5, #7, #6 and the window probe at its NL mix):
-# per library, build.library_digest of the SASS of its entries, recorded on
-# an NVIDIA H100 from the tree before the encoded TL and AD kernels' load
-# policy was redesigned (cloudsc2jax_torch/probes/enc_ab.py) and under the
-# nvcc release named.  Phase 2 fails if a build differs under that release;
-# under another release it says that it did not check.
+# The code of every library but the encoded NL one (#1-#5, #7, #8, #9 and
+# the window probe at its NL mix): per library, build.library_digest of the
+# SASS of its entries, recorded on an NVIDIA H100 under the nvcc release
+# named, #8 and #9 from the tree before the encoded NL kernel took their load
+# policy (cloudsc2jax_torch/probes/nl_enc_ab.py), the others from the tree
+# before #8 and #9 were redesigned (probes/enc_ab.py).  Phase 2 fails if a
+# build differs under that release; under another release it says that it
+# did not check.
 EXACT_SASS_RELEASE = "release 12.9, V12.9.86"
 EXACT_SASS = {
     "cloudsc2_nl":
         "b2c4a9637915d6568094fc4306ec116494c72ef31eafd672e5f1f43025f7af60",
     "cloudsc2_nl_res":
         "4b38e00514a94c1f16680fd404533d0e6a179384878723d990d173ca1ddd4154",
-    "cloudsc2_nl_enc":
-        "ccb18b7133dc976efdf4dd6eee3164e7c540253ecb3e44a4dfe828ff73a6ac86",
     "cloudsc2_tl":
         "cbba2c4115e373e581b4ef161242bfc1f2981263125c58f42cfc53e3e07dbfc6",
     "cloudsc2_tl_din":
@@ -292,6 +298,10 @@ EXACT_SASS = {
         "927e675bcceda99b119f0d4d09b29d05baeb99919f838b6e909cdff0dd148e05",
     "cloudsc2_tlad_fused":
         "f3a81d0e5389348a8943ebfd072bacec3ef19e7652c2dc4c605e3501ea2ad8fb",
+    "cloudsc2_tl_enc":
+        "ad95bff501a6c45d47ee62f503c05ea2fa880d780975121cc30a46ba6eb0398b",
+    "cloudsc2_ad_enc":
+        "b03aa73161ad4dae373f40c97b70196e6aa290ea6d5b7a7d1b399b5489b1e802",
     "bw_probe BW_PROBE_R=15 BW_PROBE_W=8 BW_PROBE_TANH=0 BW_PROBE_FLOPS=0":
         "1135bc6ea617882236b667ce6bdb0c9e881a9697576534d37b240de51c1321cc",
 }
@@ -1172,6 +1182,8 @@ def check_exact_sass(specs) -> None:
             changed.append(key)
     print(f"[2] exact kernels' SASS: {len(EXACT_SASS) - len(changed)} of "
           f"{len(EXACT_SASS)} libraries as recorded (nvcc {release})")
+    digest = build.library_digest(build.sass_digests(build.sass("cloudsc2_nl_enc")))
+    print(f"[2] the encoded NL library's SASS (not held): {digest}")
     if changed:
         raise AssertionError(f"the exact kernels' code changed: {changed}")
 
@@ -1242,10 +1254,11 @@ def compare_nl_experiments(state, params):
             if ncol == PLAIN_NCOL and (fuse_satur, keep, payload) == ENC_SUBSET[0]:
                 plain_ms["enc"] = t_enc
             expected[0] += 1
-            what = f"fuse_satur={fuse_satur} keep={keep} {payload}"
+            what = (f"fuse_satur={fuse_satur} keep={keep} {payload} "
+                    f"({ex.nl_encoded_kernel(enc)} mask)")
             _check(what, got, ref, ENC_NL_TOLERANCE, worst["enc"], "float32")
             # the same level body on the same decoded values: the exact
-            # kernel's results, at most FMA contraction apart
+            # kernel's results, bit for bit
             decoded, pre = ex.decode_inputs(enc), ex._prelude(enc, params)
             twin = (km.launch_cloudsc2_nl(decoded, pre, params, ldrain1d=ldrain1d)
                     if fuse_satur else km.launch_cloudsc2_fwd_ckpt(
@@ -1256,6 +1269,8 @@ def compare_nl_experiments(state, params):
             if not same:
                 _check(what + " against the exact kernel on the decoded inputs",
                        got, twin, TOLERANCE["float32"], {}, "float32")
+                raise AssertionError(f"{what}: not bit for bit the exact "
+                                     f"kernel's outputs on the decoded inputs")
             del decoded, twin
             l1 = _l1_distance(got, exact[fuse_satur])
             print(f"      encoded against exact kernel: sum|a-b|/sum|b| {l1:.3e}")
@@ -1432,7 +1447,7 @@ def time_nl_experiments(state, params, compared, ran):
     res_variants = {"res": (None, None, 30), "res_128x8": (128, 8, 30),
                     "res_all": (every_tile, every_depth, 3)}
     out_bytes = 8 * _nbytes(base.pt)
-    ms, moved, regs = {}, {}, {}
+    ms, moved, regs, kernels = {}, {}, {}, {}
 
     def time_exact(label):
         ms[label] = _time_ms(lambda i, q: km.launch_cloudsc2_nl(i, q, params),
@@ -1445,10 +1460,14 @@ def time_nl_experiments(state, params, compared, ran):
         encs = [_encode_nl(s, params, fuse_satur, keep, payload) for s in sets]
         ms[label] = _time_ms(lambda e: ex.launch_cloudsc2_nl_encoded(e, params),
                              [(e,) for e in encs], 30)
-        moved[label] = _nbytes(encs[0].streams, encs[0].enc, pres[0]) + out_bytes
+        moved[label] = _nbytes(encs[0].streams, encs[0].levels, pres[0]) + out_bytes
+        # the kernel that ran: the fixed mask's (its mask in the name) or the
+        # runtime mask's (0)
+        kernels[label] = ex.nl_encoded_kernel(encs[0])
+        mask = ex.encoded_mask(encs[0]) if kernels[label] == "fixed" else 0
         regs[label] = _ptxas_of(
             "cloudsc2_nl_enc",
-            "ILb0ELb0ELb1EE" if payload == "bfloat16" else "ILb0ELb0ELb0EE")
+            f"ILb0ELb0ELb{int(payload == 'bfloat16')}ELj{mask}E")
         del encs
     for label, (tile, depth, calls) in res_variants.items():
         ms[label] = _time_ms(
@@ -1470,6 +1489,8 @@ def time_nl_experiments(state, params, compared, ran):
                      f"{b['bound_ms']:.4f} ms by {b['bound_by']}, "
                      f"{regs[label]['registers']} registers, "
                      f"{regs[label]['spill_store_bytes']} B spill stores")
+        if label in kernels:
+            line += f", {kernels[label]}-mask kernel"
         print(line + f" at {ncol} columns f32")
     print(f"[17] resident rings: default {km.resident_ring(nlev, torch.float32)}, "
           f"every level resident {(every_tile, every_depth)}")
@@ -1568,6 +1589,9 @@ def time_nl_experiments(state, params, compared, ran):
                ms_exact=ms["exact"], ms_exact_again=ms["exact#2"],
                ms_keep_pq=ms["enc_pq"], ms_bf16=ms["enc_bf16"],
                ms_all_f32=ms["enc_all_f32"], encode_ms=ms["encode"],
+               kernels={"ms": kernels["enc"], "ms_keep_pq": kernels["enc_pq"],
+                        "ms_bf16": kernels["enc_bf16"],
+                        "ms_all_f32": kernels["enc_all_f32"]},
                l1_vs_exact_int16=worst["enc"]["l1_int16"],
                l1_vs_exact_bf16=worst["enc"]["l1_bfloat16"],
                encoding_study_i16=i16),

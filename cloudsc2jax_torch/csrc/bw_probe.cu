@@ -23,6 +23,11 @@
 // denominator the kernels' times are judged against (PERF.md); with the
 // chain it is the ceiling of the shape at the kernel's arithmetic density.
 //
+// The first R16 of the R windows (BW_PROBE_R16, default 0) may hold int16
+// values, read as 16-bit and converted to f32: the access shape of the
+// encoded NL sweep, whose 16-bit payload rows are half as wide
+// (probes/nl_enc_shape.py).
+//
 // R, W, T and F are compile-time constants, given as -D defines
 // (BW_PROBE_R, _W, _TANH, _FLOPS), one build per mix: the R values of a
 // level live in registers, and a register array indexed at run time would go
@@ -43,6 +48,9 @@
 #ifndef BW_PROBE_FLOPS
 #define BW_PROBE_FLOPS 0
 #endif
+#ifndef BW_PROBE_R16
+#define BW_PROBE_R16 0
+#endif
 
 namespace {
 
@@ -52,7 +60,9 @@ constexpr int W = BW_PROBE_W;
 constexpr int kTanh = BW_PROBE_TANH;
 constexpr int kFlops = BW_PROBE_FLOPS;
 constexpr int kFma = (kFlops - 2 * kTanh > 0 ? kFlops - 2 * kTanh : 0) / 2;
+constexpr int R16 = BW_PROBE_R16;
 static_assert(R >= 1 && W >= 1 && kTanh >= 0 && kFlops >= 0, "bad mix");
+static_assert(R16 >= 0 && R16 <= R, "bad mix");
 
 struct Args {
   const float* in[R];
@@ -68,7 +78,10 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t i = int64_t(rev ? nlev - 1 - k : k) * ncol + col;
     float v[R];
 #pragma unroll
-    for (int j = 0; j < R; ++j) v[j] = __ldg(a.in[j] + i);
+    for (int j = 0; j < R; ++j) {
+      v[j] = j < R16 ? float(__ldg(reinterpret_cast<const int16_t*>(a.in[j]) + i))
+                     : __ldg(a.in[j] + i);
+    }
     float work = 0.0f;
     if (kTanh > 0 || kFlops > 0) {
       work = v[0];
@@ -104,7 +117,8 @@ int bw_probe_abi(int* counts) {
 }
 
 // Launches the probe on `stream` and returns the cudaError_t of the launch.
-// `in` holds R and `out` W device pointers to (nlev, ncol) f32 arrays.
+// `in` holds R and `out` W device pointers to (nlev, ncol) f32 arrays, the
+// first R16 of `in` int16.
 int bw_probe_f32(const void* const* in, void* const* out, double s, int ncol,
                  int nlev, int rev, void* stream) {
   if (ncol <= 0 || nlev <= 0) return int(cudaErrorInvalidValue);

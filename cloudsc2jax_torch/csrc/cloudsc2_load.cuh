@@ -19,7 +19,7 @@
 // stream wait for its own load before the next one is issued.
 //
 // Stream numbering.  `stream` is the index into the sweep's own `in`: bit
-// `stream` of `enc_mask` and column `stream` of the table belong to
+// `stream` of `enc_mask` and pair `stream` of a table row belong to
 // `in[stream]`.  Each sweep orders its first streams as the encoding it takes
 // does (EncodedInputs.names in kernels/experiments.py): the TL and AD sweeps
 // the 16 streams of a `fuse_satur=False` encoding (pt pq pqs pap ... plu
@@ -28,7 +28,7 @@
 // value belongs to: min(k+1, nlev-1) for plu(k+1), k+1 of paph's nlev+1
 // rows for paph(k+1).
 //
-// Both encoded policies decode a payload q to float(q) * scale + offset,
+// The encoded policy decodes a payload q to float(q) * scale + offset,
 // multiply and add rounded separately (`__fmul_rn`, `__fadd_rn`): nvcc would
 // contract them into one FMA, and the decoded trajectory would then differ
 // in its last bit from the plain PyTorch decode the kernel is held against.
@@ -38,29 +38,31 @@
 //
 // * Exact: `__ldg` of T, and the value is what was fetched.  The exact
 //   kernels compile to what they were before the policy existed.
-// * EncodedLevelsT (the TL and AD sweeps, int16 payloads): the table is
-//   level-major in device memory (one level's 16 [scale, offset] pairs are
-//   one 128 B line, read as float4 pairs), so a warp's reads of it at one
-//   level touch one line, not 16.  pq, plu and paph are never encoded in
-//   these sweeps (kNeverEncoded; the launchers refuse a mask that sets
-//   them), so for them the policy is Exact at compile time: no table read,
-//   no select.  The default encoding's mask (kDefaultMask) has a kernel of
-//   its own in which it is a compile-time constant: one load per stream, no
-//   select; any other mask is read at run time (bit `stream` of
-//   `args.enc_mask` picks each load's width and the decoded or the fetched
-//   value).  Measured on an NVIDIA H100 against the stream-major table read
-//   through `__ldg` before it (16 lines 1,104 B apart per warp and level,
-//   three dead decodes per level, two loads per stream), and against the
-//   table in the kernel's parameter block (uniform constant-bank loads):
-//   PERF.md.
-// * EncodedT<BF16> (the NL sweep, float only):
-//   bit `stream` of `args.enc_mask` says whether the stream holds 16-bit
-//   payloads or f32 values; a branch picks each load's width.  `fetch`
-//   carries the payload in the bits of the float it returns: an int16
-//   sign-extended, or (BF16) a bfloat16 as the float it denotes, which is a
-//   shift in place of the int16's convert.  `value` reads the row of the
-//   compact (n_streams, nlev+1, 2) table of every stream through the
-//   read-only path and selects.
+// * LevelMajorT<FIXED, NEVER, BF16, SHARED> (every encoded sweep): the
+//   table is level-major (one level's 16 [scale, offset] pairs are one 128 B
+//   line, read as float4 pairs), so a warp's reads of it at one level touch
+//   one line, not 16; read from device memory (SHARED false), or from the
+//   block's copy in shared memory (SHARED).  The streams in NEVER are Exact at compile
+//   time: no table read, no select.  A mask fixed at compile time (FIXED)
+//   makes every stream's load one load of its own width, and a kept stream
+//   an exact load, with no select; a mask read at run time (FIXED == 0)
+//   picks each load's width and the decoded or the fetched value by bit
+//   `stream` of `args.enc_mask`.  `fetch` carries a payload in the bits of
+//   the float it returns: an int16 sign-extended, or (BF16) a bfloat16 as
+//   the float it denotes.
+//   - EncodedLevelsT (the TL and AD sweeps, int16 payloads, the table in
+//     device memory): pq, plu and paph are never encoded (kNeverEncoded; the
+//     launchers refuse a mask that sets them); the default encoding's mask
+//     (kDefaultMask) has a kernel of its own, any other mask runs the
+//     runtime-mask kernel.
+//   - The NL sweep (cloudsc2_nl_enc.cu, the table in shared memory): any
+//     stream may be encoded (NEVER is empty), either payload; the default
+//     encoding's mask of each stream order has a kernel of its own.
+//   Measured on an NVIDIA H100 against the stream-major table read through
+//   `__ldg` before it (15 or 16 lines per warp and level, two loads and a
+//   select per stream), for the TL and AD sweeps against the table in the
+//   kernel's parameter block (uniform constant-bank loads), and for the NL
+//   sweep between device and shared memory: PERF.md.
 
 #pragma once
 
@@ -84,61 +86,65 @@ struct Exact {
 };
 
 // The TL and AD sweeps never take pq (1), plu (14) or paph (15) of their 16
-// streams encoded; the NL sweep takes any stream encoded.
+// streams encoded; the NL sweep takes any stream encoded (cloudsc2_nl_enc.cu).
 constexpr unsigned kNeverEncoded = 1u << 1 | 1u << 14 | 1u << 15;
 
-// The encoded TL and AD sweeps' 16 streams, and the mask of the default
-// encoding: every stream but the never-encoded ones holds int16 payloads.
+// The pairs of a row of the level-major table (the encoded TL and AD
+// sweeps' 16 streams; the NL sweep's 15 or 16), and the TL and AD sweeps'
+// default mask: every stream but the never-encoded ones holds int16 payloads.
 constexpr int kTableStreams = 16;
 constexpr unsigned kDefaultMask = ((1u << kTableStreams) - 1u) & ~kNeverEncoded;
 
-// The encoded TL and AD sweeps' policy.  `args.table` is the level-major
-// (nlev+1, 16, 2) f32 [scale, offset] table in device memory, 16 B aligned:
-// row k is one 128 B line, read as float4 pairs of streams.  FIXED != 0 is
-// a mask fixed at compile time (the launcher picks that instantiation for
-// that mask; `args.enc_mask` is then not read); FIXED == 0 reads
-// `args.enc_mask` at run time.
-template <unsigned FIXED = 0u>
-struct EncodedLevelsT {
+// The level-major policy of the encoded sweeps.  `args.table` is the
+// level-major (nlev+1, 16, 2) f32 [scale, offset] table in device memory, 16
+// B aligned: row k is one 128 B line, read as float4 pairs of streams (a
+// 15-stream NL encoding's table is padded with a 16th pair (1, 0), so that
+// every row is a whole line).  NEVER holds the streams the sweep never takes
+// encoded: for them the policy is Exact at compile time, no table read, no
+// select.  FIXED != 0 is a mask fixed at compile time (the launcher picks
+// that instantiation for that mask; `args.enc_mask` is then not read);
+// FIXED == 0 reads `args.enc_mask` at run time.  BF16: the payloads are
+// bfloat16, whose float is the payload's bits shifted into the high half of
+// an f32 (a shift in place of the int16's convert); else int16.  SHARED: the
+// kernel stages the table into its dynamic shared memory (`stage`, once per
+// block, before its sweep) and `value` reads it there, one uniform-address
+// LDS.128 per pair; else `value` reads it from device memory through L1.
+template <unsigned FIXED, unsigned NEVER, bool BF16, bool SHARED>
+struct LevelMajorT {
   static __device__ __forceinline__ constexpr bool never(const int stream) {
-    return ((kNeverEncoded >> stream) & 1u) ||
+    return ((NEVER >> stream) & 1u) ||
            (FIXED != 0u && !((FIXED >> stream) & 1u));
   }
   template <typename A>
   static __device__ __forceinline__ bool encoded(const A& a, const int stream) {
     return !never(stream) && (FIXED != 0u || ((a.enc_mask >> stream) & 1u));
   }
-  template <typename T, typename A>
-  static __device__ __forceinline__ T fetch(const A& a, const int stream,
-                                            const int64_t i) {
-    static_assert(sizeof(T) == sizeof(float), "encoded streams decode to float");
-    if (encoded(a, stream)) {
-      return __int_as_float(
-          int(__ldg(reinterpret_cast<const int16_t*>(a.in[stream]) + i)));
+  // SHARED only: the table's copy in the block's dynamic shared memory
+  static __device__ __forceinline__ float4* shared_table() {
+    extern __shared__ float4 cloudsc2_load_table[];
+    return cloudsc2_load_table;
+  }
+  // SHARED only: every thread of the block copies its share of the table's
+  // `rows` rows, then waits for the others
+  static __device__ __forceinline__ void stage(const float2* table,
+                                               const int rows) {
+    static_assert(SHARED, "only a policy that reads shared memory stages");
+    const float4* from = reinterpret_cast<const float4*>(table);
+    float4* to = shared_table();
+    for (int j = threadIdx.x; j < rows * (kTableStreams / 2); j += blockDim.x) {
+      to[j] = __ldg(from + j);
     }
-    return __ldg(a.in[stream] + i);
+    __syncthreads();
   }
-  template <typename T, typename A>
-  static __device__ __forceinline__ T value(const A& a, const int stream,
-                                            const int row, const T fetched) {
-    if (never(stream)) return fetched;
-    const float4 pair = __ldg(reinterpret_cast<const float4*>(a.table) +
-                              row * (kTableStreams / 2) + stream / 2);
-    const float scale = stream & 1 ? pair.z : pair.x;
-    const float offset = stream & 1 ? pair.w : pair.y;
-    const float decoded =
-        __fadd_rn(__fmul_rn(float(__float_as_int(fetched)), scale), offset);
-    return encoded(a, stream) ? decoded : fetched;
-  }
-};
-
-using EncodedLevels = EncodedLevelsT<>;
-
-template <bool BF16>
-struct EncodedT {
   template <typename A>
-  static __device__ __forceinline__ bool encoded(const A& a, const int stream) {
-    return (a.enc_mask >> stream) & 1u;
+  static __device__ __forceinline__ float4 table_pair(const A& a, const int row,
+                                                      const int stream) {
+    if constexpr (SHARED) {
+      return shared_table()[row * (kTableStreams / 2) + stream / 2];
+    } else {
+      return __ldg(reinterpret_cast<const float4*>(a.table) +
+                   row * (kTableStreams / 2) + stream / 2);
+    }
   }
   template <typename T, typename A>
   static __device__ __forceinline__ T fetch(const A& a, const int stream,
@@ -158,11 +164,22 @@ struct EncodedT {
   template <typename T, typename A>
   static __device__ __forceinline__ T value(const A& a, const int stream,
                                             const int row, const T fetched) {
-    const float2 t = __ldg(a.table + stream * a.table_rows + row);
+    if (never(stream)) return fetched;
+    const float4 pair = table_pair(a, row, stream);
+    const float scale = stream & 1 ? pair.z : pair.x;
+    const float offset = stream & 1 ? pair.w : pair.y;
     const float q = BF16 ? fetched : float(__float_as_int(fetched));
-    const float decoded = __fadd_rn(__fmul_rn(q, t.x), t.y);
+    const float decoded = __fadd_rn(__fmul_rn(q, scale), offset);
     return encoded(a, stream) ? decoded : fetched;
   }
 };
+
+// The encoded TL and AD sweeps' policy: int16 payloads, pq, plu and paph
+// never encoded.  A type of its own, so that the kernels' names, and so
+// their code, are what they were before the NL sweep shared the policy.
+template <unsigned FIXED = 0u>
+struct EncodedLevelsT : LevelMajorT<FIXED, kNeverEncoded, false, false> {};
+
+using EncodedLevels = EncodedLevelsT<>;
 
 }  // namespace cloudsc2_load

@@ -14,7 +14,7 @@
 //   (rfl, sfl, covptot) written as 3 checkpoint streams.
 // * `cloudsc2_nl_enc_kernel` (cloudsc2_nl_enc.cu) replaces
 //   `_stream_kernel(encoded=...)`: the same loop with the load policy
-//   cloudsc2_load::EncodedT, pqs computed or streamed.
+//   cloudsc2_load::LevelMajorT, pqs computed or streamed.
 // * `cloudsc2_nl_res_kernel` (cloudsc2_nl_res.cu) replaces
 //   `_resident_kernel`: its own loop, which reads a level from shared memory,
 //   around the same `level`.
@@ -69,8 +69,9 @@ constexpr int kThreads = 128;
 // cloudsc2jax_torch/kernels/cloudsc2_kernel.py; with pqs it is the order of
 // the TL and AD sweeps (TL_STREAMS).  Either way the first PAPH + 1 entries
 // are the streams of an encoding with the matching `fuse_satur`
-// (EncodedInputs.names), so bit j of an encoding's mask and row j of its
-// table belong to in[j].  Tests check the Python tuples against these.
+// (EncodedInputs.names), so bit j of an encoding's mask and pair j of each
+// row of its level-major table belong to in[j].  Tests check the Python
+// tuples against these.
 template <bool PQS_STREAM>
 struct Order {
   static constexpr int P = PQS_STREAM ? 1 : 0;
@@ -117,8 +118,9 @@ struct Args {
   T* out[N_OUTPUT];
   T* ckpt[3];  // CKPT only: rfl, sfl, covptot going into each level
   T c[N_CONST];
-  // cloudsc2_load::EncodedT only: the (PAPH + 1, table_rows, 2) [scale,
-  // offset] table and the streams that hold 16-bit payloads, bit j for in[j]
+  // cloudsc2_load::LevelMajorT only: the level-major (table_rows, 16, 2)
+  // [scale, offset] table and the streams that hold 16-bit payloads, bit j
+  // for in[j]
   const float2* table;
   int table_rows;
   unsigned enc_mask;

@@ -21,8 +21,9 @@ one set of inputs and prints one timing line per schedule, and
   TPU's lane-broadcast rows (``enc_table_rows``) and its duplicated
   paph(k+1) row have no counterpart, a thread reads two scalars per stream
   and level.  The encoder also keeps it level-major
-  (``EncodedInputs.levels``, :func:`level_major`), made once per encoding:
-  the encoded TL and AD kernels read one level's pairs from one line.
+  (``EncodedInputs.levels``, :func:`level_major`, 16 pairs a level, a
+  15-stream table padded), made once per encoding: the encoded kernels read
+  one level's pairs from one 128 B line.
 * :func:`decode_inputs` and the plain versions
   :func:`cloudsc2_nl_encoded_reference` (decode, then the plain NL sweep,
   with SATUR or the decoded pqs stream as the encoding has it),
@@ -42,7 +43,9 @@ one set of inputs and prints one timing line per schedule, and
 The encoded sweeps are f32 only.  The NL sweep takes any subset of its
 streams encoded, plu and paph included, either payload, and both
 ``fuse_satur`` settings (``cloudsc2_pallas_encoded``,
-``experiments.py:164``).  The TL and AD sweeps keep ``pq``, ``plu`` and
+``experiments.py:164``); the default encoding's mask of each stream order
+runs a kernel of its own (:func:`nl_encoded_kernel`).  The TL and AD sweeps
+keep ``pq``, ``plu`` and
 ``paph`` as f32 streams and take int16 payloads only, as in the JAX package
 (``_EncGeometry``, ``experiments.py:519-533``); the fused unit runs in float
 and double.
@@ -98,6 +101,7 @@ __all__ = [
     "launch_cloudsc2_tl_encoded",
     "launch_cloudsc2_tlad_fused",
     "level_major",
+    "nl_encoded_kernel",
 ]
 
 # the 16 streams of a `fuse_satur=False` encoding, in the kernels' pointer
@@ -105,6 +109,13 @@ __all__ = [
 ENCODED_STREAMS = _LEVEL_FIELDS + ("plu", "paph")
 _KEEP_F32 = ("pq", "plu", "paph")
 PAYLOAD_DTYPES = (torch.int16, torch.bfloat16)
+# [scale, offset] pairs per level of the level-major table (kTableStreams of
+# csrc/cloudsc2_load.cuh): one 128 B line
+TABLE_STREAMS = 16
+# the default encoding's enc_mask in each NL stream order, by fuse_satur
+# (kDefaultMaskFused, kDefaultMaskStreamed of csrc/cloudsc2_nl_enc.cu): the
+# masks that have a kernel of their own
+NL_DEFAULT_MASKS = {True: 0x1FFD, False: 0x3FFD}
 # pointer order of the fused launcher's outputs (enum Output in
 # csrc/cloudsc2_tlad_fused.cu)
 FUSED_OUTPUTS = (KERNEL_OUTPUTS + tuple("d_" + n for n in KERNEL_OUTPUTS)
@@ -124,9 +135,9 @@ class EncodedInputs(NamedTuple):
     for the level a stream does not have.  ``ztrpaus`` and ``paphsfc`` are
     the per-column f32 operands, computed before quantisation.  ``levels``
     is :func:`level_major` of ``enc``: the same table level-major,
-    ``(nlev+1, n_streams, 2)``, on the same device, which the encoded TL and
-    AD kernels read (None: the encoding cannot be launched there; the plain
-    versions do not read it).
+    ``(nlev+1, 16, 2)`` (a 15-stream table padded with pairs (1, 0)), on
+    the same device, which the encoded kernels read (None: the encoding
+    cannot be launched there; the plain versions do not read it).
     """
 
     streams: Tuple[torch.Tensor, ...]
@@ -200,10 +211,17 @@ def encode_blocked_inputs(
 
 def level_major(enc: torch.Tensor) -> torch.Tensor:
     """The ``(n_streams, nlev+1, 2)`` table ``enc`` level-major, ``(nlev+1,
-    n_streams, 2)`` contiguous on its device: one level's pairs side by
-    side, as the encoded TL and AD kernels read them.  The encoder makes it
-    once per encoding, outside any launch."""
-    return enc.transpose(0, 1).contiguous()
+    16, 2)`` contiguous on its device: one level's pairs side by side, a
+    15-stream table padded with a 16th pair (1, 0), so that every level is
+    one 128 B line the encoded kernels read as float4 pairs.  The encoder
+    makes it once per encoding, outside any launch."""
+    n, rows, _ = enc.shape
+    if n == TABLE_STREAMS:
+        return enc.transpose(0, 1).contiguous()
+    out = enc.new_zeros((rows, TABLE_STREAMS, 2))
+    out[:, n:, 0] = 1.0
+    out[:, :n] = enc.transpose(0, 1)
+    return out
 
 
 def decode_inputs(enc: EncodedInputs) -> Cloudsc2Inputs:
@@ -396,10 +414,28 @@ def _encoded_operands(enc: EncodedInputs, params: Params, ldrain1d: bool,
 
 
 def encoded_mask(enc: EncodedInputs) -> int:
-    """The launchers' ``enc_mask``: bit j set where stream j holds int16
-    payloads (the default encoding's is ``kDefaultMask`` of
-    ``csrc/cloudsc2_load.cuh``, which has a kernel of its own)."""
-    return sum(1 << j for j, s in enumerate(enc.streams) if s.dtype == torch.int16)
+    """The launchers' ``enc_mask``: bit j set where stream j holds 16-bit
+    payloads (the TL and AD sweeps' default encoding's is ``kDefaultMask``
+    of ``csrc/cloudsc2_load.cuh``, the NL sweep's ``NL_DEFAULT_MASKS``; each
+    has a kernel of its own)."""
+    return sum(1 << j for j, s in enumerate(enc.streams)
+               if s.dtype in PAYLOAD_DTYPES)
+
+
+def nl_encoded_kernel(enc: EncodedInputs, kernel: Optional[str] = None) -> str:
+    """Which encoded NL kernel runs ``enc``: ``"fixed"``, in which the mask
+    is a compile-time constant, for the default encoding's mask of its
+    stream order (``NL_DEFAULT_MASKS``), ``"runtime"`` for any other mask.
+    ``kernel`` asks for one: ``"runtime"`` takes every mask, ``"fixed"``
+    only its own, and anything else raises."""
+    fixed = encoded_mask(enc) == NL_DEFAULT_MASKS[enc.fuse_satur]
+    if kernel is None:
+        return "fixed" if fixed else "runtime"
+    if kernel == "runtime" or (kernel == "fixed" and fixed):
+        return kernel
+    raise ValueError(f"no encoded NL kernel {kernel!r} takes the mask "
+                     f"{encoded_mask(enc):#x} (the fixed kernel takes "
+                     f"{NL_DEFAULT_MASKS[enc.fuse_satur]:#x})")
 
 
 def _bind_nl_encoded():
@@ -408,24 +444,29 @@ def _bind_nl_encoded():
         "cloudsc2_nl_enc",
         {"cloudsc2_nl_enc_abi": (n - 1, n, len(KERNEL_OUTPUTS),
                                  len(KERNEL_CONSTANTS))},
-        # in, out, consts; table, enc_mask, payload_bf16, pqs_stream; ncol
-        # nlev evap; stream
+        # in, out, consts; levels, enc_mask, fixed_mask, payload_bf16,
+        # pqs_stream; ncol nlev evap; stream
         {"cloudsc2_nl_enc_f32": _NL_ARGTYPES[:3] + [
             ctypes.c_void_p, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int,
         ] + _NL_ARGTYPES[3:]})
 
 
 def launch_cloudsc2_nl_encoded(
     enc: EncodedInputs, params: Params, *, ldrain1d: bool = False,
+    kernel: Optional[str] = None,
 ) -> Cloudsc2StreamOutputs:
     """Launch the encoded NL kernel on CUDA tensors, on the current stream:
     returns the 8 f32 output streams like the plain version.
 
-    Checks the encoding's contract, devices, dtypes, shapes and contiguity,
-    allocates the outputs, and raises if the launch is refused.  Counts
-    each launch in ``cloudsc2_nl_encoded.launches``."""
+    The kernel is :func:`nl_encoded_kernel`'s choice for the encoding's
+    mask, or ``kernel`` where that kernel takes it.  Checks the encoding's
+    contract, devices, dtypes, shapes and contiguity, allocates the
+    outputs, and raises if the launch is refused.  Counts each launch in
+    ``cloudsc2_nl_encoded.launches``."""
     what = "cloudsc2_nl_encoded"
     payload = _check_nl_encoded(enc, what)
+    kernel = nl_encoded_kernel(enc, kernel)
     device = enc.paphsfc.device
     if device.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {device}")
@@ -439,15 +480,21 @@ def launch_cloudsc2_nl_encoded(
     operands = {**dict(zip(names, enc.streams)), **pre._asdict()}
     shapes = {**{n: (nlev, ncol) for n in names}, "paph": (nlev + 1, ncol),
               "ceta": (nlev,), "zscalm": (nlev,), "ztrpaus": (ncol,),
-              "paph_sfc": (ncol,), "enc": (len(names), nlev + 1, 2)}
-    for name, x in {**operands, "enc": enc.enc}.items():
+              "paph_sfc": (ncol,), "enc": (len(names), nlev + 1, 2),
+              "levels": (nlev + 1, TABLE_STREAMS, 2)}
+    if enc.levels is None:
+        raise ValueError(f"{what} needs the encoding's level-major table "
+                         f"(EncodedInputs.levels = level_major(enc.enc))")
+    for name, x in {**operands, "enc": enc.enc, "levels": enc.levels}.items():
         if x.device != device or tuple(x.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {tuple(x.shape)} on {x.device}, "
                              f"expected {shapes[name]} on {device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    mask = sum(1 << j for j, s in enumerate(enc.streams)
-               if s.dtype in PAYLOAD_DTYPES)
+    if enc.levels.dtype != torch.float32:
+        raise TypeError(f"{what} is f32 only: levels is {enc.levels.dtype}")
+    if enc.levels.data_ptr() % 16:
+        raise ValueError(f"{what} reads levels as float4: it must be 16 B aligned")
     lib = _bind_nl_encoded()
     outs = [torch.empty((nlev, ncol), dtype=torch.float32, device=device)
             for _ in KERNEL_OUTPUTS]
@@ -459,9 +506,9 @@ def launch_cloudsc2_nl_encoded(
         *_kernel_constants(params, ldrain1d))
     with torch.cuda.device(device):
         err = lib.cloudsc2_nl_enc_f32(
-            in_ptrs, out_ptrs, consts, enc.enc.data_ptr(), mask,
-            int(payload == torch.bfloat16), int(not enc.fuse_satur), ncol,
-            nlev, int(_evap(params, ldrain1d)),
+            in_ptrs, out_ptrs, consts, enc.levels.data_ptr(), encoded_mask(enc),
+            int(kernel == "fixed"), int(payload == torch.bfloat16),
+            int(not enc.fuse_satur), ncol, nlev, int(_evap(params, ldrain1d)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")

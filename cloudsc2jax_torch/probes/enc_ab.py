@@ -22,9 +22,10 @@ Prints JSON lines, each with the card's name and power limit:
   (evaporation off, ``lregcl`` on), and the count of instructions and of
   each load and store opcode in their level loop (SASS), beside the exact
   kernels';
-* ``sass``: per exact library of both checkouts (every library but the two
-  encoded ones, the window probe at its NL mix), the digest of each kernel
-  entry's SASS, and whether they are equal;
+* ``sass``: per library of both checkouts but the encoded NL one (the
+  window probe at its NL mix; this checkout's encoded TL and AD at their
+  default build), the digest of each kernel entry's SASS, and whether they
+  are equal;
 * ``time``: ms per launch by CUDA events (20 launches cycling the three
   sets) of the exact TL and AD kernels and of each build's encoded TL, TL
   without primal streams and AD, in turns: other, this, the variants, the
@@ -39,10 +40,11 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 NCOL = 327_680
-# the exact libraries whose code must not change with the encoded ones'
-EXACT_LIBRARIES = ("cloudsc2_nl", "cloudsc2_nl_res", "cloudsc2_nl_enc",
-                   "cloudsc2_tl", "cloudsc2_tl_din", "cloudsc2_ad",
-                   "cloudsc2_tlad_fused", "bw_probe")
+# the libraries whose code is held against the other checkout's: every one
+# but the encoded NL library, whose load policy the encoded TL and AD ones share
+EXACT_LIBRARIES = ("cloudsc2_nl", "cloudsc2_nl_res", "cloudsc2_tl",
+                   "cloudsc2_tl_din", "cloudsc2_ad", "cloudsc2_tl_enc",
+                   "cloudsc2_ad_enc", "cloudsc2_tlad_fused", "bw_probe")
 # work-unit entries: evaporation off, lregcl on (TL with primal streams)
 MARKS = {"tl": ("cloudsc2_tl_kernel", "IfLb0ELb1ELb1E"),
          "ad": ("cloudsc2_ad_kernel", "IfLb0ELb1E"),

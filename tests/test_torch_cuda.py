@@ -552,22 +552,27 @@ def test_cuda_kernel_ab_runs_through_every_kernel(monkeypatch, capsys):
 # ------------------------------------------------- the NL-side experiments
 @pytest.mark.cuda
 @pytest.mark.parametrize("fuse_satur", [True, False])
-@pytest.mark.parametrize("keep_f32,payload", [
-    (("pq", "plu", "paph"), torch.int16),
-    (("pq",), torch.int16),
-    ((), torch.bfloat16),
-    (("pq",), torch.bfloat16),
+@pytest.mark.parametrize("keep_f32,payload,kernel", [
+    (("pq", "plu", "paph"), torch.int16, "fixed"),
+    (("pq", "plu", "paph"), torch.bfloat16, "fixed"),
+    (("pq",), torch.int16, "runtime"),
+    ((), torch.int16, "runtime"),
+    ((), torch.bfloat16, "runtime"),
+    (("pq",), torch.bfloat16, "runtime"),
 ])
 @pytest.mark.parametrize("ncol,ldrain1d", [(100, False), (5001, True)])
 def test_cuda_encoded_nl_kernel_matches_plain_version(ncol, ldrain1d, keep_f32,
-                                                      payload, fuse_satur):
+                                                      payload, kernel, fuse_satur):
     """The encoded NL kernel against its plain version on the decoded
     trajectory (chip_smoke.py's phase 15); 5,001 columns start the 16-bit rows
-    on odd half-words.  2e-5 against the plain version: the decoded
-    trajectories are worse conditioned than the exact one (worst reading
-    4.712e-6, where f32 rounding alone moves the plain version 5.0e-6 from
-    its f64 self; probes/nl_enc_fmad.py on an NVIDIA H100).  The tight check
-    is against the exact kernel on the same decoded inputs."""
+    on odd half-words.  The default encoding runs the kernel of its stream
+    order's fixed mask, the others the runtime-mask kernel, plu and paph
+    encoded where ``keep_f32`` is empty.  2e-5 against the plain version:
+    the decoded trajectories are worse conditioned than the exact one (worst
+    reading 4.712e-6, where f32 rounding alone moves the plain version 5.0e-6
+    from its f64 self; probes/nl_enc_fmad.py on an NVIDIA H100).  The tight
+    check is against the exact kernel on the same decoded inputs: the same
+    level body on the same values, bit for bit."""
     from cloudsc2jax_torch.kernels import experiments as ex
 
     _need_cuda()
@@ -576,6 +581,7 @@ def test_cuda_encoded_nl_kernel_matches_plain_version(ncol, ldrain1d, keep_f32,
                                      pqs=True)
     enc = ex.encode_blocked_inputs(inputs, st.params, keep_f32=keep_f32,
                                    fuse_satur=fuse_satur, payload_dtype=payload)
+    assert ex.nl_encoded_kernel(enc) == kernel
     launches = ex.cloudsc2_nl_encoded.launches
     got = ex.cloudsc2_nl_encoded(enc, st.params, ldrain1d=ldrain1d)
     ref = ex.cloudsc2_nl_encoded_reference(enc, st.params, ldrain1d=ldrain1d)
@@ -587,6 +593,7 @@ def test_cuda_encoded_nl_kernel_matches_plain_version(ncol, ldrain1d, keep_f32,
             if fuse_satur else kmod.launch_cloudsc2_fwd_ckpt(
                 decoded, pre, st.params, ldrain1d=ldrain1d)[0])
     assert _rel_err(got, twin) <= 5e-6
+    assert all(torch.equal(a, b) for a, b in zip(got, twin))
 
 
 @pytest.mark.cuda
@@ -650,9 +657,16 @@ def test_cuda_nl_experiment_kernels_reject_bad_operands():
                 enc._replace(streams=tuple([streams[0][:-1].contiguous()] + streams[1:])),
                 enc._replace(enc=enc.enc[:, :-1].contiguous()),
                 enc._replace(ztrpaus=enc.ztrpaus[:-1]),
-                enc._replace(streams=tuple(streams[:-1] + [streams[-1][:-1].contiguous()]))):
+                enc._replace(streams=tuple(streams[:-1] + [streams[-1][:-1].contiguous()])),
+                enc._replace(levels=None), enc._replace(levels=enc.levels.cpu()),
+                enc._replace(levels=enc.levels[:-1].contiguous()),
+                enc._replace(levels=enc.levels[:, :15].contiguous()),
+                enc._replace(levels=torch.empty(enc.levels.numel() + 2, device="cuda")[
+                    2:].view(enc.levels.shape).copy_(enc.levels))):
         with pytest.raises(ValueError):
             ex.launch_cloudsc2_nl_encoded(bad, st.params)
+    with pytest.raises(ValueError, match="no encoded NL kernel"):
+        ex.launch_cloudsc2_nl_encoded(enc, st.params, kernel="fixed")
     with pytest.raises(TypeError, match="f32 only"):
         ex.launch_cloudsc2_nl_encoded(enc._replace(enc=enc.enc.double()), st.params)
 

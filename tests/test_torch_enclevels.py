@@ -54,14 +54,18 @@ def test_level_major_table_holds_enc(port_state, keep_f32, fuse_satur):
     enc = _encode(port_state, keep_f32, fuse_satur)
     n, rows, _ = enc.enc.shape
     lv = enc.levels
+    assert n == (15 if fuse_satur else 16)
     assert lv.device == enc.enc.device and lv.dtype == torch.float32
-    assert lv.is_contiguous() and tuple(lv.shape) == (rows, n, 2)
+    assert lv.is_contiguous() and tuple(lv.shape) == (rows, 16, 2)
     for row in range(rows):
         for stream in range(n):
             assert torch.equal(lv[row, stream], enc.enc[stream, row])
-    # one level's pairs side by side: 16 x 8 B = 128 B per level for TL/AD,
-    # read as float4 pairs of streams
-    assert lv.stride() == (2 * n, 2, 1) and lv.data_ptr() % 16 == 0
+        # a 15-stream encoding's rows are padded with the pair (1, 0)
+        for stream in range(n, 16):
+            assert lv[row, stream].tolist() == [1.0, 0.0]
+    # one level's pairs side by side: 16 x 8 B = 128 B per level, read as
+    # float4 pairs of streams
+    assert lv.stride() == (32, 2, 1) and lv.data_ptr() % 16 == 0
 
 
 def test_level_major_table_of_an_encoding_from_the_jax_package():
