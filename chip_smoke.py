@@ -3,9 +3,11 @@
 nonlinear sweep, the TL+AD work unit, the standalone TL and AD variants
 (Taylor test, adjoint test, f32 verdicts through the kernels), the
 ``kernel_ab`` harness over the work unit's schedules (two-kernel, fused,
-int16-encoded), and the NL-side experiments (the encoded and the resident
+int16-encoded), the NL-side experiments (the encoded and the resident
 NL sweeps, the window-matched bandwidth probe ``bw_probe`` and the
-``encoding_study``).
+``encoding_study``), chunked streaming past the card's memory
+(``drivers.run_chunked``), the benchmark ``cloudsc2jax_torch.bench`` and the
+CLI's profiler and golden writer.
 
 Run from the root of a checkout, with no arguments::
 
@@ -147,7 +149,28 @@ and prints no result line):
    columns; then the probe's 15x8 mix as the one PyTorch call that computes
    it (``torch._foreach_add`` over the 8 outputs), between two timings of the
    probe's kernel on the same arrays (``library_ms``).
-The comparisons of phases 6, 9, 12 and 15 are bound by the host, so each
+18. Chunked streaming and the bench.  ``run_chunked`` through the kernels
+   against the same chunks through the plain versions on the card (16,384
+   f32 columns in two chunks; relative to the checksum 5e-6 for ``nl``,
+   1e-4 for ``tlad``), in a comparison process of its own; then, launch
+   counters zeroed before and asserted exactly after, the main path:
+   ``run_chunked`` of ``nl`` and ``tlad`` over 655,360 columns in chunks of
+   163,840 and 327,680 (the checksums within 1e-5 and 1e-4 of each other);
+   ``fused_gen`` equal bit for bit to regeneration over two chunks of a
+   whole period; the chunk loop (``drivers.chunk_loop``) under
+   ``torch.cuda.set_sync_debug_mode("error")``, which raises at any call
+   that synchronises with the host, its one read after, equal bit for bit
+   to the same run outside it; ``python -m cloudsc2jax_torch.bench`` for
+   ``nl``, ``tlad``, ``chunked`` and ``chunked_tlad`` at their defaults,
+   each in a process of its own, each record printed, the chunked ones
+   failing unless ``streamed_gb > device_memory_gb > peak_allocated_gb``;
+   and ``nl 1 100 100 --kernels --dtype f64 --profile
+   build/chip_smoke/profile`` with ``CLOUDSC2_WRITE_REFERENCE=1`` in a
+   temporary directory, whose trace must name ``cloudsc2_nl_kernel`` and
+   whose ``reference.npz`` must validate a second run at the default
+   threshold.
+
+The comparisons of phases 6, 9, 12, 15 and 18 are bound by the host, so each
 runs in a process of its own (``chip_smoke.py --compare <name>``, started
 after the build) beside phases 3, 4, 7 and 10 of the main process; the
 timing phases start when all of them have ended, and the script stops any
@@ -176,9 +199,12 @@ The last two lines of standard output are the kernels' JSON record and
 from __future__ import annotations
 
 import json
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -276,6 +302,19 @@ ENC_L1_BUDGET = 5e-4  # tests/test_pallas.py:150-154, int16 payloads
 RESIDENT_LIMIT_BYTES = 232_448
 # columns at which phase 17 times the new kernels' plain versions
 PLAIN_NCOL = 163_840
+# phase 18: run_chunked against its plain versions (columns, chunk, in
+# 128-column groups) and its tolerance relative to the checksum, those of
+# the kernels against their plain versions; the main path's columns and
+# chunk sizes and the invariance between them (the JAX package's own for
+# its decompositions, tests/test_dist.py); the bench's variants; the CLI
+# run that profiles and writes a golden file
+CHUNK_COMPARE = (16_384, 8_192)
+CHUNK_TOLERANCE = {"nl": 5e-6, "tlad": 1e-4}
+CHUNK_NGPTOT = 655_360
+CHUNK_SIZES = (163_840, 327_680)
+CHUNK_INVARIANCE_RTOL = {"nl": 1e-5, "tlad": 1e-4}
+BENCH_VARIANTS = ("nl", "tlad", "chunked", "chunked_tlad")
+PROFILE_RUN = ["nl", "1", "100", "100", "--kernels", "--dtype", "f64"]
 # The code of every library but the encoded NL one (#1-#5, #7, #8, #9 and
 # the window probe at its NL mix): per library, build.library_digest of the
 # SASS of its entries, recorded on an NVIDIA H100 under the nvcc release
@@ -1605,6 +1644,189 @@ def time_nl_experiments(state, params, compared, ran):
     return records
 
 
+def _plain_chunked(state, params, variant: str, ngptot: int, chunk: int) -> float:
+    """``run_chunked``'s checksum through the plain versions on the card:
+    the same chunks, generated at the same offsets, through the plain NL
+    sweep or the plain TL then AD sweeps, summed in the same order."""
+    import torch
+
+    from cloudsc2jax_torch.drivers import DSCALE, checksum
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import cloudsc2_nl_reference
+    from cloudsc2jax_torch.kernels.tlad_kernel import (
+        cloudsc2_ad_reference,
+        cloudsc2_tl_reference,
+    )
+
+    acc = torch.zeros((), dtype=torch.float32, device="cuda")
+    for i in range(ngptot // chunk):
+        inputs = state.device_kernel_inputs(chunk, dtype=torch.float32,
+                                            device="cuda", pqs=variant == "tlad",
+                                            col_offset=i * chunk)
+        if variant == "nl":
+            res = cloudsc2_nl_reference(inputs, params)
+        else:
+            out, dout, ckpts = cloudsc2_tl_reference(inputs, params, dscale=DSCALE)
+            res = (out, dout, cloudsc2_ad_reference(inputs, dout, ckpts, params))
+        acc = acc + checksum(res)
+    return float(acc)
+
+
+def compare_chunked(state, params):
+    """Phase 18, its comparison: ``run_chunked`` through the kernels against
+    the same chunks through the plain versions on the card.  Returns each
+    variant's error relative to the checksum."""
+    from cloudsc2jax_torch.drivers import run_chunked
+
+    ngptot, chunk = CHUNK_COMPARE
+    rel = {}
+    for variant in ("nl", "tlad"):
+        n, got = run_chunked(state, ngptot, variant=variant, chunk=chunk,
+                             sublanes=1)
+        t0 = time.perf_counter()
+        ref = _plain_chunked(state, params, variant, ngptot, chunk)
+        rel[variant] = abs(got - ref) / abs(ref)
+        tol = CHUNK_TOLERANCE[variant]
+        print(f"[18] run_chunked {variant}, {n} columns in chunks of {chunk}: "
+              f"checksum {got!r} against the plain versions' {ref!r} "
+              f"({time.perf_counter() - t0:.1f} s): rel err {rel[variant]:.3e} "
+              f"(tol {tol:g})")
+        if n != ngptot or not rel[variant] <= tol:
+            raise AssertionError(f"run_chunked {variant} disagrees with the "
+                                 f"plain versions")
+    return {"rel": rel}
+
+
+def chunked_and_bench(state, params) -> dict:
+    """Phase 18 in the main process: the chunked main path under its launch
+    counters, ``fused_gen``, the chunk loop under the sync debug mode, the
+    bench's four variants and the profiled, golden-writing CLI run.
+    Returns the launches of the main path and the bench's records."""
+    import torch
+
+    from cloudsc2jax_torch import cli
+    from cloudsc2jax_torch.drivers import (
+        _CHUNK_CACHE,
+        chunk_columns,
+        chunk_loop,
+        run_chunked,
+    )
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import cloudsc2_nl
+    from cloudsc2jax_torch.kernels.tlad_kernel import cloudsc2_ad, cloudsc2_tl
+
+    # -- 18. the chunked main path, counters zeroed just before
+    cloudsc2_nl.launches = cloudsc2_tl.launches = cloudsc2_ad.launches = 0
+    sums = {}
+    for variant in ("nl", "tlad"):
+        for chunk in CHUNK_SIZES:
+            t0 = time.perf_counter()
+            n, sums[variant, chunk] = run_chunked(state, CHUNK_NGPTOT,
+                                                  variant=variant, chunk=chunk)
+            print(f"[18] run_chunked {variant}, {n} columns in chunks of {chunk}: "
+                  f"checksum {sums[variant, chunk]!r} "
+                  f"({time.perf_counter() - t0:.2f} s, first call included)")
+            if n != CHUNK_NGPTOT:
+                raise AssertionError(f"run_chunked ran {n} columns")
+        a, b = (sums[variant, c] for c in CHUNK_SIZES)
+        rel = abs(a - b) / abs(b)
+        tol = CHUNK_INVARIANCE_RTOL[variant]
+        print(f"[18] {variant}: the two decompositions differ by {rel:.3e} "
+              f"(tol {tol:g})")
+        if not rel <= tol:
+            raise AssertionError(f"run_chunked {variant} depends on the chunk size")
+    launches = {"nl": cloudsc2_nl.launches, "tl": cloudsc2_tl.launches,
+                "ad": cloudsc2_ad.launches}
+    chunks = sum(CHUNK_NGPTOT // c for c in CHUNK_SIZES)
+    print(f"[18] kernel launches on the chunked main path: {launches}")
+    if launches != {"nl": chunks, "tl": chunks, "ad": chunks}:
+        raise AssertionError("the chunked main path did not run through the "
+                             f"kernels once per chunk ({chunks} chunks)")
+
+    # -- 18. fused_gen against regeneration, two chunks of a whole period
+    for variant in ("nl", "tlad"):
+        period = chunk_columns(state, CHUNK_SIZES[1], variant=variant,
+                               fused_gen=True)
+        fused = run_chunked(state, 2 * period, variant=variant,
+                            chunk=CHUNK_SIZES[1], fused_gen=True)
+        regen = run_chunked(state, 2 * period, variant=variant, chunk=period)
+        print(f"[18] {variant} fused_gen {fused!r}, regenerated {regen!r}")
+        if fused != regen:
+            raise AssertionError(f"{variant}: fused_gen is not bit-identical "
+                                 "to regeneration")
+    _CHUNK_CACHE.clear()
+
+    # -- 18. the chunk loop under the sync debug mode: the stored columns are
+    # on the card since the first run above, so nothing may synchronise
+    for variant in ("nl", "tlad"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            n, acc = chunk_loop(state, CHUNK_NGPTOT, variant=variant,
+                                chunk=CHUNK_SIZES[1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        value = float(acc)
+        print(f"[18] {variant}: {CHUNK_NGPTOT // CHUNK_SIZES[1]} chunks under "
+              f"set_sync_debug_mode('error'), then one read: {value!r}")
+        if value != sums[variant, CHUNK_SIZES[1]]:
+            raise AssertionError(f"{variant}: the loop under the sync debug mode "
+                                 "gave another checksum")
+
+    # -- 18. the bench, each variant in a process of its own, with the
+    # card's memory given back first
+    _CHUNK_CACHE.clear()
+    torch.cuda.empty_cache()
+    bench = {}
+    for variant in BENCH_VARIANTS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cloudsc2jax_torch.bench"],
+            env={**os.environ, "CLOUDSC2_BENCH_VARIANT": variant},
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr)
+            raise AssertionError(f"bench {variant} failed (exit code "
+                                 f"{proc.returncode})")
+        (line,) = proc.stdout.strip().splitlines()
+        print(f"[18] bench {variant} ({time.perf_counter() - t0:.1f} s): {line}")
+        rec = bench[variant] = json.loads(line)
+        if not (rec["platform"] == "gpu" and rec["device_name"]
+                and rec["power_limit_w"] > 0):
+            raise AssertionError(f"bench {variant}: the record names no card")
+        if variant.startswith("chunked") and not (
+                rec["streamed_gb"] > rec["device_memory_gb"] > rec["peak_allocated_gb"]):
+            raise AssertionError(f"bench {variant} did not stream past the "
+                                 "card's memory within it")
+
+    # -- 18. the CLI, profiled, writing a golden file in a temporary
+    # directory; the file then validates a second run
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    profile = WORK_DIR / "profile"
+    shutil.rmtree(profile, ignore_errors=True)
+    with tempfile.TemporaryDirectory(dir=WORK_DIR) as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        os.environ["CLOUDSC2_WRITE_REFERENCE"] = "1"
+        try:
+            rc = cli.main(PROFILE_RUN + ["--device", "cuda", "--profile", str(profile)])
+        finally:
+            del os.environ["CLOUDSC2_WRITE_REFERENCE"]
+            os.chdir(cwd)
+        (trace,) = profile.glob("*.pt.trace.json")
+        named = "cloudsc2_nl_kernel" in trace.read_text()
+        print(f"[18] cli {' '.join(PROFILE_RUN)} --profile: rc={rc}, trace "
+              f"{trace.name} ({trace.stat().st_size} B) names cloudsc2_nl_kernel: "
+              f"{named}")
+        if rc != 0 or not named:
+            raise AssertionError("the profiled CLI run failed or its trace "
+                                 "misses the kernel")
+        written = pathlib.Path(tmp) / cli.WRITTEN_REFERENCE
+        rc = cli.main(PROFILE_RUN + ["--device", "cuda", "--reference", str(written)])
+        print(f"[18] cli {' '.join(PROFILE_RUN)} --reference {written.name}: rc={rc}")
+        if rc != 0:
+            raise AssertionError("the written golden file does not validate")
+    return {"launches": launches, "bench": bench}
+
+
 def _nl_compare_and_cli(state, params):
     """Phases 3 and 4: the NL kernel against its plain version, then the NL
     main path through the CLI.  Returns (worst absolute error, worst relative
@@ -1669,7 +1891,7 @@ def _nl_compare_and_cli(state, params):
     return worst_abs, worst_rel, main_launches
 
 
-# The comparisons of phases 6, 9, 12 and 15 are bound by the host (a plain TL
+# The comparisons of phases 6, 9, 12, 15 and 18 are bound by the host (a plain TL
 # or AD sweep is ~140,000 small launches), so each runs in a process of its
 # own beside the main process's phases 3, 4, 7 and 10; nothing is timed for
 # the records until all of them have ended.
@@ -1678,6 +1900,7 @@ COMPARISONS = {
     "variants": compare_variants,
     "experiments": compare_experiments,
     "nl_experiments": compare_nl_experiments,
+    "chunked": compare_chunked,
 }
 # where a comparison's process leaves its output (<name>.log) and its result
 # (<name>.json): under the checkout's build directory
@@ -1807,7 +2030,7 @@ def main(argv=None) -> int:
         variants_ran = cli_variants(state, params)
         t_phase = _lap("3-4, 7, 10", t_phase)
         compared = {name: fn(state, params) for name, fn in COMPARISONS.items()}
-        t_phase = _lap("6, 9, 12, 15 in this process", t_phase)
+        t_phase = _lap("6, 9, 12, 15, 18 in this process", t_phase)
     else:
         comparisons = _start_comparisons()
         try:
@@ -1822,7 +2045,7 @@ def main(argv=None) -> int:
                     proc.kill()
                     proc.wait()
                 log.close()
-        t_phase = _lap("6, 9, 12, 15 in their processes, waited for", t_phase)
+        t_phase = _lap("6, 9, 12, 15, 18 in their processes, waited for", t_phase)
     worst_abs, worst_rel, main_launches = nl_compare
     # -- 5. timing at the headline size, f32, distinct inputs per call
     ncol = TIMING_NCOL
@@ -1896,7 +2119,14 @@ def main(argv=None) -> int:
     nl_records = time_nl_experiments(state, params, compared["nl_experiments"],
                                      nl_ran)
     probes = nl_ran["probes"]
-    _lap("16-17", t_phase)
+    t_phase = _lap("16-17", t_phase)
+    chunked = chunked_and_bench(state, params)
+    for rec, name in ((nl_record, "nl"), (tlad_records[0], "tl"),
+                      (tlad_records[1], "ad")):
+        rec["launches_chunked"] = chunked["launches"][name]
+    nl_record["chunked_rel_err"] = compared["chunked"]["rel"]["nl"]
+    tlad_records[1]["chunked_rel_err"] = compared["chunked"]["rel"]["tlad"]
+    _lap("18", t_phase)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     records = [nl_record, *tlad_records, *test_records, *ab_records, *nl_records]

@@ -34,12 +34,29 @@ thread).  The input is expanded on the device.
 * ``tlad`` runs the TL+AD work unit (``drivers.run_tlad``, LREGCL on)
   ``--repeat`` times and checks the adjoint identity <Mdx, Mdx> = <dx, M^T
   M dx> with dx = DSCALE·x.
+
+Observability and golden files, as in the reference (dwarf_cloudsc.F90):
+
+* ``CLOUDSC2_WRITE_REFERENCE=1`` makes an ``nl`` run write the golden file
+  of its first ``klon_file`` columns into the working directory
+  (:meth:`Cloudsc2State.write_reference`), after the one assembly of the
+  ``(ncol, nlev)`` contract.  The file is ``reference.npz``, not the JAX
+  package's ``reference.h5``: the port's fixtures are ``.npz`` and the card's
+  machine has no ``h5py``; ``--reference`` reads either.
+* ``EC_PMON=1`` reads the host's energy counter at the start and prints
+  ``EC_PMON: energy=… J over …s`` after the table (:func:`timer.energy_probe`;
+  nothing is printed where no counter can be read).
+* ``--profile DIR`` runs everything after the input's expansion under
+  ``torch.profiler`` (CPU activity, and CUDA activity on a card) and writes
+  a Chrome trace into ``DIR``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
+import os
 import pathlib
 import sys
 
@@ -82,7 +99,38 @@ def _build_parser():
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda runs the CUDA kernels; cpu runs their plain "
                         "PyTorch versions")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the run with torch.profiler and write a "
+                        "Chrome trace into DIR (the DR_HOOK/EC_PMON "
+                        "observability analogue)")
     return p
+
+
+# the golden file that CLOUDSC2_WRITE_REFERENCE=1 writes, in the working
+# directory
+WRITTEN_REFERENCE = "reference.npz"
+
+
+@contextlib.contextmanager
+def profiled(directory, device):
+    """``torch.profiler`` around the body, its Chrome trace written to
+    ``directory/cloudsc2jax_torch.<pid>.pt.trace.json``; nothing without a
+    directory (``jax.profiler.trace`` at ``cloudsc2jax/cli.py:181-188``)."""
+    if directory is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    path = pathlib.Path(directory)
+    path.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    trace = path / f"cloudsc2jax_torch.{os.getpid()}.pt.trace.json"
+    prof.export_chrome_trace(str(trace))
+    print(f"profile written to {trace}", file=sys.stderr)
 
 
 # f32 verdict of the adjoint identity through the kernels: the JAX
@@ -247,8 +295,6 @@ def main(argv=None) -> int:
 
     import torch
 
-    from .drivers import DSCALE, run_nl, run_tlad
-    from .kernels.cloudsc2_kernel import unblock_outputs
     from .state import Cloudsc2State
     from .timer import PerformanceTimer
 
@@ -282,8 +328,21 @@ def main(argv=None) -> int:
 
     timer = PerformanceTimer(device)
     timer.start(1)
+    with profiled(args.profile, device):
+        return _dispatch(args, state, inputs, timer, ngptot, ngpblks,
+                         reference_path, streams)
+
+
+def _dispatch(args, state, inputs, timer, ngptot, ngpblks, reference_path,
+              streams) -> int:
+    """Run the variant and its checks; returns the exit code."""
+    from .drivers import DSCALE, run_nl, run_tlad
+    from .kernels.cloudsc2_kernel import unblock_outputs
+
     if args.variant in ("tl", "ad"):
         return _run_test(args, state, inputs, timer, ngptot, ngpblks)
+    tlad = args.variant == "tlad"
+    on_card = inputs.pt.device.type == "cuda"
     timer.thread_start(0)
     for _ in range(args.repeat):
         out = (run_tlad(inputs, state.params, lregcl=True) if tlad
@@ -301,24 +360,30 @@ def main(argv=None) -> int:
         # kernels' budget, or one decade more for the plain versions (the
         # JAX package's jvp/vjp pair), scaled with the reduction length
         tol = (1e-10 if args.dtype == "f64" else scaled_identity_tol(
-            PALLAS_AD_IDENTITY_TOL if device.type == "cuda" else 1e-5,
-            inputs.pt.numel()))
+            PALLAS_AD_IDENTITY_TOL if on_card else 1e-5, inputs.pt.numel()))
         ok = finite and rel < tol
         print(f"tlad outputs finite: {finite}; adjoint identity rel err: "
               f"{rel:.3e} (tol {tol:g})", file=sys.stderr)
         return 0 if ok else 1
 
+    validate = not args.no_validate and reference_path.exists()
+    write_reference = os.environ.get("CLOUDSC2_WRITE_REFERENCE") == "1"
     ok = True
-    if not args.no_validate and reference_path.exists():
-        if streams:
-            # the (ncol, nlev) contract, assembled once, outside the timing
-            out = unblock_outputs(out, state.params)
-        else:
+    if streams and (validate or write_reference):
+        # the (ncol, nlev) contract, assembled once, outside the timing
+        out = unblock_outputs(out, state.params)
+    if validate:
+        if not streams:
             # validate_device reads the levels-major tensors behind the views
             inputs = type(inputs)(*(x.T for x in inputs))
         ok = state.validate_device(
             out, inputs, reference_path,
             threshold=10.0 if args.threshold is None else args.threshold)
+    if write_reference:
+        # the stored columns suffice (cyclic expansion); only they reach
+        # the host
+        state.write_reference(out, WRITTEN_REFERENCE)
+        print(f"Written reference results to {WRITTEN_REFERENCE}", file=sys.stderr)
     return 0 if ok else 1
 
 

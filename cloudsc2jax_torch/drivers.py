@@ -1,18 +1,21 @@
-"""Run harnesses: the nonlinear sweep, the TL+AD work unit, the Taylor test
-and the adjoint symmetry test (reference
-``src/cloudsc2_nl/cloudsc_driver_mod.F90``,
+"""Run harnesses: the nonlinear sweep, the TL+AD work unit, chunked
+streaming past the device's memory, the Taylor test and the adjoint
+symmetry test (reference ``src/cloudsc2_nl/cloudsc_driver_mod.F90``,
 ``src/cloudsc2_tl/cloudsc_driver_tl_mod.F90`` and
 ``src/cloudsc2_ad/cloudsc_driver_ad_mod.F90``).
 
-Port of :func:`cloudsc2jax.drivers.run_nl`, ``run_tlad``, ``taylor_test``
-and ``adjoint_test``.
+Port of :func:`cloudsc2jax.drivers.run_nl`, ``run_tlad``, ``run_chunked``,
+``taylor_test`` and ``adjoint_test``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 import sys
 from functools import partial
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,9 +30,11 @@ from .kernels.tlad_kernel import (
     to_levels_major,
 )
 from .physics.cloudsc2 import Cloudsc2Inputs, cloudsc2
+from .state import tile_stored_columns
 
-__all__ = ["DSCALE", "AdjointResult", "TaylorResult", "adjoint_test", "run_nl",
-           "run_tlad", "taylor_test"]
+__all__ = ["DSCALE", "AdjointResult", "TaylorResult", "adjoint_test",
+           "chunk_columns", "chunk_loop", "run_chunked", "run_nl", "run_tlad",
+           "taylor_test"]
 
 # the drivers' canonical perturbation scale, dx = DSCALE*x
 # (cloudsc_driver_{tl,ad}_mod.F90:156-171): the work unit's increments and
@@ -142,6 +147,202 @@ def run_tlad(
         return out, dout, adj
     raise ValueError(f"backend must be 'streams', 'kernels' or 'truth', "
                      f"not {backend!r}")
+
+
+# ---------------------------------------------------------------- chunked
+class _LRUCache:
+    """A small bounded cache (``cloudsc2jax/drivers.py:74``).  Keys hold
+    ``id(state)``; the value keeps the state alive, so a live entry's id
+    cannot be recycled, and callers check ``hit[0] is state`` for the rest.
+    Bounded, so that a long-running process does not keep every chunk size's
+    device tensors alive."""
+
+    def __init__(self, maxsize: int = 8):
+        self._d = collections.OrderedDict()
+        self.maxsize = maxsize
+
+    def get(self, key):
+        hit = self._d.get(key)
+        if hit is not None:
+            self._d.move_to_end(key)
+        return hit
+
+    def __setitem__(self, key, value):
+        self._d[key] = value
+        self._d.move_to_end(key)
+        while len(self._d) > self.maxsize:
+            self._d.popitem(last=False)
+
+    def __len__(self):
+        return len(self._d)
+
+    def clear(self):
+        self._d.clear()
+
+
+# (state, the stored columns on the device, the generated chunk | None) per
+# chunked configuration
+_CHUNK_CACHE = _LRUCache()
+
+
+def chunk_columns(state, chunk: int, *, variant: str = "nl",
+                  sublanes: Optional[int] = None, fused_gen: bool = False) -> int:
+    """The columns of one chunk as :func:`run_chunked` executes it: whole
+    groups of ``sublanes·128`` columns (the JAX package's blocks, default
+    128 for ``nl`` and 64 for ``tlad``), so that the same call executes the
+    same columns in both packages; with ``fused_gen`` rounded UP to
+    ``lcm(sublanes·128, klon_file)``, the period of the cyclic expansion."""
+    if variant not in ("nl", "tlad"):
+        raise ValueError(f"variant must be 'nl' or 'tlad', not {variant!r}")
+    if sublanes is None:
+        sublanes = 128 if variant == "nl" else 64
+    bc = sublanes * 128
+    if fused_gen:
+        al = math.lcm(bc, state.klon_file)
+        return -(-chunk // al) * al
+    return (chunk // bc) * bc or bc
+
+
+def checksum(out) -> torch.Tensor:
+    """The decomposition-invariant probe: the sum of every leaf of ``out``
+    (``None`` skipped), each summed in float32 (``cloudsc2jax/drivers.py:
+    635-643``), as a 0-d tensor on the outputs' device."""
+    return sum(torch.sum(o, dtype=torch.float32) for o in _leaves(out))
+
+
+def slice_probe(out, variant: str) -> torch.Tensor:
+    """The thin probe (``cloudsc2jax/drivers.py:645-658``): the first two
+    values of each leaf, and for ``tlad`` the adjoint's surface row of paph
+    and the first two values of its plu.  The JAX package's compiler would
+    drop unconsumed work; eager PyTorch runs every launch, so this probe
+    changes what is read, not what runs."""
+    extra = 0.0
+    if variant == "tlad":
+        adj = out[2]
+        extra = (torch.sum(adj.paph[-1], dtype=torch.float32)
+                 + torch.sum(adj.plu.ravel()[:2], dtype=torch.float32))
+    return extra + sum(torch.sum(o.ravel()[:2], dtype=torch.float32)
+                       for o in _leaves(out))
+
+
+def _leaves(tree):
+    for x in tree:
+        if x is None:
+            continue
+        if isinstance(x, torch.Tensor):
+            yield x
+        else:
+            yield from _leaves(x)
+
+
+def chunk_loop(
+    state,
+    ngptot: int,
+    *,
+    variant: str = "nl",
+    chunk: int = 524288,
+    dtype: torch.dtype = torch.float32,
+    sublanes: Optional[int] = None,
+    lregcl: bool = True,
+    device="cuda",
+    mesh=None,
+    fused_gen: bool = False,
+    probe: str = "checksum",
+    write_primal: bool = True,
+):
+    """:func:`run_chunked` without its one read of the result: returns
+    ``(columns_processed, acc)``, ``acc`` the 0-d float32 accumulator on the
+    device, not yet read.  Once a state's stored columns are on the device
+    (the first call for a dtype and device uploads them), nothing in the
+    loop synchronises with the host: a CUDA-gated test and
+    ``chip_smoke.py`` run it under ``torch.cuda.set_sync_debug_mode(
+    "error")``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_chunked(mesh=...) needs the multi-process column "
+            "decomposition, which the port does not have yet (ROADMAP "
+            "section 1, item 8)")
+    if probe not in ("checksum", "slice"):
+        raise ValueError(f"probe must be 'checksum' or 'slice', not {probe!r}")
+    if not write_primal and variant != "tlad":
+        raise ValueError("write_primal=False applies to variant='tlad' only")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("run_chunked: no CUDA device is available")
+    if sublanes is None:
+        sublanes = 128 if variant == "nl" else 64
+    chunk = chunk_columns(state, chunk, variant=variant, sublanes=sublanes,
+                          fused_gen=fused_gen)
+    key = (id(state), variant, sublanes, chunk, dtype, lregcl, fused_gen,
+           probe, write_primal, device)
+    hit = _CHUNK_CACHE.get(key)
+    if hit is None or hit[0] is not state:
+        base = state.stored_inputs(dtype, device, pqs=variant == "tlad")
+        # one generation feeds every chunk: with the chunk a whole period
+        # of the cyclic expansion, every chunk's inputs are value-identical
+        blk = tile_stored_columns(base, chunk) if fused_gen else None
+        hit = _CHUNK_CACHE[key] = (state, base, blk)
+    _, base, blk = hit
+
+    if variant == "nl":
+        def kernel(inputs):
+            return run_nl(inputs, state.params, backend="streams")
+    else:
+        def kernel(inputs):
+            return run_tlad(inputs, state.params, lregcl=lregcl,
+                            write_primal=write_primal, backend="streams")
+
+    def force(out):
+        return checksum(out) if probe == "checksum" else slice_probe(out, variant)
+
+    nchunks = -(-ngptot // chunk)
+    acc = torch.zeros((), dtype=torch.float32, device=device)
+    for i in range(nchunks):
+        # one expression, so that a chunk's inputs and outputs are free
+        # before the next chunk allocates its own
+        acc = acc + force(kernel(
+            blk if fused_gen else tile_stored_columns(base, chunk, i * chunk)))
+    return nchunks * chunk, acc
+
+
+def run_chunked(state, ngptot: int, **kwargs):
+    """Stream batches larger than the device's memory through the kernels
+    (``cloudsc2jax/drivers.py:505-606``).
+
+    Each chunk is generated on the device from the stored columns at its
+    global column offset (``col_offset = i·chunk``, the cyclic expansion of
+    expand_mod.F90), run through ``run_nl(backend="streams")`` (``variant=
+    "nl"``, the main path: prelude and kernel #1) or ``run_tlad(backend=
+    "streams")`` (``"tlad"``: kernels #3 and #5, one prelude per unit;
+    ``write_primal=False`` drops the 8 primal streams), reduced to a scalar
+    and added to one device accumulator; the host reads it once, at the
+    end.  CUDA tensors (``device="cuda"``, the default) run the kernels,
+    ``device="cpu"`` their plain versions.  The keywords are
+    :func:`chunk_loop`'s: the JAX package's signature with ``interpret``
+    replaced by ``device`` (``variant="nl"``, ``chunk=524288``,
+    ``dtype=torch.float32``, ``sublanes=None``, ``lregcl=True``,
+    ``device="cuda"``, ``mesh=None``, ``fused_gen=False``,
+    ``probe="checksum"``, ``write_primal=True``, this one for ``tlad``
+    only).
+
+    Returns ``(columns_processed, checksum)``: ``columns_processed =
+    ceil(ngptot/chunk)·chunk`` is the padded count actually executed, the
+    chunk rounded by :func:`chunk_columns` (``sublanes`` is kept only for
+    that rounding).  ``probe="checksum"`` sums every leaf of every chunk's
+    results in float32: the same global columns give the same value for any
+    chunk size up to float32 reassociation.  ``probe="slice"`` reads
+    :func:`slice_probe` instead, as the benchmark's timed chain does.
+
+    ``fused_gen=True`` rounds the chunk up to a whole period of the
+    expansion and generates it once for the whole run; its checksum equals
+    the regenerating path's bit for bit for the same executed columns.
+
+    The device-resident stored columns, and with ``fused_gen`` the
+    generated chunk, stay in a small LRU cache keyed by the configuration.
+    ``mesh`` other than ``None`` raises ``NotImplementedError``.
+    """
+    columns, acc = chunk_loop(state, ngptot, **kwargs)
+    return columns, float(acc)
 
 
 # ------------------------------------------------------------------ Taylor

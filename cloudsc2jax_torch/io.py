@@ -1,11 +1,11 @@
 """Input/reference file I/O and synthetic-state generation.
 
-Port of the read side of :mod:`cloudsc2jax.io`, which holds no JAX code
-but cannot be imported without JAX.  Files keep the reference schema
-exactly (datasets stored ``(nlev[, +1], nlon)`` C-order float64, scalars as
-1-element datasets, cloudsc2_array_state_mod.F90:161-199).  A store is an
-``.npz`` archive or an ``.h5`` file; ``h5py`` is imported only for the
-latter, so a machine without it reads the ``.npz`` copies of the fixtures.
+Port of :mod:`cloudsc2jax.io`, which holds no JAX code but cannot be
+imported without JAX.  Files keep the reference schema exactly (datasets
+stored ``(nlev[, +1], nlon)`` C-order float64, scalars as 1-element
+datasets, cloudsc2_array_state_mod.F90:161-199).  A store is an ``.npz``
+archive or an ``.h5`` file; ``h5py`` is imported only for the latter, so a
+machine without it reads and writes ``.npz`` stores.
 """
 
 from __future__ import annotations
@@ -23,6 +23,9 @@ __all__ = [
     "expand_columns",
     "load_input_h5",
     "load_reference_h5",
+    "write_store",
+    "write_input_h5",
+    "write_reference_h5",
     "INPUT_FIELDS",
     "REFERENCE_FIELDS",
 ]
@@ -96,6 +99,20 @@ def open_store(path):
     import h5py
 
     return h5py.File(path, "r")
+
+
+def write_store(path, datasets) -> None:
+    """Write a dict of datasets to ``.npz`` or ``.h5`` with the same names,
+    dtypes and shapes (``cloudsc2jax/io.py:124``)."""
+    path = str(path)
+    if path.endswith(".npz"):
+        np.savez(path, **{k: np.asarray(v) for k, v in datasets.items()})
+        return
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for k, v in datasets.items():
+            f.create_dataset(k, data=np.asarray(v))
 
 
 def h5_to_npz(src, dst) -> None:
@@ -330,3 +347,59 @@ def load_reference_h5(path, ngptot: Optional[int] = None):
     if ngptot is not None:
         return expand_columns(raw, ngptot, columns_first=True)
     return {k: _columns_first(v) for k, v in raw.items()}
+
+
+def write_input_h5(path, fields: Dict[str, np.ndarray], params: Params) -> None:
+    """Write an input store (``.npz`` or ``.h5``) with the reference schema
+    (cloudsc2_array_state_mod.F90:161-199 and the yo*_LOAD_PARAMETERS
+    readers): ``fields`` in file order ``(…, nlev, nlon)``, the run scalars,
+    and every constant group, as ``cloudsc2jax/io.py:316`` writes it."""
+    nlev = fields["PT"].shape[0]
+    nlon = fields["PT"].shape[-1]
+    ds: Dict[str, np.ndarray] = {
+        "KLON": np.array([nlon], dtype=np.int32),
+        "KLEV": np.array([nlev], dtype=np.int32),
+        "PTSPHY": np.array([params.ptsphy]),
+        "LDSLPHY": np.array([0], dtype=np.int32),
+        "LDMAINCALL": np.array([0], dtype=np.int32),
+    }
+    for k, v in fields.items():
+        ds[k] = np.asarray(v, dtype=np.float64)
+    for grp in (params.yomcst, params.yoethf, params.yrecldp, params.yrephli):
+        for k, v in grp.h5_items().items():
+            if isinstance(v, (tuple, list, np.ndarray)):
+                # array-valued parameters (YRECLDP_RBETA/RBETAP1(0:100),
+                # yoecldp.F90:367-369)
+                ds[k] = np.asarray(v, dtype=np.float64)
+            elif isinstance(v, (bool, int, np.integer)):
+                # logicals and integers are int datasets (file_io_mod's
+                # logical and integer scalar readers)
+                ds[k] = np.array([int(v)], dtype=np.int32)
+            else:
+                ds[k] = np.array([float(v)])
+    write_store(path, ds)
+
+
+# flux datasets the reference's golden file carries and CLOUDSC2 never writes
+_REFERENCE_PLACEHOLDERS = ("PFSQLF", "PFSQIF", "PFCQLNG", "PFCQNNG", "PFSQRF",
+                           "PFSQSF", "PFCQRNG", "PFCQSNG", "PFSQLTUR", "PFSQITUR")
+
+
+def write_reference_h5(path, outputs: Dict[str, np.ndarray], extra: bool = True) -> None:
+    """Write golden outputs (file order arrays) to ``.npz`` or ``.h5`` with
+    the reference schema (cloudsc2_array_state_mod.F90:260-287
+    WRITE_REFERENCE; ``cloudsc2jax/io.py:402``); ``extra`` adds the
+    placeholder flux datasets of the reference file as zeros."""
+    nlev, nlon = outputs["PCOVPTOT"].shape[-2:]
+    ds: Dict[str, np.ndarray] = {
+        "KLON": np.array([nlon], dtype=np.int32),
+        "KLEV": np.array([nlev], dtype=np.int32),
+        "KFLDX": np.array([0], dtype=np.int32),
+    }
+    for k, v in outputs.items():
+        ds[k] = np.asarray(v, dtype=np.float64)
+    if extra:
+        for k in _REFERENCE_PLACEHOLDERS:
+            ds.setdefault(k, np.zeros((nlev + 1, nlon)))
+        ds.setdefault("PRAINFRAC_TOPRFZ", np.zeros((nlon,)))
+    write_store(path, ds)

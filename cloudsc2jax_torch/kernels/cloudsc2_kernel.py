@@ -39,6 +39,7 @@ with no column padding.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -450,8 +451,17 @@ def tropopause_eta_lm(ztp1_lm, ceta):
 
 
 def level_scalars(params: Params, like: torch.Tensor):
-    """(ceta, zscalm), ``(nlev,)`` each, in ``like``'s dtype on its device."""
-    ceta = torch.tensor(params.ceta, dtype=like.dtype, device=like.device)
+    """(ceta, zscalm), ``(nlev,)`` each, in ``like``'s dtype on its device.
+    Made once per ceta, dtype and device and shared (read only), so that a
+    call on a CUDA device copies nothing from the host and does not
+    synchronise with it."""
+    return _level_scalars(params.ceta, like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=16)
+def _level_scalars(ceta: Tuple[float, ...], dtype: torch.dtype,
+                   device: torch.device):
+    ceta = torch.tensor(ceta, dtype=dtype, device=device)
     return ceta, _ZSCAL * torch.clamp_min(ceta - 0.2, _ZEPS1) ** 0.2
 
 

@@ -1,10 +1,11 @@
-"""Array state: load, expand on the device, validate on the device.
+"""Array state: load, expand on the device, validate, write a golden file.
 
 Port of :mod:`cloudsc2jax.state` (reference
 ``src/common/module/cloudsc2_array_state_mod.F90``).  The host keeps the
 stored columns in framework order ``(ncol, [nclv,] nlev)``; the main path
-ships only those to the device and expands them there, straight into the
-levels-major ``(nlev[+1], ngptot)`` layout the kernel reads.
+ships only those to the device, once per dtype and device, and expands them
+there (:func:`tile_stored_columns`), straight into the levels-major
+``(nlev[+1], ngptot)`` layout the kernel reads.
 """
 
 from __future__ import annotations
@@ -21,7 +22,21 @@ from .constants import NCLDQI, NCLDQL, NCLV, Params
 from .physics.cloudsc2 import Cloudsc2Inputs, Cloudsc2Outputs
 from .physics.satur import satur
 
-__all__ = ["Cloudsc2State"]
+__all__ = ["Cloudsc2State", "tile_stored_columns"]
+
+
+def tile_stored_columns(base: Cloudsc2Inputs, ncol: int,
+                        col_offset: int = 0) -> Cloudsc2Inputs:
+    """Cyclic expansion of device-resident stored columns (the port's
+    ``blockify_columns``, ``cloudsc2jax/state.py:27``): ``base`` holds the
+    ``klon`` stored columns levels-major, ``(nlev[+1], klon)``; column i of
+    the result holds stored column ``(col_offset + i) % klon``, on
+    ``base``'s device, with no host transfer and no synchronisation.
+    ``None`` fields stay ``None``."""
+    klon = base.pt.shape[1]
+    idx = torch.arange(col_offset, col_offset + ncol, device=base.pt.device) % klon
+    return Cloudsc2Inputs(
+        *(None if x is None else x.index_select(1, idx) for x in base))
 
 
 def _tile_columns(x: np.ndarray, ncol: int, like: torch.Tensor) -> torch.Tensor:
@@ -42,6 +57,9 @@ class Cloudsc2State:
     params: Params
     ngptot: int
     klon_file: int  # columns stored in the source file (100 upstream)
+    # (dtype, device) -> the stored columns there (stored_inputs)
+    _resident: dict = dataclasses.field(default_factory=dict, init=False,
+                                        repr=False, compare=False)
 
     # ------------------------------------------------------------------ load
     @classmethod
@@ -61,6 +79,16 @@ class Cloudsc2State:
         return cls(fields=fields, params=params, ngptot=ngptot, klon_file=min(ngptot, 100))
 
     # ------------------------------------------------------------- kernel IO
+    def qsat(self, dtype: torch.dtype = torch.float64, device="cpu") -> torch.Tensor:
+        """SATUR of the state's fields cast to ``dtype``, in framework order
+        ``(ncol, nlev)`` on ``device``: the driver's PQS
+        (cloudsc_driver_mod.F90:91-92)."""
+        def put(name):
+            return torch.from_numpy(np.asarray(self.fields[name])).to(
+                device=device, dtype=dtype)
+
+        return satur(put("PAP"), put("PT"), self.params, lphylin=True, kflag=2)
+
     def kernel_inputs(self, dtype: torch.dtype = torch.float64,
                       device="cpu") -> Cloudsc2Inputs:
         """The 16 kernel inputs of the ``klon_file`` stored columns as
@@ -98,32 +126,44 @@ class Cloudsc2State:
             psupsat=put(f["PSUPSAT"]),
         )
 
+    def stored_inputs(self, dtype: torch.dtype = torch.float32, device="cuda",
+                      pqs: bool = False) -> Cloudsc2Inputs:
+        """:meth:`kernel_inputs` (``pqs=True``) or its fields without PQS,
+        uploaded to ``device`` once per dtype and device and kept there: the
+        device-resident base that :func:`tile_stored_columns` expands.  PQS
+        is computed once, on the device, the first time it is asked for.
+        The tensors are shared between calls and must not be written to."""
+        key = (dtype, torch.device(device))
+        base = self._resident.get(key)
+        if base is None:
+            base = self._resident[key] = self._stored_inputs(dtype, device)
+        if pqs and base.pqs is None:
+            base = self._resident[key] = base._replace(
+                pqs=satur(base.pap, base.pt, self.params, lphylin=True, kflag=2))
+        return base if pqs else base._replace(pqs=None)
+
     def device_kernel_inputs(
         self, ngptot: Optional[int] = None, dtype: torch.dtype = torch.float32,
         device="cuda", pqs: bool = False, col_offset: int = 0,
     ) -> Cloudsc2Inputs:
         """Levels-major kernel inputs expanded to ``ngptot`` columns ON THE
         DEVICE.  Only the ``klon_file`` stored columns cross to the device
-        (~1 MB); ``index_select`` tiles them cyclically straight into
-        ``(nlev[+1], ngptot)``, the kernel's layout, with no padding (the
-        port's ``blockify_columns``).
+        (~1 MB), once per dtype and device (:meth:`stored_inputs`);
+        :func:`tile_stored_columns` tiles them cyclically straight into
+        ``(nlev[+1], ngptot)``, the kernel's layout, with no padding.
 
         ``pqs=False`` (the NL sweep, which computes qsat from pt and pap
         itself) leaves ``pqs`` as ``None``.  ``pqs=True`` (the TL/AD sweeps,
         which read it as an independent input) runs SATUR on the stored
-        columns in ``dtype`` and tiles the result like the other fields, as
-        the JAX package does (``cloudsc2jax/state.py:147-215``).
+        columns in ``dtype`` (once) and tiles the result like the other
+        fields, as the JAX package does (``cloudsc2jax/state.py:147-215``).
 
         ``col_offset`` starts the cyclic expansion at that global column:
         column i holds stored column ``(col_offset + i) % klon_file``, so a
         process or a chunk that materialises the global columns [o, o+n)
         passes ``col_offset=o`` (expand_mod.F90:30-46)."""
-        ngptot = ngptot or self.ngptot
-        base = (self.kernel_inputs(dtype, device) if pqs
-                else self._stored_inputs(dtype, device))
-        idx = (col_offset + torch.arange(ngptot, device=base.pt.device)) % self.klon_file
-        return Cloudsc2Inputs(
-            *(None if x is None else x.index_select(1, idx) for x in base))
+        return tile_stored_columns(self.stored_inputs(dtype, device, pqs),
+                                   ngptot or self.ngptot, col_offset)
 
     def device_inputs(
         self, ngptot: Optional[int] = None, dtype: torch.dtype = torch.float64,
@@ -170,6 +210,21 @@ class Cloudsc2State:
         }
 
     # -------------------------------------------------------------- validate
+    def validate(self, out: Cloudsc2Outputs, reference_path,
+                 threshold: float = 10.0, quiet: bool = False) -> bool:
+        """VALIDATE on the host (…array_state_mod.F90:205-258): the
+        ``(ncol, nlev)`` outputs, brought to the host in float64, against the
+        golden ``klon_file`` columns expanded cyclically to ``ngptot``, which
+        is exact because expansion replicates the inputs.  As in the JAX
+        package's host path, the statistics are those of float64 arrays,
+        judged in float64 epsilons whatever the working precision."""
+        ref = cio.load_reference_h5(reference_path, ngptot=self.ngptot)
+        res = self.output_dict(out)
+        errors = cval.validate(res, ref, ngptot=self.ngptot)
+        if quiet:
+            return all(e.passed(threshold) for e in errors.values())
+        return cval.print_validation(errors, threshold)
+
     def validate_device(
         self,
         out: Cloudsc2Outputs,
@@ -213,3 +268,18 @@ class Cloudsc2State:
         if quiet:
             return all(e.passed(threshold) for e in errors.values())
         return cval.print_validation(errors, threshold)
+
+    def write_reference(self, out: Cloudsc2Outputs, path) -> None:
+        """WRITE_REFERENCE (…array_state_mod.F90:260-287): the first
+        ``klon_file`` columns of the ``(ncol, nlev)`` outputs, in file order,
+        as a golden store (``.npz`` or ``.h5``).  The reference requires
+        NPROMA == the stored KLON for this (:264-268), so fewer columns are
+        refused."""
+        from .errors import abor1
+
+        if self.ngptot < self.klon_file:
+            abor1(f"write_reference needs >= {self.klon_file} columns, "
+                  f"have {self.ngptot}")
+        head = type(out)(*(x[: self.klon_file] for x in out))
+        res = {k: np.moveaxis(v, 0, -1) for k, v in self.output_dict(head).items()}
+        cio.write_reference_h5(path, res)

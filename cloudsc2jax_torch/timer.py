@@ -1,26 +1,65 @@
-"""Performance accounting (reference ``src/common/module/timer_mod.F90``).
+"""Performance accounting and energy monitoring (reference
+``src/common/module/timer_mod.F90`` and ``ec_pmon_mod.F90``).
 
 Port of the single-device part of :mod:`cloudsc2jax.timer`: a global wall
 clock and per-lane clocks, printed as the reference's table with columns/s
 and MFlop/s against the nominal flop count ZHPM.  On a CUDA device each
 clock reading first waits for the device (``torch.cuda.synchronize``), so a
-timed region covers the work it enqueued.
+timed region covers the work it enqueued.  With ``EC_PMON=1`` the host's
+energy counter is read at the start and printed after the table
+(:func:`energy_probe`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["ZHPM", "PerformanceTimer"]
+__all__ = ["ZHPM", "PerformanceTimer", "energy_probe"]
 
 # Nominal flops per 100 columns (reference model constant,
 # cloudsc_driver_mod.F90:58).
 ZHPM = 3996006.0
+
+
+# The counters energy_probe reads, in its order: Cray's pm_counters, which
+# the reference reads (ec_pmon_mod.F90:14-56), then Linux's RAPL powercap.
+CRAY_ENERGY = "/sys/cray/pm_counters/energy"
+CRAY_POWER = "/sys/cray/pm_counters/power"
+RAPL_ENERGY_UJ = "/sys/class/powercap/intel-rapl:0/energy_uj"
+
+
+def _read_first(path) -> Optional[str]:
+    try:
+        with open(path) as f:
+            return f.read().strip()
+    except OSError:
+        return None
+
+
+def energy_probe() -> Optional[Dict[str, float]]:
+    """The host's energy counter when ``EC_PMON=1`` (``cloudsc2jax/timer.py:
+    40-68`` without its native shim): ``{"energy_j", "power_w"}`` from
+    Cray's pm_counters, else from RAPL (power not available: NaN); ``None``
+    when not requested or when no counter can be read."""
+    if os.environ.get("EC_PMON") != "1":
+        return None
+    cray_e = _read_first(CRAY_ENERGY)
+    if cray_e is not None:
+        cray_p = _read_first(CRAY_POWER)
+        return {
+            "energy_j": float(cray_e.split()[0]),
+            "power_w": float(cray_p.split()[0]) if cray_p else float("nan"),
+        }
+    rapl = _read_first(RAPL_ENERGY_UJ)
+    if rapl is not None:
+        return {"energy_j": float(rapl) * 1e-6, "power_w": float("nan")}
+    return None
 
 
 @dataclasses.dataclass
@@ -42,6 +81,7 @@ class PerformanceTimer:
         self._lanes: Dict[int, _Lane] = {}
         self._t0 = None
         self._t1 = None
+        self._energy0 = None
 
     def _now(self) -> float:
         if self._device.type == "cuda":
@@ -50,6 +90,7 @@ class PerformanceTimer:
 
     # -- lifecycle (timer_mod.F90:56-112)
     def start(self, num_lanes: int = 1):
+        self._energy0 = energy_probe()
         self._t0 = self._now()
         for i in range(num_lanes):
             self._lanes.setdefault(i, _Lane(lane_id=i))
@@ -108,4 +149,8 @@ class PerformanceTimer:
             f" {nproma:>8} {1e3*t:>12.1f} {mflops:>12.0f} {cols/t:>14.0f}",
             file=file,
         )
+        e1 = energy_probe()
+        if self._energy0 is not None and e1 is not None:
+            de = e1["energy_j"] - self._energy0["energy_j"]
+            print(f"EC_PMON: energy={de:.1f} J over {t:.3f}s", file=file)
         return cols / t

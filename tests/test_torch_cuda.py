@@ -706,3 +706,87 @@ def test_cuda_encoding_study_runs_on_the_card(capsys):
     table = encoding_study.main([])
     capsys.readouterr()
     assert 1e-4 < table["encodings"]["i16"]["max_field_relerr"] < 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,tol", [("nl", 5e-6), ("tlad", 1e-4)])
+def test_cuda_run_chunked_matches_plain_versions(variant, tol):
+    """``run_chunked`` through the kernels against the same call on the
+    CPU, which runs the plain versions, relative to the checksum (the
+    kernels' tolerances against their plain versions); the kernels launch
+    once per chunk."""
+    from cloudsc2jax_torch import drivers
+    from cloudsc2jax_torch.kernels.tlad_kernel import cloudsc2_tl
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    counter = kmod.cloudsc2_nl if variant == "nl" else cloudsc2_tl
+    launches = counter.launches
+    kw = dict(variant=variant, chunk=256, sublanes=1)
+    n, got = drivers.run_chunked(st, 500, device="cuda", **kw)
+    assert counter.launches == launches + 2
+    m, ref = drivers.run_chunked(st, 500, device="cpu", **kw)
+    assert n == m == 512
+    assert abs(got - ref) <= tol * abs(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["nl", "tlad"])
+def test_cuda_chunk_loop_does_not_synchronise(variant):
+    """The chunk loop under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises at any call that waits for the card; its one read after
+    gives what ``run_chunked`` gives, and ``fused_gen`` the same bits as
+    regeneration."""
+    from cloudsc2jax_torch import drivers
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    kw = dict(variant=variant, chunk=16384)
+    n, expected = drivers.run_chunked(st, 40000, **kw)  # uploads the columns
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m, acc = drivers.chunk_loop(st, 40000, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (m, float(acc)) == (n, expected) and n == 49152
+    period = drivers.chunk_columns(st, 16384, variant=variant, fused_gen=True)
+    assert drivers.run_chunked(st, 2 * period, variant=variant, chunk=16384,
+                               fused_gen=True) == \
+        drivers.run_chunked(st, 2 * period, variant=variant, chunk=period)
+
+
+@pytest.mark.cuda
+def test_cuda_cli_profiles_and_writes_a_golden_file(tmp_path, monkeypatch):
+    """``--profile`` on the card traces the kernel by name, and the golden
+    file written with ``CLOUDSC2_WRITE_REFERENCE=1`` validates a second run."""
+    _need_cuda()
+    run = ["nl", "1", "100", "100", "--kernels", "--dtype", "f64", "--device", "cuda"]
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("CLOUDSC2_WRITE_REFERENCE", "1")
+    assert cli.main(run + ["--profile", str(tmp_path / "prof")]) == 0
+    monkeypatch.delenv("CLOUDSC2_WRITE_REFERENCE")
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    assert "cloudsc2_nl_kernel" in trace.read_text()
+    assert cli.main(run + ["--reference", str(tmp_path / cli.WRITTEN_REFERENCE)]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["nl", "chunked"])
+def test_cuda_bench_record_names_the_card(monkeypatch, capsys, variant):
+    """The bench on the card at a small size: one record with the card's
+    name and power limit; the chunked one with the card's memory and the
+    peak of allocated memory."""
+    from cloudsc2jax_torch import bench
+
+    _need_cuda()
+    for k, v in {"CLOUDSC2_BENCH_VARIANT": variant, "CLOUDSC2_BENCH_NGPTOT": "65536",
+                 "CLOUDSC2_BENCH_CHUNK": "32768", "CLOUDSC2_BENCH_REPEATS": "2"}.items():
+        monkeypatch.setenv(k, v)
+    rec = bench.main([])
+    capsys.readouterr()
+    assert rec["platform"] == "gpu" and rec["device_name"] and rec["power_limit_w"] > 0
+    assert rec["value"] > 0
+    if variant == "chunked":
+        assert 0 < rec["peak_allocated_gb"] < rec["device_memory_gb"]
+        assert rec["ngptot"] == 65536 and rec["chunk"] == 32768

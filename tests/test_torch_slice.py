@@ -175,6 +175,8 @@ def test_port_imports_no_jax():
         "import cloudsc2jax_torch.kernels.experiments\n"
         "import cloudsc2jax_torch.kernel_ab, cloudsc2jax_torch.bw_probe\n"
         "import cloudsc2jax_torch.encoding_study, cloudsc2jax_torch.tlad\n"
+        "import cloudsc2jax_torch.bench, cloudsc2jax_torch.io\n"
+        "import cloudsc2jax_torch.timer, cloudsc2jax_torch.validate\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'cloudsc2jax.'))"
         " or m == 'cloudsc2jax' for m in sys.modules), sorted(sys.modules)\n"
     )
