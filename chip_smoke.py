@@ -80,8 +80,8 @@ and prints no result line):
    must show that each ran.  Also printed: how far the TL kernel and the
    truth path, both f32, sit from the truth path in f64; and the JAX
    package's f32 TL parity, 1e-6, held by the streamed-increment TL kernel
-   built with ``-fmad=false`` (the shipped build contracts multiply-adds and
-   is held to 1e-5), at 16,384 columns with ``lregcl`` off and on.
+   (shipped built with ``-fmad=false``) at 16,384 columns with ``lregcl``
+   off and on.
 11. Timing with CUDA events at 327,680 columns f32 over distinct inputs:
    the forward kernel, the streamed-increment TL kernel, the
    standard-contract ``run_tlad`` on ``(ncol, nlev)``-contiguous inputs
@@ -169,6 +169,25 @@ and prints no result line):
    temporary directory, whose trace must name ``cloudsc2_nl_kernel`` and
    whose ``reference.npz`` must validate a second run at the default
    threshold.
+19. The column decomposition over processes: two ranks on the card, each a
+   process of its own (``chip_smoke.py --rank-worker``) in one ``gloo``
+   group over ``localhost``, started after phase 2's build so that they find
+   the libraries built.  Each rank, its launch counters zeroed just before
+   each run and read just after, drives the CLI with
+   ``CLOUDSC2_NUM_PROCESSES=2``: ``nl 1 327680 128 --dtype f32 --threshold
+   10000 --kernels --repeat 10`` (golden validation reduced over the ranks)
+   and ``tlad 1 327680 128 --dtype f32 --repeat 10`` (adjoint identity
+   reduced over the ranks), each
+   of which must pass on both ranks with the kernels launched on both; then
+   ``run_chunked(mesh=)`` of ``nl`` and ``tlad`` over 655,360 columns in
+   chunks of 327,680, its chunk loop under
+   ``torch.cuda.set_sync_debug_mode("error")`` and its one reduction over
+   the ranks after it, both ranks' checksums within 1e-5 and 1e-4 of phase
+   18's one-process checksum of the same columns.  The main process runs
+   the same two CLI runs as one process (the same verdicts) and
+   ``dist.dryrun(1)``, and prints each rank's ms from rank 0's gathered
+   table and the two ranks' combined columns/s: two processes time-slice
+   one card, so that is no scaling.
 
 The comparisons of phases 6, 9, 12, 15 and 18 are bound by the host, so each
 runs in a process of its own (``chip_smoke.py --compare <name>``, started
@@ -243,9 +262,6 @@ MAIN_PATH_RUNS = (
 )
 # the NL truth path through the CLI, against the same golden file
 TRUTH_RUNS = (["nl", "1", "16384", "128", "--dtype", "f64"],)
-# the JAX package's f32 TL parity (cloudsc2jax/cli.py:288), which the TL
-# kernel built without FMA contraction holds (PERF.md)
-NOFMA_TL_PARITY_TOL = 1e-6
 # (ncol, dtype, ldrain1d) of the sweeps on the CLI's main paths, for the
 # kernel-against-plain comparisons of the NL, TL+AD and standalone phases
 COMPARE_SHAPES = [(163840, "float32", False), (16384, "float64", False)]
@@ -313,6 +329,15 @@ CHUNK_TOLERANCE = {"nl": 5e-6, "tlad": 1e-4}
 CHUNK_NGPTOT = 655_360
 CHUNK_SIZES = (163_840, 327_680)
 CHUNK_INVARIANCE_RTOL = {"nl": 1e-5, "tlad": 1e-4}
+# phase 19: the ranks, their CLI runs (each rank expands and validates its
+# half of the columns) and the time each rank's process may take
+MP_RANKS = 2
+MP_RUNS = (
+    ["nl", "1", "327680", "128", "--dtype", "f32", "--threshold", "10000",
+     "--kernels", "--repeat", "10"],
+    ["tlad", "1", "327680", "128", "--dtype", "f32", "--repeat", "10"],
+)
+MP_TIMEOUT_S = 300
 BENCH_VARIANTS = ("nl", "tlad", "chunked", "chunked_tlad")
 PROFILE_RUN = ["nl", "1", "100", "100", "--kernels", "--dtype", "f64"]
 # The code of every library but the encoded NL one (#1-#5, #7, #8, #9 and
@@ -320,7 +345,9 @@ PROFILE_RUN = ["nl", "1", "100", "100", "--kernels", "--dtype", "f64"]
 # SASS of its entries, recorded on an NVIDIA H100 under the nvcc release
 # named, #8 and #9 from the tree before the encoded NL kernel took their load
 # policy (cloudsc2jax_torch/probes/nl_enc_ab.py), the others from the tree
-# before #8 and #9 were redesigned (probes/enc_ab.py).  Phase 2 fails if a
+# before #8 and #9 were redesigned (probes/enc_ab.py), but the
+# streamed-increment TL's, which is its build with -fmad=false
+# (probes/din_fmad_ab.py; its contracted build is ab85341a...).  Phase 2 fails if a
 # build differs under that release; under another release it says that it
 # did not check.
 EXACT_SASS_RELEASE = "release 12.9, V12.9.86"
@@ -332,7 +359,7 @@ EXACT_SASS = {
     "cloudsc2_tl":
         "cbba2c4115e373e581b4ef161242bfc1f2981263125c58f42cfc53e3e07dbfc6",
     "cloudsc2_tl_din":
-        "ab85341aedb9b8ec11ea38b72f16c47ef28d5bd744259d818d5703b4f0144740",
+        "d36ff22e14257deed01a6850a7e8da8d32e21691f7406829897970c855661a81",
     "cloudsc2_ad":
         "927e675bcceda99b119f0d4d09b29d05baeb99919f838b6e909cdff0dd148e05",
     "cloudsc2_tlad_fused":
@@ -786,27 +813,24 @@ def cli_variants(state, params):
             for g, r in zip(got, ref))
         print(f"[10] TL tangents at {ncol} columns, {label}: max rel err "
               f"{dist[label]:.3e}")
-    # the reference's 1e-6 TL parity, held by the TL kernel built without
-    # FMA contraction (its own library beside the shipped one)
-    from cloudsc2jax_torch.kernels import build
+    # the reference's 1e-6 TL parity, which the shipped streamed-increment
+    # TL kernel (built without FMA contraction) holds with lregcl off and on
     from cloudsc2jax_torch.kernels.tlad_kernel import cloudsc2_kernel_tl
 
-    nofma = {}
+    parity = {}
     d32 = Cloudsc2Inputs(*(DSCALE * x for x in i32))
-    with build.variant("cloudsc2_tl_din", flags=("-fmad=false",)):
-        for lregcl in (False, True):
-            _, dk = cloudsc2_kernel_tl(i32, d32, params, lregcl=lregcl)
-            nofma[f"lregcl={lregcl}"] = cli.tl_parity(i32, dk, params, lregcl=lregcl)
-            print(f"[10] TL parity at {ncol} f32 columns, -fmad=false, "
-                  f"lregcl={lregcl}: {nofma[f'lregcl={lregcl}']:.3e} "
-                  f"(tol {NOFMA_TL_PARITY_TOL:g})")
-    if not max(nofma.values()) < NOFMA_TL_PARITY_TOL:
-        raise AssertionError("the TL kernel without FMA contraction misses "
-                             "the reference's TL parity")
+    for lregcl in (False, True):
+        _, dk = cloudsc2_kernel_tl(i32, d32, params, lregcl=lregcl)
+        parity[f"lregcl={lregcl}"] = cli.tl_parity(i32, dk, params, lregcl=lregcl)
+        print(f"[10] TL parity at {ncol} f32 columns, lregcl={lregcl}: "
+              f"{parity[f'lregcl={lregcl}']:.3e} (tol {cli.PALLAS_TL_PARITY_TOL:g})")
+    if not max(parity.values()) < cli.PALLAS_TL_PARITY_TOL:
+        raise AssertionError("the streamed-increment TL kernel misses the "
+                             "reference's TL parity")
     del i64, i32, d64, dk32, dt32, std, d32
 
     return {"launches": launches, "verdicts": verdicts, "dist": dist,
-            "tl_parity_nofma": nofma}
+            "tl_parity": parity}
 
 
 def time_variants(state, params, compared, ran, ad_record):
@@ -902,7 +926,7 @@ def time_variants(state, params, compared, ran, ad_record):
                run_tlad_kernels_ms=ms["run_tlad_kernels"],
                run_tlad_kernels_views_ms=ms["run_tlad_kernels_views"],
                tl_parity_rel_err=verdicts["tl_parity_rel_err"],
-               tl_parity_rel_err_nofma=ran["tl_parity_nofma"],
+               tl_parity_rel_err_by_lregcl=ran["tl_parity"],
                ad_identity_rel_err=verdicts["ad_identity_rel_err"],
                tl_f32_vs_f64=dist),
     ]
@@ -1211,14 +1235,14 @@ def check_exact_sass(specs) -> None:
         print(f"[2] exact kernels' SASS not checked: nvcc {release}, digests "
               f"recorded under {EXACT_SASS_RELEASE}")
         return
-    changed = []
+    changed = {}
     for lib, defines, flags in specs:
         key = lib if lib != "bw_probe" else "bw_probe " + " ".join(defines)
         if key not in EXACT_SASS or flags:
             continue
         digest = build.library_digest(build.sass_digests(build.sass(lib, defines)))
         if digest != EXACT_SASS[key]:
-            changed.append(key)
+            changed[key] = digest
     print(f"[2] exact kernels' SASS: {len(EXACT_SASS) - len(changed)} of "
           f"{len(EXACT_SASS)} libraries as recorded (nvcc {release})")
     digest = build.library_digest(build.sass_digests(build.sass("cloudsc2_nl_enc")))
@@ -1824,7 +1848,158 @@ def chunked_and_bench(state, params) -> dict:
         print(f"[18] cli {' '.join(PROFILE_RUN)} --reference {written.name}: rc={rc}")
         if rc != 0:
             raise AssertionError("the written golden file does not validate")
-    return {"launches": launches, "bench": bench}
+    return {"launches": launches, "bench": bench,
+            "sums": {v: sums[v, CHUNK_SIZES[1]] for v in ("nl", "tlad")}}
+
+
+def _rank_worker() -> int:
+    """One rank of phase 19, its rank and group from the environment: the
+    CLI's runs and ``run_chunked(mesh=)``, each under launch counters zeroed
+    just before and read just after; prints one ``RANK <json>`` line."""
+    import torch
+
+    from cloudsc2jax_torch import cli, dist
+    from cloudsc2jax_torch.drivers import chunk_loop
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import cloudsc2_nl
+    from cloudsc2jax_torch.kernels.tlad_kernel import cloudsc2_ad, cloudsc2_tl
+    from cloudsc2jax_torch.state import Cloudsc2State
+
+    kernels = {"nl": cloudsc2_nl, "tl": cloudsc2_tl, "ad": cloudsc2_ad}
+
+    def zero():
+        for f in kernels.values():
+            f.launches = 0
+
+    def read():
+        return {k: f.launches for k, f in kernels.items()}
+
+    if not dist.initialize():
+        raise RuntimeError("a rank worker needs CLOUDSC2_NUM_PROCESSES > 1")
+    try:
+        result = {"rank": dist.rank(), "runs": [], "chunked": {}}
+        for argv in MP_RUNS:
+            zero()
+            t0 = time.perf_counter()
+            rc = cli.main(argv + ["--device", "cuda"])
+            result["runs"].append({"argv": argv, "rc": rc, "launches": read(),
+                                   "s": time.perf_counter() - t0})
+        state = Cloudsc2State.load(FIXTURES / "input.npz")
+        mesh = dist.column_mesh("cuda")
+        for variant in ("nl", "tlad"):
+            kw = dict(variant=variant, chunk=CHUNK_SIZES[1], mesh=mesh)
+            chunk_loop(state, CHUNK_SIZES[1], **kw)  # the stored columns up
+            zero()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                n, accs = chunk_loop(state, CHUNK_NGPTOT, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            result["chunked"][variant] = {
+                "columns": n, "checksum": float(mesh.reduce(accs, "sum")),
+                "launches": read()}
+        print("RANK " + json.dumps(result), flush=True)
+    finally:
+        dist.finalize()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def multi_process(chunk_sums: dict) -> dict:
+    """Phase 19: two ranks on the card against one process.  Returns each
+    rank's launches and checksums, the per-rank ms and the combined
+    columns/s."""
+    import re
+
+    import torch
+
+    from cloudsc2jax_torch import cli, dist
+
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(MP_RANKS):
+            env = {**os.environ, "CLOUDSC2_NUM_PROCESSES": str(MP_RANKS),
+                   "CLOUDSC2_PROCESS_ID": str(rank),
+                   "CLOUDSC2_COORDINATOR": f"localhost:{port}"}
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker"],
+                env=env, cwd=ROOT, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE))
+        outs = [p.communicate(timeout=MP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [x for x in out.splitlines() if x.startswith("RANK ")]
+        if p.returncode != 0 or len(lines) != 1:
+            print(out + err)
+            raise AssertionError(f"rank {rank} failed (exit code {p.returncode})")
+        ranks.append(json.loads(lines[0][5:]))
+    # rank 0's gathered tables, one per CLI run: each rank's TOTAL row and
+    # the combined row
+    tables = re.findall(r"^\s+rank(\d)\s+(?:\S+\s+){4}(\S+)\s+\S+\s+(\S+)\s+"
+                        r"TOTAL @ rank#\d$|^\s+\d+proc\s+(?:\S+\s+){4}(\S+)\s+"
+                        r"\S+\s+(\S+)\s+TOTAL$", outs[0][1], re.M)
+    for line in outs[0][1].splitlines():
+        if any(m in line for m in ("NUMPROC", "rank:lane", "TOTAL", "tlad outputs")):
+            print(f"[19] rank 0: {line.strip()}")
+    timing = []
+    for argv, start in zip(MP_RUNS, range(0, 3 * len(MP_RUNS), 3)):
+        rows = tables[start:start + 3]
+        timing.append({
+            "run": " ".join(argv),
+            "rank_ms": [float(r[1]) for r in rows[:MP_RANKS]],
+            "combined_cols_per_s": float(rows[MP_RANKS][4]),
+            "combined_ms": float(rows[MP_RANKS][3])})
+    print(f"[19] {MP_RANKS} ranks ({wall:.1f} s): " + json.dumps(timing))
+    for r in ranks:
+        for run in r["runs"]:
+            print(f"[19] rank {r['rank']} cli {' '.join(run['argv'])}: rc={run['rc']} "
+                  f"({run['s']:.1f} s), launches {run['launches']}")
+            need = ("nl",) if run["argv"][0] == "nl" else ("tl", "ad")
+            if run["rc"] != 0 or min(run["launches"][k] for k in need) < 1:
+                raise AssertionError(f"rank {r['rank']}: {run['argv']} failed or "
+                                     "did not run through its kernels")
+        for variant, c in r["chunked"].items():
+            ref = chunk_sums[variant]
+            rel = abs(c["checksum"] - ref) / abs(ref)
+            tol = CHUNK_INVARIANCE_RTOL[variant]
+            chunks = CHUNK_NGPTOT // CHUNK_SIZES[1]
+            print(f"[19] rank {r['rank']} run_chunked(mesh=) {variant}: "
+                  f"{c['columns']} columns, checksum {c['checksum']!r} against one "
+                  f"process's {ref!r}: rel {rel:.3e} (tol {tol:g}), chunk loop "
+                  f"under set_sync_debug_mode('error'), launches {c['launches']}")
+            need = ("nl",) if variant == "nl" else ("tl", "ad")
+            if (c["columns"] != CHUNK_NGPTOT or not rel <= tol
+                    or any(c["launches"][k] != chunks for k in need)):
+                raise AssertionError(f"rank {r['rank']}: run_chunked(mesh=) "
+                                     f"{variant} disagrees with one process")
+    if ranks[0]["chunked"] != ranks[1]["chunked"]:
+        raise AssertionError("the ranks' run_chunked totals differ")
+    # the same runs as one process: the same verdicts
+    for argv in MP_RUNS:
+        rc = cli.main(argv + ["--device", "cuda"])
+        print(f"[19] one process: cli {' '.join(argv)}: rc={rc}")
+        if rc != 0:
+            raise AssertionError(f"one process failed where two ranks passed: {argv}")
+    worst = dist.dryrun(1)
+    print(f"[19] dist.dryrun(1) on {torch.cuda.get_device_name(0)}: {worst}")
+    print(f"[19] {_nvidia_smi('name,power.limit')}: two processes time-slice "
+          "one card, so the combined rate is no scaling")
+    return {"ranks": ranks, "timing": timing, "dryrun": worst}
 
 
 def _nl_compare_and_cli(state, params):
@@ -1959,6 +2134,8 @@ def main(argv=None) -> int:
         return 2
     if argv[:1] == ["--compare"]:
         return _compare_worker(argv[1])
+    if argv == ["--rank-worker"]:
+        return _rank_worker()
     serial = argv == ["--serial"]
     if argv and not serial:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -1986,21 +2163,21 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}, {count} device(s))")
     print(card)
 
-    # -- 2. build, every nvcc run together: the shipped libraries, the probe's
-    # mixes and the TL kernel without FMA contraction (phase 10)
+    # -- 2. build, every nvcc run together: the shipped libraries and the
+    # probe's mixes
     t0 = time.perf_counter()
     specs = [(lib, (), ()) for lib in LIBRARIES if lib != "bw_probe"]
     for _, reads, writes, _, weighted in PROBE_MIXES:
         specs += [("bw_probe", probe_defines(reads, writes, c), ())
                   for c in ((0, 0), weighted) if c is not None]
-    specs += [("cloudsc2_tl_din", (), ("-fmad=false",))]
     build.load_libraries(specs)
     build_s = time.perf_counter() - t0
     print(f"[2] build: {build_s:.1f} s for {len(specs)} libraries "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     for lib, defines, flags in specs:
         tag = " ".join([*(d.split("_", 2)[2] for d in defines),
-                        *(f for f in flags if not f.startswith("-I"))])
+                        *(f for f in build._key((lib, defines, flags))[2]
+                          if not f.startswith("-I"))])
         for e in build.ptxas_report(lib, defines, flags):
             print(f"    ptxas {tag} "
                   f"{e['entry']}: {e.get('registers')} registers, "
@@ -2126,7 +2303,17 @@ def main(argv=None) -> int:
         rec["launches_chunked"] = chunked["launches"][name]
     nl_record["chunked_rel_err"] = compared["chunked"]["rel"]["nl"]
     tlad_records[1]["chunked_rel_err"] = compared["chunked"]["rel"]["tlad"]
-    _lap("18", t_phase)
+    t_phase = _lap("18", t_phase)
+    torch.cuda.empty_cache()
+    mp = multi_process(chunked["sums"])
+    for rec, name in ((nl_record, "nl"), (tlad_records[0], "tl"),
+                      (tlad_records[1], "ad")):
+        run = 0 if name == "nl" else 1
+        rec["launches_two_ranks"] = [r["runs"][run]["launches"][name]
+                                     for r in mp["ranks"]]
+    nl_record["two_ranks"] = mp["timing"][0]
+    tlad_records[1]["two_ranks"] = mp["timing"][1]
+    _lap("19", t_phase)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     records = [nl_record, *tlad_records, *test_records, *ab_records, *nl_records]

@@ -29,8 +29,13 @@ error).  ``CLOUDSC2_BENCH_VARIANT`` picks the variant:
   the card: 32 chunks of ``CLOUDSC2_BENCH_CHUNK`` = 327,680, about 132 GB
   of NL streams and 290 GB of TL+AD streams, past the 80 GB of an H100),
   one warm pass, then ``CLOUDSC2_BENCH_REPEATS`` timed passes, each read
-  once.  The record adds the peak of allocated device memory, the bytes
-  the chunks stream and the card's memory.
+  once.  ``CLOUDSC2_BENCH_MESH=1`` (the default, ``bench.py:386-415``)
+  decomposes every chunk over a column mesh of every card of the machine
+  (``dist.column_mesh``; one lane on the CPU), ``0`` runs without a mesh;
+  ``value`` is then per card, ``mesh_columns_per_second`` the mesh's and
+  ``mesh_devices`` its lanes.  The record adds the peak of allocated device
+  memory (the largest of the cards'), the bytes the chunks stream and a
+  card's memory.
 
 Every record names its card (``device_name``, ``power_limit_w`` from
 ``nvidia-smi``); ``vs_baseline`` divides by the reference's estimated
@@ -53,9 +58,9 @@ Left out of the JAX bench, on purpose:
 * the ``except`` that prints a failed f32-verdict measurement and goes on:
   here it fails the run, as any failure in a phase does;
 * the retry in a fresh process after a TPU backend error;
-* ``CLOUDSC2_BENCH_PALLAS``, ``_MODE``, ``_LAYOUT``, ``_FUSE_SATUR``,
-  ``_SUBLANES`` and ``_MESH``: TPU layouts, modes and meshes that the port
-  does not have (ROADMAP section 1 keeps the rest of the knobs).
+* ``CLOUDSC2_BENCH_PALLAS``, ``_MODE``, ``_LAYOUT``, ``_FUSE_SATUR`` and
+  ``_SUBLANES``: TPU layouts and modes that the port does not have (ROADMAP
+  section 1 keeps them).
 """
 
 from __future__ import annotations
@@ -223,6 +228,7 @@ def bench_chunked(variant: str, device, nlev, repeats: int) -> dict:
     import numpy as np
     import torch
 
+    from . import dist
     from .drivers import chunk_columns, run_chunked, run_nl, run_tlad
     from .state import Cloudsc2State
 
@@ -235,10 +241,17 @@ def bench_chunked(variant: str, device, nlev, repeats: int) -> dict:
     sublanes = None if gpu else 1
     nlev = nlev or (137 if gpu else 17)
     state = Cloudsc2State.synthetic(ngptot=100, nlev=nlev)
-    kw = dict(variant=inner, chunk=chunk, sublanes=sublanes, device=device)
+    mesh = (dist.column_mesh(device)
+            if os.environ.get("CLOUDSC2_BENCH_MESH", "1") == "1" else None)
+    ndev = 1 if mesh is None else mesh.size
+    cards = [device] if mesh is None else mesh.lanes
+    kw = dict(variant=inner, chunk=chunk, sublanes=sublanes, device=device,
+              mesh=mesh)
 
     if gpu:
-        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.init()  # the cards' allocators, before their statistics
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
     cols, s = run_chunked(state, ngptot, **kw)  # the warm pass
     if not np.isfinite(s):
         raise AssertionError(f"{variant}: the warm pass is not finite")
@@ -248,10 +261,11 @@ def bench_chunked(variant: str, device, nlev, repeats: int) -> dict:
         if not np.isfinite(s):
             raise AssertionError(f"{variant}: a timed pass is not finite")
     dt = (time.perf_counter() - t0) / repeats
-    peak = torch.cuda.max_memory_allocated(device) if gpu else None
+    peak = max(torch.cuda.max_memory_allocated(d) for d in cards) if gpu else None
 
     # what one chunk's kernels read and write, counted on one chunk's tensors
-    ccols = chunk_columns(state, chunk, variant=inner, sublanes=sublanes)
+    ccols = chunk_columns(state, chunk, variant=inner, sublanes=sublanes,
+                          lanes=ndev)
     one = state.device_kernel_inputs(ccols, dtype=torch.float32, device=device,
                                      pqs=inner == "tlad")
     out = (run_tlad(one, state.params, lregcl=True) if inner == "tlad"
@@ -262,14 +276,16 @@ def bench_chunked(variant: str, device, nlev, repeats: int) -> dict:
     cols_per_s = cols / dt
     record = {
         "metric": f"{inner}_columns_per_second_chunked_{platform}",
-        "value": cols_per_s,
+        # per card, so that vs_baseline stays per card over a mesh; the
+        # mesh's rate rides along
+        "value": cols_per_s / ndev,
         "unit": "columns/s/chip",
-        "vs_baseline": cols_per_s / BASELINE_COLS_PER_S,
+        "vs_baseline": cols_per_s / ndev / BASELINE_COLS_PER_S,
         "mesh_columns_per_second": cols_per_s,
         "ngptot": cols,
         "chunk": ccols,
         "nlev": nlev,
-        "mesh_devices": 1,
+        "mesh_devices": ndev,
         "platform": platform,
         "ms_per_pass": dt * 1e3,
         "ms_per_chunk": dt * 1e3 * ccols / cols,
@@ -278,7 +294,7 @@ def bench_chunked(variant: str, device, nlev, repeats: int) -> dict:
         "device_memory_gb": (torch.cuda.get_device_properties(device)
                              .total_memory / 1e9 if gpu else None),
     }
-    record.update(_baseline(cols_per_s))
+    record.update(_baseline(cols_per_s / ndev))
     return record
 
 

@@ -1,6 +1,6 @@
-"""Command-line entry points on one GPU.
+"""Command-line entry points.
 
-Port of :mod:`cloudsc2jax.cli` on one device (reference
+Port of :mod:`cloudsc2jax.cli` (reference
 ``src/cloudsc2_{nl,tl,ad}/dwarf_cloudsc.F90``)::
 
     python -m cloudsc2jax_torch nl <numdev> <ngptot> <nproma> [--kernels]
@@ -8,9 +8,19 @@ Port of :mod:`cloudsc2jax.cli` on one device (reference
     python -m cloudsc2jax_torch ad <numdev> <ngptot> <nproma> [--kernels]
     python -m cloudsc2jax_torch tlad <numdev> <ngptot> <nproma>
 
-``numdev`` must be 1.  ``nproma`` is the block size of the Taylor test's
-statistics and of the reporting table (the kernels own one column per
-thread).  The input is expanded on the device.
+``numdev`` is the number of lanes of this process (the reference's OpenMP
+threads): distinct cards on ``cuda``, repeated CPU lanes on ``cpu``.  A
+multi-process launch exports ``CLOUDSC2_NUM_PROCESSES``,
+``CLOUDSC2_PROCESS_ID`` and ``CLOUDSC2_COORDINATOR`` (``host:port`` of rank
+0) to every process, as for the JAX CLI (the mpirun analogue); the
+processes join a ``gloo`` group before any device work
+(:func:`~cloudsc2jax_torch.dist.initialize`).  NGPTOT is rounded up to a
+multiple of all lanes; each rank expands only its own columns on its lanes
+(``dist.lane_slices``), runs the kernels there, and the verdicts are
+reduced over the lanes and the ranks, so every rank exits with the same
+code; only rank 0 prints the tables and verdicts.  ``nproma`` is the block
+size of the Taylor test's statistics and of the reporting table (the
+kernels own one column per thread).  The input is expanded on the device.
 
 * ``nl`` runs the NL sweep ``--repeat`` times and validates the outputs on
   the device against the golden file: the truth path
@@ -34,6 +44,11 @@ thread).  The input is expanded on the device.
 * ``tlad`` runs the TL+AD work unit (``drivers.run_tlad``, LREGCL on)
   ``--repeat`` times and checks the adjoint identity <Mdx, Mdx> = <dx, M^T
   M dx> with dx = DSCALE·x.
+
+Timing: the lanes of a process run one timed region, so the lanes' rows
+mirror lane 0's clock unless ``--per-device-timing`` re-times each lane's
+share on its own device (``nl``, ``tlad``); with several processes rank 0
+prints the gathered per-rank table (``timer.PerformanceTimer``).
 
 Observability and golden files, as in the reference (dwarf_cloudsc.F90):
 
@@ -66,14 +81,15 @@ _FIXTURES = pathlib.Path(__file__).resolve().parents[1] / "tests" / "fixtures"
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="cloudsc2jax_torch",
-        description="CLOUDSC2 NL, TL, AD and TL+AD drivers on one CUDA "
-                    "device (PyTorch port)",
+        description="CLOUDSC2 NL, TL, AD and TL+AD drivers on CUDA devices "
+                    "(PyTorch port)",
     )
     p.add_argument("variant", choices=["nl", "tl", "ad", "tlad"],
                    help="nl/tl/ad mirror the three reference dwarfs; tlad "
                         "runs the TL+AD production work unit")
     p.add_argument("numdev", type=int, nargs="?", default=1,
-                   help="number of devices to use; must be 1")
+                   help="number of devices (lanes) of this process "
+                        "(reference: OpenMP threads); distinct cards on cuda")
     p.add_argument("ngptot", type=int, nargs="?", default=100)
     p.add_argument("nproma", type=int, nargs="?", default=100,
                    help="block size for Taylor-test statistics / reporting")
@@ -99,6 +115,13 @@ def _build_parser():
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda runs the CUDA kernels; cpu runs their plain "
                         "PyTorch versions")
+    p.add_argument("--per-device-timing", action="store_true",
+                   help="after the SPMD run, re-time each device's shard "
+                        "share on its own device so the perf table prints "
+                        "measured per-device clocks instead of lane-0 "
+                        "mirrors (chip-skew diagnostic; nl/tlad; in "
+                        "multi-process runs each rank measures its local "
+                        "devices and the gathered table labels the rows)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="trace the run with torch.profiler and write a "
                         "Chrome trace into DIR (the DR_HOOK/EC_PMON "
@@ -152,26 +175,19 @@ def scaled_identity_tol(base: float, n_terms: int) -> float:
 
 # f32 verdict of the TL parity through the kernel: max over the 10 fields
 # of max |kernel - jvp| / max |jvp|, independent of the reduction length, so
-# it is not scaled.  The JAX package gates its Pallas TL at 1e-6
-# (cloudsc2jax/cli.py:288).  This card needs 1e-5: on an NVIDIA H100 80GB
-# HBM3 the TL kernel sits 3.277e-6 (lregcl off) and 2.731e-6 (on) from jvp
-# of the truth path in f32, at 100 and at 16,384 columns alike, while both
-# f32 versions sit 1.568e-5 from the truth path in f64, to four digits the
-# same.  The gap between the two f32 versions is nvcc's FMA contraction
-# against eager PyTorch's separately rounded multiply and add: built with
-# -fmad=false the same kernel sits 1.412e-7 from the f32 truth path, no
-# closer to f64, and runs 3-5% slower (PERF.md section 6).  A damp site
-# broken on the tangent path shows above 1e-4, so 1e-5 still trips on it.
-PALLAS_TL_PARITY_TOL = 1.0e-5
+# it is not scaled.  The JAX package's value (cloudsc2jax/cli.py:288).  The
+# streamed-increment TL kernel behind it ships built with -fmad=false
+# (kernels/build.py, SHIPPED_FLAGS): with nvcc's FMA contraction it sat
+# 2.73-3.28e-6 from jvp of the truth path in f32 on an NVIDIA H100 80GB HBM3
+# (the contracted multiply-adds against eager PyTorch's separately rounded
+# ones), without it 1.412e-7 (PERF.md section 6).  A damp site broken on the
+# tangent path shows above 1e-4.
+PALLAS_TL_PARITY_TOL = 1.0e-6
 
 
-def adjoint_identity(inputs, dout, adj, params, dscale: float):
-    """Adjoint identity <Mdx, Mdx> vs <dx, M^T M dx> with dx = dscale·x
-    (cloudsc_driver_ad_mod.F90:184-264).  On the 8-stream contract the flux
-    seeds' (1 + L²) fold is restored in the norm; on the standard 10-field
-    contract every field counts once (cloudsc2jax/cli.py:229-239).  Sums run
-    on the device in float64, per stream; only the two totals and the
-    finiteness flag reach the host.  Returns ``(rel_err, finite)``."""
+def _identity_parts(inputs, dout, adj, params, dscale: float):
+    """One lane's ``[<Mdx, Mdx>, <dx, M^T M dx>, non-finite leaves, terms]``
+    as a float64 tensor on its device."""
     import torch
 
     w = [1.0] * len(dout)
@@ -181,15 +197,37 @@ def adjoint_identity(inputs, dout, adj, params, dscale: float):
     n1 = sum(wi * x.double().square().sum() for wi, x in zip(w, dout))
     n2 = sum((dscale * x.double() * a.double()).sum()
              for x, a in zip(inputs, adj))
-    finite = torch.stack([torch.isfinite(x).all() for x in (*dout, *adj)]).all()
-    n1, n2, finite = torch.stack([n1, n2, finite.double()]).tolist()
-    return abs(n1 - n2) / max(abs(n2), 1e-300), bool(finite)
+    bad = torch.stack([~torch.isfinite(x).all() for x in (*dout, *adj)]).sum()
+    return torch.stack([n1, n2, bad.double(),
+                        torch.full_like(n1, float(inputs.pt.numel()))])
 
 
-def tl_parity(inputs, dout, params, *, lregcl: bool) -> float:
-    """Max relative error, over the 10 fields, of the TL kernel's tangents
-    ``dout`` against ``torch.func.jvp`` of the truth path on the same
-    inputs with the canonical increments (cloudsc2jax/cli.py:307)."""
+def adjoint_identity(inputs, dout, adj, params, dscale: float, mesh=None):
+    """Adjoint identity <Mdx, Mdx> vs <dx, M^T M dx> with dx = dscale·x
+    (cloudsc_driver_ad_mod.F90:184-264).  On the 8-stream contract the flux
+    seeds' (1 + L²) fold is restored in the norm; on the standard 10-field
+    contract every field counts once (cloudsc2jax/cli.py:229-239).  Sums run
+    on the device in float64, per stream; only the two totals and the
+    finiteness flag reach the host.  With a ``mesh`` (``dist.ColumnMesh``)
+    the three arguments are lists with one entry per local lane, and the
+    sums are reduced over the lanes and the ranks.  Returns ``(rel_err,
+    finite)``."""
+    return _identity(inputs, dout, adj, params, dscale, mesh)[:2]
+
+
+def _identity(inputs, dout, adj, params, dscale: float, mesh):
+    """:func:`adjoint_identity` and the number of its terms."""
+    if mesh is None:
+        parts = _identity_parts(inputs, dout, adj, params, dscale).tolist()
+    else:
+        parts = mesh.reduce([_identity_parts(i, d, a, params, dscale)
+                             for i, d, a in zip(inputs, dout, adj)], "sum").tolist()
+    n1, n2, bad, n_terms = parts
+    return abs(n1 - n2) / max(abs(n2), 1e-300), bad == 0, int(n_terms)
+
+
+def _parity_parts(inputs, dout, params, *, lregcl: bool):
+    """One lane's ``(2, 10)``: per field max |kernel - jvp| and max |jvp|."""
     import torch
 
     from .drivers import DSCALE
@@ -198,32 +236,52 @@ def tl_parity(inputs, dout, params, *, lregcl: bool) -> float:
 
     d_inputs = Cloudsc2Inputs(*(DSCALE * x for x in inputs))
     _, dref = cloudsc2_tl(inputs, d_inputs, params, lregcl=lregcl)
-    rels = [(a - b).abs().max() / torch.clamp_min(b.abs().max(), 1e-30)
-            for a, b in zip(dout, dref)]
-    return float(torch.stack(rels).max())
+    return torch.stack([torch.stack([(a - b).abs().max() for a, b in zip(dout, dref)]),
+                        torch.stack([b.abs().max() for b in dref])])
 
 
-def measure_f32_verdicts(state, inputs, *, lregcl: bool = True) -> dict:
+def tl_parity(inputs, dout, params, *, lregcl: bool, mesh=None) -> float:
+    """Max relative error, over the 10 fields, of the TL kernel's tangents
+    ``dout`` against ``torch.func.jvp`` of the truth path on the same
+    inputs with the canonical increments (cloudsc2jax/cli.py:307).  With a
+    ``mesh``, ``inputs`` and ``dout`` hold one entry per local lane; each
+    field's two maxima are reduced over the lanes and the ranks before the
+    ratio."""
+    if mesh is None:
+        parts = _parity_parts(inputs, dout, params, lregcl=lregcl)
+    else:
+        parts = mesh.reduce([_parity_parts(i, d, params, lregcl=lregcl)
+                             for i, d in zip(inputs, dout)], "max")
+    return float((parts[0] / parts[1].clamp_min(1e-30)).max())
+
+
+def measure_f32_verdicts(state, inputs, *, lregcl: bool = True, mesh=None) -> dict:
     """Measured (tl_parity, ad_identity) relative errors through the TL and
     AD kernels on the standard contract, on ``inputs`` cast to f32: the
     quantities the ``--kernels`` verdicts gate on, with their tolerances
-    (cloudsc2jax/cli.py:331)."""
+    (cloudsc2jax/cli.py:331).  With a ``mesh``, ``inputs`` holds one input
+    per local lane and the verdicts are those of all columns of the
+    group."""
     import torch
 
     from .drivers import DSCALE, run_tlad
     from .physics.cloudsc2 import Cloudsc2Inputs
 
-    i32 = Cloudsc2Inputs(*(x.to(torch.float32) for x in inputs))
-    _, dout, adj = run_tlad(i32, state.params, lregcl=lregcl, backend="kernels")
-    parity = tl_parity(i32, dout, state.params, lregcl=lregcl)
-    identity, finite = adjoint_identity(i32, dout, adj, state.params, DSCALE)
+    def f32(x):
+        return Cloudsc2Inputs(*(y.to(torch.float32) for y in x))
+
+    i32 = f32(inputs) if mesh is None else [f32(x) for x in inputs]
+    res = run_tlad(i32, state.params, lregcl=lregcl, backend="kernels", mesh=mesh)
+    _, dout, adj = res if mesh is None else zip(*res)
+    identity, finite, n_terms = _identity(i32, dout, adj, state.params, DSCALE, mesh)
+    parity = tl_parity(i32, dout, state.params, lregcl=lregcl, mesh=mesh)
     return {"tl_parity_rel_err": parity, "ad_identity_rel_err": identity,
             "finite": finite, "tl_parity_tol": PALLAS_TL_PARITY_TOL,
-            "ad_identity_tol": scaled_identity_tol(PALLAS_AD_IDENTITY_TOL,
-                                                   i32.pt.numel())}
+            "ad_identity_tol": scaled_identity_tol(PALLAS_AD_IDENTITY_TOL, n_terms)}
 
 
-def _kernels_f32_check(variant: str, state, inputs, *, lregcl: bool) -> bool:
+def _kernels_f32_check(variant: str, state, inputs, *, lregcl: bool,
+                       mesh, rank0: bool) -> bool:
     """The check behind ``tl --kernels`` / ``ad --kernels``
     (cloudsc2jax/cli.py:354).  The f32 Taylor sweep floors above the
     reference's 1e-5 hard limit, so the f32 story of the kernels is (a) TL
@@ -231,44 +289,76 @@ def _kernels_f32_check(variant: str, state, inputs, *, lregcl: bool) -> bool:
     (b) the adjoint identity through the TL and AD kernels."""
     import math
 
-    v = measure_f32_verdicts(state, inputs, lregcl=lregcl)
-    where = "" if inputs.pt.device.type == "cuda" else ", plain versions"
+    inputs, kw = _lane_args(mesh, inputs)
+    v = measure_f32_verdicts(state, inputs, lregcl=lregcl, **kw)
+    where = "" if mesh.device_type == "cuda" else ", plain versions"
     if variant == "tl":
         rel, tol = v["tl_parity_rel_err"], v["tl_parity_tol"]
         ok = math.isfinite(rel) and rel < tol
-        print(f" TL(kernels) vs jvp parity [f32{where}]: max rel err "
-              f"{rel:.3e} (tol {tol:g}) -> {'OK' if ok else 'FAILED'}",
-              file=sys.stderr)
+        line = (f" TL(kernels) vs jvp parity [f32{where}]: max rel err "
+                f"{rel:.3e} (tol {tol:g}) -> {'OK' if ok else 'FAILED'}")
     else:
         rel, tol = v["ad_identity_rel_err"], v["ad_identity_tol"]
         ok = v["finite"] and rel < tol
-        print(f" AD(kernels) identity <Mdx,Mdx> vs <dx,M^TMdx> [f32{where}]: "
-              f"rel err {rel:.3e} (tol {tol:g}) -> {'OK' if ok else 'FAILED'}",
-              file=sys.stderr)
+        line = (f" AD(kernels) identity <Mdx,Mdx> vs <dx,M^TMdx> [f32{where}]: "
+                f"rel err {rel:.3e} (tol {tol:g}) -> {'OK' if ok else 'FAILED'}")
+    if rank0:
+        print(line, file=sys.stderr)
     return ok
 
 
-def _run_test(args, state, inputs, timer, ngptot, ngpblks) -> int:
-    """The ``tl`` and ``ad`` variants (cloudsc2jax/cli.py:534-580)."""
+def _lane_args(mesh, inputs):
+    """The drivers' inputs and ``mesh`` keyword for ``inputs``, one per
+    lane: one lane of one process calls them as on one device."""
+    if mesh.size == 1:
+        return inputs[0], {}
+    return inputs, {"mesh": mesh}
+
+
+def _close_spmd_timing(timer, args, mesh, ngptot, ngpblks, *, calls: int,
+                       measure=None) -> None:
+    """Each process logs its lanes' share of the columns, lane 0's clock
+    mirrored to its other lanes, and prints the table, gathered over the
+    ranks (timer_mod.F90:155's MPI_GATHER; cloudsc2jax/cli.py:417-448).
+    ``measure=(step, per_lane_inputs)`` (``--per-device-timing``) replaces
+    the mirrored clocks with each lane's own, re-timed on its device after
+    the global clock has closed."""
+    rank0 = mesh.rank == 0
+    timer.spmd_log(mesh.nlanes, (ngptot // mesh.world) * calls)
+    timer.thread_end(0)
+    timer.mirror_times(mesh.nlanes)
+    timer.end()
+    if measure is not None:
+        if mesh.size > 1:
+            timer.measure_device_lanes(*measure, calls_equivalent=calls)
+        elif rank0:
+            print("--per-device-timing needs a multi-device or multi-process "
+                  "run — ignored", file=sys.stderr)
+    timer.print_performance(args.nproma, ngpblks, ngptot, gather=True)
+
+
+def _run_test(args, state, inputs, timer, ngptot, ngpblks, mesh) -> int:
+    """The ``tl`` and ``ad`` variants (cloudsc2jax/cli.py:534-580), each rank
+    on its own columns, the norms reduced over the group."""
     from .drivers import adjoint_test, taylor_test
 
+    rank0 = mesh.rank == 0
+    x, kw = _lane_args(mesh, inputs)
     timer.thread_start(0)
     if args.variant == "tl":
-        res = taylor_test(inputs, state.params, nproma=args.nproma, lregcl=False)
+        res = taylor_test(x, state.params, nproma=args.nproma, lregcl=False, **kw)
     else:
         # --threshold is in working-precision epsilons here too (the AD
         # criterion is 1e4 x eps upstream, cloudsc_driver_ad_mod.F90:289)
         thr = args.threshold if args.threshold is not None else 1.0e4
-        res = adjoint_test(inputs, state.params, lregcl=True, threshold=thr)
+        res = adjoint_test(x, state.params, lregcl=True, threshold=thr, **kw)
     # columns are logged once for the whole test (the Taylor ladder is 11 NL
     # + 1 TL evaluations), as the reference TL driver logs them once per
     # block around its ladder (cloudsc_driver_tl_mod.F90:257)
-    timer.thread_log(0, ngptot)
-    timer.thread_end(0)
-    timer.end()
-    timer.print_performance(args.nproma, ngpblks, ngptot)
-    res.report()
-    if args.variant == "tl" and not res.passed and args.dtype != "f64":
+    _close_spmd_timing(timer, args, mesh, ngptot, ngpblks, calls=1)
+    if rank0:
+        res.report()
+    if args.variant == "tl" and not res.passed and args.dtype != "f64" and rank0:
         print(
             " NOTE: the Taylor test is an f64 diagnostic; in f32 the "
             "lambda sweep floors above the\n reference's 1e-5 hard limit "
@@ -278,34 +368,52 @@ def _run_test(args, state, inputs, timer, ngptot, ngpblks) -> int:
         )
     ok = res.passed
     if args.kernels:
-        if inputs.pt.device.type != "cuda":
+        if mesh.device_type != "cuda" and rank0:
             print("NOTE: --kernels on --device cpu runs the kernels' plain "
                   "PyTorch versions", file=sys.stderr)
-        ok = _kernels_f32_check(args.variant, state, inputs,
-                                lregcl=args.variant == "ad") and ok
+        ok = _kernels_f32_check(args.variant, state, inputs, mesh=mesh,
+                                rank0=rank0, lregcl=args.variant == "ad") and ok
     return 0 if ok else 1
 
 
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
-    if args.numdev != 1:
-        raise SystemExit("cloudsc2jax_torch runs on one device: numdev must be 1")
     if args.kernels and args.variant == "tlad":
         raise SystemExit("--kernels applies to the nl, tl and ad variants")
 
     import torch
 
-    from .state import Cloudsc2State
-    from .timer import PerformanceTimer
+    from . import dist
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    # the process group before any device work (≙ CLOUDSC_MPI_INIT); a
+    # caller that made the group keeps it
+    owns_group = dist.initialize()
+    try:
+        return _main(args)
+    finally:
+        if owns_group:
+            dist.finalize()
+
+
+def _main(args) -> int:
+    import torch
+
+    from . import dist
+    from .state import Cloudsc2State
+    from .timer import PerformanceTimer
+
     device = torch.device(args.device)
+    try:
+        mesh = dist.column_mesh(device, args.numdev)
+    except ValueError as e:
+        raise SystemExit(f"cloudsc2jax_torch: numdev {args.numdev}: {e}")
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
     input_path = pathlib.Path(args.input or _FIXTURES / "input.npz")
     reference_path = pathlib.Path(args.reference or _FIXTURES / "reference.npz")
 
-    ngptot = args.ngptot
+    ngptot = dist.pad_columns(args.ngptot, mesh)
     ngpblks = -(-ngptot // args.nproma)
     state = (
         Cloudsc2State.load(input_path)
@@ -315,55 +423,71 @@ def main(argv=None) -> int:
     state.ngptot = ngptot
     tlad = args.variant == "tlad"
     streams = tlad or args.kernels and args.variant == "nl"
+    # each lane expands its own global columns on its device (the per-rank
+    # hyperslab, expand_mod.F90:30-46)
+    slices = dist.lane_slices(ngptot, mesh)
     if streams:
-        inputs = state.device_kernel_inputs(ngptot, dtype=dtype, device=device,
-                                            pqs=tlad)
+        inputs = [state.device_kernel_inputs(s.stop - s.start, dtype=dtype,
+                                             device=dev, pqs=tlad,
+                                             col_offset=s.start)
+                  for dev, s in zip(mesh.lanes, slices)]
     else:
-        inputs = state.device_inputs(ngptot, dtype=dtype, device=device)
-    print(
-        f"     NUMPROC=1, NUMDEV=1, NGPTOTG={ngptot}, NPROMA={args.nproma},"
-        f" NGPBLKS={ngpblks}",
-        file=sys.stderr,
-    )
+        inputs = [state.device_inputs(s.stop - s.start, dtype=dtype, device=dev,
+                                      col_offset=s.start)
+                  for dev, s in zip(mesh.lanes, slices)]
+    if mesh.rank == 0:
+        print(
+            f"     NUMPROC={mesh.world}, NUMDEV={mesh.nlanes}, NGPTOTG={ngptot},"
+            f" NPROMA={args.nproma}, NGPBLKS={ngpblks}",
+            file=sys.stderr,
+        )
 
-    timer = PerformanceTimer(device)
-    timer.start(1)
+    timer = PerformanceTimer(mesh.lanes)
+    timer.start(mesh.nlanes)
     with profiled(args.profile, device):
         return _dispatch(args, state, inputs, timer, ngptot, ngpblks,
-                         reference_path, streams)
+                         reference_path, streams, mesh, slices[0].start)
 
 
 def _dispatch(args, state, inputs, timer, ngptot, ngpblks, reference_path,
-              streams) -> int:
-    """Run the variant and its checks; returns the exit code."""
+              streams, mesh, col_offset) -> int:
+    """Run the variant and its checks; returns the exit code, the same on
+    every rank."""
+    from functools import partial
+
     from .drivers import DSCALE, run_nl, run_tlad
     from .kernels.cloudsc2_kernel import unblock_outputs
 
     if args.variant in ("tl", "ad"):
-        return _run_test(args, state, inputs, timer, ngptot, ngpblks)
+        return _run_test(args, state, inputs, timer, ngptot, ngpblks, mesh)
+    rank0 = mesh.rank == 0
     tlad = args.variant == "tlad"
-    on_card = inputs.pt.device.type == "cuda"
+    if tlad:
+        step = partial(run_tlad, params=state.params, lregcl=True)
+    else:
+        step = partial(run_nl, params=state.params,
+                       backend="streams" if streams else "truth")
     timer.thread_start(0)
     for _ in range(args.repeat):
-        out = (run_tlad(inputs, state.params, lregcl=True) if tlad
-               else run_nl(inputs, state.params,
-                           backend="streams" if streams else "truth"))
-        timer.thread_log(0, ngptot)
-    timer.thread_end(0)
-    timer.end()
-    timer.print_performance(args.nproma, ngpblks, ngptot)
+        out = step(inputs, mesh=mesh)
+    _close_spmd_timing(timer, args, mesh, ngptot, ngpblks, calls=args.repeat,
+                       measure=(step, inputs) if args.per_device_timing else None)
 
     if tlad:
-        _, dout, adj = out
-        rel, finite = adjoint_identity(inputs, dout, adj, state.params, DSCALE)
+        _, dout, adj = zip(*out)
+        rel, finite = adjoint_identity(inputs, dout, adj, state.params, DSCALE,
+                                       mesh=mesh)
         # f64: 1e-10 ~ 1e4 eps64, the reference's semantics; f32: the
         # kernels' budget, or one decade more for the plain versions (the
         # JAX package's jvp/vjp pair), scaled with the reduction length
+        n_terms = ngptot * inputs[0].pt.shape[0]
         tol = (1e-10 if args.dtype == "f64" else scaled_identity_tol(
-            PALLAS_AD_IDENTITY_TOL if on_card else 1e-5, inputs.pt.numel()))
+            PALLAS_AD_IDENTITY_TOL if mesh.device_type == "cuda" else 1e-5,
+            n_terms))
         ok = finite and rel < tol
-        print(f"tlad outputs finite: {finite}; adjoint identity rel err: "
-              f"{rel:.3e} (tol {tol:g})", file=sys.stderr)
+        if rank0:
+            print(f"tlad outputs finite: {finite}; adjoint identity rel err: "
+                  f"{rel:.3e} (tol {tol:g})", file=sys.stderr)
         return 0 if ok else 1
 
     validate = not args.no_validate and reference_path.exists()
@@ -371,20 +495,42 @@ def _dispatch(args, state, inputs, timer, ngptot, ngpblks, reference_path,
     ok = True
     if streams and (validate or write_reference):
         # the (ncol, nlev) contract, assembled once, outside the timing
-        out = unblock_outputs(out, state.params)
+        out = mesh.map(partial(unblock_outputs, params=state.params), out)
     if validate:
         if not streams:
             # validate_device reads the levels-major tensors behind the views
-            inputs = type(inputs)(*(x.T for x in inputs))
+            inputs = [type(x)(*(y.T for y in x)) for x in inputs]
         ok = state.validate_device(
             out, inputs, reference_path,
-            threshold=10.0 if args.threshold is None else args.threshold)
+            threshold=10.0 if args.threshold is None else args.threshold,
+            quiet=not rank0, mesh=mesh, col_offset=col_offset)
     if write_reference:
-        # the stored columns suffice (cyclic expansion); only they reach
-        # the host
-        state.write_reference(out, WRITTEN_REFERENCE)
-        print(f"Written reference results to {WRITTEN_REFERENCE}", file=sys.stderr)
+        if mesh.world > 1:
+            # golden writing is a one-process, 100-column operation upstream
+            # too (WRITE_REFERENCE requires NPROMA == KLON,
+            # cloudsc2_array_state_mod.F90:264-268)
+            if rank0:
+                print("CLOUDSC2_WRITE_REFERENCE ignored in multi-process runs; "
+                      "rerun single-process", file=sys.stderr)
+        else:
+            # the stored columns suffice (cyclic expansion); only they reach
+            # the host, from the lanes in order
+            state.write_reference(_first_columns(out, state.klon_file),
+                                  WRITTEN_REFERENCE)
+            print(f"Written reference results to {WRITTEN_REFERENCE}",
+                  file=sys.stderr)
     return 0 if ok else 1
+
+
+def _first_columns(per_lane, ncol: int):
+    """The first ``ncol`` columns of the lanes' ``(ncol, ...)`` outputs, the
+    lanes in order (all of a lane's when one lane holds them)."""
+    import torch
+
+    if per_lane[0].pclc.shape[0] >= ncol or len(per_lane) == 1:
+        return per_lane[0]
+    return type(per_lane[0])(*(torch.cat([x.cpu() for x in xs])[:ncol]
+                               for xs in zip(*per_lane)))
 
 
 if __name__ == "__main__":

@@ -5,12 +5,15 @@ symmetry test (reference ``src/cloudsc2_nl/cloudsc_driver_mod.F90``,
 ``src/cloudsc2_ad/cloudsc_driver_ad_mod.F90``).
 
 Port of :func:`cloudsc2jax.drivers.run_nl`, ``run_tlad``, ``run_chunked``,
-``taylor_test`` and ``adjoint_test``.
+``taylor_test`` and ``adjoint_test``.  Each takes a ``mesh``
+(:class:`~cloudsc2jax_torch.dist.ColumnMesh`) for the column decomposition
+over lanes and processes, as the JAX package's take a ``Mesh``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 import sys
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from .constants import Params
+from .dist import ColumnMesh
 from .kernels.cloudsc2_kernel import cloudsc2_nl, kernel_prelude, unblock_outputs
 from .kernels.tlad_kernel import (
     cloudsc2_ad,
@@ -48,10 +52,18 @@ def run_nl(
     *,
     ldrain1d: bool = False,
     backend: str = "streams",
+    mesh: Optional[ColumnMesh] = None,
 ):
     """Forward (nonlinear) run over all columns
     (cloudsc_driver_mod.F90:73-119).  CUDA tensors run the kernel, CPU
     tensors its plain version.
+
+    With a ``mesh``, ``inputs`` is a list of one input per local lane, each
+    on its lane's device (``dist.shard_inputs``, or each lane's
+    ``device_kernel_inputs(col_offset=)``), and the result is the list of
+    each lane's outputs: the same launches per lane, enqueued lane after
+    lane, so lanes on distinct cards run at once (``shard_map_columns``,
+    ``cloudsc2jax/drivers.py:112-136``).
 
     ``backend`` (the JAX package's name in brackets):
 
@@ -69,6 +81,9 @@ def run_nl(
     * ``"truth"`` [``"xla"``]: :func:`~cloudsc2jax_torch.physics.cloudsc2.
       cloudsc2` on the standard contract, the level loop in PyTorch.
     """
+    if mesh is not None:
+        return _map_lanes(mesh, inputs, partial(run_nl, params=params,
+                                                ldrain1d=ldrain1d, backend=backend))
     if backend == "streams":
         return cloudsc2_nl(inputs, params, ldrain1d=ldrain1d)
     if backend == "kernels":
@@ -88,6 +103,7 @@ def run_tlad(
     ldrain1d: bool = False,
     write_primal: bool = True,
     backend: str = "streams",
+    mesh: Optional[ColumnMesh] = None,
 ):
     """One TL+AD sweep, the production 4D-Var work unit
     (cloudsc_driver_ad_mod.F90:158-237): the canonical ``DSCALE·x``
@@ -118,7 +134,15 @@ def run_tlad(
     * ``"truth"`` [``"xla"``]: ``torch.func.jvp``/``vjp`` of
       :func:`~cloudsc2jax_torch.physics.cloudsc2.cloudsc2`, the f64
       validation path, same contract as ``"kernels"``.
+
+    With a ``mesh``, ``inputs`` holds one input per local lane and the
+    result is each lane's triple, as for :func:`run_nl`
+    (``cloudsc2jax/drivers.py:230-235``).
     """
+    if mesh is not None:
+        return _map_lanes(mesh, inputs, partial(
+            run_tlad, params=params, lregcl=lregcl, ldrain1d=ldrain1d,
+            write_primal=write_primal, backend=backend))
     if not write_primal and backend != "streams":
         raise ValueError("write_primal=False requires backend='streams' "
                          f"(got {backend!r})")
@@ -147,6 +171,18 @@ def run_tlad(
         return out, dout, adj
     raise ValueError(f"backend must be 'streams', 'kernels' or 'truth', "
                      f"not {backend!r}")
+
+
+def _map_lanes(mesh: ColumnMesh, inputs, fn) -> list:
+    """``fn`` on each lane's inputs with the lane's card current; raises
+    unless ``inputs`` holds one input per lane, on that lane's device."""
+    if not isinstance(mesh, ColumnMesh):
+        raise TypeError(f"mesh must be a dist.ColumnMesh, not {type(mesh).__name__}")
+    for lane, (x, dev) in enumerate(zip(inputs, mesh.lanes)):
+        if x.pt.device != dev:
+            raise ValueError(f"lane {lane}'s inputs are on {x.pt.device}, "
+                             f"its lane is {dev}")
+    return mesh.map(fn, inputs)
 
 
 # ---------------------------------------------------------------- chunked
@@ -186,17 +222,20 @@ _CHUNK_CACHE = _LRUCache()
 
 
 def chunk_columns(state, chunk: int, *, variant: str = "nl",
-                  sublanes: Optional[int] = None, fused_gen: bool = False) -> int:
-    """The columns of one chunk as :func:`run_chunked` executes it: whole
-    groups of ``sublanes·128`` columns (the JAX package's blocks, default
-    128 for ``nl`` and 64 for ``tlad``), so that the same call executes the
-    same columns in both packages; with ``fused_gen`` rounded UP to
-    ``lcm(sublanes·128, klon_file)``, the period of the cyclic expansion."""
+                  sublanes: Optional[int] = None, fused_gen: bool = False,
+                  lanes: int = 1) -> int:
+    """The columns of one chunk as :func:`run_chunked` executes it over
+    ``lanes`` lanes in all (a mesh's ``size``): whole groups of
+    ``lanes·sublanes·128`` columns (the JAX package's blocks, default 128
+    for ``nl`` and 64 for ``tlad``, and as many for every lane), so that the
+    same call executes the same columns in both packages; with ``fused_gen``
+    rounded UP to ``lcm(lanes·sublanes·128, klon_file)``, the period of the
+    cyclic expansion (``cloudsc2jax/drivers.py:576-587``)."""
     if variant not in ("nl", "tlad"):
         raise ValueError(f"variant must be 'nl' or 'tlad', not {variant!r}")
     if sublanes is None:
         sublanes = 128 if variant == "nl" else 64
-    bc = sublanes * 128
+    bc = sublanes * 128 * lanes
     if fused_gen:
         al = math.lcm(bc, state.klon_file)
         return -(-chunk // al) * al
@@ -252,37 +291,47 @@ def chunk_loop(
 ):
     """:func:`run_chunked` without its one read of the result: returns
     ``(columns_processed, acc)``, ``acc`` the 0-d float32 accumulator on the
-    device, not yet read.  Once a state's stored columns are on the device
-    (the first call for a dtype and device uploads them), nothing in the
-    loop synchronises with the host: a CUDA-gated test and
+    device, not yet read; with a ``mesh`` the list of each local lane's
+    accumulator, on the lane's device.  Once a state's stored columns are on
+    the device (the first call for a dtype and device uploads them), nothing
+    in the loop synchronises with the host: a CUDA-gated test and
     ``chip_smoke.py`` run it under ``torch.cuda.set_sync_debug_mode(
     "error")``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_chunked(mesh=...) needs the multi-process column "
-            "decomposition, which the port does not have yet (ROADMAP "
-            "section 1, item 8)")
+    if mesh is not None and not isinstance(mesh, ColumnMesh):
+        raise TypeError(f"mesh must be a dist.ColumnMesh, not {type(mesh).__name__}")
     if probe not in ("checksum", "slice"):
         raise ValueError(f"probe must be 'checksum' or 'slice', not {probe!r}")
     if not write_primal and variant != "tlad":
         raise ValueError("write_primal=False applies to variant='tlad' only")
     device = torch.device(device)
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"run_chunked: device {device.type}, but the mesh's "
+                         f"lanes are {mesh.device_type}")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_chunked: no CUDA device is available")
     if sublanes is None:
         sublanes = 128 if variant == "nl" else 64
+    # lane l of this process runs the columns [g·local, (g+1)·local) of
+    # every chunk, g its lane in the whole mesh (cloudsc2jax/drivers.py:
+    # 685-725)
+    lanes = [device] if mesh is None else mesh.lanes
+    first = 0 if mesh is None else mesh.global_lane(0)
     chunk = chunk_columns(state, chunk, variant=variant, sublanes=sublanes,
-                          fused_gen=fused_gen)
+                          fused_gen=fused_gen,
+                          lanes=1 if mesh is None else mesh.size)
+    local = chunk // (1 if mesh is None else mesh.size)
     key = (id(state), variant, sublanes, chunk, dtype, lregcl, fused_gen,
-           probe, write_primal, device)
+           probe, write_primal, tuple(lanes), first)
     hit = _CHUNK_CACHE.get(key)
     if hit is None or hit[0] is not state:
-        base = state.stored_inputs(dtype, device, pqs=variant == "tlad")
+        bases = [state.stored_inputs(dtype, dev, pqs=variant == "tlad")
+                 for dev in lanes]
         # one generation feeds every chunk: with the chunk a whole period
         # of the cyclic expansion, every chunk's inputs are value-identical
-        blk = tile_stored_columns(base, chunk) if fused_gen else None
-        hit = _CHUNK_CACHE[key] = (state, base, blk)
-    _, base, blk = hit
+        blks = ([tile_stored_columns(b, local, (first + lane) * local)
+                 for lane, b in enumerate(bases)] if fused_gen else None)
+        hit = _CHUNK_CACHE[key] = (state, bases, blks)
+    _, bases, blks = hit
 
     if variant == "nl":
         def kernel(inputs):
@@ -295,14 +344,20 @@ def chunk_loop(
     def force(out):
         return checksum(out) if probe == "checksum" else slice_probe(out, variant)
 
+    def context(lane):
+        return contextlib.nullcontext() if mesh is None else mesh.context(lane)
+
     nchunks = -(-ngptot // chunk)
-    acc = torch.zeros((), dtype=torch.float32, device=device)
+    accs = [torch.zeros((), dtype=torch.float32, device=dev) for dev in lanes]
     for i in range(nchunks):
-        # one expression, so that a chunk's inputs and outputs are free
-        # before the next chunk allocates its own
-        acc = acc + force(kernel(
-            blk if fused_gen else tile_stored_columns(base, chunk, i * chunk)))
-    return nchunks * chunk, acc
+        for lane in range(len(lanes)):
+            with context(lane):
+                # one expression, so that a chunk's inputs and outputs are
+                # free before the next chunk allocates its own
+                accs[lane] = accs[lane] + force(kernel(
+                    blks[lane] if fused_gen else tile_stored_columns(
+                        bases[lane], local, i * chunk + (first + lane) * local)))
+    return nchunks * chunk, (accs[0] if mesh is None else accs)
 
 
 def run_chunked(state, ngptot: int, **kwargs):
@@ -328,7 +383,17 @@ def run_chunked(state, ngptot: int, **kwargs):
     Returns ``(columns_processed, checksum)``: ``columns_processed =
     ceil(ngptot/chunk)·chunk`` is the padded count actually executed, the
     chunk rounded by :func:`chunk_columns` (``sublanes`` is kept only for
-    that rounding).  ``probe="checksum"`` sums every leaf of every chunk's
+    that rounding).
+
+    ``mesh`` (a :class:`~cloudsc2jax_torch.dist.ColumnMesh` of ``device``'s
+    type) decomposes every chunk over the mesh's lanes in all processes:
+    the chunk is rounded to whole ``mesh.size·sublanes·128`` groups, each
+    lane generates and runs its own equal share of every chunk at its
+    global offset, keeps its own accumulator, and one reduction over the
+    lanes and the ranks runs after the loop, the only wait it adds; every
+    rank returns the same total.  The order of the sums differs from the
+    JAX package's per-chunk ``psum``: the same columns agree to f32
+    reassociation, not bit for bit.  ``probe="checksum"`` sums every leaf of every chunk's
     results in float32: the same global columns give the same value for any
     chunk size up to float32 reassociation.  ``probe="slice"`` reads
     :func:`slice_probe` instead, as the benchmark's timed chain does.
@@ -339,10 +404,12 @@ def run_chunked(state, ngptot: int, **kwargs):
 
     The device-resident stored columns, and with ``fused_gen`` the
     generated chunk, stay in a small LRU cache keyed by the configuration.
-    ``mesh`` other than ``None`` raises ``NotImplementedError``.
     """
     columns, acc = chunk_loop(state, ngptot, **kwargs)
-    return columns, float(acc)
+    mesh = kwargs.get("mesh")
+    if mesh is None:
+        return columns, float(acc)
+    return columns, float(mesh.reduce(acc, "sum"))
 
 
 # ------------------------------------------------------------------ Taylor
@@ -396,6 +463,7 @@ def taylor_test(
     nproma: int = 1,
     lregcl: bool = False,
     ldrain1d: bool = False,
+    mesh: Optional[ColumnMesh] = None,
 ) -> TaylorResult:
     """The TL Taylor/gradient test (cloudsc_driver_tl_mod.F90:126-311), on
     the truth path and the inputs' device.
@@ -406,7 +474,26 @@ def taylor_test(
     the per-block mean must converge to 1 with a V-shaped error curve.
     The reference runs this with NPROMA=1 (per-column statistics), the
     default here.
+
+    With a ``mesh``, ``inputs`` holds one input per local lane: each lane
+    blocks its own columns, and the ten norms (maxima over blocks) are
+    reduced with MAX over the lanes and the ranks, so that every rank
+    reaches the same verdict (``reduction(max:znormg)``,
+    cloudsc_driver_tl_mod.F90:125,251).
     """
+    kw = dict(params=params, nproma=nproma, lregcl=lregcl, ldrain1d=ldrain1d)
+    if mesh is None:
+        norms = _taylor_norms(inputs, **kw).double().cpu().numpy()
+    else:
+        lanes = _map_lanes(mesh, inputs, partial(_taylor_norms, **kw))
+        norms = mesh.reduce(lanes, "max").numpy()
+    return _taylor_verdict(norms)
+
+
+def _taylor_norms(inputs: Cloudsc2Inputs, params: Params, *, nproma: int,
+                  lregcl: bool, ldrain1d: bool) -> torch.Tensor:
+    """ZNORMG(10) of :func:`taylor_test` over ``inputs``' columns, on their
+    device."""
     f = partial(cloudsc2, params=params, lregcl=lregcl, ldrain1d=ldrain1d)
     d_inputs = _perturbations(inputs, zero_supsat=False)
 
@@ -432,9 +519,11 @@ def taylor_test(
                             znorm / torch.where(any_active, zcount, 1.0), 0.0)
         return ratio.max()
 
-    norms = np.array([float(norms_for(10.0 ** -(i + 1))) for i in range(10)])
+    return torch.stack([norms_for(10.0 ** -(i + 1)) for i in range(10)])
 
-    # evaluation (cloudsc_driver_tl_mod.F90:272-311)
+
+def _taylor_verdict(norms: np.ndarray) -> TaylorResult:
+    """The evaluation of the ten norms (cloudsc_driver_tl_mod.F90:272-311)."""
     err = np.abs(1.0 - norms)
     istart = 0
     for i in range(10):
@@ -490,10 +579,26 @@ def adjoint_test(
     lregcl: bool = True,
     ldrain1d: bool = False,
     threshold: float = 1.0e4,
+    mesh: Optional[ColumnMesh] = None,
 ) -> AdjointResult:
     """Adjoint symmetry test ⟨Mδx, Mδx⟩ = ⟨δx, MᵀMδx⟩ per column
     (cloudsc_driver_ad_mod.F90:110-293) on the truth path, with LREGCL
-    active as in the AD entry program (cloudsc2_ad/dwarf_cloudsc.F90:105)."""
+    active as in the AD entry program (cloudsc2_ad/dwarf_cloudsc.F90:105).
+    With a ``mesh``, ``inputs`` holds one input per local lane and the
+    largest error is reduced with MAX over the lanes and the ranks."""
+    kw = dict(params=params, lregcl=lregcl, ldrain1d=ldrain1d)
+    if mesh is None:
+        max_err = float(_adjoint_errors(inputs, **kw))
+    else:
+        lanes = _map_lanes(mesh, inputs, partial(_adjoint_errors, **kw))
+        max_err = float(mesh.reduce(lanes, "max"))
+    return AdjointResult(max_error=max_err, passed=max_err < threshold)
+
+
+def _adjoint_errors(inputs: Cloudsc2Inputs, params: Params, *, lregcl: bool,
+                    ldrain1d: bool) -> torch.Tensor:
+    """The largest per-column error of :func:`adjoint_test`, in working
+    precision epsilons, as a 0-d tensor on the inputs' device."""
     f = partial(cloudsc2, params=params, lregcl=lregcl, ldrain1d=ldrain1d)
     d_inputs = _perturbations(inputs, zero_supsat=True)
     # machine epsilon of the WORKING precision: the reference compares
@@ -514,5 +619,4 @@ def adjoint_test(
         norm3 / torch.where(norm2 != 0.0, norm2.abs(), 1.0),
         norm3,
     )
-    max_err = float(norm3.max())
-    return AdjointResult(max_error=max_err, passed=max_err < threshold)
+    return norm3.max()

@@ -32,7 +32,7 @@ import shutil
 import subprocess
 from typing import Dict, List, Sequence, Tuple, Union
 
-__all__ = ["NVCC_FLAGS", "VARIANTS", "load_libraries", "load_library",
+__all__ = ["NVCC_FLAGS", "SHIPPED_FLAGS", "VARIANTS", "load_libraries", "load_library",
            "library_digest", "loop_census", "nvcc_path", "nvcc_version", "ptxas_report",
            "role_registers", "sass", "sass_digests", "variant"]
 
@@ -49,20 +49,29 @@ Key = Tuple[str, Tuple[str, ...], Tuple[str, ...]]
 _LIBRARIES: Dict[Key, ctypes.CDLL] = {}
 _NVCC_VERSION: List[str] = []
 # per library, the -D defines and extra nvcc flags of every build of it that
-# names none itself (the register budgets of probes/tlad_budget.py,
-# -fmad=false for the TL parity check)
+# names none itself (the register budgets of probes/tlad_budget.py, the
+# contracted or uncontracted builds of probes/fmad_time.py and parity.py)
 VARIANTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {}
 
+# The streamed-increment TL kernel ships without FMA contraction: contracted,
+# its f32 tangents sit 2.7-3.3e-6 from jvp of the truth path, above the JAX
+# package's TL parity of 1e-6 (cloudsc2jax/cli.py:288); uncontracted, 1.4e-7.
+# It carries only the standard contract's TL (run_tlad(backend="kernels"),
+# tl --kernels); the stream contract's TL and the headline NL sweep keep
+# nvcc's default.
+SHIPPED_FLAGS = {"cloudsc2_tl_din": ("-fmad=false",)}
 
-def _shipped_defines(name: str) -> Tuple[str, ...]:
-    """The defines a library is built with where nothing names others: the
-    fused kernel's splits (kernels/fused_plan.py), which it cannot build
-    without."""
+
+def _shipped(name: str) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The defines and extra nvcc flags a library is built with where
+    nothing names others: the fused kernel's splits (kernels/fused_plan.py),
+    which it cannot build without, and ``SHIPPED_FLAGS``."""
+    defines: Tuple[str, ...] = ()
     if name == "cloudsc2_tlad_fused":
-        from .fused_plan import defines
+        from .fused_plan import defines as plan_defines
 
-        return defines()
-    return ()
+        defines = plan_defines()
+    return defines, SHIPPED_FLAGS.get(name, ())
 
 
 @contextlib.contextmanager
@@ -88,7 +97,7 @@ def _key(spec: Spec) -> Key:
     name, defines, *flags = spec
     flags = tuple(flags[0]) if flags else ()
     if not defines and not flags:
-        defines, flags = VARIANTS.get(name, (_shipped_defines(name), ()))
+        defines, flags = VARIANTS.get(name, _shipped(name))
     return name, tuple(defines), flags
 
 
@@ -170,7 +179,12 @@ def load_libraries(specs: Sequence[Spec]) -> List[ctypes.CDLL]:
             failed.append(f"nvcc failed with exit code {proc.returncode} "
                           f"building {name}.cu ({out_dir.name}):\n{log}")
             continue
-        (out_dir / f"{name}.ptxas.txt").write_text(log)
+        # both files land whole, by rename: processes that start together
+        # (the ranks of one launch) may build the same library at once, and
+        # a reader finds the report before the library or neither
+        report = out_dir / f"{name}.ptxas.{os.getpid()}.tmp"
+        report.write_text(log)
+        os.replace(report, out_dir / f"{name}.ptxas.txt")
         os.replace(tmp, out_dir / f"lib{name}.so")
     if failed:
         raise RuntimeError("\n".join(failed))

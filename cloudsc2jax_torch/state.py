@@ -39,13 +39,17 @@ def tile_stored_columns(base: Cloudsc2Inputs, ncol: int,
         *(None if x is None else x.index_select(1, idx) for x in base))
 
 
-def _tile_columns(x: np.ndarray, ncol: int, like: torch.Tensor) -> torch.Tensor:
+def _tile_columns(x: np.ndarray, ncol: int, like: torch.Tensor,
+                  col_offset: int = 0) -> torch.Tensor:
     """Cyclic column expansion on ``like``'s device and dtype (EXPAND_R2/R3,
     expand_mod.F90:270-335): ``(klon, ...)`` host array -> ``(ncol, ...)``
-    view of a column-last tensor, the memory layout of the outputs."""
+    view of a column-last tensor, the memory layout of the outputs; column
+    i holds stored column ``(col_offset + i) % klon``, the global column
+    ``col_offset + i`` of the expansion, as :func:`tile_stored_columns`
+    tiles the inputs."""
     t = torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, 0, -1)))
     t = t.to(device=like.device, dtype=like.dtype)
-    idx = torch.arange(ncol, device=like.device) % t.shape[-1]
+    idx = torch.arange(col_offset, col_offset + ncol, device=like.device) % t.shape[-1]
     return t.index_select(-1, idx).movedim(-1, 0)
 
 
@@ -167,7 +171,7 @@ class Cloudsc2State:
 
     def device_inputs(
         self, ngptot: Optional[int] = None, dtype: torch.dtype = torch.float64,
-        device="cuda",
+        device="cuda", col_offset: int = 0,
     ) -> Cloudsc2Inputs:
         """The 16 inputs in the standard ``(ncol, nlev)`` contract (paph
         ``(ncol, nlev+1)``) with ``pqs``, expanded to ``ngptot`` columns on
@@ -177,8 +181,10 @@ class Cloudsc2State:
         Each field is the transposed view of the levels-major tensor
         :meth:`device_kernel_inputs` builds, so the truth path reads one
         level of all columns as a contiguous row, and the kernels' wrappers
-        get back to levels-major without a copy."""
-        lm = self.device_kernel_inputs(ngptot, dtype=dtype, device=device, pqs=True)
+        get back to levels-major without a copy.  ``col_offset`` as for
+        :meth:`device_kernel_inputs`."""
+        lm = self.device_kernel_inputs(ngptot, dtype=dtype, device=device, pqs=True,
+                                       col_offset=col_offset)
         return Cloudsc2Inputs(*(x.T for x in lm))
 
     def output_dict(self, out: Cloudsc2Outputs) -> Dict[str, np.ndarray]:
@@ -232,23 +238,54 @@ class Cloudsc2State:
         reference_path,
         threshold: float = 10.0,
         quiet: bool = False,
+        mesh=None,
+        col_offset: int = 0,
     ) -> bool:
         """VALIDATE (…array_state_mod.F90:205-258) with statistics on the
         outputs' device.
 
         ``out`` is the ``(ncol, nlev)`` contract and ``inputs`` the
-        levels-major kernel inputs.  The golden ``klon_file`` columns are
-        tiled on the device in the outputs' dtype and memory layout, and
-        each field's five reductions run there (:func:`field_errors_torch`):
-        only scalars reach the host, at any NGPTOT.
+        levels-major kernel inputs, holding the global columns
+        ``[col_offset, col_offset + ncol)``.  The golden ``klon_file``
+        columns are tiled on the device from that offset, in the outputs'
+        dtype and memory layout, and each field's five reductions run there
+        (:func:`~cloudsc2jax_torch.validate.fields_errors_torch`): only
+        scalars reach the host, at any NGPTOT.
+
+        With a ``mesh`` (``dist.ColumnMesh``), ``out`` and ``inputs`` are
+        lists with one entry per local lane, the lanes holding consecutive
+        columns from ``col_offset`` (this process's
+        ``dist.local_column_slice(...).start``); the statistics are reduced
+        over the lanes and the ranks (cloudsc2jax/state.py:259-335), so
+        every rank returns the same verdict.  ``quiet`` ranks print nothing.
         """
-        ncol, nlev = out.pclc.shape
+        if mesh is None:
+            out, inputs = [out], [inputs]
         ref = cio.load_reference_h5(reference_path)
+        fields: Dict[str, list] = {}
+        offset = col_offset
+        for o, i in zip(out, inputs):
+            ncol = o.pclc.shape[0]
+            for k, v in self._golden_fields(o, i).items():
+                fields.setdefault(k, []).append(
+                    (v, _tile_columns(ref[k], ncol, v, offset)))
+            offset += ncol
+        errors = cval.fields_errors_torch(fields, mesh=mesh)
+        if quiet:
+            return all(e.passed(threshold) for e in errors.values())
+        return cval.print_validation(errors, threshold)
+
+    @staticmethod
+    def _golden_fields(out: Cloudsc2Outputs,
+                       inputs: Cloudsc2Inputs) -> Dict[str, torch.Tensor]:
+        """The golden file's fields of one lane's outputs, ``(ncol, ...)``
+        views on their device (:meth:`output_dict` without the host)."""
+        ncol, nlev = out.pclc.shape
         cld = torch.zeros((NCLV, nlev, ncol), dtype=out.pclc.dtype,
                           device=out.pclc.device)
         cld[NCLDQL] = out.tenl_l.T
         cld[NCLDQI] = out.tenl_i.T
-        res = {
+        return {
             "PLUDE": inputs.plude.T,
             "PCOVPTOT": out.pcovptot,
             "PFPLSL": out.pfplsl,
@@ -260,14 +297,6 @@ class Cloudsc2State:
             "TENDENCY_LOC_Q": out.tenl_q,
             "TENDENCY_LOC_CLD": cld.permute(2, 0, 1),
         }
-        errors = {
-            k: cval.field_errors_torch(k, v, _tile_columns(ref[k], ncol, v),
-                                       ngptot=ncol)
-            for k, v in res.items()
-        }
-        if quiet:
-            return all(e.passed(threshold) for e in errors.values())
-        return cval.print_validation(errors, threshold)
 
     def write_reference(self, out: Cloudsc2Outputs, path) -> None:
         """WRITE_REFERENCE (…array_state_mod.F90:260-287): the first

@@ -8,14 +8,17 @@ denominator regimes (validate_mod.F90:263-296), printed as the same table
 error above ``threshold`` × machine epsilon.
 
 :func:`field_errors` works on host arrays; :func:`field_errors_torch` runs
-the five reductions on the tensors' device and brings only scalars back.
+the five reductions on the tensors' device and brings only scalars back;
+:func:`fields_errors_torch` does so for many fields at once and, over a
+column mesh, reduces the statistics over the lanes and the ranks (the
+MPI_REDUCEs of validate_mod.F90:149-151).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +27,7 @@ __all__ = [
     "FieldErrors",
     "field_errors",
     "field_errors_torch",
+    "fields_errors_torch",
     "validate",
     "print_validation",
 ]
@@ -92,26 +96,71 @@ def field_errors_torch(
     strides).  The difference is taken in the working dtype, as the
     reference does; both sums accumulate in float64 whatever the working
     dtype, and one transfer brings the five scalars to the host."""
-    d = (result - reference).abs()
-    stats = torch.stack([
-        result.min().double(),
-        result.max().double(),
-        d.max().double(),
-        d.sum(dtype=torch.float64),
-        reference.abs().sum(dtype=torch.float64),
-    ]).tolist()
-    zmin, zmax, zmaxerr, zerrsum, zsum = stats
-    return FieldErrors(
-        name=name,
-        ndim=result.dim(),
-        zminval=zmin,
-        zmaxval=zmax,
-        zmaxerr=zmaxerr,
-        zerrsum=zerrsum,
-        zsum=zsum,
-        ngptot=int(ngptot if ngptot is not None else result.shape[0]),
-        eps=float(torch.finfo(result.dtype).eps),
-    )
+    return fields_errors_torch({name: [(result, reference)]}, ngptot)[name]
+
+
+def _lane_stats(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+    """``(nfields, 6)`` float64 on the host: min, max, max |err|, sum |err|
+    and sum |ref| of each field's ``(result, reference)`` pair, reduced on
+    their device and brought over in one transfer, and its column count."""
+    rows = []
+    for result, reference in pairs:
+        d = (result - reference).abs()
+        rows.append(torch.stack([
+            result.min().double(),
+            result.max().double(),
+            d.max().double(),
+            d.sum(dtype=torch.float64),
+            reference.abs().sum(dtype=torch.float64),
+        ]))
+    ncol = torch.tensor([[float(r.shape[0])] for r, _ in pairs], dtype=torch.float64)
+    return torch.cat([torch.stack(rows).cpu(), ncol], dim=1)
+
+
+def fields_errors_torch(
+    fields: Dict[str, Sequence[Tuple[torch.Tensor, torch.Tensor]]],
+    ngptot: Optional[int] = None,
+    mesh=None,
+) -> Dict[str, FieldErrors]:
+    """:func:`field_errors_torch` of many fields over the lanes of a column
+    mesh (``dist.ColumnMesh``; ``None``: one lane, one process).
+
+    ``fields`` maps a name to one ``(result, reference)`` pair per local
+    lane, ``(ncol, ...)`` with the lane's columns first, on the lane's
+    device.  Each lane reduces all its fields on its device into one small
+    tensor; the lanes are reduced on the host, and across the ranks one
+    collective per kind carries every field: MIN of the minima, MAX of the
+    maxima and of the largest errors, SUM of both sums and of the columns.
+    ``ngptot`` defaults to that global column count.  Every rank gets the
+    same statistics."""
+    names = list(fields)
+    nlanes = len(fields[names[0]])
+    lanes = [_lane_stats([fields[k][lane] for k in names]) for lane in range(nlanes)]
+    if mesh is None:
+        if nlanes != 1:
+            raise ValueError(f"{nlanes} lanes of fields need a mesh")
+        stats = lanes[0]
+    else:
+        stats = torch.empty((len(names), 6), dtype=torch.float64)
+        stats[:, 0] = mesh.reduce([x[:, 0] for x in lanes], "min")
+        stats[:, 1:3] = mesh.reduce([x[:, 1:3] for x in lanes], "max")
+        stats[:, 3:] = mesh.reduce([x[:, 3:] for x in lanes], "sum")
+    out = {}
+    for k, row in zip(names, stats.tolist()):
+        result = fields[k][0][0]
+        zmin, zmax, zmaxerr, zerrsum, zsum, ncol = row
+        out[k] = FieldErrors(
+            name=k,
+            ndim=result.dim(),
+            zminval=zmin,
+            zmaxval=zmax,
+            zmaxerr=zmaxerr,
+            zerrsum=zerrsum,
+            zsum=zsum,
+            ngptot=int(ngptot if ngptot is not None else ncol),
+            eps=float(torch.finfo(result.dtype).eps),
+        )
+    return out
 
 
 def validate(

@@ -118,9 +118,17 @@ def test_chunk_rounding():
 
 
 def test_mesh_and_bad_arguments_raise(stores):
+    """A mesh that is no ``dist.ColumnMesh``, or whose lanes are not of
+    ``device``'s type, is refused, as are an unknown probe and
+    ``write_primal=False`` for ``nl``."""
+    from cloudsc2jax_torch.dist import ColumnMesh
+
     st = stores["nl"][1]
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="ColumnMesh"):
         run_chunked(st, NGPTOT, chunk=256, sublanes=1, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="lanes are cpu"):
+        run_chunked(st, NGPTOT, chunk=256, sublanes=1, device="cuda",
+                    mesh=ColumnMesh(["cpu"]))
     with pytest.raises(ValueError):
         run_chunked(st, NGPTOT, chunk=256, sublanes=1, device="cpu", probe="all")
     with pytest.raises(ValueError):

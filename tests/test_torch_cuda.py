@@ -7,7 +7,11 @@ JAX it runs on its own::
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider --noconftest
 """
 
+import json
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -17,6 +21,7 @@ from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
 from cloudsc2jax_torch.state import Cloudsc2State
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
+ROOT = FIXTURES.parents[1]
 
 
 def _need_cuda():
@@ -313,28 +318,58 @@ def test_cuda_shipped_f32_kernels_meet_their_register_budget(lib, source, macro,
 @pytest.mark.cuda
 @pytest.mark.parametrize("lregcl", [False, True])
 def test_cuda_tl_parity_without_fma_contraction(lregcl):
-    """The TL kernel built with ``-fmad=false`` holds the JAX package's f32
-    TL parity, 1e-6 (cloudsc2jax/cli.py:288), against ``jvp`` of the truth
-    path on the same f32 inputs; the shipped build keeps contraction and
-    ``cli.PALLAS_TL_PARITY_TOL`` (1e-5)."""
+    """The TL kernel ships built with ``-fmad=false`` and holds the JAX
+    package's f32 TL parity, ``cli.PALLAS_TL_PARITY_TOL`` = 1e-6
+    (cloudsc2jax/cli.py:288), against ``jvp`` of the truth path on the same
+    f32 inputs."""
     from cloudsc2jax_torch.drivers import DSCALE
     from cloudsc2jax_torch.kernels import build
     from cloudsc2jax_torch.kernels import tlad_kernel as tk
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
 
     _need_cuda()
+    assert cli.PALLAS_TL_PARITY_TOL == 1e-6
     st = Cloudsc2State.load(FIXTURES / "input.npz")
     i32 = Cloudsc2Inputs(*(x.float() for x in st.device_inputs(
         2048, dtype=torch.float64, device="cuda")))
     d32 = Cloudsc2Inputs(*(DSCALE * x for x in i32))
-    with build.variant("cloudsc2_tl_din", flags=("-fmad=false",)):
-        launches = tk.cloudsc2_tl_din.launches
-        _, dout = tk.cloudsc2_kernel_tl(i32, d32, st.params, lregcl=lregcl)
-        assert tk.cloudsc2_tl_din.launches == launches + 1
-        assert "-fmad=false" in build._key("cloudsc2_tl_din")[2]
-    assert cli.tl_parity(i32, dout, st.params, lregcl=lregcl) < 1e-6
+    launches = tk.cloudsc2_tl_din.launches
     _, dout = tk.cloudsc2_kernel_tl(i32, d32, st.params, lregcl=lregcl)
+    assert tk.cloudsc2_tl_din.launches == launches + 1
+    assert "-fmad=false" in build._key("cloudsc2_tl_din")[2]
     assert cli.tl_parity(i32, dout, st.params, lregcl=lregcl) < cli.PALLAS_TL_PARITY_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncol", [100, 16384])
+def test_cuda_tl_parity_through_run_tlad(ncol):
+    """The gated quantity as the CLI measures it, ``tl_parity`` through
+    ``run_tlad(backend="kernels")``, sits under the JAX package's 1e-6 in
+    f32, with the adjoint identity inside its budget."""
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    std = st.device_inputs(ncol, dtype=torch.float32, device="cuda")
+    v = cli.measure_f32_verdicts(st, std, lregcl=True)
+    assert v["finite"]
+    assert v["tl_parity_rel_err"] < v["tl_parity_tol"] == 1e-6
+    assert v["ad_identity_rel_err"] < v["ad_identity_tol"]
+
+
+@pytest.mark.cuda
+def test_cuda_bench_tlad_margin_ok():
+    """The bench's ``tlad`` f32 record reads ``margin_ok: true``: both f32
+    verdicts at least 4x under their tolerances (``bench.py:213``)."""
+    _need_cuda()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cloudsc2jax_torch.bench"],
+        env={**os.environ, "CLOUDSC2_BENCH_VARIANT": "tlad",
+             "CLOUDSC2_BENCH_REPEATS": "2"},
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    fv = rec["f32_verdicts"]
+    assert fv["margin_ok"] is True, fv
+    assert fv["tl_parity_tol"] == 1e-6
 
 
 # ------------------------------------------- the TL+AD scheduling experiments
@@ -790,3 +825,75 @@ def test_cuda_bench_record_names_the_card(monkeypatch, capsys, variant):
     if variant == "chunked":
         assert 0 < rec["peak_allocated_gb"] < rec["device_memory_gb"]
         assert rec["ngptot"] == 65536 and rec["chunk"] == 32768
+
+
+# ------------------------------------------------- the column decomposition
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv", [
+    ["nl", "1", "16384", "128", "--dtype", "f32", "--threshold", "10000",
+     "--kernels", "--per-device-timing"],
+    ["tlad", "1", "16384", "128", "--dtype", "f32"],
+])
+def test_cuda_cli_two_ranks_on_one_card(argv):
+    """Two ranks of the CLI share the card over gloo: both exit 0 and rank
+    0 prints the gathered table with both ranks' totals (measured rows for
+    ``--per-device-timing``) and the verdict."""
+    _need_cuda()
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cloudsc2jax_torch", *argv, "--device", "cuda"],
+        env={**os.environ, "CLOUDSC2_NUM_PROCESSES": "2",
+             "CLOUDSC2_PROCESS_ID": str(rank),
+             "CLOUDSC2_COORDINATOR": f"localhost:{port}"},
+        cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], [e for _, e in outs]
+    err0 = outs[0][1]
+    assert "NUMPROC=2, NUMDEV=1" in err0 and "TOTAL @ rank#1" in err0
+    if "--per-device-timing" in argv:
+        assert err0.count("(measured)") == 2
+        assert "TENDENCY_LOC_T" in err0 and "!!!!" not in err0
+    else:
+        assert "tlad outputs finite: True" in err0
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_and_chunked_mesh_without_sync():
+    """``dist.dryrun`` on every card, and ``run_chunked(mesh=)``'s chunk
+    loop under ``set_sync_debug_mode("error")``, its one reduction after,
+    equal to the run without a mesh within 1e-5."""
+    from cloudsc2jax_torch import dist
+    from cloudsc2jax_torch.drivers import chunk_loop, run_chunked
+
+    _need_cuda()
+    worst = dist.dryrun(torch.cuda.device_count())
+    assert max(worst.values()) <= 1e-5
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    mesh = dist.column_mesh("cuda")
+    kw = dict(variant="nl", chunk=32768, mesh=mesh)
+    chunk_loop(st, 32768, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        n, accs = chunk_loop(st, 65536, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    total = float(mesh.reduce(accs, "sum"))
+    assert n == 65536
+    ref = run_chunked(st, 65536, variant="nl", chunk=32768 * mesh.size)[1]
+    assert abs(total - ref) <= 1e-5 * abs(ref)

@@ -161,19 +161,25 @@ def test_build_hash_covers_the_compiler(monkeypatch):
 
 
 def test_build_hash_covers_per_library_flags():
-    """``build.variant`` gives one library a build of its own (the TL
-    kernel under ``-fmad=false``) and leaves the others and, after the
-    block, the library itself as they were; defines a build names itself
-    are not overridden."""
-    plain = build._build_dir(*build._key("cloudsc2_tl_din"))
+    """The streamed-increment TL kernel ships under ``-fmad=false``, the
+    others with nvcc's default; ``build.variant`` gives one library a build
+    of its own (here the TL kernel with FMA contraction, as before) and
+    leaves the others and, after the block, the library itself as they
+    were; defines a build names itself are not overridden."""
+    shipped = build._key("cloudsc2_tl_din")
+    assert shipped == ("cloudsc2_tl_din", (), ("-fmad=false",))
+    assert "-fmad=false" in build._command(*shipped)
+    assert build._key("cloudsc2_tl") == ("cloudsc2_tl", (), ())
+    assert "-fmad=false" not in build._command(*build._key("cloudsc2_tl"))
+    plain = build._build_dir(*shipped)
     other = build._build_dir(*build._key("cloudsc2_tl"))
-    with build.variant("cloudsc2_tl_din", flags=("-fmad=false",)):
+    with build.variant("cloudsc2_tl_din", flags=("-fmad=true",)):
         key = build._key("cloudsc2_tl_din")
-        assert key == ("cloudsc2_tl_din", (), ("-fmad=false",))
+        assert key == ("cloudsc2_tl_din", (), ("-fmad=true",))
         assert build._build_dir(*key) != plain
         assert build._build_dir(*build._key("cloudsc2_tl")) == other
-        assert "-fmad=false" in build._command(*key)
+        assert "-fmad=true" in build._command(*key)
         assert build._key(("cloudsc2_tl_din", ("X=1",))) == (
             "cloudsc2_tl_din", ("X=1",), ())
-    assert build._key("cloudsc2_tl_din") == ("cloudsc2_tl_din", (), ())
+    assert build._key("cloudsc2_tl_din") == shipped
     assert build._build_dir(*build._key("cloudsc2_tl_din")) == plain

@@ -139,9 +139,14 @@ def test_cli_nl_validates(argv, capsys):
     assert "TENDENCY_LOC_T" in err and "!!!!" not in err
 
 
-def test_cli_rejects_more_than_one_device():
-    with pytest.raises(SystemExit):
-        cli.main(["nl", "2", "300", "100", "--device", "cpu"])
+def test_cli_rejects_more_than_one_device(monkeypatch):
+    """``numdev`` lanes on ``cuda`` are distinct cards: more than the
+    machine has are refused before any device work (CPU lanes may repeat,
+    ``tests/test_torch_dist.py``)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="2 lanes need 2 distinct cards"):
+        cli.main(["nl", "2", "300", "100", "--device", "cuda"])
 
 
 def test_cli_fails_on_a_loose_threshold_miss(capsys):
@@ -177,6 +182,7 @@ def test_port_imports_no_jax():
         "import cloudsc2jax_torch.encoding_study, cloudsc2jax_torch.tlad\n"
         "import cloudsc2jax_torch.bench, cloudsc2jax_torch.io\n"
         "import cloudsc2jax_torch.timer, cloudsc2jax_torch.validate\n"
+        "import cloudsc2jax_torch.dist, cloudsc2jax_torch.scaling_bench\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'cloudsc2jax.'))"
         " or m == 'cloudsc2jax' for m in sys.modules), sorted(sys.modules)\n"
     )
