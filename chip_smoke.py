@@ -7,7 +7,10 @@ int16-encoded), the NL-side experiments (the encoded and the resident
 NL sweeps, the window-matched bandwidth probe ``bw_probe`` and the
 ``encoding_study``), chunked streaming past the card's memory
 (``drivers.run_chunked``), the benchmark ``cloudsc2jax_torch.bench`` and the
-CLI's profiler and golden writer.
+CLI's profiler and golden writer, the column decomposition over two
+processes, and the truth path's level checkpoint and NPROMA blocks, the
+bench's truth and kernel modes, the roofline of every kernel, the native
+host shim and the evidence battery.
 
 Run from the root of a checkout, with no arguments::
 
@@ -54,7 +57,8 @@ and prints no result line):
    1e-5 (TL) and 1e-4 (AD, whose plu adjoint carries f32 rounding of that
    size: PERF.md).
 7. TL+AD main path through the CLI entry point on ``cuda``:
-   ``tlad 1 163840 128 --dtype f32`` and ``tlad 1 16384 128 --dtype f64``,
+   ``tlad 1 163840 128 --dtype f32 --kernels`` and ``tlad 1 16384 128
+   --dtype f64 --kernels``,
    each passing the adjoint identity within the JAX package's budgets; both
    kernels' launch counters, zeroed just before, must show that they ran.
 8. Timing with CUDA events at 327,680 columns f32 over distinct inputs:
@@ -176,8 +180,8 @@ and prints no result line):
    each run and read just after, drives the CLI with
    ``CLOUDSC2_NUM_PROCESSES=2``: ``nl 1 327680 128 --dtype f32 --threshold
    10000 --kernels --repeat 10`` (golden validation reduced over the ranks)
-   and ``tlad 1 327680 128 --dtype f32 --repeat 10`` (adjoint identity
-   reduced over the ranks), each
+   and ``tlad 1 327680 128 --dtype f32 --kernels --repeat 10`` (adjoint
+   identity reduced over the ranks), each
    of which must pass on both ranks with the kernels launched on both; then
    ``run_chunked(mesh=)`` of ``nl`` and ``tlad`` over 655,360 columns in
    chunks of 327,680, its chunk loop under
@@ -188,9 +192,29 @@ and prints no result line):
    ``dist.dryrun(1)``, and prints each rank's ms from rank 0's gathered
    table and the two ranks' combined columns/s: two processes time-slice
    one card, so that is no scaling.
+20. The modules of the last slice.  In a process of its own beside phases
+   3-10 (host-bound): (a) the truth path's ``run_tlad(backend="truth")`` at
+   16,384 f64 columns with ``remat=False``, ``remat=True`` and ``remat=True,
+   nproma=4096``, each run's wall seconds and ``max_memory_allocated``, the
+   three equal within 1e-12 of each field's max and the checkpointed peak
+   below the stored one; (b) the CLI's truth route ``tlad 1 16384 4096
+   --dtype f64`` (4 NPROMA blocks: each block costs the host a whole unit's
+   launches, so the 128 blocks of ``nproma`` 128 would take half an hour),
+   rc 0; (c) the bench's ``CLOUDSC2_BENCH_PALLAS=0`` records for ``nl`` and
+   ``tlad`` at 16,384 columns, 2 repeats, each in a process of its own
+   (``chip_smoke.py --bench-worker``) that launches no kernel.  Then in the
+   main process: the bench's ``MODE=resident`` and ``LAYOUT=standard`` records
+   at their defaults, each of which must launch its kernel (#2, #1); (d)
+   ``roofline.py``'s bound of every kernel of the records, whose bytes each
+   timing phase has held to ``_nbytes`` of its run's tensors, with the
+   attained GB/s and the shares of the bound and of the probe's ceiling; (e)
+   the native shim, built with g++, ``sched_getcpu() >= 0``; (f)
+   ``python -m cloudsc2jax_torch.onchip_evidence --list`` and its
+   ``probe_stream`` step.  Each time and memory figure is printed beside the
+   card's name and power limit.
 
-The comparisons of phases 6, 9, 12, 15 and 18 are bound by the host, so each
-runs in a process of its own (``chip_smoke.py --compare <name>``, started
+The comparisons of phases 6, 9, 12, 15 and 18 and phase 20's truth path
+are bound by the host, so each runs in a process of its own (``chip_smoke.py --compare <name>``, started
 after the build) beside phases 3, 4, 7 and 10 of the main process; the
 timing phases start when all of them have ended, and the script stops any
 that is left if it fails.  A comparison's output goes to
@@ -201,9 +225,10 @@ seconds of host time at any size and is no yardstick of speed.
 ``python3 chip_smoke.py --serial`` runs the same phases in one process, to
 measure what the fan-out saves (PERF.md has both times).
 
-Each kernel's record holds its time beside its bound: the larger of the
-bytes it must move (every input read once, every output written once,
-from this run's tensors) over the card's published memory rate, and its
+Each kernel's record holds its time beside its bound
+(:mod:`cloudsc2jax_torch.roofline`): the larger of the bytes it must move
+(every input read once, every output written once; held equal to the bytes
+of this run's tensors) over the card's published memory rate, and its
 operations (statements of its level body per level and column) over the
 card's published f32 rate.  No single PyTorch call computes one of the
 level-recurrent sweeps, so their ``library_ms`` is null; the probe's is
@@ -232,15 +257,6 @@ LIBRARIES = ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_tl_din", "cloudsc2_ad",
              "cloudsc2_tl_enc", "cloudsc2_ad_enc", "cloudsc2_tlad_fused",
              "cloudsc2_nl_enc", "cloudsc2_nl_res", "bw_probe")
 CSRC = ROOT / "cloudsc2jax_torch" / "csrc"
-
-# NVIDIA H100 SXM data sheet: device memory rate and f32 rate outside the
-# tensor cores; the bounds below are stated against these
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-# operations of the hand-written NL level body per level and column: ~292
-# flops and ~10 transcendentals (the count the reference's cost estimate of
-# the same body uses, cloudsc2jax/pallas/tlad_kernel.py:704-707)
-NL_OPS_PER_LEVEL_COLUMN = 302
 
 TOLERANCE = {"float32": 5e-6, "float64": 1e-12}
 # The encoded NL kernel against its plain version.  Its outputs equal the
@@ -272,8 +288,8 @@ SMALL_CASES = [(ncol, name, ldrain1d)
                for name in ("float32", "float64")
                for ldrain1d in (False, True)]
 TLAD_RUNS = (
-    ["tlad", "1", "163840", "128", "--dtype", "f32"],
-    ["tlad", "1", "16384", "128", "--dtype", "f64"],
+    ["tlad", "1", "163840", "128", "--dtype", "f32", "--kernels"],
+    ["tlad", "1", "16384", "128", "--dtype", "f64", "--kernels"],
 )
 TEST_RUNS = (
     ["tl", "1", "16384", "128", "--dtype", "f64", "--kernels"],
@@ -287,18 +303,6 @@ AB_CONFIGS = ["two", "noprim", "fused", "enc", "encnp", "two"]
 ENC_TLAD_KEEPS = (("pq", "plu", "paph"), ("pq", "plu", "paph", "pt", "pmfu"))
 # (ncol, dtype) of the harness's shape in the comparisons of phase 12
 AB_SHAPES = ((163840, "float32"), (16384, "float64"))
-# the window mixes of phase 16: label, reads, writes, reversed, and the
-# tanh,flops per element of the compute-weighted run (None: plain only), as
-# the JAX tool calibrates them for the NL, TL and AD bodies
-PROBE_MIXES = (
-    ("nl", 15, 8, False, (10, 292)),
-    ("fwd", 16, 11, False, (10, 292)),
-    ("tl", 16, 19, False, (20, 584)),
-    ("din", 32, 16, False, (20, 584)),
-    ("ad", 27, 16, True, (30, 876)),
-    ("res", 16, 8, False, None),
-    ("fused", 16, 32, False, None),
-)
 # the mix each kernel is judged against
 KERNEL_MIX = {
     "cloudsc2_nl": "nl", "cloudsc2_nl_enc": "nl", "bw_probe": "nl",
@@ -335,11 +339,25 @@ MP_RANKS = 2
 MP_RUNS = (
     ["nl", "1", "327680", "128", "--dtype", "f32", "--threshold", "10000",
      "--kernels", "--repeat", "10"],
-    ["tlad", "1", "327680", "128", "--dtype", "f32", "--repeat", "10"],
+    ["tlad", "1", "327680", "128", "--dtype", "f32", "--kernels", "--repeat", "10"],
 )
 MP_TIMEOUT_S = 300
 BENCH_VARIANTS = ("nl", "tlad", "chunked", "chunked_tlad")
 PROFILE_RUN = ["nl", "1", "100", "100", "--kernels", "--dtype", "f64"]
+# phase 20: the truth path's TL+AD unit at the f64 size of the tl and ad
+# dwarfs, whole and in NPROMA blocks (each block costs the host a whole
+# unit's launches, so 4 blocks, not the 128 of nproma 128), against each
+# other within TRUTH_TOLERANCE of each field's max; the CLI's truth route
+# in the same blocks; the bench's truth records at the same size
+TRUTH_NCOL = 16_384
+TRUTH_NPROMA = 4_096
+TRUTH_TOLERANCE = 1e-12
+TRUTH_CLI_RUN = ["tlad", "1", str(TRUTH_NCOL), str(TRUTH_NPROMA), "--dtype", "f64"]
+TRUTH_BENCH = {"CLOUDSC2_BENCH_PALLAS": "0", "CLOUDSC2_BENCH_NGPTOT": str(TRUTH_NCOL),
+               "CLOUDSC2_BENCH_REPEATS": "2", "CLOUDSC2_BENCH_F32_CHECKS": "0"}
+# the bench's kernel modes of phase 20, at their defaults
+BENCH_MODES = ({"CLOUDSC2_BENCH_MODE": "resident"},
+               {"CLOUDSC2_BENCH_LAYOUT": "standard"})
 # The code of every library but the encoded NL one (#1-#5, #7, #8, #9 and
 # the window probe at its NL mix): per library, build.library_digest of the
 # SASS of its entries, recorded on an NVIDIA H100 under the nvcc release
@@ -406,26 +424,18 @@ def _nbytes(*trees) -> int:
     return total
 
 
-def _level_statements(kind: str, evap: bool, lregcl: bool) -> int:
-    """Statements of one generated level body, from the header's own count."""
-    import re
+def _bound(name: str, ncol: int, nlev: int, moved: int) -> dict:
+    """The least time the card could take for kernel ``name``'s work at
+    ``ncol`` f32 columns (``roofline.bound``: bytes over the card's memory
+    rate or operations over its f32 rate, whichever is larger), its bytes
+    held to ``moved``, the bytes of this run's own tensors."""
+    from cloudsc2jax_torch import roofline
 
-    text = (CSRC / f"cloudsc2_{kind}_level.cuh").read_text()
-    flags = f"{str(evap).lower()}, {str(lregcl).lower()}"
-    m = re.search(rf"lregcl: {flags} \((\d+) statements", text)
-    if m is None:
-        raise AssertionError(f"no statement count for Level<{flags}> in {kind}")
-    return int(m.group(1))
-
-
-def _bound(nbytes: int, ops: float) -> dict:
-    """The least time the card could take: bytes over its memory rate or
-    operations over its f32 rate, whichever is larger."""
-    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": nbytes, "operations": ops, "library_ms": None}
+    b = roofline.bound(name, ncol, nlev)
+    if b["bytes"] != moved:
+        raise AssertionError(f"{name}: roofline counts {b['bytes']} bytes, the "
+                             f"run's tensors {moved}")
+    return {**b, "library_ms": None}
 
 
 def _time_ms(fn, args_list, calls: int) -> float:
@@ -629,12 +639,11 @@ def time_tlad(state, params, compared, launches):
               f"the comparison of phase 6")
     print(f"[8] after timing: {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    cells = nlev * ncol
-    bounds = {"tl": _bound(_nbytes(sets[0], pres[0], tls[0]),
-                           _level_statements("tl", False, True) * cells),
-              "ad": _bound(_nbytes(sets[0], pres[0], tls[0][1], tls[0][2])
-                           + _nbytes(sets[0]),
-                           _level_statements("ad", False, True) * cells)}
+    bounds = {"tl": _bound("cloudsc2_tl", ncol, nlev,
+                           _nbytes(sets[0], pres[0], tls[0])),
+              "ad": _bound("cloudsc2_ad", ncol, nlev,
+                           _nbytes(sets[0], pres[0], tls[0][1], tls[0][2])
+                           + _nbytes(sets[0]))}
 
     def record(kind, replaces):
         w = worst[kind]
@@ -871,10 +880,10 @@ def time_variants(state, params, compared, ran, ad_record):
     din0 = launch_cloudsc2_tl_din(sets[0], dsets[0], pres[0], params)
     nlev = base.pt.shape[0]
     bounds = {
-        "fwd": _bound(_nbytes(sets[0], pres[0], fwd0),
-                      NL_OPS_PER_LEVEL_COLUMN * nlev * ncol),
-        "din": _bound(_nbytes(sets[0], pres[0], dsets[0], din0),
-                      _level_statements("tl", False, False) * nlev * ncol),
+        "fwd": _bound("cloudsc2_fwd_ckpt", ncol, nlev,
+                      _nbytes(sets[0], pres[0], fwd0)),
+        "din": _bound("cloudsc2_tl_din", ncol, nlev,
+                      _nbytes(sets[0], pres[0], dsets[0], din0)),
     }
     del dsets, views, fwd0, din0
     contiguous = [Cloudsc2Inputs(*(x.T.contiguous() for x in s)) for s in sets[:2]]
@@ -1141,15 +1150,13 @@ def time_experiments(state, params, compared, ran, fused_roles):
     fused0 = ex.launch_cloudsc2_tlad_fused(sets[0], pres[0], params)
     plan = ex.fused_launch_plan(sets[0], params)
     nlev = base.pt.shape[0]
-    cells = nlev * ncol
-    tl_ops = _level_statements("tl", False, True) * cells
-    ad_ops = _level_statements("ad", False, True) * cells
     enc_in = _nbytes(encs[0].streams, encs[0].enc, pres[0])
     bounds = {
-        "fused": _bound(_nbytes(sets[0], pres[0], fused0), tl_ops + ad_ops),
-        "tl_enc": _bound(enc_in + _nbytes(tls[0]), tl_ops),
-        "ad_enc": _bound(enc_in + _nbytes(tls[0][1], tls[0][2]) + _nbytes(sets[0]),
-                         ad_ops),
+        "fused": _bound("cloudsc2_tlad_fused", ncol, nlev,
+                        _nbytes(sets[0], pres[0], fused0)),
+        "tl_enc": _bound("cloudsc2_tl_enc", ncol, nlev, enc_in + _nbytes(tls[0])),
+        "ad_enc": _bound("cloudsc2_ad_enc", ncol, nlev,
+                         enc_in + _nbytes(tls[0][1], tls[0][2]) + _nbytes(sets[0])),
     }
     # what each kernel moves, where that differs from its bound's bytes: the
     # fused kernel reads the 16 inputs in both phases and its 8 tangent
@@ -1423,7 +1430,7 @@ def cli_nl_experiments(state, params):
         stream = bw_probe.main([])
         os.environ["CLOUDSC2_BW_PROBE_NB"] = str(TIMING_NCOL // (64 * 128))
         runs = 0
-        for mix, reads, writes, rev, weighted in PROBE_MIXES:
+        for mix, reads, writes, rev, weighted in bw_probe.KERNEL_MIXES:
             for compute in ((0, 0), weighted):
                 if compute is None:
                     continue
@@ -1484,7 +1491,7 @@ def time_nl_experiments(state, params, compared, ran):
     Returns the three kernels' JSON records."""
     import torch
 
-    from cloudsc2jax_torch import bw_probe
+    from cloudsc2jax_torch import bw_probe, roofline
     from cloudsc2jax_torch.kernels import cloudsc2_kernel as km
     from cloudsc2jax_torch.kernels import experiments as ex
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
@@ -1542,11 +1549,11 @@ def time_nl_experiments(state, params, compared, ran):
     time_exact("exact#2")
     ms["encode"] = _time_ms(lambda i: ex.encode_blocked_inputs(i, params),
                             [(s,) for s in sets], 3)
-    cells = nlev * ncol
     for label, t in ms.items():
         line = f"[17] {label}: {t:.4f} ms/call, {ncol / (t * 1e-3):.4e} cols/s"
         if label in moved:
-            b = _bound(moved[label], NL_OPS_PER_LEVEL_COLUMN * cells)
+            b = roofline.bound_of(moved[label],
+                                  roofline.operations("cloudsc2_nl", ncol, nlev))
             line += (f", {moved[label] / 1e9:.4f} GB, "
                      f"{moved[label] / (t * 1e-3) / 1e9:.1f} GB/s, bound "
                      f"{b['bound_ms']:.4f} ms by {b['bound_by']}, "
@@ -1606,7 +1613,7 @@ def time_nl_experiments(state, params, compared, ran):
 
     def record(kind, name, replaces, **extra):
         return {
-            **_bound(moved[kind], NL_OPS_PER_LEVEL_COLUMN * cells),
+            **_bound(f"cloudsc2_nl_{kind}", ncol, nlev, moved[kind]),
             "name": name,
             "route": "cuda",
             "source": f"cloudsc2jax_torch/csrc/{name}.cu",
@@ -1626,7 +1633,7 @@ def time_nl_experiments(state, params, compared, ran):
     nl_mix = probes["nl", False]
     # the probe's own operations: one multiply-add and one add per output
     probe_record = {
-        **_bound(nl_mix["traffic_bytes"], 3 * 8 * cells),
+        **_bound("bw_probe", ncol, nlev, nl_mix["traffic_bytes"]),
         "name": "bw_probe",
         "route": "cuda",
         "source": "cloudsc2jax_torch/csrc/bw_probe.cu",
@@ -1693,6 +1700,181 @@ def _plain_chunked(state, params, variant: str, ngptot: int, chunk: int) -> floa
             res = (out, dout, cloudsc2_ad_reference(inputs, dout, ckpts, params))
         acc = acc + checksum(res)
     return float(acc)
+
+
+def _bench_worker() -> int:
+    """``python -m cloudsc2jax_torch.bench`` with the environment's knobs, in
+    this process, under the launch counters of the NL, resident NL, TL and AD
+    kernels zeroed just before; prints the bench's record, then one
+    ``LAUNCHES <json>`` line."""
+    from cloudsc2jax_torch import bench
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import (
+        cloudsc2_nl,
+        cloudsc2_nl_resident,
+    )
+    from cloudsc2jax_torch.kernels.tlad_kernel import cloudsc2_ad, cloudsc2_tl
+
+    kernels = {"nl": cloudsc2_nl, "res": cloudsc2_nl_resident, "tl": cloudsc2_tl,
+               "ad": cloudsc2_ad}
+    for f in kernels.values():
+        f.launches = 0
+    bench.main([])
+    print("LAUNCHES " + json.dumps({k: f.launches for k, f in kernels.items()}),
+          flush=True)
+    return 0
+
+
+def _bench(env: dict, phase: str) -> tuple:
+    """One bench record in a process of its own (``--bench-worker``):
+    ``(record, launches)``; raises if it failed or names no card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--bench-worker"],
+                          env={**os.environ, **env}, capture_output=True, text=True,
+                          cwd=ROOT, timeout=900)
+    if proc.returncode != 0:
+        print(proc.stdout + proc.stderr)
+        raise AssertionError(f"bench {env} failed (exit code {proc.returncode})")
+    (line, launches) = proc.stdout.strip().splitlines()[-2:]
+    record = json.loads(line)
+    launches = json.loads(launches.removeprefix("LAUNCHES "))
+    print(f"[{phase}] bench {env} ({time.perf_counter() - t0:.1f} s): {line}")
+    print(f"[{phase}] its kernel launches: {launches}")
+    if not (record["platform"] == "gpu" and record["device_name"]
+            and record["power_limit_w"] > 0):
+        raise AssertionError(f"bench {env}: the record names no card")
+    return record, launches
+
+
+def compare_truth(state, params):
+    """Phase 20 (a)-(c) in a process of its own: the truth path's TL+AD unit
+    with and without the level checkpoint and in NPROMA blocks, each run's
+    wall seconds and peak of allocated memory, the three held to each other;
+    the CLI's truth route; the bench's truth records."""
+    import torch
+
+    from cloudsc2jax_torch import cli
+    from cloudsc2jax_torch.drivers import run_tlad
+
+    card = _nvidia_smi("name,power.limit")
+    # the process's first units, at one block of nproma 128: what each of the
+    # 128 blocks of the CLI's `tlad 1 16384 128` would cost the host
+    warm = state.device_inputs(128, dtype=torch.float64, device="cuda")
+    for remat in (False, True):
+        t0 = time.perf_counter()
+        run_tlad(warm, params, backend="truth", remat=remat)
+        torch.cuda.synchronize()
+        print(f"[20] truth run_tlad at 128 f64 columns, remat={remat}: "
+              f"{time.perf_counter() - t0:.2f} s ({card})")
+    del warm
+    inputs = state.device_inputs(TRUTH_NCOL, dtype=torch.float64, device="cuda")
+    runs, ref = {}, None
+    for label, kw in (("remat=False", dict(remat=False)),
+                      ("remat=True", dict(remat=True)),
+                      (f"remat=True, nproma={TRUTH_NPROMA}",
+                       dict(remat=True, nproma=TRUTH_NPROMA))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = run_tlad(inputs, params, backend="truth", **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(bool(torch.isfinite(x).all()) for t in out for x in t)
+        # the results on the host, so that every run's peak holds the
+        # inputs alone
+        out = [[x.cpu() for x in t] for t in out]
+        if ref is None:
+            ref, rel = out, 0.0
+        else:
+            rel = max(_max_rel_err(a, b)[0] for a, b in zip(out, ref))
+        runs[label] = {"s": seconds, "peak_bytes": peak, "held_bytes": held,
+                       "rel_err_vs_remat_false": rel}
+        print(f"[20] truth run_tlad at {TRUTH_NCOL} f64 columns, {label}: "
+              f"{seconds:.2f} s, peak allocated {peak / 1e9:.4f} GB "
+              f"({(peak - held) / 1e9:.4f} GB above the {held / 1e9:.4f} GB held "
+              f"before), max rel err against remat=False {rel:.3e} (tol "
+              f"{TRUTH_TOLERANCE:g}), finite={finite} ({card})")
+        if not finite or not rel <= TRUTH_TOLERANCE:
+            raise AssertionError(f"truth run_tlad {label} disagrees or is not finite")
+        del out
+    if not (runs["remat=True"]["peak_bytes"] < runs["remat=False"]["peak_bytes"]):
+        raise AssertionError("the level checkpoint did not lower the peak memory")
+
+    t0 = time.perf_counter()
+    rc = cli.main(TRUTH_CLI_RUN + ["--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    print(f"[20] cli {' '.join(TRUTH_CLI_RUN)} (truth route, "
+          f"{TRUTH_NCOL // TRUTH_NPROMA} blocks): rc={rc} ({cli_s:.1f} s, {card})")
+    if rc != 0:
+        raise AssertionError("the CLI's truth route failed its identity")
+
+    bench = {}
+    for variant in ("nl", "tlad"):
+        record, launches = _bench({**TRUTH_BENCH, "CLOUDSC2_BENCH_VARIANT": variant},
+                                  "20")
+        if any(launches.values()):
+            raise AssertionError(f"the bench's truth {variant} launched a kernel")
+        bench[variant] = record
+    return {"runs": runs, "cli_s": cli_s, "bench": bench, "card": card}
+
+
+def phase_20(records: list, probes: dict, nlev: int) -> dict:
+    """Phase 20 in the main process: the bench's kernel modes, the roofline
+    of every kernel, the native shim and the evidence battery."""
+    import torch
+
+    from cloudsc2jax_torch import roofline
+    from cloudsc2jax_torch.native import hostinfo, library_path
+
+    card = _nvidia_smi("name,power.limit")
+    # (c) the bench's kernel modes, each in a process of its own
+    modes = {}
+    for env in BENCH_MODES:
+        record, launches = _bench(env, "20")
+        key = "resident" if "CLOUDSC2_BENCH_MODE" in env else "standard"
+        counter = "res" if key == "resident" else "nl"
+        if launches[counter] == 0:
+            raise AssertionError(f"the bench's {key} mode did not launch its kernel")
+        modes[key] = {"record": record, "launches": launches[counter]}
+
+    # (d) every kernel's bound from roofline.py; its bytes were held to the
+    # run's own tensors where the record was made
+    for rec in records:
+        mix = KERNEL_MIX[rec["name"]]
+        r = roofline.report(rec["name"], rec["ncol"], nlev, ms=rec["ms"],
+                            ceiling_gbps=probes[mix, False]["attained_gbps"])
+        print(f"[20] roofline {rec['name']}: {r['bytes']} B (= the run's tensors), "
+              f"{r['operations']} operations, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}; {r['ms']:.4f} ms, {r['attained_gbps']:.1f} GB/s, "
+              f"{r['share_of_bound']:.1%} of the bound, "
+              f"{r['share_of_ceiling']:.1%} of the probe at its mix ({card})")
+
+    # (e) the native shim, built with g++ on first use
+    cpu = hostinfo.sched_getcpu()
+    print(f"[20] native shim {library_path()}: built={hostinfo.available}, "
+          f"sched_getcpu()={cpu}, energy_uj()={hostinfo.energy_uj()}")
+    if not hostinfo.available or cpu < 0:
+        raise AssertionError("the native shim was not built or has no core id")
+
+    # (f) the evidence battery's list and one cheap step
+    torch.cuda.empty_cache()
+    evidence = [sys.executable, "-m", "cloudsc2jax_torch.onchip_evidence"]
+    listed = subprocess.run(evidence + ["--list"], capture_output=True, text=True,
+                            cwd=ROOT, timeout=120)
+    out = WORK_DIR / "onchip_evidence.json"
+    out.unlink(missing_ok=True)
+    step = subprocess.run(evidence + ["--steps", "probe_stream", "--out", str(out)],
+                          capture_output=True, text=True, cwd=ROOT, timeout=600)
+    steps = len(listed.stdout.strip().splitlines())
+    print(f"[20] onchip_evidence --list: rc={listed.returncode}, {steps} steps; "
+          f"--steps probe_stream: rc={step.returncode}, {step.stdout.strip()}")
+    done = json.loads(out.read_text())["results"]["probe_stream"] if out.is_file() else {}
+    if listed.returncode != 0 or step.returncode != 0 or not done.get("ok"):
+        print(listed.stderr + step.stderr)
+        raise AssertionError("the evidence battery did not list or run its step")
+    return modes
 
 
 def compare_chunked(state, params):
@@ -2066,16 +2248,18 @@ def _nl_compare_and_cli(state, params):
     return worst_abs, worst_rel, main_launches
 
 
-# The comparisons of phases 6, 9, 12, 15 and 18 are bound by the host (a plain TL
-# or AD sweep is ~140,000 small launches), so each runs in a process of its
-# own beside the main process's phases 3, 4, 7 and 10; nothing is timed for
-# the records until all of them have ended.
+# The comparisons of phases 6, 9, 12, 15 and 18 and the truth path's runs of
+# phase 20 are bound by the host (a plain TL or AD sweep is ~140,000 small
+# launches), so each runs in a process of its own beside the main process's
+# phases 3, 4, 7 and 10; nothing is timed for the records until all of them
+# have ended.
 COMPARISONS = {
     "tlad": compare_tlad,
     "variants": compare_variants,
     "experiments": compare_experiments,
     "nl_experiments": compare_nl_experiments,
     "chunked": compare_chunked,
+    "truth": compare_truth,
 }
 # where a comparison's process leaves its output (<name>.log) and its result
 # (<name>.json): under the checkout's build directory
@@ -2136,6 +2320,8 @@ def main(argv=None) -> int:
         return _compare_worker(argv[1])
     if argv == ["--rank-worker"]:
         return _rank_worker()
+    if argv == ["--bench-worker"]:
+        return _bench_worker()
     serial = argv == ["--serial"]
     if argv and not serial:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -2143,7 +2329,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
 
-    from cloudsc2jax_torch.bw_probe import probe_defines
+    from cloudsc2jax_torch.bw_probe import KERNEL_MIXES, probe_defines
     from cloudsc2jax_torch.drivers import run_nl
     from cloudsc2jax_torch.kernels import build
     from cloudsc2jax_torch.kernels.cloudsc2_kernel import (
@@ -2167,7 +2353,7 @@ def main(argv=None) -> int:
     # probe's mixes
     t0 = time.perf_counter()
     specs = [(lib, (), ()) for lib in LIBRARIES if lib != "bw_probe"]
-    for _, reads, writes, _, weighted in PROBE_MIXES:
+    for _, reads, writes, _, weighted in KERNEL_MIXES:
         specs += [("bw_probe", probe_defines(reads, writes, c), ())
                   for c in ((0, 0), weighted) if c is not None]
     build.load_libraries(specs)
@@ -2207,7 +2393,7 @@ def main(argv=None) -> int:
         variants_ran = cli_variants(state, params)
         t_phase = _lap("3-4, 7, 10", t_phase)
         compared = {name: fn(state, params) for name, fn in COMPARISONS.items()}
-        t_phase = _lap("6, 9, 12, 15, 18 in this process", t_phase)
+        t_phase = _lap("6, 9, 12, 15, 18, 20a-c in this process", t_phase)
     else:
         comparisons = _start_comparisons()
         try:
@@ -2222,7 +2408,7 @@ def main(argv=None) -> int:
                     proc.kill()
                     proc.wait()
                 log.close()
-        t_phase = _lap("6, 9, 12, 15, 18 in their processes, waited for", t_phase)
+        t_phase = _lap("6, 9, 12, 15, 18, 20a-c in their processes, waited for", t_phase)
     worst_abs, worst_rel, main_launches = nl_compare
     # -- 5. timing at the headline size, f32, distinct inputs per call
     ncol = TIMING_NCOL
@@ -2260,8 +2446,8 @@ def main(argv=None) -> int:
     print(f"[5] after timing: {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     nl_record = {
-        **_bound(_nbytes(sets[0], pres[0]) + 8 * _nbytes(base.pt),
-                 NL_OPS_PER_LEVEL_COLUMN * nlev * ncol),
+        **_bound("cloudsc2_nl", ncol, nlev,
+                 _nbytes(sets[0], pres[0]) + 8 * _nbytes(base.pt)),
         "name": "cloudsc2_nl",
         "route": "cuda",
         "source": "cloudsc2jax_torch/csrc/cloudsc2_nl.cu",
@@ -2313,10 +2499,20 @@ def main(argv=None) -> int:
                                      for r in mp["ranks"]]
     nl_record["two_ranks"] = mp["timing"][0]
     tlad_records[1]["two_ranks"] = mp["timing"][1]
-    _lap("19", t_phase)
+    t_phase = _lap("19", t_phase)
+    records = [nl_record, *tlad_records, *test_records, *ab_records, *nl_records]
+    modes = phase_20(records, probes, params.nlev)
+    res_record = next(r for r in nl_records if r["name"] == "cloudsc2_nl_res")
+    res_record["launches_bench_resident"] = modes["resident"]["launches"]
+    nl_record["launches_bench_standard"] = modes["standard"]["launches"]
+    truth = compared["truth"]
+    print("[20] " + json.dumps({"truth_path": truth["runs"], "cli_s": truth["cli_s"],
+                                "bench_truth": truth["bench"],
+                                "bench_modes": {k: v["record"] for k, v in modes.items()},
+                                "card": truth["card"]}))
+    _lap("20", t_phase)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
-    records = [nl_record, *tlad_records, *test_records, *ab_records, *nl_records]
     for rec in records:
         # the window-matched probe's rate at this kernel's mix, for its bytes
         mix = KERNEL_MIX[rec["name"]]

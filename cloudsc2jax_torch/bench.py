@@ -24,6 +24,19 @@ error).  ``CLOUDSC2_BENCH_VARIANT`` picks the variant:
   ``CLOUDSC2_BENCH_F32_CHECKS=1`` (the default) the record carries the f32
   verdicts of ``cli.measure_f32_verdicts`` at ``min(ngptot, 16384)``
   columns with their margins against the CLI's tolerances.
+* ``CLOUDSC2_BENCH_PALLAS=0`` (``bench.py:108-191``) times the truth path
+  instead, ``impl`` ``truth``: ``run_nl(backend="truth")`` for ``nl`` and
+  ``run_tlad(backend="truth")`` (its ``vjp`` level-checkpointed) for
+  ``tlad``, on the standard ``(ncol, nlev)`` contract
+  (``state.device_inputs``).  It is bound by the host; give it a small
+  ``CLOUDSC2_BENCH_NGPTOT`` and ``_REPEATS``.
+* For ``nl``, ``CLOUDSC2_BENCH_MODE=resident`` times kernel #2, the
+  resident sweep (``kernels.cloudsc2_kernel.cloudsc2_nl_resident`` at its
+  default ring), on levels-major inputs with pqs, ``impl`` ``resident``;
+  ``CLOUDSC2_BENCH_LAYOUT=standard`` times the standard contract,
+  ``run_nl(backend="kernels")`` on transposed views, ``impl`` ``kernels``
+  (the JAX bench's ``pallas``).  The two do not combine.
+* The warm-up is as many calls as the timed chain, at most 10.
 * ``chunked`` and ``chunked_tlad``: ``drivers.run_chunked`` of ``nl`` or
   ``tlad`` over ``CLOUDSC2_BENCH_NGPTOT`` columns (default 10,485,760 on
   the card: 32 chunks of ``CLOUDSC2_BENCH_CHUNK`` = 327,680, about 132 GB
@@ -58,9 +71,10 @@ Left out of the JAX bench, on purpose:
 * the ``except`` that prints a failed f32-verdict measurement and goes on:
   here it fails the run, as any failure in a phase does;
 * the retry in a fresh process after a TPU backend error;
-* ``CLOUDSC2_BENCH_PALLAS``, ``_MODE``, ``_LAYOUT``, ``_FUSE_SATUR`` and
-  ``_SUBLANES``: TPU layouts and modes that the port does not have (ROADMAP
-  section 1 keeps them).
+* ``CLOUDSC2_BENCH_FUSE_SATUR=0``, refused: the NL kernel always computes
+  qsat (a recorded departure, ROADMAP section 3);
+* ``CLOUDSC2_BENCH_SUBLANES``, refused: a TPU tile, where one CUDA thread
+  owns one column.
 """
 
 from __future__ import annotations
@@ -81,8 +95,12 @@ BASELINE_MEASURED = pathlib.Path(__file__).resolve().parents[1] / "BASELINE_MEAS
 
 VARIANTS = ("nl", "tlad", "chunked", "chunked_tlad")
 
-# warm-up calls of the nl and tlad chains
+# warm-up calls of the nl and tlad chains, at most
 WARM_CALLS = 10
+
+# CLOUDSC2_BENCH_MODE and _LAYOUT values; the first of each is the default
+MODES = ("stream", "resident")
+LAYOUTS = ("blocked", "standard")
 
 
 def nbytes(*trees) -> int:
@@ -125,32 +143,77 @@ def _baseline(cols_per_s: float) -> dict:
     }
 
 
+def _unit(variant: str, state, ngptot: int, device, impl: str):
+    """``(inputs, fn)`` of one timed call of ``impl``."""
+    import torch
+
+    from .drivers import run_nl, run_tlad
+    from .kernels.cloudsc2_kernel import cloudsc2_nl_resident
+
+    params = state.params
+    if impl == "truth":
+        inputs = state.device_inputs(ngptot, dtype=torch.float32, device=device)
+        if variant == "tlad":
+            return inputs, lambda v: run_tlad(v, params, lregcl=True, backend="truth")
+        return inputs, lambda v: run_nl(v, params, backend="truth")
+    if impl == "kernels":
+        inputs = state.device_inputs(ngptot, dtype=torch.float32, device=device)
+        return inputs, lambda v: run_nl(v, params, backend="kernels")
+    inputs = state.device_kernel_inputs(ngptot, dtype=torch.float32, device=device,
+                                        pqs=variant == "tlad" or impl == "resident")
+    if impl == "resident":
+        return inputs, lambda v: cloudsc2_nl_resident(v, params)
+    if variant == "tlad":
+        wp = impl == "streams"
+        return inputs, lambda v: run_tlad(v, params, lregcl=True, write_primal=wp)
+    return inputs, lambda v: run_nl(v, params, backend="streams")
+
+
+def _unit_impl(variant: str, gpu: bool) -> str:
+    """The implementation that ``CLOUDSC2_BENCH_PALLAS``, ``_MODE``,
+    ``_LAYOUT`` and ``_WRITE_PRIMAL`` select for ``nl`` or ``tlad``; raises
+    SystemExit for the knobs the port refuses."""
+    env = os.environ.get
+    if env("CLOUDSC2_BENCH_FUSE_SATUR", "1") != "1":
+        raise SystemExit("CLOUDSC2_BENCH_FUSE_SATUR=0: the NL kernel always "
+                         "computes qsat from pt and pap (no streamed-pqs "
+                         "variant of the main path)")
+    if env("CLOUDSC2_BENCH_SUBLANES") is not None:
+        raise SystemExit("CLOUDSC2_BENCH_SUBLANES is a TPU tile; one CUDA "
+                         "thread owns one column")
+    mode, layout = env("CLOUDSC2_BENCH_MODE", MODES[0]), env(
+        "CLOUDSC2_BENCH_LAYOUT", LAYOUTS[0])
+    if mode not in MODES or layout not in LAYOUTS:
+        raise SystemExit(f"CLOUDSC2_BENCH_MODE must be one of {MODES} and "
+                         f"_LAYOUT one of {LAYOUTS}, not {mode!r}, {layout!r}")
+    if env("CLOUDSC2_BENCH_PALLAS", "1") != "1":
+        return "truth"
+    if (mode, layout) != (MODES[0], LAYOUTS[0]):
+        if variant != "nl" or (mode, layout) == (MODES[1], LAYOUTS[1]):
+            raise SystemExit("CLOUDSC2_BENCH_MODE=resident and _LAYOUT=standard "
+                             "apply to the nl variant, one at a time")
+        return "resident" if mode == MODES[1] else "kernels"
+    if variant == "tlad":
+        wp = env("CLOUDSC2_BENCH_WRITE_PRIMAL", "0" if gpu else "1") == "1"
+        return "streams" if wp else "streams_noprim"
+    return "streams"
+
+
 def bench_unit(variant: str, device, nlev: int, repeats: int) -> dict:
     """The ``nl`` and ``tlad`` variants: one call over ``ngptot`` columns."""
     import numpy as np
     import torch
 
-    from .drivers import run_nl, run_tlad, slice_probe
+    from .drivers import slice_probe
     from .state import Cloudsc2State
 
     gpu = device.type == "cuda"
     platform = "gpu" if gpu else "cpu"
+    impl = _unit_impl(variant, gpu)
     ngptot = int(os.environ.get("CLOUDSC2_BENCH_NGPTOT", 327680 if gpu else 8192))
     state = Cloudsc2State.synthetic(ngptot=100, nlev=nlev)
     tlad = variant == "tlad"
-    inputs = state.device_kernel_inputs(ngptot, dtype=torch.float32,
-                                        device=device, pqs=tlad)
-    if tlad:
-        wp = os.environ.get("CLOUDSC2_BENCH_WRITE_PRIMAL", "0" if gpu else "1") == "1"
-        impl = "streams" if wp else "streams_noprim"
-
-        def fn(v):
-            return run_tlad(v, state.params, lregcl=True, write_primal=wp)
-    else:
-        impl = "streams"
-
-        def fn(v):
-            return run_nl(v, state.params, backend="streams")
+    inputs, fn = _unit(variant, state, ngptot, device, impl)
 
     # time-salted bumps: no two calls read the same inputs, in this run or
     # another
@@ -158,7 +221,7 @@ def bench_unit(variant: str, device, nlev: int, repeats: int) -> dict:
     variants = [inputs._replace(pt=inputs.pt + np.float32(
         1e-6 * rng.uniform(0.5, 1.5) * (i + 1))) for i in range(repeats)]
     warm = [inputs._replace(pt=inputs.pt + np.float32(
-        2e-6 * rng.uniform(0.5, 1.5) * (i + 1))) for i in range(WARM_CALLS)]
+        2e-6 * rng.uniform(0.5, 1.5) * (i + 1))) for i in range(min(WARM_CALLS, repeats))]
     acc = torch.zeros((), dtype=torch.float32, device=device)
     for w in warm:
         acc = acc + slice_probe(fn(w), variant)

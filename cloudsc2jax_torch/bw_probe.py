@@ -63,10 +63,24 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["launch_window_stream", "main", "probe_defines", "stream_probe",
-           "window_probe", "window_stream", "window_stream_reference"]
+__all__ = ["KERNEL_MIXES", "launch_window_stream", "main", "probe_defines",
+           "stream_probe", "window_probe", "window_stream", "window_stream_reference"]
 
 WARMUP = 8
+
+# The window mixes of the port's kernels (chip_smoke.py phase 16, the
+# battery of onchip_evidence.py): label, reads, writes, reversed, and the
+# tanh,flops per element of the compute-weighted run (None: plain only), as
+# the JAX tool calibrates them for the NL, TL and AD bodies
+KERNEL_MIXES = (
+    ("nl", 15, 8, False, (10, 292)),
+    ("fwd", 16, 11, False, (10, 292)),
+    ("tl", 16, 19, False, (20, 584)),
+    ("din", 32, 16, False, (20, 584)),
+    ("ad", 27, 16, True, (30, 876)),
+    ("res", 16, 8, False, None),
+    ("fused", 16, 32, False, None),
+)
 
 
 def probe_defines(reads: int, writes: int, compute: Tuple[int, int] = (0, 0)):

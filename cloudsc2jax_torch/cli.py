@@ -6,7 +6,7 @@ Port of :mod:`cloudsc2jax.cli` (reference
     python -m cloudsc2jax_torch nl <numdev> <ngptot> <nproma> [--kernels]
     python -m cloudsc2jax_torch tl <numdev> <ngptot> <nproma> [--kernels]
     python -m cloudsc2jax_torch ad <numdev> <ngptot> <nproma> [--kernels]
-    python -m cloudsc2jax_torch tlad <numdev> <ngptot> <nproma>
+    python -m cloudsc2jax_torch tlad <numdev> <ngptot> <nproma> [--kernels]
 
 ``numdev`` is the number of lanes of this process (the reference's OpenMP
 threads): distinct cards on ``cuda``, repeated CPU lanes on ``cpu``.  A
@@ -19,8 +19,9 @@ multiple of all lanes; each rank expands only its own columns on its lanes
 (``dist.lane_slices``), runs the kernels there, and the verdicts are
 reduced over the lanes and the ranks, so every rank exits with the same
 code; only rank 0 prints the tables and verdicts.  ``nproma`` is the block
-size of the Taylor test's statistics and of the reporting table (the
-kernels own one column per thread).  The input is expanded on the device.
+size of the Taylor test's statistics, of the reporting table and of the
+truth path's ``tlad`` (the kernels own one column per thread).  The input is
+expanded on the device.
 
 * ``nl`` runs the NL sweep ``--repeat`` times and validates the outputs on
   the device against the golden file: the truth path
@@ -43,7 +44,13 @@ kernels own one column per thread).  The input is expanded on the device.
   reported beside the f64 verdict, not instead of it.
 * ``tlad`` runs the TL+AD work unit (``drivers.run_tlad``, LREGCL on)
   ``--repeat`` times and checks the adjoint identity <Mdx, Mdx> = <dx, M^T
-  M dx> with dx = DSCALE·x.
+  M dx> with dx = DSCALE·x: the truth path (``backend="truth"``, the JAX
+  package's ``xla``, its ``vjp`` level-checkpointed) in NPROMA column blocks
+  when ``nproma < ngptot``, at 1e-10 (f64) or 1e-5 (f32, scaled with the
+  reduction length); or with ``--kernels`` the main path, the TL and AD
+  kernels on the stream contract (``backend="streams"``, JAX's
+  ``--pallas``), at 2e-6 (f32, scaled; 1e-5 for the plain versions with
+  ``--device cpu``).
 
 Timing: the lanes of a process run one timed region, so the lanes' rows
 mirror lane 0's clock unless ``--per-device-timing`` re-times each lane's
@@ -102,8 +109,8 @@ def _build_parser():
                    help="working precision (JPRB double / -DSINGLE analogue)")
     p.add_argument("--repeat", type=int, default=1, help="benchmark repetitions")
     p.add_argument("--kernels", action="store_true",
-                   help="nl: run the CUDA kernel on the stream contract "
-                        "instead of the truth path; tl/ad: add the f32 "
+                   help="nl, tlad: run the CUDA kernels on the stream "
+                        "contract instead of the truth path; tl/ad: add the f32 "
                         "verdict through the CUDA kernels on the standard "
                         "contract (their plain versions with --device cpu)")
     p.add_argument("--threshold", type=float, default=None,
@@ -378,8 +385,6 @@ def _run_test(args, state, inputs, timer, ngptot, ngpblks, mesh) -> int:
 
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
-    if args.kernels and args.variant == "tlad":
-        raise SystemExit("--kernels applies to the nl, tl and ad variants")
 
     import torch
 
@@ -422,7 +427,7 @@ def _main(args) -> int:
     )
     state.ngptot = ngptot
     tlad = args.variant == "tlad"
-    streams = tlad or args.kernels and args.variant == "nl"
+    streams = args.kernels and args.variant in ("nl", "tlad")
     # each lane expands its own global columns on its device (the per-rank
     # hyperslab, expand_mod.F90:30-46)
     slices = dist.lane_slices(ngptot, mesh)
@@ -462,8 +467,12 @@ def _dispatch(args, state, inputs, timer, ngptot, ngpblks, reference_path,
         return _run_test(args, state, inputs, timer, ngptot, ngpblks, mesh)
     rank0 = mesh.rank == 0
     tlad = args.variant == "tlad"
-    if tlad:
+    if tlad and streams:
         step = partial(run_tlad, params=state.params, lregcl=True)
+    elif tlad:
+        # each lane's columns in NPROMA blocks (cloudsc2jax/cli.py:582-601)
+        step = partial(run_tlad, params=state.params, lregcl=True, backend="truth",
+                       nproma=args.nproma if args.nproma < ngptot else None)
     else:
         step = partial(run_nl, params=state.params,
                        backend="streams" if streams else "truth")
@@ -478,12 +487,13 @@ def _dispatch(args, state, inputs, timer, ngptot, ngpblks, reference_path,
         rel, finite = adjoint_identity(inputs, dout, adj, state.params, DSCALE,
                                        mesh=mesh)
         # f64: 1e-10 ~ 1e4 eps64, the reference's semantics; f32: the
-        # kernels' budget, or one decade more for the plain versions (the
-        # JAX package's jvp/vjp pair), scaled with the reduction length
-        n_terms = ngptot * inputs[0].pt.shape[0]
+        # kernels' budget, or one decade more for the truth path and the
+        # plain versions (the JAX package's jvp/vjp pair), scaled with the
+        # reduction length (cloudsc2jax/cli.py:612-620)
+        n_terms = ngptot * state.params.nlev
+        kernels = streams and mesh.device_type == "cuda"
         tol = (1e-10 if args.dtype == "f64" else scaled_identity_tol(
-            PALLAS_AD_IDENTITY_TOL if mesh.device_type == "cuda" else 1e-5,
-            n_terms))
+            PALLAS_AD_IDENTITY_TOL if kernels else 1e-5, n_terms))
         ok = finite and rel < tol
         if rank0:
             print(f"tlad outputs finite: {finite}; adjoint identity rel err: "

@@ -4,8 +4,8 @@ symmetry test (reference ``src/cloudsc2_nl/cloudsc_driver_mod.F90``,
 ``src/cloudsc2_tl/cloudsc_driver_tl_mod.F90`` and
 ``src/cloudsc2_ad/cloudsc_driver_ad_mod.F90``).
 
-Port of :func:`cloudsc2jax.drivers.run_nl`, ``run_tlad``, ``run_chunked``,
-``taylor_test`` and ``adjoint_test``.  Each takes a ``mesh``
+Port of :func:`cloudsc2jax.drivers.run_nl`, ``run_tlad``, ``map_columns``,
+``run_chunked``, ``taylor_test`` and ``adjoint_test``.  Each takes a ``mesh``
 (:class:`~cloudsc2jax_torch.dist.ColumnMesh`) for the column decomposition
 over lanes and processes, as the JAX package's take a ``Mesh``.
 """
@@ -37,8 +37,8 @@ from .physics.cloudsc2 import Cloudsc2Inputs, cloudsc2
 from .state import tile_stored_columns
 
 __all__ = ["DSCALE", "AdjointResult", "TaylorResult", "adjoint_test",
-           "chunk_columns", "chunk_loop", "run_chunked", "run_nl", "run_tlad",
-           "taylor_test"]
+           "chunk_columns", "chunk_loop", "map_columns", "run_chunked", "run_nl",
+           "run_tlad", "taylor_test"]
 
 # the drivers' canonical perturbation scale, dx = DSCALE*x
 # (cloudsc_driver_{tl,ad}_mod.F90:156-171): the work unit's increments and
@@ -95,12 +95,90 @@ def run_nl(
                      f"not {backend!r}")
 
 
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of nested tuples (NamedTuples kept), ``None``
+    left as it is; ``fn`` gets one leaf of each tree."""
+    return _tree_map_n(fn, [tree])
+
+
+def _tree_map_n(fn, trees):
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    mapped = [_tree_map_n(fn, list(leaves)) for leaves in zip(*trees)]
+    return type(first)(*mapped) if hasattr(first, "_fields") else type(first)(mapped)
+
+
+def map_columns(fn, tree, nproma: int):
+    """``fn`` over sequential NPROMA-sized column blocks of ``tree`` (nested
+    tuples of tensors whose first axis is the column), results joined back
+    into the same tree (``cloudsc2jax/drivers.py:141-171``; a loop over the
+    blocks is ``lax.map``'s counterpart).
+
+    The reference's NPROMA blocking (cloudsc_driver_mod.F90:82) revived for
+    working-set control: reverse mode over the level loop stores per-level
+    residuals in proportion to the columns, so a large batch runs as
+    sequential blocks.  A partial last block is padded with replicas of
+    column 0 and sliced back (columns are independent and the inputs are
+    cyclic expansions, so the padding is more replicas; the reference's
+    ICEND, cloudsc_driver_mod.F90:83)."""
+    ncol = next(_leaves(tree)).shape[0]
+    out = None
+    for start in range(0, ncol, nproma):
+        stop = min(start + nproma, ncol)
+        res = fn(_tree_map(partial(_block, start=start, stop=stop, nproma=nproma),
+                           tree))
+        if out is None:
+            # the whole result allocated once, as lax.map stacks into one
+            # buffer: a block's result is copied in and freed
+            out = _tree_map(lambda r: r.new_empty((ncol, *r.shape[1:])), res)
+
+        def put(o, r, start=start, stop=stop):
+            o[start:stop] = r[:stop - start]
+
+        _tree_map_n(put, [out, res])
+        del res
+    return out
+
+
+def _block(x: torch.Tensor, *, start: int, stop: int, nproma: int) -> torch.Tensor:
+    """Rows ``start:stop`` of ``x``, padded to ``nproma`` with replicas of row
+    0, as a tensor of its own, dense in ``x``'s own order of dimensions: the
+    columns of a levels-major tensor's transposed view stay levels-major, so
+    that the truth path reads each level of a block as one row, as it does
+    on the whole batch.  A block that stays a view of the batch makes the
+    reverse pass keep about twice the memory (PERF.md, section 5)."""
+    b = x[start:stop]
+    npad = nproma - (stop - start)
+    if npad:
+        b = torch.cat([b, x[:1].expand(npad, *x.shape[1:])])
+    order = sorted(range(x.dim()), key=x.stride, reverse=True)
+    dense = b.permute(order).clone(memory_format=torch.contiguous_format)
+    return dense.permute([order.index(d) for d in range(x.dim())])
+
+
+def _truth_unit(inputs: Cloudsc2Inputs, params: Params, *, lregcl: bool,
+                ldrain1d: bool, remat: bool):
+    """The TL+AD unit on the truth path: ``jvp`` for the tangent, ``vjp``
+    (level-checkpointed with ``remat``) for the adjoint."""
+    f = partial(cloudsc2, params=params, lregcl=lregcl, ldrain1d=ldrain1d)
+    d_inputs = Cloudsc2Inputs(*(DSCALE * x for x in inputs))
+    out, dout = torch.func.jvp(f, (inputs,), (d_inputs,))
+    _, vjp_fn = torch.func.vjp(partial(f, remat_level=remat), inputs)
+    (adj,) = vjp_fn(dout)
+    return out, dout, adj
+
+
 def run_tlad(
     inputs: Cloudsc2Inputs,
     params: Params,
     *,
     lregcl: bool = True,
     ldrain1d: bool = False,
+    remat: bool = True,
+    nproma: Optional[int] = None,
     write_primal: bool = True,
     backend: str = "streams",
     mesh: Optional[ColumnMesh] = None,
@@ -133,7 +211,11 @@ def run_tlad(
       once for both sweeps.
     * ``"truth"`` [``"xla"``]: ``torch.func.jvp``/``vjp`` of
       :func:`~cloudsc2jax_torch.physics.cloudsc2.cloudsc2`, the f64
-      validation path, same contract as ``"kernels"``.
+      validation path, same contract as ``"kernels"``.  ``remat`` (default
+      on, as in the JAX package) checkpoints the level body of the ``vjp``
+      (``remat_level``); ``nproma`` runs the unit over sequential column
+      blocks (:func:`map_columns`).  Both apply to this backend only; the
+      kernel backends ignore them.
 
     With a ``mesh``, ``inputs`` holds one input per local lane and the
     result is each lane's triple, as for :func:`run_nl`
@@ -142,7 +224,8 @@ def run_tlad(
     if mesh is not None:
         return _map_lanes(mesh, inputs, partial(
             run_tlad, params=params, lregcl=lregcl, ldrain1d=ldrain1d,
-            write_primal=write_primal, backend=backend))
+            remat=remat, nproma=nproma, write_primal=write_primal,
+            backend=backend))
     if not write_primal and backend != "streams":
         raise ValueError("write_primal=False requires backend='streams' "
                          f"(got {backend!r})")
@@ -163,12 +246,9 @@ def run_tlad(
         _, adj = cloudsc2_kernel_ad(lm, dout, params, **kw)
         return tuple(type(t)(*(x.T for x in t)) for t in (out, dout, adj))
     if backend == "truth":
-        f = partial(cloudsc2, params=params, lregcl=lregcl, ldrain1d=ldrain1d)
-        d_inputs = Cloudsc2Inputs(*(DSCALE * x for x in inputs))
-        out, dout = torch.func.jvp(f, (inputs,), (d_inputs,))
-        _, vjp_fn = torch.func.vjp(f, inputs)
-        (adj,) = vjp_fn(dout)
-        return out, dout, adj
+        unit = partial(_truth_unit, params=params, lregcl=lregcl,
+                       ldrain1d=ldrain1d, remat=remat)
+        return unit(inputs) if nproma is None else map_columns(unit, inputs, nproma)
     raise ValueError(f"backend must be 'streams', 'kernels' or 'truth', "
                      f"not {backend!r}")
 
@@ -259,9 +339,16 @@ def slice_probe(out, variant: str) -> torch.Tensor:
     if variant == "tlad":
         adj = out[2]
         extra = (torch.sum(adj.paph[-1], dtype=torch.float32)
-                 + torch.sum(adj.plu.ravel()[:2], dtype=torch.float32))
-    return extra + sum(torch.sum(o.ravel()[:2], dtype=torch.float32)
+                 + torch.sum(_first_two(adj.plu), dtype=torch.float32))
+    return extra + sum(torch.sum(_first_two(o), dtype=torch.float32)
                        for o in _leaves(out))
+
+
+def _first_two(x: torch.Tensor) -> torch.Tensor:
+    """``x.ravel()[:2]`` without the copy that ``ravel`` makes of a
+    transposed view (the standard contract's fields): the first two values
+    of the first row."""
+    return x[(0,) * (x.dim() - 1)][:2]
 
 
 def _leaves(tree):

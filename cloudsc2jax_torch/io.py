@@ -285,12 +285,23 @@ def expand_columns(
 ) -> Dict[str, np.ndarray]:
     """Cyclically tile the stored columns up to ``ngptot`` grid points
     (EXPAND_R2/R3, expand_mod.F90:270-335).  ``columns_first=True``
-    returns framework order ``(ngptot, …)``.  A host-side fallback: the
-    main path expands on the device
-    (:meth:`cloudsc2jax_torch.state.Cloudsc2State.device_kernel_inputs`)."""
+    returns framework order ``(ngptot, …)``.  A host-side path: the main
+    path expands on the device
+    (:meth:`cloudsc2jax_torch.state.Cloudsc2State.device_kernel_inputs`).
+    The native shim's memcpy sweep writes the columns-first layout
+    directly; without it numpy tiles, to the same bits
+    (``cloudsc2jax/io.py:283-312``)."""
+    from .native import hostinfo
+
     out = {}
     for k, v in fields.items():
         nlon = v.shape[-1]
+        src = np.ascontiguousarray(np.moveaxis(np.asarray(v, np.float64), -1, 0))
+        dst = np.empty((ngptot,) + src.shape[1:], dtype=np.float64)
+        if hostinfo.expand_f64(src, dst):
+            out[k] = dst if columns_first else np.ascontiguousarray(
+                np.moveaxis(dst, 0, -1))
+            continue
         reps = -(-ngptot // nlon)
         tiled = np.tile(v, (1,) * (v.ndim - 1) + (reps,))[..., :ngptot]
         out[k] = _columns_first(tiled) if columns_first \

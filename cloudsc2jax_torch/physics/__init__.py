@@ -1,1 +1,1 @@
-"""Physics routines of the port: SATUR and the CLOUDSC2 interface."""
+"""Physics routines of the port: SATUR, CUADJTQS and CLOUDSC2."""

@@ -17,6 +17,7 @@ hands out ``(ncol, nlev)`` views at its public functions.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
@@ -109,6 +110,43 @@ def _tropopause_eta(ztp1, ceta):
     return cand.amax(dim=-1)
 
 
+class _LevelCheckpoint(torch.autograd.Function):
+    """``jax.checkpoint`` of one level: ``apply(body, *tensors)`` returns
+    ``body(*tensors)``, a tuple of tensors, without keeping the body's
+    intermediates.  Reverse mode saves only ``tensors`` and recomputes the
+    level under ``torch.func.vjp``; forward mode runs ``torch.func.jvp`` of
+    the body.  ``torch.utils.checkpoint`` does not compose with
+    ``torch.func.vjp``; this does, and nests ``damp_tangent`` inside the
+    recomputation.  ``body`` must read no tensor that depends on the inputs
+    other than its arguments: a captured one would lose its cotangent."""
+
+    @staticmethod
+    def forward(body, *tensors):
+        return body(*tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        body, *tensors = inputs
+        ctx.body = body
+        ctx.save_for_backward(*tensors)
+        ctx.save_for_forward(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        tensors = ctx.saved_tensors
+        out, vjp_fn = torch.func.vjp(ctx.body, *tensors)
+        grads = tuple(torch.zeros_like(o) if g is None else g
+                      for o, g in zip(out, grads))
+        return (None, *vjp_fn(grads))
+
+    @staticmethod
+    def jvp(ctx, _, *tangents):
+        tensors = ctx.saved_tensors
+        tangents = tuple(torch.zeros_like(x) if t is None else t
+                         for x, t in zip(tensors, tangents))
+        return torch.func.jvp(ctx.body, tensors, tangents)[1]
+
+
 def cloudsc2(
     inputs: Cloudsc2Inputs,
     params: Params,
@@ -132,13 +170,11 @@ def cloudsc2(
     ``jnp.where`` does.  Max and min are :func:`~cloudsc2jax_torch.ops.maximum`
     / ``minimum``, whose derivative at a tie is JAX's.
 
-    ``remat_level`` (checkpointing the level body in reverse mode) is not
-    ported: it raises ``NotImplementedError``.
+    ``remat_level`` checkpoints the level body (``jax.checkpoint(level_step)``,
+    ``cloudsc2jax/physics/cloudsc2.py:465``): reverse mode then stores only
+    each level's inputs and carry and recomputes the level
+    (:class:`_LevelCheckpoint`).  The values are the same either way.
     """
-    if remat_level:
-        raise NotImplementedError(
-            "remat_level is not ported: torch.func.vjp stores the whole "
-            "trajectory")
     cst, thf = params.yomcst, params.yoethf
     cldp, phli, phnc = params.yrecldp, params.yrephli, params.yophnc
     ptsphy = params.ptsphy
@@ -148,16 +184,8 @@ def cloudsc2(
 
     ncol, nlev = pt.shape
     ceta = torch.tensor(params.ceta, dtype=pt.dtype, device=pt.device)
-    one = torch.ones_like(pt[:, 0])
 
     reg = damp_tangent if lregcl else (lambda x, factor: x)
-
-    def const(v: float):
-        return torch.full_like(one, v)
-
-    def sel(cond, a, b):
-        """where(cond, a, b) for two params, in the working dtype."""
-        return torch.where(cond, one * a, one * b)
 
     # -- 1.1 derived constants (cloudsc2.F90:235-244)
     zckcodtl = 2.0 * cldp.rkconv * ptsphy
@@ -191,11 +219,23 @@ def cloudsc2(
     levapls2 = bool(phnc.levapls2)
     lphylin = bool(phli.lphylin)
 
-    def level_step(carry, xs):
-        zrfl, zsfl, zcovptot = carry
-        (ztp1_k, zqp1_k, zl_k, zi_k, pap_k, pqs_k, plude_k,
-         plu_k1, pmfu_k, pmfd_k, zdp_k, zlfdcp_k, zlsdcp_k, zlvdcp_k,
-         ceta_k, zscalm_k, not_last) = xs
+    def level_step(zrfl, zsfl, zcovptot,
+                   ztp1_k, zqp1_k, zl_k, zi_k, pap_k, pqs_k, plude_k,
+                   plu_k1, pmfu_k, pmfd_k, zdp_k, zlfdcp_k, zlsdcp_k, zlvdcp_k,
+                   ztrpaus, paph_sfc, *, ceta_k, zscalm_k, not_last):
+        """One level: the carry, the level's 14 inputs and the two
+        column-wide inputs in; the new carry and the level's 6 outputs out.
+        Every tensor it reads is an argument (the constants ``ceta_k`` and
+        ``zscalm_k`` aside), so that :class:`_LevelCheckpoint` sees every
+        path from the inputs."""
+        one = torch.ones_like(ztp1_k)
+
+        def const(v: float):
+            return torch.full_like(one, v)
+
+        def sel(cond, a, b):
+            """where(cond, a, b) for two params, in the working dtype."""
+            return torch.where(cond, one * a, one * b)
 
         # ---- 3.1 dqs/dT correction factor (cloudsc2.F90:343-408)
         if lphylin or ldrain1d:
@@ -441,24 +481,27 @@ def cloudsc2(
         tenl_l = (zqlwc - zl_k) * zqtmst
         tenl_i = (zqiwc - zi_k) * zqtmst
 
-        new_carry = (zrfln, zsfln, zcovptot)
-        ys = (zdtdt, zdqdt, tenl_l, tenl_i, pclc, pcovptot_k, zrfln, zsfln)
-        return new_carry, ys
+        return (zrfln, zsfln, zcovptot,
+                zdtdt, zdqdt, tenl_l, tenl_i, pclc, pcovptot_k)
 
     # the level loop (the reference's lax.scan); plu(k+1) is zero below the
     # last level, where not_last masks it
-    zero = torch.zeros_like(one)
+    zero = torch.zeros_like(pt[:, 0])
     carry = (zero, zero, zero)
     ys = []
     for k in range(nlev):
-        xs = (
+        step = partial(level_step, ceta_k=ceta[k], zscalm_k=zscalm[k],
+                       not_last=k < nlev - 1)
+        args = (
+            *carry,
             ztp1[:, k], zqp1[:, k], zl[:, k], zi[:, k], pap[:, k], pqs[:, k],
             plude[:, k], plu[:, k + 1] if k + 1 < nlev else zero,
             pmfu[:, k], pmfd[:, k], zdp[:, k], zlfdcp[:, k], zlsdcp[:, k],
-            zlvdcp[:, k], ceta[k], zscalm[k], k < nlev - 1,
+            zlvdcp[:, k], ztrpaus, paph_sfc,
         )
-        carry, y = level_step(carry, xs)
-        ys.append(y)
+        out = _LevelCheckpoint.apply(step, *args) if remat_level else step(*args)
+        carry = out[:3]
+        ys.append((*out[3:], out[0], out[1]))
     (tent, tenq, tenl, teni, pclc, pcovptot, rfln, sfln) = (
         torch.stack(f, dim=1) for f in zip(*ys))
 

@@ -6,7 +6,9 @@ printed as the reference's table with columns/s and MFlop/s against the
 nominal flop count ZHPM.  On CUDA lanes each clock reading first waits for
 every lane's card (``torch.cuda.synchronize``), so a timed region covers the
 work it enqueued.  A lane is a device of the column mesh; its ``core_id`` is
-the card's index (the reference's core id).  The lanes of one process run
+the card's index, or for a CPU lane the core the process runs on
+(``sched_getcpu`` of the native shim, :mod:`cloudsc2jax_torch.native`; the
+reference's core id).  The lanes of one process run
 one region together, so their clocks are lane 0's copied (``mirror``
 rows) unless :meth:`PerformanceTimer.measure_device_lanes` re-times each
 lane's share on its own card with CUDA events (``measured`` rows).  With a
@@ -14,7 +16,7 @@ process group, ``print_performance(gather=True)`` gathers every rank's
 records to rank 0, which prints rank rows, a ``TOTAL @ rank#N`` row per rank
 and a grand total (the MPI_GATHER of timer_mod.F90:124-171).  With
 ``EC_PMON=1`` the host's energy counter is read at the start and printed
-after the table (:func:`energy_probe`).
+after the table (:func:`energy_probe`, the native shim's reading first).
 """
 
 from __future__ import annotations
@@ -53,11 +55,17 @@ def _read_first(path) -> Optional[str]:
 
 def energy_probe() -> Optional[Dict[str, float]]:
     """The host's energy counter when ``EC_PMON=1`` (``cloudsc2jax/timer.py:
-    40-68`` without its native shim): ``{"energy_j", "power_w"}`` from
-    Cray's pm_counters, else from RAPL (power not available: NaN); ``None``
-    when not requested or when no counter can be read."""
+    40-68``): the native shim's ``energy_uj`` first (power not available:
+    NaN), then ``{"energy_j", "power_w"}`` from Cray's pm_counters, else from
+    RAPL (power NaN); ``None`` when not requested or when no counter can be
+    read."""
     if os.environ.get("EC_PMON") != "1":
         return None
+    from .native import hostinfo
+
+    uj = hostinfo.energy_uj()
+    if uj > 0:
+        return {"energy_j": uj * 1e-6, "power_w": float("nan")}
     cray_e = _read_first(CRAY_ENERGY)
     if cray_e is not None:
         cray_p = _read_first(CRAY_POWER)
@@ -69,6 +77,16 @@ def energy_probe() -> Optional[Dict[str, float]]:
     if rapl is not None:
         return {"energy_j": float(rapl) * 1e-6, "power_w": float("nan")}
     return None
+
+
+def _core_of(device: Optional[torch.device]) -> int:
+    """A card's index, or ``sched_getcpu`` for the host (timer_mod.F90:93's
+    core id, ``cloudsc2jax/timer.py:104-110``)."""
+    if device is not None and device.type == "cuda":
+        return device.index
+    from .native import hostinfo
+
+    return hostinfo.sched_getcpu()
 
 
 @dataclasses.dataclass
@@ -115,10 +133,10 @@ class PerformanceTimer:
         return lane
 
     def _core_id(self, lane_id: int) -> int:
-        """The card's index of a lane, -1 for a CPU lane."""
-        if lane_id < len(self._devices) and self._devices[lane_id].type == "cuda":
-            return self._devices[lane_id].index
-        return -1
+        """The card's index of a lane; for a CPU lane the core this process
+        runs on (-1 where the native shim cannot say)."""
+        dev = self._devices[lane_id] if lane_id < len(self._devices) else None
+        return _core_of(dev)
 
     # -- lifecycle (timer_mod.F90:56-112)
     def start(self, num_lanes: int = 1):
@@ -194,7 +212,7 @@ class PerformanceTimer:
                     t = (time.perf_counter() - t0) / repeats
             lane = self._lane(lane_id)
             lane.t_total = t * max(calls_equivalent, 1)
-            lane.core_id = dev.index if dev.type == "cuda" else -1
+            lane.core_id = _core_of(dev)
             lane.mirrored = False
             lane.measured_lane = True
 

@@ -14,7 +14,14 @@ This is the f64 validation path: an eager loop over levels, thousands of
 small launches per evaluation.  The f32 performance path is the
 hand-written kernels, :func:`cloudsc2jax_torch.kernels.tlad_kernel.
 cloudsc2_kernel_tl` / ``cloudsc2_kernel_ad``, which are drop-ins for the
-functions here.  ``remat`` (checkpointing the level body) is not ported.
+functions here.
+
+The reference AD stores the full per-level forward trajectory
+(cloudsc2ad.F90:228-292) before its reverse sweep, and ``torch.func.vjp``
+makes the same trade; ``remat=True`` on :func:`cloudsc2_vjp` and
+:func:`cloudsc2_ad` checkpoints the level body instead (``remat_level`` of
+:func:`~cloudsc2jax_torch.physics.cloudsc2.cloudsc2`): each level's inputs
+and carry are stored and the level is recomputed in the reverse sweep.
 """
 
 from __future__ import annotations
@@ -54,11 +61,16 @@ def cloudsc2_vjp(
     *,
     lregcl: bool = False,
     ldrain1d: bool = False,
+    remat: bool = False,
 ):
-    """Linearise once, transpose many: returns (outputs, vjp_fn).  The
-    forward trajectory is stored, like the reference AD's
-    checkpoint-everything strategy (cloudsc2ad.F90:228-292)."""
-    f = partial(cloudsc2, params=params, lregcl=lregcl, ldrain1d=ldrain1d)
+    """Linearise once, transpose many: returns (outputs, vjp_fn).
+
+    ``remat=False`` (default) stores the forward trajectory like the
+    reference AD's checkpoint-everything strategy (cloudsc2ad.F90:228-292).
+    ``remat=True`` stores only each level's inputs and carry and recomputes
+    the level body in the reverse pass (``cloudsc2jax/tlad.py:52-79``)."""
+    f = partial(cloudsc2, params=params, lregcl=lregcl, ldrain1d=ldrain1d,
+                remat_level=remat)
     return torch.func.vjp(f, inputs)
 
 
@@ -69,6 +81,7 @@ def cloudsc2_ad(
     *,
     lregcl: bool = True,
     ldrain1d: bool = False,
+    remat: bool = False,
 ) -> Tuple[Cloudsc2Outputs, Cloudsc2Inputs]:
     """Adjoint CLOUDSC2: returns (outputs, input_adjoints).
 
@@ -81,6 +94,6 @@ def cloudsc2_ad(
     adjoint is the exact transpose of the (regularised) tangent operator.
     """
     outputs, vjp_fn = cloudsc2_vjp(inputs, params, lregcl=lregcl,
-                                   ldrain1d=ldrain1d)
+                                   ldrain1d=ldrain1d, remat=remat)
     (d_in,) = vjp_fn(d_outputs)
     return outputs, d_in

@@ -159,7 +159,7 @@ def test_cuda_cli_tlad_through_the_kernels(dtype):
     _need_cuda()
     launches = (tk.cloudsc2_tl.launches, tk.cloudsc2_ad.launches)
     assert cli.main(["tlad", "1", "4096", "128", "--dtype", dtype,
-                     "--device", "cuda"]) == 0
+                     "--kernels", "--device", "cuda"]) == 0
     assert (tk.cloudsc2_tl.launches, tk.cloudsc2_ad.launches) == (
         launches[0] + 1, launches[1] + 1)
 
@@ -840,7 +840,7 @@ def _free_port() -> int:
 @pytest.mark.parametrize("argv", [
     ["nl", "1", "16384", "128", "--dtype", "f32", "--threshold", "10000",
      "--kernels", "--per-device-timing"],
-    ["tlad", "1", "16384", "128", "--dtype", "f32"],
+    ["tlad", "1", "16384", "128", "--dtype", "f32", "--kernels"],
 ])
 def test_cuda_cli_two_ranks_on_one_card(argv):
     """Two ranks of the CLI share the card over gloo: both exit 0 and rank

@@ -217,7 +217,7 @@ def test_cli_nl_two_lanes_measured(capsys):
 def test_cli_tlad_two_processes():
     """The TL+AD unit over two ranks, f64: the adjoint identity reduced over
     the group passes on every rank, printed once."""
-    runs = _cli(2, ["tlad", "1", "64", "64", "--dtype", "f64"])
+    runs = _cli(2, ["tlad", "1", "64", "64", "--dtype", "f64", "--kernels"])
     assert [rc for rc, _, _ in runs] == [0, 0], [e for _, _, e in runs]
     assert runs[0][2].count("adjoint identity rel err") == 1
     assert "adjoint identity" not in runs[1][2]
@@ -225,7 +225,7 @@ def test_cli_tlad_two_processes():
 
 @pytest.mark.slow
 def test_cli_tlad_four_processes():
-    runs = _cli(4, ["tlad", "1", "64", "64", "--dtype", "f64"])
+    runs = _cli(4, ["tlad", "1", "64", "64", "--dtype", "f64", "--kernels"])
     assert [rc for rc, _, _ in runs] == [0] * 4, [e for _, _, e in runs]
     assert runs[0][2].count("TOTAL @ rank#") == 4
 

@@ -294,7 +294,8 @@ def test_plain_ad_matches_pallas_interpret(pallas_unit):
 
 # --------------------------------------------------------------- (f) CLI
 def test_cli_tlad_passes_and_catches_a_broken_adjoint_damp(monkeypatch, capsys):
-    argv = ["tlad", "1", "100", "100", "--device", "cpu", "--dtype", "f64"]
+    argv = ["tlad", "1", "100", "100", "--device", "cpu", "--dtype", "f64",
+            "--kernels"]
     assert cli.main(argv) == 0
     assert "adjoint identity rel err" in capsys.readouterr().err
 
