@@ -8,9 +8,11 @@ NL sweeps, the window-matched bandwidth probe ``bw_probe`` and the
 ``encoding_study``), chunked streaming past the card's memory
 (``drivers.run_chunked``), the benchmark ``cloudsc2jax_torch.bench`` and the
 CLI's profiler and golden writer, the column decomposition over two
-processes, and the truth path's level checkpoint and NPROMA blocks, the
+processes, the truth path's level checkpoint and NPROMA blocks, the
 bench's truth and kernel modes, the roofline of every kernel, the native
-host shim and the evidence battery.
+host shim and the evidence battery, and the TPU kernels' other schedules
+(the 17-stream adjoint convention, C levels a step, bfloat16 payloads of the
+encoded TL and AD sweeps).
 
 Run from the root of a checkout, with no arguments::
 
@@ -21,14 +23,16 @@ and prints no result line):
 
 1. Card: a CUDA device must be present; print its name and power limit.
 2. Build: compile ``cloudsc2jax_torch/csrc/cloudsc2_{nl,tl,tl_din,ad,
-   tl_enc,ad_enc,tlad_fused,nl_enc,nl_res}.cu`` and ``bw_probe.cu`` (one
-   build per probe mix of phase 16) with nvcc from the checkout's sources,
-   all builds started together; print the build time and ptxas' registers
-   and spills per kernel entry, and for the fused kernel, whose ptxas count
-   is the launch count, each warpgroup role's registers and local-memory
-   spills read from its region of the SASS.  Under the nvcc release they
-   were recorded with, the SASS of every library but the encoded NL one must
-   equal ``EXACT_SASS``; the encoded NL library's digest is printed.
+   tl_enc,ad_enc,tlad_fused,nl_enc,nl_res,ad_xscat,ad_chunk,tl_chunk,
+   tl_din_chunk,fwd_chunk,tl_enc_bf16,ad_enc_bf16}.cu`` and ``bw_probe.cu``
+   (one build per probe mix of phase 16) with nvcc from the checkout's
+   sources, all builds started together; print the build time and ptxas'
+   registers and spills per kernel entry, and for the fused kernel, whose
+   ptxas count is the launch count, each warpgroup role's registers and
+   local-memory spills read from its region of the SASS.  Under the nvcc
+   release they were recorded with, the SASS of every library in
+   ``EXACT_SASS`` must equal its digest there; the others' digests are
+   printed.
 3. NL kernel against its plain PyTorch version on the card, on the same
    inputs: the 100-column fixture and a ragged 5,000-column expansion,
    f32 and f64, ldrain1d off and on; then the main path's own shapes
@@ -212,16 +216,41 @@ and prints no result line):
    ``python -m cloudsc2jax_torch.onchip_evidence --list`` and its
    ``probe_stream`` step.  Each time and memory figure is printed beside the
    card's name and power limit.
+21. The schedules JAX keeps beside the shipped ones.  In a comparison
+   process of its own, at 100, 5,001 and 327,680 columns (f32, and f64 at
+   100 and 5,001): the 17-stream AD kernel's streams assembled by
+   ``assemble_shifted_adjoints`` equal to the in-place AD kernel's adjoints
+   bit for bit; the chunked TL, streamed-increment TL, forward-checkpoint
+   and 17-stream AD kernels at C = 2, 3, 4 equal to their one-level kernels
+   bit for bit (else the worst output's distance is printed and held at the
+   plain-version tolerance); the encoded TL and AD on bfloat16 encodings
+   (the default one and one read through the runtime mask) equal to the
+   exact kernels on the decoded inputs bit for bit; at 5,001 f32 and 100 f64
+   columns every new kernel against its plain version (the tolerances of 3
+   and 6, and ``BF16_TOLERANCE`` for the bfloat16 TL); then every kernel
+   library, the new ones at each C, launched twice on the same inputs must
+   give the same bits.  In the main process, after phase 19, launch counters
+   zeroed before and asserted exactly after: ``kernel_ab`` with ``noprim
+   xscatnp two xscat chunk:2 chunk:3 chunk:4`` at 327,680 f32 columns, the
+   standard contract's ``cloudsc2_kernel_tl``/``_ad`` at each C (16,384 f32
+   columns, bit for bit one level a step), and the encoded TL and AD on a
+   bfloat16 encoding through their wrappers with the adjoint identity; then
+   each new kernel's time at 327,680 f32 columns by CUDA events beside the
+   kernel it reschedules in the same run, with its bound, ptxas registers
+   and spills (per C), and, like every record, its window-matched ceiling
+   (the 17-stream AD's at 27 reads x 17 writes reversed, a probe mix of
+   phase 16).
 
-The comparisons of phases 6, 9, 12, 15 and 18 and phase 20's truth path
+The comparisons of phases 6, 9, 12, 15, 18 and 21 and phase 20's truth path
 are bound by the host, so each runs in a process of its own (``chip_smoke.py --compare <name>``, started
 after the build) beside phases 3, 4, 7 and 10 of the main process; the
 timing phases start when all of them have ended, and the script stops any
 that is left if it fails.  A comparison's output goes to
 ``build/chip_smoke/<name>.log`` and its result to ``<name>.json`` beside it.
 Each comparison also times the plain versions once, not warmed up, at
-163,840 f32 columns (``plain_ms``, ``plain_ncol``): a plain sweep takes
-seconds of host time at any size and is no yardstick of speed.
+163,840 f32 columns (5,001 in phase 21; ``plain_ms``, ``plain_ncol``): a
+plain sweep takes seconds of host time at any size and is no yardstick of
+speed.
 ``python3 chip_smoke.py --serial`` runs the same phases in one process, to
 measure what the fan-out saves (PERF.md has both times).
 
@@ -255,7 +284,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
 LIBRARIES = ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_tl_din", "cloudsc2_ad",
              "cloudsc2_tl_enc", "cloudsc2_ad_enc", "cloudsc2_tlad_fused",
-             "cloudsc2_nl_enc", "cloudsc2_nl_res", "bw_probe")
+             "cloudsc2_nl_enc", "cloudsc2_nl_res", "bw_probe",
+             "cloudsc2_ad_xscat", "cloudsc2_ad_chunk", "cloudsc2_tl_chunk",
+             "cloudsc2_tl_din_chunk", "cloudsc2_fwd_chunk", "cloudsc2_tl_enc_bf16",
+             "cloudsc2_ad_enc_bf16")
 CSRC = ROOT / "cloudsc2jax_torch" / "csrc"
 
 TOLERANCE = {"float32": 5e-6, "float64": 1e-12}
@@ -309,6 +341,10 @@ KERNEL_MIX = {
     "cloudsc2_nl_res": "res", "cloudsc2_fwd_ckpt": "fwd", "cloudsc2_tl": "tl",
     "cloudsc2_tl_enc": "tl", "cloudsc2_tl_din": "din", "cloudsc2_ad": "ad",
     "cloudsc2_ad_enc": "ad", "cloudsc2_tlad_fused": "fused",
+    "cloudsc2_ad_xscat": "xscat", "cloudsc2_ad_chunk": "xscat",
+    "cloudsc2_tl_chunk": "tl", "cloudsc2_tl_din_chunk": "din",
+    "cloudsc2_fwd_chunk": "fwd", "cloudsc2_tl_enc_bf16": "tl",
+    "cloudsc2_ad_enc_bf16": "ad",
 }
 # (fuse_satur, keep_f32 label, payload) of the encoded NL comparisons past
 # the first case, which runs every combination
@@ -358,6 +394,31 @@ TRUTH_BENCH = {"CLOUDSC2_BENCH_PALLAS": "0", "CLOUDSC2_BENCH_NGPTOT": str(TRUTH_
 # the bench's kernel modes of phase 20, at their defaults
 BENCH_MODES = ({"CLOUDSC2_BENCH_MODE": "resident"},
                {"CLOUDSC2_BENCH_LAYOUT": "standard"})
+# phase 21: (ncol, dtype, ldrain1d, lregcl, fold_seeds, plain) of the
+# schedules' comparisons, plain saying whether the kernels are also held to
+# their plain versions there (at 5,001 and 100 columns: a plain sweep costs
+# the host seconds at any width); the levels a step the chunked libraries
+# are built for; the kernel families of the records; kernel_ab's configs of
+# the schedules; the columns of the standard contract's drop-ins at each C
+SCHEDULE_CASES = ((100, "float32", True, True, True, False),
+                  (100, "float64", True, False, False, True),
+                  (5001, "float32", False, True, True, True),
+                  (5001, "float64", False, True, True, False),
+                  (TIMING_NCOL, "float32", False, True, True, False))
+SCHEDULE_PLAIN_NCOL = 5001
+CHUNK_LEVELS_RUN = (2, 3, 4)
+SCHEDULE_KINDS = ("xscat", "ad_chunk", "tl_chunk", "din_chunk", "fwd_chunk",
+                  "tl_bf16", "ad_bf16")
+SCHEDULE_AB = ["noprim", "xscatnp", "two", "xscat", "chunk:2", "chunk:3", "chunk:4"]
+STD_CHUNK_NCOL = 16_384
+# The bfloat16 encoded TL against its plain version: the AD's 1e-4.  The
+# payloads keep 8 significant bits, and on the decoded trajectory the cloud
+# cover 1 - sqrt(ratio) can take ratio from a difference at ~6e-4 of its
+# terms' size, where two f32 evaluations of one level body move pclc and the
+# covptot checkpoint by 3.3e-5 of their maximum (tests/test_torch_schedules.py
+# sees it between the JAX package and the plain version on the CPU); the
+# kernels equal the exact kernels on the decoded inputs bit for bit besides
+BF16_TOLERANCE = 1e-4
 # The code of every library but the encoded NL one (#1-#5, #7, #8, #9 and
 # the window probe at its NL mix): per library, build.library_digest of the
 # SASS of its entries, recorded on an NVIDIA H100 under the nvcc release
@@ -365,9 +426,11 @@ BENCH_MODES = ({"CLOUDSC2_BENCH_MODE": "resident"},
 # policy (cloudsc2jax_torch/probes/nl_enc_ab.py), the others from the tree
 # before #8 and #9 were redesigned (probes/enc_ab.py), but the
 # streamed-increment TL's, which is its build with -fmad=false
-# (probes/din_fmad_ab.py; its contracted build is ab85341a...).  Phase 2 fails if a
-# build differs under that release; under another release it says that it
-# did not check.
+# (probes/din_fmad_ab.py; its contracted build is ab85341a...); and the seven
+# libraries of the schedules (phase 21: the 17-stream AD, the chunked sweeps,
+# the bfloat16 encoded sweeps) as first built, on the same card and release.
+# Phase 2 fails if a build differs under that release; under another release
+# it says that it did not check.
 EXACT_SASS_RELEASE = "release 12.9, V12.9.86"
 EXACT_SASS = {
     "cloudsc2_nl":
@@ -388,6 +451,20 @@ EXACT_SASS = {
         "b03aa73161ad4dae373f40c97b70196e6aa290ea6d5b7a7d1b399b5489b1e802",
     "bw_probe BW_PROBE_R=15 BW_PROBE_W=8 BW_PROBE_TANH=0 BW_PROBE_FLOPS=0":
         "1135bc6ea617882236b667ce6bdb0c9e881a9697576534d37b240de51c1321cc",
+    "cloudsc2_ad_xscat":
+        "14be371569edf1889a91f44d7e8505533bdd78ca859dc2420222f36b6799e02b",
+    "cloudsc2_ad_chunk":
+        "cb0eb93e036a6f96a8bea28dff0ed6e3f67d2ecdc5fe805847447aee75aa6399",
+    "cloudsc2_tl_chunk":
+        "b1bd9944aafd7d073b60f4d0ae61dd0362b6ba2e1297673737a19d0717a470c2",
+    "cloudsc2_tl_din_chunk":
+        "14898ed906a4edde730b74fcd2ffa1b934c4a0032c510ca56bcae26f0757baa4",
+    "cloudsc2_fwd_chunk":
+        "7195fb9cead6541ff8b488df8f5503c6a5d6494d76a5d4eb00fc40fc34123a67",
+    "cloudsc2_tl_enc_bf16":
+        "adeeaf98f1f3c0d868ab7ed56dd31d8bb9ddd28647531d2046c8ff95246029ae",
+    "cloudsc2_ad_enc_bf16":
+        "843d68dccd9504840b46714182bca770d177912b2d389ed95b171ef955d99b14",
 }
 
 
@@ -1252,8 +1329,10 @@ def check_exact_sass(specs) -> None:
             changed[key] = digest
     print(f"[2] exact kernels' SASS: {len(EXACT_SASS) - len(changed)} of "
           f"{len(EXACT_SASS)} libraries as recorded (nvcc {release})")
-    digest = build.library_digest(build.sass_digests(build.sass("cloudsc2_nl_enc")))
-    print(f"[2] the encoded NL library's SASS (not held): {digest}")
+    for lib in [lib for lib, defines, _ in specs if not defines
+                and lib not in EXACT_SASS]:
+        digest = build.library_digest(build.sass_digests(build.sass(lib)))
+        print(f"[2] {lib}'s SASS (not held): {digest}")
     if changed:
         raise AssertionError(f"the exact kernels' code changed: {changed}")
 
@@ -2248,8 +2327,430 @@ def _nl_compare_and_cli(state, params):
     return worst_abs, worst_rel, main_launches
 
 
-# The comparisons of phases 6, 9, 12, 15 and 18 and the truth path's runs of
-# phase 20 are bound by the host (a plain TL or AD sweep is ~140,000 small
+# ------------------------------------------------------------------ phase 21
+def _flat(*trees):
+    """The tensors of nested tuples, in order (None skipped)."""
+    out = []
+    for t in trees:
+        if t is None:
+            continue
+        if hasattr(t, "numel"):
+            out.append(t)
+        else:
+            out += _flat(*t)
+    return out
+
+
+def _same(got, want) -> bool:
+    """Equal bit for bit, tensor by tensor (a zero's sign aside)."""
+    import torch
+
+    got, want = _flat(got), _flat(want)
+    return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _held(what: str, got, one, tol: float, distances: dict, key: str) -> None:
+    """A schedule's results against the one-level kernel's: bit for bit, or
+    else the worst field and its distance printed and held at ``tol``."""
+    if _same(got, one):
+        return
+    got, one = _flat(got), _flat(one)
+    rels = [_max_rel_err([a], [b])[0] for a, b in zip(got, one)]
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    print(f"    {what}: NOT bit for bit; worst output #{worst} at max rel err "
+          f"{rels[worst]:.3e} (tol {tol:g})")
+    distances[key] = max(distances.get(key, 0.0), rels[worst])
+    if not rels[worst] <= tol:
+        raise AssertionError(f"{what} differs from the one-level kernel")
+
+
+def _kernel_runs(state, params, ncol: int) -> dict:
+    """Every kernel library of the port, its wrapper's launch at ``ncol`` f32
+    columns: name -> a function that launches it once and returns its
+    outputs (the determinism check of phase 21 launches each twice)."""
+    import torch
+
+    from cloudsc2jax_torch import bw_probe
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import cloudsc2_kernel as km
+    from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+    from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
+
+    x = state.device_kernel_inputs(ncol, dtype=torch.float32, device="cuda", pqs=True)
+    pre = km.kernel_prelude(x, params)
+    dx = Cloudsc2Inputs(*(DSCALE * v for v in x))
+    _, dout, ck = tk.launch_cloudsc2_tl(x, pre, params, dscale=DSCALE)
+    enc = ex.encode_blocked_inputs(x, params, fuse_satur=False)
+    b16 = ex.encode_blocked_inputs(x, params, fuse_satur=False,
+                                   payload_dtype=torch.bfloat16)
+    nl_enc = ex.encode_blocked_inputs(x, params)
+    arrs = [x.pt + j for j in range(15)]
+    runs = {
+        "cloudsc2_nl": lambda: km.launch_cloudsc2_nl(x, pre, params),
+        "cloudsc2_fwd_ckpt": lambda: km.launch_cloudsc2_fwd_ckpt(x, pre, params),
+        "cloudsc2_nl_res": lambda: km.launch_cloudsc2_nl_resident(x, pre, params),
+        "cloudsc2_nl_enc": lambda: ex.launch_cloudsc2_nl_encoded(nl_enc, params),
+        "cloudsc2_tl": lambda: tk.launch_cloudsc2_tl(x, pre, params, dscale=DSCALE),
+        "cloudsc2_tl_din": lambda: tk.launch_cloudsc2_tl_din(x, dx, pre, params),
+        "cloudsc2_ad": lambda: tk.launch_cloudsc2_ad(x, pre, dout, ck, params),
+        "cloudsc2_tlad_fused": lambda: ex.launch_cloudsc2_tlad_fused(x, pre, params),
+        "cloudsc2_tl_enc": lambda: ex.launch_cloudsc2_tl_encoded(enc, params, dscale=DSCALE),
+        "cloudsc2_ad_enc": lambda: ex.launch_cloudsc2_ad_encoded(enc, dout, ck, params),
+        "bw_probe": lambda: bw_probe.launch_window_stream(arrs, 2.0, 8),
+        "cloudsc2_ad_xscat": lambda: tk.launch_cloudsc2_ad_streams(x, pre, dout, ck,
+                                                                   params),
+        "cloudsc2_tl_enc_bf16": lambda: ex.launch_cloudsc2_tl_encoded(
+            b16, params, dscale=DSCALE),
+        "cloudsc2_ad_enc_bf16": lambda: ex.launch_cloudsc2_ad_encoded(b16, dout, ck,
+                                                                      params),
+    }
+    for c in CHUNK_LEVELS_RUN:
+        runs[f"cloudsc2_tl_chunk C={c}"] = (lambda c=c: tk.launch_cloudsc2_tl(
+            x, pre, params, dscale=DSCALE, chunk_levels=c))
+        runs[f"cloudsc2_tl_din_chunk C={c}"] = (lambda c=c: tk.launch_cloudsc2_tl_din(
+            x, dx, pre, params, chunk_levels=c))
+        runs[f"cloudsc2_fwd_chunk C={c}"] = (lambda c=c: km.launch_cloudsc2_fwd_ckpt(
+            x, pre, params, chunk_levels=c))
+        runs[f"cloudsc2_ad_chunk C={c}"] = (lambda c=c: tk.launch_cloudsc2_ad_streams(
+            x, pre, dout, ck, params, chunk_levels=c))
+    return runs
+
+
+def compare_schedules(state, params):
+    """Phase 21, its comparison: the 17-stream AD kernel, the chunked
+    sweeps and the bfloat16 encoded sweeps on the card, bit for bit against
+    the kernels whose schedule they change and against their plain
+    versions; then every kernel library launched twice.  Returns the worst
+    errors, the distances of schedules that are not bit for bit, the plain
+    versions' times and the determinism verdicts."""
+    import torch
+
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import cloudsc2_kernel as km
+    from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+    from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
+
+    if CHUNK_LEVELS_RUN != km.CHUNK_LEVELS:
+        raise AssertionError(f"the chunked libraries are built for {km.CHUNK_LEVELS}")
+    worst = {k: {} for k in SCHEDULE_KINDS}
+    distances, plain_ms, same_as_inplace = {}, {}, {}
+    # -- 21. the new kernels against the kernels they reschedule and their
+    # plain versions on the card
+    for ncol, name, ldrain1d, lregcl, fold, plain in SCHEDULE_CASES:
+        print(f"[21] ncol={ncol} {name} ldrain1d={ldrain1d} lregcl={lregcl} "
+              f"fold_seeds={fold}{' with the plain versions' if plain else ''}:")
+        inputs = state.device_kernel_inputs(ncol, dtype=getattr(torch, name),
+                                            device="cuda", pqs=True)
+        pre = km.kernel_prelude(inputs, params)
+        dx = Cloudsc2Inputs(*(DSCALE * x for x in inputs))
+        tol = {"tl_chunk": TLAD_TOLERANCE["tl"][name],
+               "din_chunk": TLAD_TOLERANCE["tl"][name],
+               "fwd_chunk": TOLERANCE[name], "ad_chunk": TLAD_TOLERANCE["ad"][name],
+               "xscat": TLAD_TOLERANCE["ad"][name]}
+        kw = dict(ldrain1d=ldrain1d, lregcl=lregcl)
+        akw = dict(kw, fold_seeds=fold)
+        one = {"tl_chunk": tk.launch_cloudsc2_tl(inputs, pre, params, dscale=DSCALE,
+                                                  **kw),
+               "din_chunk": tk.launch_cloudsc2_tl_din(inputs, dx, pre, params, **kw),
+               "fwd_chunk": km.launch_cloudsc2_fwd_ckpt(inputs, pre, params,
+                                                        ldrain1d=ldrain1d)}
+        _, seeds, ckpts = one["tl_chunk"]
+        inplace = tk.launch_cloudsc2_ad(inputs, pre, seeds, ckpts, params, **akw)
+        one["ad_chunk"] = raw = tk.launch_cloudsc2_ad_streams(
+            inputs, pre, seeds, ckpts, params, **akw)
+        same = _same(tk._assembled(raw), inplace)
+        same_as_inplace[f"{ncol} {name}"] = same
+        print(f"    17-stream AD assembled vs the in-place AD bit for bit: {same}")
+        if not same:
+            raise AssertionError("the 17-stream AD's assembled adjoints differ "
+                                 "from the in-place kernel's")
+        ref = {}
+        if plain:
+            (ref["tl_chunk"], t_tl) = _timed(lambda: tk.cloudsc2_tl_reference(
+                inputs, params, dscale=DSCALE, pre=pre, **kw))
+            ref["din_chunk"], t_din = _timed(lambda: tk.cloudsc2_tl_reference(
+                inputs, params, d_inputs=dx, pre=pre, **kw)[:2])
+            ref["fwd_chunk"], t_fwd = _timed(lambda: km.cloudsc2_fwd_ckpt_reference(
+                inputs, params, ldrain1d=ldrain1d, pre=pre))
+            ref["ad_chunk"], t_ad = _timed(lambda: tk.cloudsc2_ad_streams_reference(
+                inputs, seeds, ckpts, params, pre=pre, **akw))
+            if name == "float32":
+                plain_ms.update(tl_chunk=t_tl, din_chunk=t_din, fwd_chunk=t_fwd,
+                                ad_chunk=t_ad, xscat=t_ad)
+            _check("17-stream AD raw streams", raw, ref["ad_chunk"], tol["xscat"],
+                   worst["xscat"], name)
+        for c in CHUNK_LEVELS_RUN:
+            got = {"tl_chunk": tk.launch_cloudsc2_tl(inputs, pre, params,
+                                                      dscale=DSCALE, chunk_levels=c,
+                                                      **kw),
+                   "din_chunk": tk.launch_cloudsc2_tl_din(inputs, dx, pre, params,
+                                                          chunk_levels=c, **kw),
+                   "fwd_chunk": km.launch_cloudsc2_fwd_ckpt(inputs, pre, params,
+                                                            ldrain1d=ldrain1d,
+                                                            chunk_levels=c),
+                   "ad_chunk": tk.launch_cloudsc2_ad_streams(
+                       inputs, pre, seeds, ckpts, params, chunk_levels=c, **akw)}
+            print(f"    C={c}: " + ", ".join(
+                f"{k} bit for bit {_same(v, one[k])}" for k, v in got.items()))
+            for k, v in got.items():
+                _held(f"{k} C={c}", v, one[k], tol[k], distances, f"{k} C={c}")
+                if plain:
+                    _check(f"{k} C={c} against its plain version", _flat(v),
+                           _flat(ref[k]), tol[k], worst[k], name)
+        del one, got, ref, raw, inplace
+        if name != "float32":
+            continue
+        for keep in ENC_TLAD_KEEPS:
+            enc = ex.encode_blocked_inputs(inputs, params, fuse_satur=False,
+                                           keep_f32=keep, payload_dtype=torch.bfloat16)
+            tl = ex.launch_cloudsc2_tl_encoded(enc, params, dscale=DSCALE, **kw)
+            tln = ex.launch_cloudsc2_tl_encoded(enc, params, dscale=DSCALE,
+                                                write_primal=False, **kw)
+            adj = ex.launch_cloudsc2_ad_encoded(enc, tl[1], tl[2], params, **akw)
+            decoded, epre = ex.decode_inputs(enc), ex._prelude(enc, params)
+            x_tl = tk.launch_cloudsc2_tl(decoded, epre, params, dscale=DSCALE, **kw)
+            x_tln = tk.launch_cloudsc2_tl(decoded, epre, params, dscale=DSCALE,
+                                          write_primal=False, **kw)
+            x_adj = tk.launch_cloudsc2_ad(decoded, epre, tl[1], tl[2], params, **akw)
+            same = _same((tl, tln, adj), (x_tl, x_tln, x_adj))
+            print(f"    bfloat16 keep_f32={keep} ({ex.encoded_mask(enc):#x}): TL and AD "
+                  f"vs the exact kernels on the decoded inputs bit for bit: {same}")
+            if not same:
+                raise AssertionError("the bfloat16 kernels differ from the exact "
+                                     "kernels on the decoded inputs")
+            if plain:
+                r_tl, t_tl = _timed(lambda: ex.cloudsc2_tl_encoded_reference(
+                    enc, params, dscale=DSCALE, **kw))
+                r_adj, t_ad = _timed(lambda: ex.cloudsc2_ad_encoded_reference(
+                    enc, tl[1], tl[2], params, **akw))
+                if keep == ENC_TLAD_KEEPS[0]:
+                    plain_ms.update(tl_bf16=t_tl, ad_bf16=t_ad)
+                _check("bfloat16 TL", _flat(tl), _flat(r_tl), BF16_TOLERANCE,
+                       worst["tl_bf16"], name)
+                _check("bfloat16 TL, no primal", _flat(tln), _flat(r_tl[1:]),
+                       BF16_TOLERANCE, worst["tl_bf16"], name)
+                _check("bfloat16 AD", adj, r_adj, TLAD_TOLERANCE["ad"][name],
+                       worst["ad_bf16"], name)
+            del enc, tl, tln, adj, decoded, x_tl, x_tln, x_adj
+        torch.cuda.synchronize()
+    # every kernel library twice on the same inputs: the same bits
+    determinism = {}
+    for label, run in _kernel_runs(state, params, SCHEDULE_PLAIN_NCOL).items():
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        determinism[label] = _same(first, second)
+    print(f"[21] two launches bit for bit, {len(determinism)} kernels at "
+          f"{SCHEDULE_PLAIN_NCOL} f32 columns: "
+          f"{sum(determinism.values())} of {len(determinism)}")
+    if not all(determinism.values()):
+        raise AssertionError(f"a kernel is not deterministic: {determinism}")
+    return {"worst": worst, "distances": distances, "plain_ms": plain_ms,
+            "same_as_inplace": same_as_inplace, "determinism": determinism}
+
+
+def schedules_main(state, params, compared) -> list:
+    """Phase 21 in the main process: the schedules through the entry points
+    a user calls, under their launch counters zeroed just before, then their
+    times at the headline size.  Returns the seven kernels' JSON records."""
+    import torch
+
+    from cloudsc2jax_torch import cli, kernel_ab
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import cloudsc2_kernel as km
+    from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+    from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
+
+    counters = {"xscat": (tk.cloudsc2_ad, "launches_xscat"),
+                "ad_chunk": (tk.cloudsc2_ad, "launches_chunked"),
+                "tl_chunk": (tk.cloudsc2_tl, "launches_chunked"),
+                "din_chunk": (tk.cloudsc2_tl_din, "launches_chunked"),
+                "fwd_chunk": (km.cloudsc2_fwd_ckpt, "launches_chunked"),
+                "tl_bf16": (ex.cloudsc2_tl_encoded, "launches_bf16"),
+                "ad_bf16": (ex.cloudsc2_ad_encoded, "launches_bf16")}
+    # -- 21. the main paths: kernel_ab's configs of the schedules at 327,680
+    # f32 columns; the standard contract's drop-ins at each C; the encoded
+    # TL and AD on a bfloat16 encoding through their wrappers
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    os.environ["CLOUDSC2_AB_NGPTOT"] = str(TIMING_NCOL)
+    t0 = time.perf_counter()
+    summary = kernel_ab.main(SCHEDULE_AB)
+    print(f"[21] kernel_ab {' '.join(SCHEDULE_AB)} ({time.perf_counter() - t0:.1f} s)")
+    std = state.device_inputs(STD_CHUNK_NCOL, dtype=torch.float32, device="cuda")
+    dstd = Cloudsc2Inputs(*(DSCALE * x for x in std))
+    out1, dout1 = tk.cloudsc2_kernel_tl(std, dstd, params)
+    adj1 = tk.cloudsc2_kernel_ad(std, dout1, params)
+    for c in CHUNK_LEVELS_RUN:
+        outc, doutc = tk.cloudsc2_kernel_tl(std, dstd, params, chunk_levels=c)
+        adjc = tk.cloudsc2_kernel_ad(std, doutc, params, chunk_levels=c)
+        same = _same((outc, doutc, adjc), (out1, dout1, adj1))
+        print(f"[21] cloudsc2_kernel_tl/ad at {STD_CHUNK_NCOL} f32 columns, C={c}: "
+              f"bit for bit one level a step: {same}")
+        _held(f"the standard contract at C={c}", (outc, doutc, adjc),
+              (out1, dout1, adj1), TLAD_TOLERANCE["ad"]["float32"], {}, "")
+    del std, dstd, out1, dout1, adj1, outc, doutc, adjc
+    base = state.device_kernel_inputs(TIMING_NCOL, dtype=torch.float32, device="cuda",
+                                      pqs=True)
+    b16 = ex.encode_blocked_inputs(base, params, fuse_satur=False,
+                                   payload_dtype=torch.bfloat16)
+    _, dout, ckpts = ex.cloudsc2_tl_encoded(b16, params, dscale=DSCALE)
+    adj = ex.cloudsc2_ad_encoded(b16, dout, ckpts, params)
+    n_terms = base.pt.numel()
+    rel, finite = cli.adjoint_identity(ex.decode_inputs(b16), dout, adj, params, DSCALE)
+    id_tol = cli.scaled_identity_tol(cli.PALLAS_AD_IDENTITY_TOL, n_terms)
+    print(f"[21] bfloat16 encoded TL+AD at {TIMING_NCOL} f32 columns: adjoint "
+          f"identity rel err {rel:.3e} (tol {id_tol:g}), finite={finite}")
+    if not (finite and rel < id_tol):
+        raise AssertionError("the bfloat16 encoded pair fails the adjoint identity")
+    del b16, dout, ckpts, adj
+    launches = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+    per_config = min(4, summary["reps"]) + summary["reps"]
+    chunks = sum(c.startswith("chunk:") for c in SCHEDULE_AB)
+    expected = {"xscat": per_config * sum(c in ("xscat", "xscatnp") for c in SCHEDULE_AB),
+                "ad_chunk": per_config * chunks + len(CHUNK_LEVELS_RUN),
+                "tl_chunk": per_config * chunks, "din_chunk": len(CHUNK_LEVELS_RUN),
+                "fwd_chunk": len(CHUNK_LEVELS_RUN), "tl_bf16": 1, "ad_bf16": 1}
+    print(f"[21] kernel launches on the schedules' main paths: {launches}")
+    if launches != expected:
+        raise AssertionError(f"the schedules' main paths did not run through their "
+                             f"kernels: expected {expected}")
+
+    # -- 21. timing at the headline size, f32, distinct inputs per call
+    ncol, nlev = TIMING_NCOL, base.pt.shape[0]
+    sets = [base] + [Cloudsc2Inputs(*(x.roll(s, dims=1) for x in base))
+                     for s in (37, 71)]
+    pres = [km.kernel_prelude(s, params) for s in sets]
+    dsets = [Cloudsc2Inputs(*(DSCALE * x for x in s)) for s in sets]
+    tls = [tk.launch_cloudsc2_tl(i, p, params, dscale=DSCALE) for i, p in zip(sets, pres)]
+    pairs = list(zip(sets, pres))
+    ad_args = list(zip(sets, pres, tls))
+
+    def tl(c):
+        return _time_ms(lambda i, p: tk.launch_cloudsc2_tl(
+            i, p, params, dscale=DSCALE, chunk_levels=c), pairs, 20)
+
+    def din(c):
+        return _time_ms(lambda i, d, p: tk.launch_cloudsc2_tl_din(
+            i, d, p, params, chunk_levels=c), list(zip(sets, dsets, pres)), 20)
+
+    def fwd(c):
+        return _time_ms(lambda i, p: km.launch_cloudsc2_fwd_ckpt(
+            i, p, params, chunk_levels=c), pairs, 20)
+
+    def ad_streams(c):
+        return _time_ms(lambda i, p, t: tk.launch_cloudsc2_ad_streams(
+            i, p, t[1], t[2], params, chunk_levels=c), ad_args, 20)
+
+    ms = {"ad": _time_ms(lambda i, p, t: tk.launch_cloudsc2_ad(i, p, t[1], t[2], params),
+                         ad_args, 20),
+          "xscat": ad_streams(1), "tl": tl(1), "din": din(1), "fwd": fwd(1)}
+    raws = [tk.launch_cloudsc2_ad_streams(i, p, t[1], t[2], params)
+            for i, p, t in ad_args]
+    ms["assembly"] = _time_ms(lambda r: tk.assemble_shifted_adjoints(*r[-4:]),
+                              [(r,) for r in raws], 20)
+    by_chunk = {k: {} for k in ("tl_chunk", "din_chunk", "fwd_chunk", "ad_chunk")}
+    for c in CHUNK_LEVELS_RUN:
+        by_chunk["tl_chunk"][c], by_chunk["din_chunk"][c] = tl(c), din(c)
+        by_chunk["fwd_chunk"][c], by_chunk["ad_chunk"][c] = fwd(c), ad_streams(c)
+    encs = {p: [ex.encode_blocked_inputs(s, params, fuse_satur=False,
+                                         payload_dtype=getattr(torch, p))
+                for s in sets] for p in ("int16", "bfloat16")}
+    etls = {p: [ex.launch_cloudsc2_tl_encoded(e, params, dscale=DSCALE) for e in es]
+            for p, es in encs.items()}
+    for p, key in (("int16", "enc"), ("bfloat16", "bf16")):
+        ms[f"tl_{key}"] = _time_ms(lambda e: ex.launch_cloudsc2_tl_encoded(
+            e, params, dscale=DSCALE), [(e,) for e in encs[p]], 20)
+        ms[f"tl_{key}_noprim"] = _time_ms(lambda e: ex.launch_cloudsc2_tl_encoded(
+            e, params, dscale=DSCALE, write_primal=False), [(e,) for e in encs[p]], 20)
+        ms[f"ad_{key}"] = _time_ms(lambda e, t: ex.launch_cloudsc2_ad_encoded(
+            e, t[1], t[2], params), list(zip(encs[p], etls[p])), 20)
+    card = _nvidia_smi("name,power.limit")
+    for label, t in {**ms, **{f"{k} C={c}": v for k, d in by_chunk.items()
+                              for c, v in d.items()}}.items():
+        print(f"[21] {label}: {t:.4f} ms/call at {ncol} columns f32 ({card})")
+    print(f"[21] after timing: {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # bytes held to this run's tensors
+    enc_in = _nbytes(encs["bfloat16"][0].streams, encs["bfloat16"][0].enc, pres[0])
+    ad_in = _nbytes(sets[0], pres[0], tls[0][1], tls[0][2])
+    moved = {"xscat": ad_in + _nbytes(raws[0]),
+             "ad_chunk": ad_in + _nbytes(raws[0]),
+             "tl_chunk": _nbytes(sets[0], pres[0], tls[0]),
+             "din_chunk": _nbytes(sets[0], pres[0], dsets[0]) + 16 * _nbytes(base.pt),
+             "fwd_chunk": _nbytes(sets[0], pres[0]) + 11 * _nbytes(base.pt),
+             "tl_bf16": enc_in + _nbytes(etls["bfloat16"][0]),
+             "ad_bf16": enc_in + _nbytes(etls["bfloat16"][0][1:])
+             + _nbytes(sets[0])}
+    worst, plain = compared["worst"], compared["plain_ms"]
+    distances = compared["distances"]
+    common = {"route": "cuda", "ncol": ncol, "plain_ncol": SCHEDULE_PLAIN_NCOL,
+              "card": card}
+
+    def record(kind, name, replaces, time_ms, **extra):
+        w = worst[kind]
+        return {**_bound(name, ncol, nlev, moved[kind]), **common, "name": name,
+                "source": f"cloudsc2jax_torch/csrc/{name}.cu", "replaces": replaces,
+                "launches": launches[kind],
+                "max_abs_err": w.get("abs", 0.0),
+                "max_rel_err_f32": w.get("float32"), "max_rel_err_f64": w.get("float64"),
+                "ms": time_ms, "plain_ms": plain[kind],
+                "gb_per_s": moved[kind] / (time_ms * 1e-3) / 1e9, **extra}
+
+    def chunk_extra(kind, lib, marks, one_ms):
+        regs = {c: _ptxas_of(lib, *marks(c)) for c in CHUNK_LEVELS_RUN}
+        return {"ms_by_chunk": by_chunk[kind], "ms_one_level_same_run": one_ms,
+                "registers_by_chunk": {c: r["registers"] for c, r in regs.items()},
+                "spill_store_bytes_by_chunk": {c: r["spill_store_bytes"]
+                                               for c, r in regs.items()},
+                "not_bit_for_bit": {k: v for k, v in distances.items()
+                                    if k.startswith(kind)}}
+
+    first = CHUNK_LEVELS_RUN[0]
+    return [
+        record("xscat", "cloudsc2_ad_xscat", "cloudsc2jax/pallas/tlad_kernel.py:454",
+               ms["xscat"], ms_inplace_same_run=ms["ad"], assembly_ms=ms["assembly"],
+               assembled_bit_for_bit=compared["same_as_inplace"],
+               **_ptxas_of("cloudsc2_ad_xscat", "cloudsc2_ad_shifted_kernel",
+                           "IfLb0ELb1ELi1E")),
+        record("ad_chunk", "cloudsc2_ad_chunk", "cloudsc2jax/pallas/tlad_kernel.py:454",
+               by_chunk["ad_chunk"][first], **chunk_extra(
+                   "ad_chunk", "cloudsc2_ad_chunk",
+                   lambda c: ("cloudsc2_ad_shifted_kernel", f"IfLb0ELb1ELi{c}E"),
+                   ms["xscat"])),
+        record("tl_chunk", "cloudsc2_tl_chunk", "cloudsc2jax/pallas/tlad_kernel.py:170",
+               by_chunk["tl_chunk"][first], **chunk_extra(
+                   "tl_chunk", "cloudsc2_tl_chunk",
+                   lambda c: ("cloudsc2_tl_chunk_kernel", f"IfLb0ELb1ELb0ELi{c}E"),
+                   ms["tl"])),
+        record("din_chunk", "cloudsc2_tl_din_chunk",
+               "cloudsc2jax/pallas/tlad_kernel.py:170",
+               by_chunk["din_chunk"][first], **chunk_extra(
+                   "din_chunk", "cloudsc2_tl_din_chunk",
+                   lambda c: ("cloudsc2_tl_chunk_kernel", f"IfLb0ELb0ELb1ELi{c}E"),
+                   ms["din"])),
+        record("fwd_chunk", "cloudsc2_fwd_chunk", "cloudsc2jax/pallas/tlad_kernel.py:405",
+               by_chunk["fwd_chunk"][first], **chunk_extra(
+                   "fwd_chunk", "cloudsc2_fwd_chunk",
+                   lambda c: ("cloudsc2_fwd_chunk_kernel", f"IfLb0ELi{c}E"),
+                   ms["fwd"])),
+        record("tl_bf16", "cloudsc2_tl_enc_bf16", "cloudsc2jax/pallas/tlad_kernel.py:170",
+               ms["tl_bf16"], ms_noprim=ms["tl_bf16_noprim"],
+               ms_int16_same_run=ms["tl_enc"], ms_int16_noprim_same_run=ms["tl_enc_noprim"],
+               **_ptxas_of("cloudsc2_tl_enc_bf16", "cloudsc2_tl_enc_bf16_kernel",
+                           "Lb0ELb1ELb1E", "ILj16381E")),
+        record("ad_bf16", "cloudsc2_ad_enc_bf16", "cloudsc2jax/pallas/tlad_kernel.py:454",
+               ms["ad_bf16"], ms_int16_same_run=ms["ad_enc"],
+               identity_f32=rel,
+               **_ptxas_of("cloudsc2_ad_enc_bf16", "cloudsc2_ad_enc_bf16_kernel",
+                           "Lb0ELb1E", "ILj16381E")),
+    ]
+
+
+# The comparisons of phases 6, 9, 12, 15, 18 and 21 and the truth path's runs
+# of phase 20 are bound by the host (a plain TL or AD sweep is ~140,000 small
 # launches), so each runs in a process of its own beside the main process's
 # phases 3, 4, 7 and 10; nothing is timed for the records until all of them
 # have ended.
@@ -2260,6 +2761,7 @@ COMPARISONS = {
     "nl_experiments": compare_nl_experiments,
     "chunked": compare_chunked,
     "truth": compare_truth,
+    "schedules": compare_schedules,
 }
 # where a comparison's process leaves its output (<name>.log) and its result
 # (<name>.json): under the checkout's build directory
@@ -2273,6 +2775,7 @@ def _compare_worker(name: str) -> int:
 
     state = Cloudsc2State.load(FIXTURES / "input.npz")
     result = COMPARISONS[name](state, state.params)
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
     (WORK_DIR / f"{name}.json").write_text(json.dumps(result))
     return 0
 
@@ -2393,7 +2896,7 @@ def main(argv=None) -> int:
         variants_ran = cli_variants(state, params)
         t_phase = _lap("3-4, 7, 10", t_phase)
         compared = {name: fn(state, params) for name, fn in COMPARISONS.items()}
-        t_phase = _lap("6, 9, 12, 15, 18, 20a-c in this process", t_phase)
+        t_phase = _lap("6, 9, 12, 15, 18, 20a-c, 21 in this process", t_phase)
     else:
         comparisons = _start_comparisons()
         try:
@@ -2408,7 +2911,8 @@ def main(argv=None) -> int:
                     proc.kill()
                     proc.wait()
                 log.close()
-        t_phase = _lap("6, 9, 12, 15, 18, 20a-c in their processes, waited for", t_phase)
+        t_phase = _lap("6, 9, 12, 15, 18, 20a-c, 21 in their processes, waited for",
+                       t_phase)
     worst_abs, worst_rel, main_launches = nl_compare
     # -- 5. timing at the headline size, f32, distinct inputs per call
     ncol = TIMING_NCOL
@@ -2500,7 +3004,11 @@ def main(argv=None) -> int:
     nl_record["two_ranks"] = mp["timing"][0]
     tlad_records[1]["two_ranks"] = mp["timing"][1]
     t_phase = _lap("19", t_phase)
-    records = [nl_record, *tlad_records, *test_records, *ab_records, *nl_records]
+    torch.cuda.empty_cache()
+    schedule_records = schedules_main(state, params, compared["schedules"])
+    t_phase = _lap("21 (main process)", t_phase)
+    records = [nl_record, *tlad_records, *test_records, *ab_records, *nl_records,
+               *schedule_records]
     modes = phase_20(records, probes, params.nlev)
     res_record = next(r for r in nl_records if r["name"] == "cloudsc2_nl_res")
     res_record["launches_bench_resident"] = modes["resident"]["launches"]

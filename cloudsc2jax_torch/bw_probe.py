@@ -78,6 +78,7 @@ KERNEL_MIXES = (
     ("tl", 16, 19, False, (20, 584)),
     ("din", 32, 16, False, (20, 584)),
     ("ad", 27, 16, True, (30, 876)),
+    ("xscat", 27, 17, True, None),
     ("res", 16, 8, False, None),
     ("fused", 16, 32, False, None),
 )

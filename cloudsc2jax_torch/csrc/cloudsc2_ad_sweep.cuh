@@ -305,4 +305,166 @@ int launch(const void* const* in, void* const* out, const double* params,
                 : launch_variant<T, false, false>(a, params, ncol, nlev, s);
 }
 
+// ---------------------------------------------------------------------------
+// The second store policy: the 17-stream adjoint convention.
+//
+// `_rev_kernel` without in-place scatter (tlad_kernel.py:564-610), as
+// `cloudsc2_pallas_ad(inplace_scatter=False)` runs it (:765-803, the only
+// convention its `chunk_levels > 1` takes): every level writes the
+// cotangents of all 17 values it read, at the slot of its own physical level
+// k: the 14 level rows, d_plu_k1 (the plu(k+1) read), d_paph_lo (paph(k))
+// and d_paph_hi (paph(k+1)); the sum over levels of the paph_sfc cotangent
+// leaves as one row of ncol values.  The caller assembles d_plu and d_paph
+// from them in PyTorch (`assemble_shifted_adjoints` in
+// kernels/tlad_kernel.py: two concatenations, an add, the surface row added
+// last), so the kernel writes one (nlev, ncol) stream more than the in-place
+// policy and leaves a pass over 3 more to the caller.  The sums are those
+// of the in-place policy (hi(k) + lo(k+1) in either order, the surface row
+// after), so the assembled adjoints are its results bit for bit.
+//
+// Outputs: Args::out[0..13] the level adjoints, out[O_D_PLU] d_plu_k1 and
+// out[O_D_PAPH] d_paph_lo, each (nlev, ncol); the two below.
+template <typename T>
+struct ShiftedArgs : Args<T> {
+  T* paph_hi;   // d_paph_hi, (nlev, ncol)
+  T* paph_sfc;  // the surface row's sum, (ncol)
+};
+
+// Pointer order of the 17-stream launchers' `out` (AD_SHIFTED_OUTPUTS).
+enum ShiftedOutput {
+  O_D_PLU_K1 = O_D_PLU, O_D_PAPH_LO = O_D_PAPH, O_D_PAPH_HI, O_D_PAPH_SFC,
+  N_SHIFTED_OUTPUT
+};
+
+// Values a level reads, in the order its loads are issued: the 14 level
+// rows, plu(k+1), paph(k), the 3 checkpoints, the 8 seeds.
+constexpr int kLevelReads = kFields + 2 + 3 + 8;
+
+// The reverse loop of one column under the 17-stream policy, C levels a
+// step.  A step first issues the 27 loads of each of its C levels, the
+// counterpart of the TPU's C-level DMA window (`_chunk_reads`,
+// tlad_kernel.py:105; the descending loop :567), then runs the C level
+// bodies in descending order, each on the values at the head of the window,
+// which moves down one level after each body.  The bodies are one loop of
+// their own that is not unrolled, so the window costs registers (27 (C-1)
+// values live across a body) and not a copy of the body per level.  Windows
+// start at the top level; the last, partial one (137 is prime) loads and
+// runs only the levels that exist, so nothing past them is read or written.
+// paph(k+1) of level k is paph(k) of the level above, carried.  C = 1 is
+// the 17-stream policy's own kernel (cloudsc2_ad_xscat.cu).
+template <typename T, bool EVAP, bool LREGCL, int C>
+__device__ __forceinline__ void sweep_column_shifted(const ShiftedArgs<T>& a,
+                                                     const int ncol,
+                                                     const int nlev,
+                                                     const int64_t col,
+                                                     T* const stash) {
+  const T c[2] = {__ldg(a.in[S_ZTRPAUS] + col), __ldg(a.in[S_PAPH_SFC] + col)};
+  T sr[3] = {T(0.0), T(0.0), T(0.0)};  // adjoint of the carry out of level k
+  T dsfc = T(0.0);  // sum over levels of the paph_sfc cotangent
+  T paph_hi = __ldg(a.in[S_PAPH] + int64_t(nlev) * ncol + col);
+
+  for (int top = nlev - 1; top >= 0; top -= C) {
+    const int n = top + 1 < C ? top + 1 : C;  // levels top ... top - n + 1
+    T w[C][kLevelReads];
+#pragma unroll
+    for (int m = 0; m < C; ++m) {
+      if (m < n) {
+        const int k = top - m;
+        const int64_t i = int64_t(k) * ncol + col;
+        const int k1 = k + 1 < nlev ? k + 1 : nlev - 1;
+#pragma unroll
+        for (int j = 0; j < kFields; ++j) w[m][j] = __ldg(a.in[j] + i);
+        w[m][14] = __ldg(a.in[S_PLU] + int64_t(k1) * ncol + col);
+        w[m][15] = __ldg(a.in[S_PAPH] + i);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) w[m][16 + j] = __ldg(a.in[S_CKPT + j] + i);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) w[m][19 + j] = __ldg(a.in[S_SEED + j] + i);
+      }
+    }
+#pragma unroll 1
+    for (int m = 0; m < n; ++m) {
+      const int k = top - m;
+      const int64_t i = int64_t(k) * ncol + col;
+      T x[17];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) x[j] = w[0][j];
+      x[16] = paph_hi;
+      T r[3], s[8];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) r[j] = w[0][16 + j];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j] = w[0][19 + j];
+      s[6] = s[6] * a.seed_rfl;
+      s[7] = s[7] * a.seed_sfl;
+
+      T gx[17], gsfc, gr[3];
+      Level<EVAP, LREGCL>::run(a.k, __ldg(a.in[S_CETA] + k),
+                               __ldg(a.in[S_ZSCALM] + k), k < nlev - 1, x, c, r,
+                               s, sr, gx, gsfc, gr, stash);
+#pragma unroll
+      for (int j = 0; j < kFields; ++j) a.out[j][i] = gx[j];
+      a.out[O_D_PLU_K1][i] = gx[14];
+      a.out[O_D_PAPH_LO][i] = gx[15];
+      a.paph_hi[i] = gx[16];
+      dsfc = dsfc + gsfc;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) sr[j] = gr[j];
+      paph_hi = x[15];
+#pragma unroll
+      for (int mm = 0; mm + 1 < C; ++mm) {
+#pragma unroll
+        for (int j = 0; j < kLevelReads; ++j) w[mm][j] = w[mm + 1][j];
+      }
+    }
+  }
+  a.paph_sfc[col] = dsfc;
+}
+
+// One thread per column, the ragged last block masked; the budget of the
+// in-place kernel.
+template <typename T, bool EVAP, bool LREGCL, int C>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+    cloudsc2_ad_shifted_kernel(const __grid_constant__ ShiftedArgs<T> a,
+                               const int ncol, const int nlev) {
+  extern __shared__ __align__(16) unsigned char smem[];  // the body's slots
+  const int64_t col = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= ncol) return;
+  sweep_column_shifted<T, EVAP, LREGCL, C>(a, ncol, nlev, col,
+                                           stash_of<T, EVAP, LREGCL>(smem));
+}
+
+template <typename T, bool EVAP, bool LREGCL, int C>
+int launch_shifted_variant(ShiftedArgs<T>& a, const double* params, int ncol,
+                           int nlev, cudaStream_t s) {
+  fill_constants<T, EVAP, LREGCL>(a, params);
+  const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
+  constexpr size_t bytes = stash_bytes<T, EVAP, LREGCL>(kThreads);
+  auto kernel = cloudsc2_ad_shifted_kernel<T, EVAP, LREGCL, C>;
+  const int err = allow_shared(kernel, bytes);
+  if (err != 0) return err;
+  kernel<<<blocks, kThreads, bytes, s>>>(a, ncol, nlev);
+  return int(cudaGetLastError());
+}
+
+// Fills ShiftedArgs from the launcher's pointer arrays (`out` holds
+// N_SHIFTED_OUTPUT pointers) and picks the variant; returns a cudaError_t.
+template <typename T, int C>
+int launch_shifted(const void* const* in, void* const* out,
+                   const double* params, double seed_rfl, double seed_sfl,
+                   int ncol, int nlev, int evap, int lregcl, void* stream) {
+  ShiftedArgs<T> a = {};
+  const int err = fill_args<T>(a, in, out, seed_rfl, seed_sfl, ncol, nlev);
+  if (err != 0) return err;
+  a.paph_hi = static_cast<T*>(out[O_D_PAPH_HI]);
+  a.paph_sfc = static_cast<T*>(out[O_D_PAPH_SFC]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (evap) {
+    return lregcl ? launch_shifted_variant<T, true, true, C>(a, params, ncol, nlev, s)
+                  : launch_shifted_variant<T, true, false, C>(a, params, ncol, nlev, s);
+  }
+  return lregcl ? launch_shifted_variant<T, false, true, C>(a, params, ncol, nlev, s)
+                : launch_shifted_variant<T, false, false, C>(a, params, ncol, nlev, s);
+}
+
 }  // namespace cloudsc2_ad

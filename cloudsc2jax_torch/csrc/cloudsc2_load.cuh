@@ -54,7 +54,8 @@
 //     device memory): pq, plu and paph are never encoded (kNeverEncoded; the
 //     launchers refuse a mask that sets them); the default encoding's mask
 //     (kDefaultMask) has a kernel of its own, any other mask runs the
-//     runtime-mask kernel.
+//     runtime-mask kernel.  EncodedLevelsBf16T: the same for bfloat16
+//     payloads, in libraries of their own.
 //   - The NL sweep (cloudsc2_nl_enc.cu, the table in shared memory): any
 //     stream may be encoded (NEVER is empty), either payload; the default
 //     encoding's mask of each stream order has a kernel of its own.
@@ -181,5 +182,13 @@ template <unsigned FIXED = 0u>
 struct EncodedLevelsT : LevelMajorT<FIXED, kNeverEncoded, false, false> {};
 
 using EncodedLevels = EncodedLevelsT<>;
+
+// The same sweeps' policy for bfloat16 payloads (`encode_blocked_inputs(...,
+// payload_dtype=bfloat16)`, experiments.py:103, :146, which
+// `cloudsc2_pallas_tl_encoded` and `cloudsc2_pallas_ad_encoded` take as they
+// take int16): the shift decode of the encoded NL sweep, pq, plu and paph
+// never encoded.  Used by cloudsc2_tl_enc_bf16.cu and cloudsc2_ad_enc_bf16.cu.
+template <unsigned FIXED = 0u>
+struct EncodedLevelsBf16T : LevelMajorT<FIXED, kNeverEncoded, true, false> {};
 
 }  // namespace cloudsc2_load

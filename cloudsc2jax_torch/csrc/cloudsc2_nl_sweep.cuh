@@ -488,4 +488,93 @@ inline unsigned blocks_for(int ncol, int threads) {
   return unsigned((int64_t(ncol) + threads - 1) / threads);
 }
 
+// ---------------------------------------------------------------------------
+// The checkpointing forward sweep with C levels a step: `_fwd_ckpt_kernel`
+// with `chunk` > 1 (cloudsc2jax/pallas/tlad_kernel.py:405, loop :427, the
+// reads `_chunk_reads` :105), as `cloudsc2_pallas_ad(chunk_levels=C)` runs it
+// before its reverse sweep (:694-711).
+//
+// A step first issues the loads of each of its C levels (16 values a level:
+// the 14 rows, pqs among them, plu(k+1) clamped at the last level and
+// paph(k+1)), the counterpart of the TPU's C-level DMA window, then runs the
+// C level bodies in ascending order, each on the values at the head of the
+// window, which moves up one level after each body; the bodies are one loop
+// that is not unrolled, so the window costs 16 (C-1) live values and not a
+// copy of the body per level.  The last, partial step (137 is prime) loads
+// and runs only the levels that exist.  Every level runs
+// `cloudsc2_fwd_ckpt_kernel`'s body on the same values in the same order, so
+// the outputs and checkpoints are that kernel's bit for bit.
+template <typename T, bool EVAP, int C>
+__device__ __forceinline__ void fwd_ckpt_column_chunked(const Args<T>& a,
+                                                        const int ncol,
+                                                        const int nlev,
+                                                        const int64_t col) {
+  using O = Order<true>;
+  const T* c = a.c;
+  const T ptsphy = c[C_PTSPHY];
+  const T rtt = c[C_RTT];
+  const T rg = c[C_RG];
+  const T ztrpaus = __ldg(a.in[O::ZTRPAUS] + col);
+  const T paph_sfc = __ldg(a.in[O::PAPH_SFC] + col);
+  T zrfl = T(0.0), zsfl = T(0.0), zcovptot = T(0.0);
+  T paph_lo = __ldg(a.in[O::PAPH] + col);
+
+  for (int k0 = 0; k0 < nlev; k0 += C) {
+    const int n = nlev - k0 < C ? nlev - k0 : C;  // levels k0 ... k0 + n - 1
+    // per level: the 14 level rows, plu(k+1), paph(k+1)
+    T w[C][O::PAPH + 1];
+#pragma unroll
+    for (int m = 0; m < C; ++m) {
+      if (m < n) {
+        const int k = k0 + m;
+        const int64_t i = int64_t(k) * ncol + col;
+        const int k1 = k + 1 < nlev ? k + 1 : nlev - 1;
+#pragma unroll
+        for (int j = 0; j < O::PLU; ++j) w[m][j] = __ldg(a.in[j] + i);
+        w[m][O::PLU] = __ldg(a.in[O::PLU] + int64_t(k1) * ncol + col);
+        w[m][O::PAPH] = __ldg(a.in[O::PAPH] + int64_t(k + 1) * ncol + col);
+      }
+    }
+#pragma unroll 1
+    for (int m = 0; m < n; ++m) {
+      const int k = k0 + m;
+      const int64_t i = int64_t(k) * ncol + col;
+      T x[N_VALUE];
+#pragma unroll
+      for (int j = 0; j < O::PLU; ++j) x[j] = w[0][j];
+      x[X_PLU_K1] = w[0][O::PLU];
+      x[X_PAPH_LO] = paph_lo;
+      x[X_PAPH_HI] = w[0][O::PAPH];
+      const T ceta_k = __ldg(a.in[O::CETA] + k);
+      const T zscalm_k = __ldg(a.in[O::ZSCALM] + k);
+      a.ckpt[0][i] = zrfl;
+      a.ckpt[1][i] = zsfl;
+      a.ckpt[2][i] = zcovptot;
+
+      T y[N_OUTPUT];
+      level<T, EVAP>(c, x, ceta_k, zscalm_k, k < nlev - 1, ptsphy, rtt, rg,
+                     ztrpaus, paph_sfc, zrfl, zsfl, zcovptot, y);
+#pragma unroll
+      for (int j = 0; j < N_OUTPUT; ++j) a.out[j][i] = y[j];
+      paph_lo = x[X_PAPH_HI];
+#pragma unroll
+      for (int mm = 0; mm + 1 < C; ++mm) {
+#pragma unroll
+        for (int j = 0; j <= O::PAPH; ++j) w[mm][j] = w[mm + 1][j];
+      }
+    }
+  }
+}
+
+// One thread per column, the ragged last block masked; no register budget,
+// as for cloudsc2_fwd_ckpt_kernel.
+template <typename T, bool EVAP, int C>
+__global__ void __launch_bounds__(kThreads)
+    cloudsc2_fwd_chunk_kernel(const __grid_constant__ Args<T> a, const int ncol,
+                              const int nlev) {
+  const int64_t col = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= ncol) return;
+  fwd_ckpt_column_chunked<T, EVAP, C>(a, ncol, nlev, col);
+}
+
 }  // namespace cloudsc2_nl

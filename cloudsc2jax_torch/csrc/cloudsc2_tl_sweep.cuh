@@ -304,4 +304,169 @@ int launch(const void* const* in, const void* const* din, void* const* out,
                 : launch_variant<T, false, false, D_INPUTS>(a, params, ncol, nlev, wp, s);
 }
 
+// ---------------------------------------------------------------------------
+// C levels a step: `_tl_kernel` with `chunk` > 1 (tlad_kernel.py:170, the
+// loop :220, the reads `_chunk_reads` :105), as `cloudsc2_pallas_tl(...,
+// chunk_levels=C)` (:284) runs it in both modes.  The primal streams are
+// always written (JAX refuses write_primal=False with chunks, :321).
+//
+// A step first issues the loads of each of its C levels (16 values a level,
+// and 16 more with D_INPUTS), the counterpart of the TPU's C-level DMA
+// window, then runs the C level bodies in ascending order, each on the
+// values at the head of the window, which moves up one level after each
+// body.  The bodies are one loop of their own that is not unrolled, so the
+// window costs registers (16 or 32 (C-1) values live across a body) and not
+// a copy of the body per level.  The last, partial step (137 is prime)
+// loads and runs only the levels that exist.  plu(k+1) is clamped at the
+// last level; paph(k+1) of one level is paph(k) of the next, carried from
+// the window's previous level or the previous step's last.  Every level
+// runs the C = 1 kernel's body on the same values in the same order, so the
+// results are that kernel's bit for bit.
+template <typename T, bool EVAP, bool LREGCL, bool D_INPUTS, int C>
+__device__ __forceinline__ void sweep_column_chunked(const Args<T>& a,
+                                                     const int ncol,
+                                                     const int nlev,
+                                                     const int64_t col) {
+  const T dscale = a.dscale;
+  const T c[2] = {__ldg(a.in[S_ZTRPAUS] + col), __ldg(a.in[S_PAPH_SFC] + col)};
+  const T dpaph_sfc =
+      D_INPUTS ? __ldg(a.din[S_PAPH] + int64_t(nlev) * ncol + col)
+               : dscale * c[1];
+  T r[3] = {T(0.0), T(0.0), T(0.0)};
+  T dr[3] = {T(0.0), T(0.0), T(0.0)};
+  T paph_lo = __ldg(a.in[S_PAPH] + col);
+  T dpaph_lo = D_INPUTS ? __ldg(a.din[S_PAPH] + col) : T(0.0);
+
+  for (int k0 = 0; k0 < nlev; k0 += C) {
+    const int n = nlev - k0 < C ? nlev - k0 : C;  // levels k0 ... k0 + n - 1
+    // per level: the 14 level rows, plu(k+1), paph(k+1)
+    T w[C][kTangentStreams];
+    T dw[D_INPUTS ? C : 1][kTangentStreams];
+#pragma unroll
+    for (int m = 0; m < C; ++m) {
+      if (m < n) {
+        const int k = k0 + m;
+        const int64_t i = int64_t(k) * ncol + col;
+        const int k1 = k + 1 < nlev ? k + 1 : nlev - 1;
+        const int64_t i1 = int64_t(k1) * ncol + col;
+        const int64_t ihi = int64_t(k + 1) * ncol + col;
+#pragma unroll
+        for (int j = 0; j < kFields; ++j) w[m][j] = __ldg(a.in[j] + i);
+        w[m][14] = __ldg(a.in[S_PLU] + i1);
+        w[m][15] = __ldg(a.in[S_PAPH] + ihi);
+        if constexpr (D_INPUTS) {
+#pragma unroll
+          for (int j = 0; j < kFields; ++j) dw[m][j] = __ldg(a.din[j] + i);
+          dw[m][14] = __ldg(a.din[S_PLU] + i1);
+          dw[m][15] = __ldg(a.din[S_PAPH] + ihi);
+        }
+      }
+    }
+#pragma unroll 1
+    for (int m = 0; m < n; ++m) {
+      const int k = k0 + m;
+      const int64_t i = int64_t(k) * ncol + col;
+      T x[17];
+#pragma unroll
+      for (int j = 0; j < 15; ++j) x[j] = w[0][j];
+      x[15] = paph_lo;
+      x[16] = w[0][15];
+      T dx[17];
+      if constexpr (D_INPUTS) {
+#pragma unroll
+        for (int j = 0; j < 15; ++j) dx[j] = dw[0][j];
+        dx[15] = dpaph_lo;
+        dx[16] = dw[0][15];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 17; ++j) dx[j] = dscale * x[j];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) a.out[O_CKPT + j][i] = r[j];
+      }
+
+      T y[8], ry[3], dy[8], dry[3];
+      Level<EVAP, LREGCL>::run(a.k, __ldg(a.in[S_CETA] + k),
+                               __ldg(a.in[S_ZSCALM] + k), k < nlev - 1, x, c, r,
+                               dx, dpaph_sfc, dr, y, ry, dy, dry);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) a.out[O_TANGENT + j][i] = dy[j];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) a.out[O_PRIMAL + j][i] = y[j];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        r[j] = ry[j];
+        dr[j] = dry[j];
+      }
+      paph_lo = x[16];
+      dpaph_lo = dx[16];
+#pragma unroll
+      for (int mm = 0; mm + 1 < C; ++mm) {
+#pragma unroll
+        for (int j = 0; j < kTangentStreams; ++j) {
+          w[mm][j] = w[mm + 1][j];
+          if constexpr (D_INPUTS) dw[mm][j] = dw[mm + 1][j];
+        }
+      }
+    }
+  }
+}
+
+// One thread per column, the ragged last block masked; the budget of the
+// C = 1 kernel of the same mode.
+template <typename T, bool EVAP, bool LREGCL, bool D_INPUTS, int C>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, D_INPUTS>))
+    cloudsc2_tl_chunk_kernel(const __grid_constant__ Args<T> a, const int ncol,
+                             const int nlev) {
+  const int64_t col = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= ncol) return;
+  sweep_column_chunked<T, EVAP, LREGCL, D_INPUTS, C>(a, ncol, nlev, col);
+}
+
+template <typename T, bool D_INPUTS, int C>
+int launch_chunk_levels(Args<T>& a, const double* params, int ncol, int nlev,
+                        int evap, int lregcl, cudaStream_t s) {
+  const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
+  if (evap) {
+    if (lregcl) {
+      fill_constants<T, true, true>(a, params);
+      cloudsc2_tl_chunk_kernel<T, true, true, D_INPUTS, C><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+    } else {
+      fill_constants<T, true, false>(a, params);
+      cloudsc2_tl_chunk_kernel<T, true, false, D_INPUTS, C><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+    }
+  } else if (lregcl) {
+    fill_constants<T, false, true>(a, params);
+    cloudsc2_tl_chunk_kernel<T, false, true, D_INPUTS, C><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+  } else {
+    fill_constants<T, false, false>(a, params);
+    cloudsc2_tl_chunk_kernel<T, false, false, D_INPUTS, C><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+  }
+  return int(cudaGetLastError());
+}
+
+// Fills Args from the launcher's pointer arrays (the primal streams always
+// written; with D_INPUTS the checkpoints null) and launches `chunk` levels a
+// step; returns a cudaError_t, cudaErrorInvalidValue for a chunk not built
+// (2, 3 and 4 are).
+template <typename T, bool D_INPUTS>
+int launch_chunked(const void* const* in, const void* const* din,
+                   void* const* out, const double* params, double dscale,
+                   int ncol, int nlev, int evap, int lregcl, int chunk,
+                   void* stream) {
+  Args<T> a = {};
+  const int err = fill_args<T, D_INPUTS>(a, in, din, out, dscale, ncol, nlev, 1);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk) {
+    case 2:
+      return launch_chunk_levels<T, D_INPUTS, 2>(a, params, ncol, nlev, evap, lregcl, s);
+    case 3:
+      return launch_chunk_levels<T, D_INPUTS, 3>(a, params, ncol, nlev, evap, lregcl, s);
+    case 4:
+      return launch_chunk_levels<T, D_INPUTS, 4>(a, params, ncol, nlev, evap, lregcl, s);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace cloudsc2_tl

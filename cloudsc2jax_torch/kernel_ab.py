@@ -5,6 +5,7 @@ each named schedule on one set of inputs and prints one timing line per
 schedule, then one JSON summary line::
 
     python -m cloudsc2jax_torch.kernel_ab two noprim fused enc encnp two
+    python -m cloudsc2jax_torch.kernel_ab noprim xscatnp two xscat chunk:2 chunk:4
 
 Configs:
 
@@ -19,6 +20,14 @@ Configs:
              variant is encoded OUTSIDE the timed region, the premise being
              that the data lives encoded in device memory.
 - ``encnp``  both diets: encoded, and no primal streams.
+- ``xscat``  ``two`` with the reverse sweep under the 17-stream adjoint
+             convention (``cloudsc2_ad(inplace_scatter=False)``): 17
+             shifted-view streams a level, d_plu and d_paph assembled by
+             PyTorch passes after it.  A/B against ``two``.
+- ``xscatnp`` the same without the primal streams; A/B against ``noprim``.
+- ``chunk:<C>`` ``two`` with both sweeps C levels a step
+             (``chunk_levels=C``, C one of the built 2, 3, 4; the reverse
+             sweep under the 17-stream convention, its only one).
 
 A config named twice is run twice and keyed ``name#2``: a drift control.
 Compare configs of ONE invocation only; two invocations may land on cards
@@ -38,10 +47,10 @@ the work.  ``--device cpu`` runs the plain versions under the host's clock
 (for the tests; its times say nothing about a card).
 
 Refused, with a message: a ``:<S>`` sublanes suffix (a TPU layout
-parameter with no meaning here), ``chunk:`` (level-chunked grids) and
-``xscat``/``xscatnp`` (the 17-stream adjoint convention), which the port
-does not carry.  A config that fails to build, launch or run raises, and
-the run exits non-zero.
+parameter with no meaning here), so also the JAX harness's three-part
+``chunk:<S>:<C>``, and a ``chunk`` with no level count or one not built.  A
+config that fails to build, launch or run raises, and the run exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -53,36 +62,56 @@ import subprocess
 import sys
 import time
 
-CONFIGS = ("two", "noprim", "fused", "enc", "encnp")
+CONFIGS = ("two", "noprim", "fused", "enc", "encnp", "xscat", "xscatnp", "chunk")
 DEFAULT_CONFIGS = ("two", "noprim", "fused")
-_NOT_PORTED = {
-    "chunk": "level-chunked grids (chunk_levels) are not ported",
-    "xscat": "the 17-stream adjoint convention (xscat) is not ported",
-    "xscatnp": "the 17-stream adjoint convention (xscatnp) is not ported",
-}
 
 
-def _check_config(cfg: str) -> None:
-    kind, _, rest = cfg.partition(":")
-    if kind in _NOT_PORTED:
-        raise ValueError(f"{cfg}: {_NOT_PORTED[kind]}")
+def _check_config(cfg: str) -> int:
+    """Raise ``ValueError`` for a config this harness does not run; returns
+    its levels a step (1 but for ``chunk:<C>``)."""
+    from .kernels.cloudsc2_kernel import CHUNK_LEVELS
+
+    kind, *args = cfg.split(":")
     if kind not in CONFIGS:
         raise ValueError(f"{cfg}: unknown config, choose from {', '.join(CONFIGS)}")
-    if rest:
+    if len(args) > (kind == "chunk"):
+        hint = "chunk:<C>" if kind == "chunk" else repr(kind)
         raise ValueError(f"{cfg}: a :<S> sublanes suffix is a TPU layout "
-                         f"parameter and has no meaning here; write {kind!r}")
+                         f"parameter and has no meaning here; write {hint}")
+    if kind != "chunk":
+        return 1
+    built = ", ".join(map(str, CHUNK_LEVELS))
+    if not args or not args[0].isdigit() or int(args[0]) not in CHUNK_LEVELS:
+        raise ValueError(f"{cfg}: write chunk:<C> with C levels a step, one of "
+                         f"the built {built}")
+    return int(args[0])
 
 
-def _step_fn(kind: str, params):
+def _step_fn(cfg: str, params):
     """The work of one config on one variant: (outputs | None, tangents,
     input adjoints)."""
     from .drivers import DSCALE, run_tlad
+    from .kernels.cloudsc2_kernel import kernel_prelude
     from .kernels.experiments import (
         cloudsc2_ad_encoded,
         cloudsc2_tl_encoded,
         cloudsc2_tlad_fused,
     )
+    from .kernels.tlad_kernel import cloudsc2_ad, cloudsc2_tl
 
+    kind, chunk = cfg.partition(":")[0], _check_config(cfg)
+    if kind in ("xscat", "xscatnp", "chunk"):
+        # the two-kernel unit of run_tlad with the reverse sweep's
+        # convention or both sweeps' levels a step changed
+        def unit(v):
+            pre = kernel_prelude(v, params)
+            out, dout, ckpts = cloudsc2_tl(
+                v, params, dscale=DSCALE, lregcl=True, write_primal=kind != "xscatnp",
+                pre=pre, chunk_levels=chunk)
+            adj = cloudsc2_ad(v, dout, ckpts, params, lregcl=True, pre=pre,
+                              inplace_scatter=False, chunk_levels=chunk)
+            return out, dout, adj
+        return unit
     if kind == "fused":
         return lambda v: cloudsc2_tlad_fused(v, params, lregcl=True)
     if kind in ("enc", "encnp"):

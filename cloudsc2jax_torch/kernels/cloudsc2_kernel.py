@@ -60,8 +60,10 @@ from ..physics.cloudsc2 import (
 from ..physics.satur import satur
 
 __all__ = [
+    "CHUNK_LEVELS",
     "Cloudsc2StreamOutputs",
     "KernelPrelude",
+    "check_chunk_levels",
     "check_operands",
     "cloudsc2_fwd_ckpt",
     "cloudsc2_fwd_ckpt_reference",
@@ -98,6 +100,11 @@ KERNEL_OUTPUTS = (
 # the checkpointing sweep appends pqs to the streams and the 3 carry-in
 # checkpoints to the outputs (kFwdStreams, kFwdOutputs in the source)
 CHECKPOINTS = ("ckpt_rfl", "ckpt_sfl", "ckpt_covptot")
+# the levels a step may take besides 1 (``chunk_levels``): the chunked
+# libraries' instantiations (the cases of their launchers' switch in
+# csrc/cloudsc2_{fwd,tl,tl_din,ad}_chunk.cu and cloudsc2_tl_sweep.cuh), the
+# JAX tests' 2 and 3 and the JAX harness's example 4
+CHUNK_LEVELS = (2, 3, 4)
 FWD_CKPT_STREAMS = KERNEL_STREAMS + ("pqs",)
 FWD_CKPT_OUTPUTS = KERNEL_OUTPUTS + CHECKPOINTS
 # the resident sweep takes pqs in its place among the level fields
@@ -534,17 +541,28 @@ def cloudsc2_nl_reference(
 
 def cloudsc2_fwd_ckpt_reference(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
-    pre: "KernelPrelude | None" = None,
+    pre: "KernelPrelude | None" = None, chunk_levels: int = 1,
 ) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
     """The plain PyTorch version of the checkpointing forward sweep, on any
     device: ``(outputs, checkpoints)``.  ``inputs.pqs`` is read as it is;
     ``checkpoints`` are the carries (rfl, sfl, covptot) going INTO each
     level, ``(nlev, ncol)`` each.  ``pre`` replaces :func:`kernel_prelude`
-    of ``inputs`` where the caller has it."""
+    of ``inputs`` where the caller has it.  ``chunk_levels`` is checked as
+    the kernels check it and runs the same loop."""
+    check_chunk_levels(chunk_levels)
     if inputs.pqs is None:
         raise ValueError("the checkpointing forward sweep reads pqs")
     return _nl_sweep(inputs, params, ldrain1d, pqs_stream=True,
                      checkpoints=True, pre=pre)
+
+
+def check_chunk_levels(chunk_levels: int) -> int:
+    """``chunk_levels`` as an int; raises ``ValueError`` unless it is 1 or one
+    of the built :data:`CHUNK_LEVELS`, on any device."""
+    if chunk_levels not in (1, *CHUNK_LEVELS):
+        raise ValueError(f"chunk_levels must be 1 or one of the built "
+                         f"{', '.join(map(str, CHUNK_LEVELS))}, got {chunk_levels!r}")
+    return int(chunk_levels)
 
 
 def _need_pqs_stream(inputs: Cloudsc2Inputs) -> None:
@@ -665,6 +683,15 @@ def _load_kernel():
          for suffix in ("f32", "f64")})
 
 
+def _load_fwd_chunk_kernel():
+    argtypes = _NL_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]  # chunk
+    return bind_library(
+        "cloudsc2_fwd_chunk",
+        {"cloudsc2_fwd_chunk_abi": (len(FWD_CKPT_STREAMS), len(FWD_CKPT_OUTPUTS),
+                                    len(KERNEL_CONSTANTS))},
+        {"cloudsc2_fwd_chunk_f32": argtypes, "cloudsc2_fwd_chunk_f64": argtypes})
+
+
 # streams staged per level and the largest block of csrc/cloudsc2_nl_res.cu
 _RESIDENT_STAGED = len(_LEVEL_FIELDS) + 2
 _RESIDENT_MAX_TILE = 256
@@ -755,20 +782,32 @@ def launch_cloudsc2_nl(
 
 def launch_cloudsc2_fwd_ckpt(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
-    ldrain1d: bool = False,
+    ldrain1d: bool = False, chunk_levels: int = 1,
 ) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
     """Launch the checkpointing forward kernel on CUDA tensors, on the
     current stream: ``(outputs, checkpoints)`` like the plain version.
 
     Checks device, dtype, shape and contiguity (pqs included), allocates
     the 8 + 3 outputs, and raises if the launch is refused.  Counts each
-    launch in ``cloudsc2_fwd_ckpt.launches``.
+    launch in ``cloudsc2_fwd_ckpt.launches``; with ``chunk_levels`` C > 1
+    launches the chunked kernel (``csrc/cloudsc2_fwd_chunk.cu``) and counts
+    it in ``cloudsc2_fwd_ckpt.launches_chunked``.
     """
+    chunk_levels = check_chunk_levels(chunk_levels)
     if inputs.pqs is None:
         raise ValueError("the checkpointing forward sweep reads pqs")
-    outs = _launch("cloudsc2_fwd_ckpt", FWD_CKPT_STREAMS, len(FWD_CKPT_OUTPUTS),
-                   inputs, pre, params, ldrain1d)
-    cloudsc2_fwd_ckpt.launches += 1
+    if chunk_levels == 1:
+        outs = _launch("cloudsc2_fwd_ckpt", FWD_CKPT_STREAMS, len(FWD_CKPT_OUTPUTS),
+                       inputs, pre, params, ldrain1d)
+        cloudsc2_fwd_ckpt.launches += 1
+    else:
+        if inputs.pt.device.type != "cuda":  # before the library is built
+            raise ValueError(f"launch_cloudsc2_fwd_chunk needs CUDA tensors, got "
+                             f"{inputs.pt.device}")
+        outs = _launch("cloudsc2_fwd_chunk", FWD_CKPT_STREAMS, len(FWD_CKPT_OUTPUTS),
+                       inputs, pre, params, ldrain1d, lib=_load_fwd_chunk_kernel(),
+                       extra=(chunk_levels,))
+        cloudsc2_fwd_ckpt.launches_chunked += 1
     return Cloudsc2StreamOutputs(*outs[:8]), tuple(outs[8:])
 
 
@@ -873,6 +912,7 @@ def cloudsc2_nl(
 
 def cloudsc2_fwd_ckpt(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
+    chunk_levels: int = 1,
 ) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
     """The checkpointing forward sweep on levels-major inputs with pqs:
     ``(outputs, checkpoints)``.
@@ -880,19 +920,21 @@ def cloudsc2_fwd_ckpt(
     CUDA tensors run the hand-written kernel
     (:func:`launch_cloudsc2_fwd_ckpt`, after :func:`kernel_prelude`); CPU
     tensors run the plain version :func:`cloudsc2_fwd_ckpt_reference`; any
-    other device raises.
+    other device raises.  ``chunk_levels``: C levels a step (1 or one of
+    :data:`CHUNK_LEVELS`), with the same results.
     """
     device = inputs.pt.device
+    kw = dict(ldrain1d=ldrain1d, chunk_levels=chunk_levels)
     if device.type == "cpu":
-        return cloudsc2_fwd_ckpt_reference(inputs, params, ldrain1d=ldrain1d)
+        return cloudsc2_fwd_ckpt_reference(inputs, params, **kw)
     if device.type != "cuda":
         raise ValueError(f"cloudsc2_fwd_ckpt runs on cuda or cpu tensors, not {device}")
     return launch_cloudsc2_fwd_ckpt(inputs, kernel_prelude(inputs, params),
-                                    params, ldrain1d=ldrain1d)
+                                    params, **kw)
 
 
 cloudsc2_nl.launches = 0
-cloudsc2_fwd_ckpt.launches = 0
+cloudsc2_fwd_ckpt.launches = cloudsc2_fwd_ckpt.launches_chunked = 0
 cloudsc2_nl_resident.launches = 0
 
 

@@ -45,10 +45,11 @@ streams encoded, plu and paph included, either payload, and both
 ``fuse_satur`` settings (``cloudsc2_pallas_encoded``,
 ``experiments.py:164``); the default encoding's mask of each stream order
 runs a kernel of its own (:func:`nl_encoded_kernel`).  The TL and AD sweeps
-keep ``pq``, ``plu`` and
-``paph`` as f32 streams and take int16 payloads only, as in the JAX package
-(``_EncGeometry``, ``experiments.py:519-533``); the fused unit runs in float
-and double.
+keep ``pq``, ``plu`` and ``paph`` as f32 streams, as in the JAX package
+(``_EncGeometry``, ``experiments.py:515-536``), and take either payload, one
+per encoding: int16 runs ``csrc/cloudsc2_{tl,ad}_enc.cu``, bfloat16
+``csrc/cloudsc2_{tl,ad}_enc_bf16.cu`` (counted in ``.launches_bf16``); the
+fused unit runs in float and double.
 """
 
 from __future__ import annotations
@@ -244,25 +245,31 @@ def _prelude(enc: EncodedInputs, params: Params) -> KernelPrelude:
                          paph_sfc=enc.paphsfc)
 
 
-def _check_encoded(enc: EncodedInputs, what: str) -> None:
+def _check_encoded(enc: EncodedInputs, what: str) -> torch.dtype:
     """The contract of the encoded TL/AD sweeps (``_EncGeometry``,
-    ``experiments.py:519-533``)."""
+    ``experiments.py:515-536``): 16 streams, pq, plu and paph f32, every
+    other one f32 or a 16-bit payload, one payload dtype per encoding.
+    Returns the payload dtype (int16 where nothing is encoded)."""
     if len(enc.streams) != len(ENCODED_STREAMS):
         raise ValueError(f"{what} needs a fuse_satur=False encoding (pqs "
                          f"kept): {len(ENCODED_STREAMS)} streams, got "
                          f"{len(enc.streams)}")
+    payloads = set()
     for name, s in zip(ENCODED_STREAMS, enc.streams):
-        if s.dtype == torch.bfloat16:
-            raise TypeError(f"{what} takes int16 payloads only: {name} is "
-                            f"bfloat16, the encoded NL sweep's payload")
-        if s.dtype not in (torch.int16, torch.float32):
+        if s.dtype in PAYLOAD_DTYPES:
+            payloads.add(s.dtype)
+        elif s.dtype != torch.float32:
             raise TypeError(f"{what} is f32 only: {name} is {s.dtype}")
         if name in _KEEP_F32 and s.dtype != torch.float32:
             raise ValueError(f"{what} keeps {name} f32, got {s.dtype}")
+    if len(payloads) > 1:
+        raise TypeError(f"{what} takes one payload dtype per encoding, got "
+                        f"int16 and bfloat16 streams")
     for name, x in (("enc", enc.enc), ("ztrpaus", enc.ztrpaus),
                     ("paphsfc", enc.paphsfc)):
         if x.dtype != torch.float32:
             raise TypeError(f"{what} is f32 only: {name} is {x.dtype}")
+    return payloads.pop() if payloads else torch.int16
 
 
 def _check_nl_encoded(enc: EncodedInputs, what: str):
@@ -374,6 +381,11 @@ _LAYOUT = {
 }
 
 
+# the bfloat16 payloads' libraries take the int16 ones' arguments
+_LAYOUT.update({f"{name}_bf16": _LAYOUT[name]
+                for name in ("cloudsc2_tl_enc", "cloudsc2_ad_enc")})
+
+
 def _bind(name: str):
     return tk._bind(name, _LAYOUT[name],
                     ("f32", "f64") if name == "cloudsc2_tlad_fused" else ("f32",))
@@ -382,17 +394,18 @@ def _bind(name: str):
 def _encoded_operands(enc: EncodedInputs, params: Params, ldrain1d: bool,
                       what: str, extra=None):
     """Check an encoding (and the ``extra`` f32 level streams by name) for a
-    launch and return (operands by name, enc_mask).  Every tensor lies
-    contiguous on one CUDA device in the sweep's shape for it; a stream is
-    int16 or f32, everything else f32."""
-    _check_encoded(enc, what)
+    launch and return (operands by name, enc_mask, the suffix of the
+    payload's library: "" for int16, "_bf16").  Every tensor lies contiguous
+    on one CUDA device in the sweep's shape for it; a stream is a 16-bit
+    payload or f32, everything else f32."""
+    payload = _check_encoded(enc, what)
     like = enc.streams[ENCODED_STREAMS.index("pq")]
     if like.device.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {like.device}")
     tk._check_config(params, ldrain1d)
     operands = {**dict(zip(ENCODED_STREAMS, enc.streams)),
                 **_prelude(enc, params)._asdict(), **(extra or {})}
-    encoded = [n for n in ENCODED_STREAMS if operands[n].dtype == torch.int16]
+    encoded = [n for n in ENCODED_STREAMS if operands[n].dtype in PAYLOAD_DTYPES]
     check_operands(operands, [n for n in operands if n not in encoded], like, what)
     nlev, ncol = like.shape
     if enc.levels is None:
@@ -410,7 +423,7 @@ def _encoded_operands(enc: EncodedInputs, params: Params, ldrain1d: bool,
         raise TypeError(f"{what} is f32 only: levels is {enc.levels.dtype}")
     if enc.levels.data_ptr() % 16:
         raise ValueError(f"{what} reads levels as float4: it must be 16 B aligned")
-    return operands, encoded_mask(enc)
+    return operands, encoded_mask(enc), ("_bf16" if payload == torch.bfloat16 else "")
 
 
 def encoded_mask(enc: EncodedInputs) -> int:
@@ -526,20 +539,26 @@ def launch_cloudsc2_tl_encoded(
 
     Checks the encoding's contract, devices, dtypes, shapes and contiguity,
     allocates the outputs, and raises if the launch is refused.  Counts
-    each launch in ``cloudsc2_tl_encoded.launches``."""
+    each launch in ``cloudsc2_tl_encoded.launches``, or, for a bfloat16
+    payload (``csrc/cloudsc2_tl_enc_bf16.cu``), in
+    ``cloudsc2_tl_encoded.launches_bf16``."""
     what = "cloudsc2_tl_encoded"
-    operands, mask = _encoded_operands(enc, params, ldrain1d, what)
+    operands, mask, suffix = _encoded_operands(enc, params, ldrain1d, what)
     like = operands["pq"]
     nlev, ncol = like.shape
-    lib = _bind("cloudsc2_tl_enc")
+    name = "cloudsc2_tl_enc" + suffix
+    lib = _bind(name)
     new = [torch.empty_like(like) for _ in range(8 + 3)]
     prim = [torch.empty_like(like) if write_primal else None for _ in range(8)]
-    tk._call(lib, "cloudsc2_tl_enc", like,
+    tk._call(lib, name, like,
              ([operands[n] for n in tk.TL_STREAMS], new + prim),
              tk._param_array(lib, params), enc.levels.data_ptr(), mask,
              float(dscale), ncol, nlev, int(_evap(params, ldrain1d)),
              int(lregcl), int(write_primal))
-    cloudsc2_tl_encoded.launches += 1
+    if suffix:
+        cloudsc2_tl_encoded.launches_bf16 += 1
+    else:
+        cloudsc2_tl_encoded.launches += 1
     return (Cloudsc2StreamOutputs(*prim) if write_primal else None,
             Cloudsc2StreamOutputs(*new[:8]), tuple(new[8:]))
 
@@ -555,22 +574,28 @@ def launch_cloudsc2_ad_encoded(
     Checks the encoding's contract, devices, dtypes, shapes and contiguity
     (checkpoints and seeds included), allocates the outputs, and raises if
     the launch is refused.  Counts each launch in
-    ``cloudsc2_ad_encoded.launches``."""
+    ``cloudsc2_ad_encoded.launches``, or, for a bfloat16 payload
+    (``csrc/cloudsc2_ad_enc_bf16.cu``), in
+    ``cloudsc2_ad_encoded.launches_bf16``."""
     what = "cloudsc2_ad_encoded"
     extra = {**dict(zip(tk.CHECKPOINTS, checkpoints)),
              **{"seed_" + n: x for n, x in zip(KERNEL_OUTPUTS, d_outputs)}}
-    operands, mask = _encoded_operands(enc, params, ldrain1d, what, extra)
+    operands, mask, suffix = _encoded_operands(enc, params, ldrain1d, what, extra)
     like = operands["pq"]
     nlev, ncol = like.shape
-    lib = _bind("cloudsc2_ad_enc")
+    name = "cloudsc2_ad_enc" + suffix
+    lib = _bind(name)
     outs = [torch.empty_like(like) for _ in _LEVEL_FIELDS] + [
         torch.empty_like(like), torch.empty_like(operands["paph"])]
     scales = tk.seed_scales(params) if fold_seeds else (1.0, 1.0)
-    tk._call(lib, "cloudsc2_ad_enc", like,
+    tk._call(lib, name, like,
              ([operands[n] for n in tk.AD_STREAMS], outs),
              tk._param_array(lib, params), enc.levels.data_ptr(), mask, *scales,
              ncol, nlev, int(_evap(params, ldrain1d)), int(lregcl))
-    cloudsc2_ad_encoded.launches += 1
+    if suffix:
+        cloudsc2_ad_encoded.launches_bf16 += 1
+    else:
+        cloudsc2_ad_encoded.launches += 1
     d = dict(zip(_LEVEL_FIELDS, outs))
     return Cloudsc2Inputs(plu=outs[-2], paph=outs[-1], **d)
 
@@ -687,9 +712,9 @@ def cloudsc2_tl_encoded(
     enc: EncodedInputs, params: Params, *, dscale: float, lregcl: bool = True,
     ldrain1d: bool = False, write_primal: bool = True,
 ):
-    """The ``dscale`` TL sweep over int16-encoded level streams
-    (``cloudsc2_pallas_tl_encoded``, ``experiments.py:603``): returns
-    (outputs | None, tangents, checkpoints), f32.
+    """The ``dscale`` TL sweep over 16-bit-encoded level streams, int16 or
+    bfloat16 (``cloudsc2_pallas_tl_encoded``, ``experiments.py:603``):
+    returns (outputs | None, tangents, checkpoints), f32.
 
     CUDA tensors run the hand-written kernel
     (:func:`launch_cloudsc2_tl_encoded`); CPU tensors run the plain version
@@ -706,8 +731,9 @@ def cloudsc2_ad_encoded(
     checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
     ldrain1d: bool = False, fold_seeds: bool = True,
 ) -> Cloudsc2Inputs:
-    """The reverse sweep over int16-encoded level streams, from the encoded
-    TL sweep's checkpoints (``cloudsc2_pallas_ad_encoded``,
+    """The reverse sweep over 16-bit-encoded level streams, int16 or
+    bfloat16, from the encoded TL sweep's checkpoints
+    (``cloudsc2_pallas_ad_encoded``,
     ``experiments.py:658``): returns the f32 input adjoints, levels-major.
 
     CUDA tensors run the hand-written kernel
@@ -740,6 +766,6 @@ def cloudsc2_tlad_fused(
 
 
 cloudsc2_nl_encoded.launches = 0
-cloudsc2_tl_encoded.launches = 0
-cloudsc2_ad_encoded.launches = 0
+cloudsc2_tl_encoded.launches = cloudsc2_tl_encoded.launches_bf16 = 0
+cloudsc2_ad_encoded.launches = cloudsc2_ad_encoded.launches_bf16 = 0
 cloudsc2_tlad_fused.launches = 0

@@ -19,6 +19,19 @@ input (``Cloudsc2State.device_kernel_inputs(..., pqs=True)``).
   (``_tl_kernel`` without ``dscale``): its kernel
   (``csrc/cloudsc2_tl_din.cu``) reads a second set of 16 streams and
   writes no checkpoints.
+* The schedules JAX keeps beside those: ``chunk_levels`` C in
+  :data:`CHUNK_LEVELS` (C levels a step, ``_tl_kernel``/``_rev_kernel``
+  with ``chunk``; ``csrc/cloudsc2_tl_chunk.cu``,
+  ``csrc/cloudsc2_tl_din_chunk.cu``, ``csrc/cloudsc2_ad_chunk.cu``, and the
+  forward-checkpoint sweep's ``csrc/cloudsc2_fwd_chunk.cu``), and the
+  17-stream adjoint convention (``cloudsc2_ad(inplace_scatter=False)``,
+  ``csrc/cloudsc2_ad_xscat.cu``): the reverse sweep writes the cotangents
+  of all 17 values a level reads at that level's slot
+  (:class:`ShiftedAdjoints`) and :func:`assemble_shifted_adjoints` adds the
+  shifted ones in PyTorch.  Each counts its launches beside the kernel of
+  its wrapper (``cloudsc2_tl.launches_chunked``, ``cloudsc2_ad.launches_xscat``,
+  ...).  The results do not depend on the schedule: every level runs the
+  same body on the same values in the same order.
 * :func:`cloudsc2_tl_reference` and :func:`cloudsc2_ad_reference` are the
   plain versions: a Python loop over levels of ``torch.func.jvp`` of
   :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.level_physics`, and a
@@ -42,7 +55,7 @@ and from levels-major are PyTorch passes outside the kernels;
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,6 +63,7 @@ from ..constants import Params
 from ..physics.cloudsc2 import Cloudsc2Inputs, Cloudsc2Outputs
 from .cloudsc2_kernel import (
     CHECKPOINTS,
+    CHUNK_LEVELS,
     KERNEL_OUTPUTS,
     Checkpoints,
     Cloudsc2StreamOutputs,
@@ -57,6 +71,7 @@ from .cloudsc2_kernel import (
     _LEVEL_FIELDS,
     _check_config,
     _evap,
+    check_chunk_levels,
     check_operands,
     cloudsc2_fwd_ckpt_reference,
     kernel_prelude,
@@ -67,12 +82,18 @@ from .cloudsc2_kernel import (
 
 __all__ = [
     "AD_OUTPUTS",
+    "AD_SHIFTED_OUTPUTS",
     "AD_STREAMS",
+    "CHUNK_LEVELS",
+    "ShiftedAdjoints",
     "TL_OUTPUTS",
     "TL_STREAMS",
     "TL_TANGENT_STREAMS",
+    "assemble_shifted_adjoints",
+    "check_chunk_levels",
     "cloudsc2_ad",
     "cloudsc2_ad_reference",
+    "cloudsc2_ad_streams_reference",
     "cloudsc2_kernel_ad",
     "cloudsc2_kernel_tl",
     "cloudsc2_tl",
@@ -80,6 +101,7 @@ __all__ = [
     "cloudsc2_tl_reference",
     "fold_flux_seeds",
     "launch_cloudsc2_ad",
+    "launch_cloudsc2_ad_streams",
     "launch_cloudsc2_tl",
     "launch_cloudsc2_tl_din",
     "seed_scales",
@@ -95,6 +117,21 @@ TL_TANGENT_STREAMS = _LEVEL_FIELDS + ("plu", "paph")
 TL_OUTPUTS = tuple("d_" + n for n in KERNEL_OUTPUTS) + CHECKPOINTS + KERNEL_OUTPUTS
 AD_STREAMS = _LEVEL_FIELDS + _COMMON + CHECKPOINTS + tuple("seed_" + n for n in KERNEL_OUTPUTS)
 AD_OUTPUTS = tuple("d_" + n for n in _LEVEL_FIELDS) + ("d_plu", "d_paph")
+# the 17-stream convention's outputs (ShiftedOutput in the AD header): the
+# cotangents of a level's 17 reads at its own slot, then the surface row
+AD_SHIFTED_OUTPUTS = tuple("d_" + n for n in _LEVEL_FIELDS) + (
+    "d_plu_k1", "d_paph_lo", "d_paph_hi", "d_paph_sfc")
+
+
+ShiftedAdjoints = NamedTuple("ShiftedAdjoints", [
+    (n.removeprefix("d_"), torch.Tensor) for n in AD_SHIFTED_OUTPUTS])
+ShiftedAdjoints.__doc__ = """The reverse sweep's results under the 17-stream
+convention (``_rev_kernel``, ``tlad_kernel.py:564-610``), levels-major: the
+adjoints of the 14 level rows, then the cotangents of each level's plu(k+1),
+paph(k) and paph(k+1) reads at the level's own slot, each ``(nlev, ncol)``,
+and the sum over levels of the paph_sfc cotangent, ``(ncol,)``; the
+kernels' outputs in their order (:data:`AD_SHIFTED_OUTPUTS`).
+:func:`assemble_shifted_adjoints` makes d_plu and d_paph of them."""
 
 
 def seed_scales(params: Params) -> Tuple[float, float]:
@@ -138,6 +175,45 @@ def _need_pqs(inputs: Cloudsc2Inputs) -> None:
                          "device_kernel_inputs(..., pqs=True)")
 
 
+def _inplace(inplace_scatter: Optional[bool], chunk_levels: int) -> bool:
+    """``inplace_scatter`` resolved as ``cloudsc2_pallas_ad`` resolves it
+    (``tlad_kernel.py:662-668``): on by default for one level a step, and
+    refused with more."""
+    if inplace_scatter is None:
+        return chunk_levels == 1
+    if inplace_scatter and chunk_levels != 1:
+        raise ValueError("inplace_scatter requires chunk_levels == 1 (the "
+                         "17-stream convention is the chunked sweeps' only one)")
+    return bool(inplace_scatter)
+
+
+def _check_primal(write_primal: bool, chunk_levels: int) -> None:
+    if not write_primal and chunk_levels != 1:
+        raise ValueError("write_primal=False requires chunk_levels == 1, as in "
+                         "cloudsc2_pallas_tl")
+
+
+def assemble_shifted_adjoints(d_plu_k1: torch.Tensor, d_paph_lo: torch.Tensor,
+                              d_paph_hi: torch.Tensor, dpaphsfc: torch.Tensor):
+    """``(d_plu, d_paph)`` from the 17-stream convention's shifted
+    cotangents, as ``cloudsc2_pallas_ad`` assembles them
+    (``tlad_kernel.py:790-803``): plu(k+1) read at level k gives ``d_plu[k+1]``
+    (level 0 is never read as k+1; the clamped last-level read has a zero
+    cotangent and is dropped); paph is read as lo(k) and hi(k+1), so ``d_paph
+    = [lo; 0] + [0; hi]``; the surface row adds ``dpaphsfc`` last."""
+    zrow = d_plu_k1.new_zeros((1, d_plu_k1.shape[1]))
+    d_plu = torch.cat([zrow, d_plu_k1[:-1]])
+    d_paph = torch.cat([d_paph_lo, zrow]) + torch.cat([zrow, d_paph_hi])
+    d_paph[-1] = d_paph[-1] + dpaphsfc
+    return d_plu, d_paph
+
+
+def _assembled(streams: ShiftedAdjoints) -> Cloudsc2Inputs:
+    d_plu, d_paph = assemble_shifted_adjoints(*streams[len(_LEVEL_FIELDS):])
+    return Cloudsc2Inputs(plu=d_plu, paph=d_paph,
+                          **dict(zip(_LEVEL_FIELDS, streams)))
+
+
 # ------------------------------------------------------------ plain versions
 def _one_increment(dscale, d_inputs) -> None:
     if (d_inputs is None) == (dscale is None):
@@ -148,7 +224,7 @@ def cloudsc2_tl_reference(
     inputs: Cloudsc2Inputs, params: Params, *, dscale: Optional[float] = None,
     d_inputs: Optional[Cloudsc2Inputs] = None,
     lregcl: bool = True, ldrain1d: bool = False, write_primal: bool = True,
-    pre: Optional[KernelPrelude] = None,
+    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
 ) -> Tuple[Optional[Cloudsc2StreamOutputs], Cloudsc2StreamOutputs, Checkpoints]:
     """Plain TL sweep on any device: returns (outputs | None, tangents,
     checkpoints).
@@ -161,8 +237,12 @@ def cloudsc2_tl_reference(
     (``tlad_kernel.py:238-245``).  ``checkpoints`` are the 3 carries (rfl,
     sfl, covptot) going INTO each level, ``(nlev, ncol)`` each.  ``pre``
     replaces :func:`kernel_prelude` of ``inputs`` where the caller has it.
+    ``chunk_levels`` is checked as the kernels check it (with more than one
+    level a step the primal streams are written) and runs the same loop: the
+    results do not depend on it.
     """
     _one_increment(dscale, d_inputs)
+    _check_primal(write_primal, check_chunk_levels(chunk_levels))
     _check_config(params, ldrain1d)
     _need_pqs(inputs)
     pre = kernel_prelude(inputs, params) if pre is None else pre
@@ -201,6 +281,7 @@ def cloudsc2_ad_reference(
     checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
     ldrain1d: bool = False, fold_seeds: bool = True,
     pre: Optional[KernelPrelude] = None,
+    inplace_scatter: Optional[bool] = None, chunk_levels: int = 1,
 ) -> Cloudsc2Inputs:
     """Plain reverse sweep on any device: the input adjoints, levels-major.
 
@@ -215,8 +296,17 @@ def cloudsc2_ad_reference(
     zero cotangent), ``d_paph[k+1] = hi(k) + lo(k+1)``, ``d_paph[0] =
     lo(0)``, and the surface row adds the sum over levels of the paph_sfc
     cotangent.  ``pre`` replaces :func:`kernel_prelude` of ``inputs`` where
-    the caller has it.
+    the caller has it.  ``inplace_scatter=False`` (the default with
+    ``chunk_levels`` > 1, which takes no other) runs
+    :func:`cloudsc2_ad_streams_reference` and assembles its 17 streams with
+    :func:`assemble_shifted_adjoints`: the same adjoints bit for bit.
     """
+    chunk_levels = check_chunk_levels(chunk_levels)
+    if not _inplace(inplace_scatter, chunk_levels):
+        return _assembled(cloudsc2_ad_streams_reference(
+            inputs, d_outputs, checkpoints, params, lregcl=lregcl,
+            ldrain1d=ldrain1d, fold_seeds=fold_seeds, pre=pre,
+            chunk_levels=chunk_levels))
     _check_config(params, ldrain1d)
     _need_pqs(inputs)
     pre = kernel_prelude(inputs, params) if pre is None else pre
@@ -250,6 +340,42 @@ def cloudsc2_ad_reference(
     return Cloudsc2Inputs(paph=d_paph, plu=d_plu, **d)
 
 
+def cloudsc2_ad_streams_reference(
+    inputs: Cloudsc2Inputs, d_outputs: Cloudsc2StreamOutputs,
+    checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
+    ldrain1d: bool = False, fold_seeds: bool = True,
+    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
+) -> ShiftedAdjoints:
+    """Plain reverse sweep under the 17-stream convention, on any device:
+    the :class:`ShiftedAdjoints` of :func:`cloudsc2_ad_reference`'s loop,
+    each level's 17 cotangents stored at its own slot and the paph_sfc
+    cotangents summed over the levels in the same order.  ``chunk_levels``
+    is checked and does not change the loop."""
+    check_chunk_levels(chunk_levels)
+    _check_config(params, ldrain1d)
+    _need_pqs(inputs)
+    pre = kernel_prelude(inputs, params) if pre is None else pre
+    nlev = inputs.pt.shape[0]
+    srfl, ssfl = seed_scales(params) if fold_seeds else (1.0, 1.0)
+    zero = torch.zeros_like(inputs.pt[0])
+    dcarry = (zero, zero, zero)
+    dsfc = zero
+    cols = (pre.ztrpaus, pre.paph_sfc)
+    streams = [torch.empty_like(inputs.pt) for _ in range(len(_LEVEL_FIELDS) + 3)]
+    for k in reversed(range(nlev)):
+        carry_in = tuple(c[k] for c in checkpoints)
+        _, vjp_fn = torch.func.vjp(
+            _level_fn(params, ldrain1d, lregcl, pre, k, nlev),
+            _level_fields(inputs, k, nlev), cols, carry_in)
+        seeds = tuple(s[k] for s in d_outputs)
+        seeds = seeds[:6] + (seeds[6] * srfl, seeds[7] * ssfl)
+        dfields, dcols, dcarry = vjp_fn((seeds, dcarry))
+        for buf, v in zip(streams, dfields):
+            buf[k] = v
+        dsfc = dsfc + dcols[1]
+    return ShiftedAdjoints(*streams, dsfc)
+
+
 # -------------------------------------------------------------- CUDA kernels
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 # per library: the pointer arrays it takes, then its scalar arguments
@@ -264,6 +390,19 @@ _LAYOUT = {
     "cloudsc2_ad": (
         (AD_STREAMS, AD_OUTPUTS),
         [ctypes.c_double] * 2 + [ctypes.c_int] * 4),  # seed scales; ncol nlev evap lregcl
+    "cloudsc2_ad_xscat": (
+        (AD_STREAMS, AD_SHIFTED_OUTPUTS),
+        [ctypes.c_double] * 2 + [ctypes.c_int] * 4),  # seed scales; ncol nlev evap lregcl
+    # the chunked libraries: as their one-level twins, then chunk
+    "cloudsc2_tl_chunk": (
+        (TL_STREAMS, TL_OUTPUTS),
+        [ctypes.c_double] + [ctypes.c_int] * 5),  # dscale; ncol nlev evap lregcl chunk
+    "cloudsc2_tl_din_chunk": (
+        (TL_STREAMS, TL_TANGENT_STREAMS, TL_OUTPUTS),
+        [ctypes.c_int] * 5),  # ncol nlev evap lregcl chunk
+    "cloudsc2_ad_chunk": (
+        (AD_STREAMS, AD_SHIFTED_OUTPUTS),
+        [ctypes.c_double] * 2 + [ctypes.c_int] * 5),  # seed scales; ncol nlev evap lregcl chunk
 }
 
 
@@ -332,27 +471,36 @@ def _call(lib, name: str, like: torch.Tensor, arrays, *args) -> None:
 def launch_cloudsc2_tl(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
     dscale: float, ldrain1d: bool = False, write_primal: bool = True,
-    lregcl: bool = True,
+    lregcl: bool = True, chunk_levels: int = 1,
 ):
     """Launch the TL kernel on CUDA tensors, on the current stream: returns
     (outputs | None, tangents, checkpoints) like the plain version.
 
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
-    ``cloudsc2_tl.launches``."""
+    ``cloudsc2_tl.launches``; with ``chunk_levels`` C > 1 launches the
+    chunked kernel (``csrc/cloudsc2_tl_chunk.cu``, primal streams written)
+    and counts it in ``cloudsc2_tl.launches_chunked``."""
+    chunk_levels = check_chunk_levels(chunk_levels)
+    _check_primal(write_primal, chunk_levels)
     _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_tl")
     operands = {**inputs._asdict(), **pre._asdict()}
     check_operands(operands, TL_STREAMS, inputs.pt, "cloudsc2_tl")
     nlev, ncol = inputs.pt.shape
-    lib = _bind("cloudsc2_tl")
+    name = "cloudsc2_tl" if chunk_levels == 1 else "cloudsc2_tl_chunk"
+    lib = _bind(name)
     new = [torch.empty_like(inputs.pt) for _ in range(8 + 3)]
     prim = [torch.empty_like(inputs.pt) if write_primal else None
             for _ in range(8)]
-    _call(lib, "cloudsc2_tl", inputs.pt,
+    last = (int(write_primal),) if chunk_levels == 1 else (chunk_levels,)
+    _call(lib, name, inputs.pt,
           ([operands[n] for n in TL_STREAMS], new + prim),
           _param_array(lib, params), float(dscale), ncol, nlev,
-          int(_evap(params, ldrain1d)), int(lregcl), int(write_primal))
-    cloudsc2_tl.launches += 1
+          int(_evap(params, ldrain1d)), int(lregcl), *last)
+    if chunk_levels == 1:
+        cloudsc2_tl.launches += 1
+    else:
+        cloudsc2_tl.launches_chunked += 1
     return (Cloudsc2StreamOutputs(*prim) if write_primal else None,
             Cloudsc2StreamOutputs(*new[:8]), tuple(new[8:]))
 
@@ -360,13 +508,18 @@ def launch_cloudsc2_tl(
 def launch_cloudsc2_tl_din(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, pre: KernelPrelude,
     params: Params, *, ldrain1d: bool = False, lregcl: bool = False,
+    chunk_levels: int = 1,
 ) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2StreamOutputs]:
     """Launch the streamed-increment TL kernel on CUDA tensors, on the
     current stream: returns (outputs, tangents).
 
     Checks device, dtype, shape and contiguity of the inputs and of the 16
     tangent streams, allocates the 8 + 8 outputs, and raises if the launch
-    is refused.  Counts each launch in ``cloudsc2_tl_din.launches``."""
+    is refused.  Counts each launch in ``cloudsc2_tl_din.launches``; with
+    ``chunk_levels`` C > 1 launches the chunked kernel
+    (``csrc/cloudsc2_tl_din_chunk.cu``) and counts it in
+    ``cloudsc2_tl_din.launches_chunked``."""
+    chunk_levels = check_chunk_levels(chunk_levels)
     _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_tl_din")
     _need_pqs(d_inputs)
     operands = {**inputs._asdict(), **pre._asdict()}
@@ -375,16 +528,21 @@ def launch_cloudsc2_tl_din(
     check_operands(tangents, TL_TANGENT_STREAMS, inputs.pt,
                    "cloudsc2_tl_din (tangents)")
     nlev, ncol = inputs.pt.shape
-    lib = _bind("cloudsc2_tl_din")
+    name = "cloudsc2_tl_din" if chunk_levels == 1 else "cloudsc2_tl_din_chunk"
+    lib = _bind(name)
     dout = [torch.empty_like(inputs.pt) for _ in range(8)]
     prim = [torch.empty_like(inputs.pt) for _ in range(8)]
-    _call(lib, "cloudsc2_tl_din", inputs.pt,
+    _call(lib, name, inputs.pt,
           ([operands[n] for n in TL_STREAMS],
            [tangents[n] for n in TL_TANGENT_STREAMS],
            dout + [None] * 3 + prim),
           _param_array(lib, params), ncol, nlev,
-          int(_evap(params, ldrain1d)), int(lregcl))
-    cloudsc2_tl_din.launches += 1
+          int(_evap(params, ldrain1d)), int(lregcl),
+          *(() if chunk_levels == 1 else (chunk_levels,)))
+    if chunk_levels == 1:
+        cloudsc2_tl_din.launches += 1
+    else:
+        cloudsc2_tl_din.launches_chunked += 1
     return Cloudsc2StreamOutputs(*prim), Cloudsc2StreamOutputs(*dout)
 
 
@@ -418,6 +576,42 @@ def launch_cloudsc2_ad(
     return Cloudsc2Inputs(plu=outs[-2], paph=outs[-1], **d)
 
 
+def launch_cloudsc2_ad_streams(
+    inputs: Cloudsc2Inputs, pre: KernelPrelude, d_outputs: Cloudsc2StreamOutputs,
+    checkpoints: Checkpoints, params: Params, *, ldrain1d: bool = False,
+    lregcl: bool = True, fold_seeds: bool = True, chunk_levels: int = 1,
+) -> ShiftedAdjoints:
+    """Launch the reverse-adjoint kernel of the 17-stream convention on CUDA
+    tensors, on the current stream: returns the raw :class:`ShiftedAdjoints`
+    like :func:`cloudsc2_ad_streams_reference`.
+
+    One level a step runs ``csrc/cloudsc2_ad_xscat.cu`` and counts in
+    ``cloudsc2_ad.launches_xscat``; ``chunk_levels`` C > 1 runs
+    ``csrc/cloudsc2_ad_chunk.cu`` and counts in
+    ``cloudsc2_ad.launches_chunked``.  Checks as :func:`launch_cloudsc2_ad`."""
+    chunk_levels = check_chunk_levels(chunk_levels)
+    _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_ad_streams")
+    operands = {**inputs._asdict(), **pre._asdict(),
+                **dict(zip(CHECKPOINTS, checkpoints)),
+                **{"seed_" + n: x for n, x in zip(KERNEL_OUTPUTS, d_outputs)}}
+    check_operands(operands, AD_STREAMS, inputs.pt, "cloudsc2_ad")
+    nlev, ncol = inputs.pt.shape
+    name = "cloudsc2_ad_xscat" if chunk_levels == 1 else "cloudsc2_ad_chunk"
+    lib = _bind(name)
+    outs = [torch.empty_like(inputs.pt) for _ in range(len(_LEVEL_FIELDS) + 3)]
+    outs.append(torch.empty_like(inputs.pt[0]))
+    scales = seed_scales(params) if fold_seeds else (1.0, 1.0)
+    _call(lib, name, inputs.pt, ([operands[n] for n in AD_STREAMS], outs),
+          _param_array(lib, params), *scales, ncol, nlev,
+          int(_evap(params, ldrain1d)), int(lregcl),
+          *(() if chunk_levels == 1 else (chunk_levels,)))
+    if chunk_levels == 1:
+        cloudsc2_ad.launches_xscat += 1
+    else:
+        cloudsc2_ad.launches_chunked += 1
+    return ShiftedAdjoints(*outs)
+
+
 # ------------------------------------------------------------------ wrappers
 def _device(inputs: Cloudsc2Inputs, what: str) -> str:
     kind = inputs.pt.device.type
@@ -429,7 +623,7 @@ def _device(inputs: Cloudsc2Inputs, what: str) -> str:
 def cloudsc2_tl(
     inputs: Cloudsc2Inputs, params: Params, *, dscale: float,
     lregcl: bool = True, ldrain1d: bool = False, write_primal: bool = True,
-    pre: Optional[KernelPrelude] = None,
+    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
 ):
     """The TL sweep with in-register increments ``dscale·x``: returns
     (outputs | None, tangents, checkpoints).
@@ -437,9 +631,11 @@ def cloudsc2_tl(
     CUDA tensors run the hand-written kernel (:func:`launch_cloudsc2_tl`);
     CPU tensors run the plain version :func:`cloudsc2_tl_reference`; any
     other device raises.  ``pre`` is :func:`kernel_prelude` of ``inputs``
-    where the caller has it (computed here otherwise)."""
+    where the caller has it (computed here otherwise).  ``chunk_levels``: C
+    levels a step (1 or one of :data:`CHUNK_LEVELS`; with more than one the
+    primal streams are written, as ``cloudsc2_pallas_tl`` requires)."""
     kw = dict(dscale=dscale, lregcl=lregcl, ldrain1d=ldrain1d,
-              write_primal=write_primal)
+              write_primal=write_primal, chunk_levels=chunk_levels)
     if _device(inputs, "cloudsc2_tl") == "cpu":
         return cloudsc2_tl_reference(inputs, params, pre=pre, **kw)
     pre = kernel_prelude(inputs, params) if pre is None else pre
@@ -449,23 +645,22 @@ def cloudsc2_tl(
 def cloudsc2_tl_din(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
     lregcl: bool = False, ldrain1d: bool = False,
-    pre: Optional[KernelPrelude] = None,
+    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
 ) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2StreamOutputs]:
     """The TL sweep with streamed increments ``d_inputs`` (levels-major,
     shaped like ``inputs``): returns (outputs, tangents), 8 streams each.
 
     CUDA tensors run the hand-written kernel
     (:func:`launch_cloudsc2_tl_din`); CPU tensors run the plain version
-    :func:`cloudsc2_tl_reference`; any other device raises.  ``pre`` as for
-    :func:`cloudsc2_tl`."""
+    :func:`cloudsc2_tl_reference`; any other device raises.  ``pre`` and
+    ``chunk_levels`` as for :func:`cloudsc2_tl`."""
+    kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, chunk_levels=chunk_levels)
     if _device(inputs, "cloudsc2_tl_din") == "cpu":
-        out, dout, _ = cloudsc2_tl_reference(
-            inputs, params, d_inputs=d_inputs, lregcl=lregcl, ldrain1d=ldrain1d,
-            pre=pre)
+        out, dout, _ = cloudsc2_tl_reference(inputs, params, d_inputs=d_inputs,
+                                             pre=pre, **kw)
         return out, dout
     pre = kernel_prelude(inputs, params) if pre is None else pre
-    return launch_cloudsc2_tl_din(inputs, d_inputs, pre, params, lregcl=lregcl,
-                                  ldrain1d=ldrain1d)
+    return launch_cloudsc2_tl_din(inputs, d_inputs, pre, params, **kw)
 
 
 def cloudsc2_ad(
@@ -473,6 +668,7 @@ def cloudsc2_ad(
     checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
     ldrain1d: bool = False, fold_seeds: bool = True,
     pre: Optional[KernelPrelude] = None,
+    inplace_scatter: Optional[bool] = None, chunk_levels: int = 1,
 ) -> Cloudsc2Inputs:
     """The reverse sweep from a forward sweep's carry checkpoints, seeded
     with 8 raw cotangent streams: returns the input adjoints, levels-major.
@@ -480,18 +676,30 @@ def cloudsc2_ad(
 
     CUDA tensors run the hand-written kernel (:func:`launch_cloudsc2_ad`);
     CPU tensors run the plain version :func:`cloudsc2_ad_reference`; any
-    other device raises.  ``pre`` as for :func:`cloudsc2_tl`."""
+    other device raises.  ``pre`` as for :func:`cloudsc2_tl`.
+    ``inplace_scatter`` as ``cloudsc2_pallas_ad`` takes it (default on for
+    one level a step, refused with more): off, the kernel writes the 17
+    streams of :func:`launch_cloudsc2_ad_streams` and
+    :func:`assemble_shifted_adjoints` adds them up, with the same results.
+    ``chunk_levels``: C levels a step (1 or one of :data:`CHUNK_LEVELS`)."""
+    chunk_levels = check_chunk_levels(chunk_levels)
+    inplace = _inplace(inplace_scatter, chunk_levels)
     kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, fold_seeds=fold_seeds)
     if _device(inputs, "cloudsc2_ad") == "cpu":
         return cloudsc2_ad_reference(inputs, d_outputs, checkpoints, params,
-                                     pre=pre, **kw)
+                                     pre=pre, inplace_scatter=inplace,
+                                     chunk_levels=chunk_levels, **kw)
     pre = kernel_prelude(inputs, params) if pre is None else pre
-    return launch_cloudsc2_ad(inputs, pre, d_outputs, checkpoints, params, **kw)
+    if inplace:
+        return launch_cloudsc2_ad(inputs, pre, d_outputs, checkpoints, params, **kw)
+    return _assembled(launch_cloudsc2_ad_streams(
+        inputs, pre, d_outputs, checkpoints, params, chunk_levels=chunk_levels,
+        **kw))
 
 
-cloudsc2_tl.launches = 0
-cloudsc2_tl_din.launches = 0
-cloudsc2_ad.launches = 0
+cloudsc2_tl.launches = cloudsc2_tl.launches_chunked = 0
+cloudsc2_tl_din.launches = cloudsc2_tl_din.launches_chunked = 0
+cloudsc2_ad.launches = cloudsc2_ad.launches_xscat = cloudsc2_ad.launches_chunked = 0
 
 
 # ------------------------------------------------------ the standard contract
@@ -524,7 +732,7 @@ def seed_streams(d_outputs: Cloudsc2Outputs, params: Params,
 def cloudsc2_kernel_tl(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
     lregcl: bool = False, ldrain1d: bool = False, levels_major: bool = False,
-    pre: Optional[KernelPrelude] = None,
+    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
 ) -> Tuple[Cloudsc2Outputs, Cloudsc2Outputs]:
     """Tangent-linear CLOUDSC2 through the streamed-increment sweep:
     returns (outputs, d_outputs) in the 10-field contract.
@@ -534,11 +742,13 @@ def cloudsc2_kernel_tl(
     nlev+1)``), or levels-major ones with ``levels_major``, which come back
     in the same layout.  CUDA tensors run :func:`cloudsc2_tl_din`'s kernel,
     CPU tensors its plain version.  ``pre`` is :func:`kernel_prelude` of the
-    levels-major inputs where the caller has it."""
+    levels-major inputs where the caller has it; ``chunk_levels`` as for
+    :func:`cloudsc2_tl_din`."""
     if not levels_major:
         inputs, d_inputs = to_levels_major(inputs), to_levels_major(d_inputs)
     out, dout = cloudsc2_tl_din(inputs, d_inputs, params, lregcl=lregcl,
-                                ldrain1d=ldrain1d, pre=pre)
+                                ldrain1d=ldrain1d, pre=pre,
+                                chunk_levels=chunk_levels)
     return (unblock_outputs(out, params, levels_major),
             unblock_outputs(dout, params, levels_major))
 
@@ -546,7 +756,8 @@ def cloudsc2_kernel_tl(
 def cloudsc2_kernel_ad(
     inputs: Cloudsc2Inputs, d_outputs: Cloudsc2Outputs, params: Params, *,
     lregcl: bool = True, ldrain1d: bool = False, levels_major: bool = False,
-    pre: Optional[KernelPrelude] = None,
+    pre: Optional[KernelPrelude] = None, inplace_scatter: Optional[bool] = None,
+    chunk_levels: int = 1,
 ) -> Tuple[Cloudsc2Outputs, Cloudsc2Inputs]:
     """Adjoint CLOUDSC2 through the checkpointing forward sweep and the
     reverse sweep: returns (outputs, input_adjoints).
@@ -557,20 +768,24 @@ def cloudsc2_kernel_ad(
     :func:`seed_streams` folds it into the 8 seed streams, so the reverse
     sweep applies no (1 + L²) fold of its own.  CUDA tensors run the two
     kernels after one :func:`kernel_prelude` for both (``pre`` where the
-    caller has it), CPU tensors their plain versions."""
+    caller has it), CPU tensors their plain versions.  ``chunk_levels``
+    runs both sweeps C levels a step, and ``inplace_scatter`` picks the
+    reverse sweep's convention, as for :func:`cloudsc2_ad`."""
+    chunk_levels = check_chunk_levels(chunk_levels)
+    inplace = _inplace(inplace_scatter, chunk_levels)
     if not levels_major:
         inputs = to_levels_major(inputs)
     seeds = seed_streams(d_outputs, params, levels_major)
     kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, fold_seeds=False)
     if _device(inputs, "cloudsc2_kernel_ad") == "cpu":
         out, ckpts = cloudsc2_fwd_ckpt_reference(inputs, params, ldrain1d=ldrain1d,
-                                                 pre=pre)
-        adj = cloudsc2_ad_reference(inputs, seeds, ckpts, params, pre=pre, **kw)
+                                                 pre=pre, chunk_levels=chunk_levels)
     else:
         pre = kernel_prelude(inputs, params) if pre is None else pre
-        out, ckpts = launch_cloudsc2_fwd_ckpt(inputs, pre, params,
-                                              ldrain1d=ldrain1d)
-        adj = launch_cloudsc2_ad(inputs, pre, seeds, ckpts, params, **kw)
+        out, ckpts = launch_cloudsc2_fwd_ckpt(inputs, pre, params, ldrain1d=ldrain1d,
+                                              chunk_levels=chunk_levels)
+    adj = cloudsc2_ad(inputs, seeds, ckpts, params, pre=pre, inplace_scatter=inplace,
+                      chunk_levels=chunk_levels, **kw)
     if not levels_major:
         adj = Cloudsc2Inputs(*(x.T for x in adj))
     return unblock_outputs(out, params, levels_major), adj

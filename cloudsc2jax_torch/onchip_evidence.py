@@ -24,7 +24,9 @@ A ``json`` step is ok when it exits 0 and prints a JSON line whose
 0.  The exit code is non-zero when any step's last attempt failed.
 
 The battery: the bench's variants (``nl``; ``tlad`` with and without the
-primal streams; ``chunked_tlad``), ``kernel_ab``'s configurations, the
+primal streams; ``chunked_tlad``), ``kernel_ab``'s configurations (with
+``ab_scatter_speedup_noprim`` and ``_two`` derived, the 17-stream
+convention's time over the in-place scatter's), the
 window probe's plain stream and the mixes of ``chip_smoke.py`` phase 16
 (plain and compute-weighted), the CUDA-gated tests
 (``tests/test_torch_cuda.py`` with ``--noconftest``: the card's machine has
@@ -52,7 +54,11 @@ DEFAULT_OUT = ROOT / "build" / "onchip_evidence.json"
 
 # the window probe at 327,680 columns: 40 blocks of 64 sublanes x 128
 PROBE_NB = "40"
-AB_CONFIGS = ["two", "noprim", "fused", "enc", "encnp", "two"]
+# the reverse sweep's two conventions on both contracts (the in-place scatter
+# against the 17-stream assembly, as the JAX battery's round-5 A/B takes
+# them), two levels a step, the experiments, and `two` again for drift
+AB_CONFIGS = ["noprim", "xscatnp", "two", "xscat", "chunk:2", "fused", "enc",
+              "encnp", "two"]
 
 
 def preflight(timeout_s: int = 120) -> str:
@@ -182,6 +188,12 @@ def derive(results: dict) -> dict:
     ab = results.get("kernel_ab", {}).get("record", {}).get("configs", {})
     if ab:
         d["kernel_ab_ms"] = {k: v["ms"] for k, v in ab.items()}
+    # same-invocation ratios of the 17-stream convention to the in-place
+    # scatter, per contract (tools/onchip_evidence.py:282-288)
+    for inplace, xscat, label in (("noprim", "xscatnp", "noprim"),
+                                  ("two", "xscat", "two")):
+        if ab.get(inplace, {}).get("ms") and ab.get(xscat, {}).get("ms"):
+            d[f"ab_scatter_speedup_{label}"] = ab[xscat]["ms"] / ab[inplace]["ms"]
     return d
 
 

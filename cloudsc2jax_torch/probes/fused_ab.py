@@ -29,7 +29,17 @@ CONFIGS = ("two", "fused", "fused", "two")
 def main(argv) -> int:
     processes = int(argv[0]) if argv else 3
     root = pathlib.Path(argv[1] if len(argv) > 1 else ".").resolve()
-    configs = tuple(argv[2:]) or CONFIGS
+    summary = medians(processes, root, tuple(argv[2:]) or CONFIGS)
+    if summary is None:
+        return 1
+    print(json.dumps(summary))
+    return 0
+
+
+def medians(processes: int, root: pathlib.Path, configs) -> dict:
+    """Run ``kernel_ab`` with ``configs`` in ``processes`` processes, print
+    each process's readings as a JSON line, and return the summary (card,
+    readings, median ms per config); None if a process failed."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -41,18 +51,17 @@ def main(argv) -> int:
             capture_output=True, text=True, cwd=root, env=env, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
-            return 1
+            return None
         summary = json.loads(proc.stdout.strip().splitlines()[-1])["configs"]
         for name, r in readings.items():
             r.append([v["ms"] for k, v in summary.items()
                       if k.split("#")[0] == name])
         print(json.dumps({"root": str(root), "process": n + 1,
                           **{k: v[-1] for k, v in readings.items()}}), flush=True)
-    medians = {name: statistics.median(statistics.mean(r) for r in rs)
-               for name, rs in readings.items()}
-    print(json.dumps({"card": card, "root": str(root), "processes": processes,
-                      "readings": readings, "median_ms": medians}))
-    return 0
+    return {"card": card, "root": str(root), "processes": processes,
+            "readings": readings,
+            "median_ms": {name: statistics.median(statistics.mean(r) for r in rs)
+                          for name, rs in readings.items()}}
 
 
 if __name__ == "__main__":

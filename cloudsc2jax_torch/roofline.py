@@ -109,7 +109,23 @@ KERNELS = {
                                ops=(("ad", False, True),)),
     # the window probe at the NL mix: 15 reads, 8 writes of a + s*b
     "bw_probe": Traffic(reads=15, writes=8, prelude=False, ops=("probe", 8)),
+    # the 17-stream adjoint convention: each level's 17 cotangents at its
+    # own slot and the surface row's sum, where the in-place kernel writes
+    # 16 rows a level and paph's surface row
+    "cloudsc2_ad_xscat": Traffic(reads=27, read_extra=1, writes=17, write_extra=1,
+                                 ops=(("ad", False, True),)),
 }
+# the schedules that move what another kernel moves: C levels a step (the
+# bytes of one level a step: the same streams, each read and written once)
+# and the bfloat16 payloads (the int16 payloads' bytes)
+KERNELS.update({
+    "cloudsc2_fwd_chunk": KERNELS["cloudsc2_fwd_ckpt"],
+    "cloudsc2_tl_chunk": KERNELS["cloudsc2_tl"],
+    "cloudsc2_tl_din_chunk": KERNELS["cloudsc2_tl_din"],
+    "cloudsc2_ad_chunk": KERNELS["cloudsc2_ad_xscat"],
+    "cloudsc2_tl_enc_bf16": KERNELS["cloudsc2_tl_enc"],
+    "cloudsc2_ad_enc_bf16": KERNELS["cloudsc2_ad_enc"],
+})
 
 
 def level_statements(kind: str, evap: bool, lregcl: bool) -> int:

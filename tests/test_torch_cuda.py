@@ -897,3 +897,179 @@ def test_cuda_dryrun_and_chunked_mesh_without_sync():
     assert n == 65536
     ref = run_chunked(st, 65536, variant="nl", chunk=32768 * mesh.size)[1]
     assert abs(total - ref) <= 1e-5 * abs(ref)
+
+
+# --------------------------------- the schedules (chip_smoke.py's phase 21)
+CHUNKS = (2, 3, 4)
+
+
+def _flat(*trees):
+    out = []
+    for t in trees:
+        if t is None:
+            continue
+        out += [t] if isinstance(t, torch.Tensor) else _flat(*t)
+    return out
+
+
+def _same_or_within(got, want, tol):
+    """Bit for bit, or else within ``tol`` of each output's max (a schedule
+    that nvcc compiles with other contractions; the distance is printed)."""
+    got, want = _flat(got), _flat(want)
+    assert len(got) == len(want)
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return
+    rel = _rel_err(got, want)
+    print(f"not bit for bit: max rel err {rel:.3e} (tol {tol:g})")
+    assert rel <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ncol", [100, 5001])
+def test_cuda_xscat_ad_assembles_the_inplace_adjoints(dtype, ncol):
+    """The 17-stream AD kernel's streams, assembled in PyTorch, equal the
+    in-place AD kernel's adjoints bit for bit, seeds folded and not."""
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    x = st.device_kernel_inputs(ncol, dtype=dtype, device="cuda", pqs=True)
+    pre = kmod.kernel_prelude(x, st.params)
+    _, dout, ck = tk.launch_cloudsc2_tl(x, pre, st.params, dscale=DSCALE)
+    for fold in (True, False):
+        launches = tk.cloudsc2_ad.launches_xscat
+        xscat = tk.cloudsc2_ad(x, dout, ck, st.params, fold_seeds=fold,
+                               inplace_scatter=False)
+        assert tk.cloudsc2_ad.launches_xscat == launches + 1
+        inplace = tk.cloudsc2_ad(x, dout, ck, st.params, fold_seeds=fold)
+        assert _equal(xscat, inplace) and len(xscat) == len(inplace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ncol", [100, 5001])
+def test_cuda_chunked_kernels_equal_one_level_a_step(dtype, ncol):
+    """The chunked TL, streamed-increment TL, forward-checkpoint and
+    17-stream AD kernels at C = 2, 3, 4 against their one-level kernels."""
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+    from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    p = st.params
+    x = st.device_kernel_inputs(ncol, dtype=dtype, device="cuda", pqs=True)
+    pre = kmod.kernel_prelude(x, p)
+    dx = Cloudsc2Inputs(*(DSCALE * v for v in x))
+    tol_tl, tol_ad = TLAD_TOL[dtype]
+    tol_nl = 5e-6 if dtype == torch.float32 else 1e-12
+    tl = tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE)
+    din = tk.launch_cloudsc2_tl_din(x, dx, pre, p)
+    fwd = kmod.launch_cloudsc2_fwd_ckpt(x, pre, p)
+    raw = tk.launch_cloudsc2_ad_streams(x, pre, tl[1], tl[2], p)
+    for c in CHUNKS:
+        _same_or_within(tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE, chunk_levels=c),
+                        tl, tol_tl)
+        _same_or_within(tk.launch_cloudsc2_tl_din(x, dx, pre, p, chunk_levels=c),
+                        din, tol_tl)
+        _same_or_within(kmod.launch_cloudsc2_fwd_ckpt(x, pre, p, chunk_levels=c),
+                        fwd, tol_nl)
+        _same_or_within(tk.launch_cloudsc2_ad_streams(x, pre, tl[1], tl[2], p,
+                                                      chunk_levels=c), raw, tol_ad)
+    with pytest.raises(ValueError, match="built 2, 3, 4"):
+        tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE, chunk_levels=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncol", [100, 5001])
+@pytest.mark.parametrize("keep_f32", [("pq", "plu", "paph"),
+                                      ("pq", "plu", "paph", "pt", "pmfu")])
+def test_cuda_bf16_encoded_kernels_equal_the_exact_kernels(ncol, keep_f32):
+    """The encoded TL and AD kernels on a bfloat16 encoding equal the exact
+    kernels on the decoded inputs bit for bit, both write_primal settings."""
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    p = st.params
+    x = st.device_kernel_inputs(ncol, dtype=torch.float32, device="cuda", pqs=True)
+    enc = ex.encode_blocked_inputs(x, p, fuse_satur=False, keep_f32=keep_f32,
+                                   payload_dtype=torch.bfloat16)
+    launches = (ex.cloudsc2_tl_encoded.launches_bf16, ex.cloudsc2_ad_encoded.launches_bf16)
+    tl = ex.cloudsc2_tl_encoded(enc, p, dscale=DSCALE)
+    tln = ex.cloudsc2_tl_encoded(enc, p, dscale=DSCALE, write_primal=False)
+    adj = ex.cloudsc2_ad_encoded(enc, tl[1], tl[2], p)
+    assert (ex.cloudsc2_tl_encoded.launches_bf16,
+            ex.cloudsc2_ad_encoded.launches_bf16) == (launches[0] + 2, launches[1] + 1)
+    decoded, pre = ex.decode_inputs(enc), ex._prelude(enc, p)
+    assert _equal(_flat(tl), _flat(tk.launch_cloudsc2_tl(decoded, pre, p, dscale=DSCALE)))
+    assert tln[0] is None and _equal(_flat(tln), _flat(tk.launch_cloudsc2_tl(
+        decoded, pre, p, dscale=DSCALE, write_primal=False)))
+    assert _equal(adj, tk.launch_cloudsc2_ad(decoded, pre, tl[1], tl[2], p))
+
+
+def _kernel_launches(x, params):
+    """Every kernel library of the port, one launch each on the inputs ``x``
+    (f32, with pqs), by name: a function returning the launch's outputs."""
+    from cloudsc2jax_torch import bw_probe
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+    from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
+
+    p = params
+    pre = kmod.kernel_prelude(x, p)
+    dx = Cloudsc2Inputs(*(DSCALE * v for v in x))
+    _, dout, ck = tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE)
+    enc = {t: ex.encode_blocked_inputs(x, p, fuse_satur=False, payload_dtype=t)
+           for t in (torch.int16, torch.bfloat16)}
+    runs = {
+        "nl": lambda: kmod.launch_cloudsc2_nl(x, pre, p),
+        "fwd_ckpt": lambda: kmod.launch_cloudsc2_fwd_ckpt(x, pre, p),
+        "nl_res": lambda: kmod.launch_cloudsc2_nl_resident(x, pre, p),
+        "nl_enc": lambda: ex.launch_cloudsc2_nl_encoded(ex.encode_blocked_inputs(x, p), p),
+        "tl": lambda: tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE),
+        "tl_din": lambda: tk.launch_cloudsc2_tl_din(x, dx, pre, p),
+        "ad": lambda: tk.launch_cloudsc2_ad(x, pre, dout, ck, p),
+        "tlad_fused": lambda: ex.launch_cloudsc2_tlad_fused(x, pre, p),
+        "tl_enc": lambda: ex.launch_cloudsc2_tl_encoded(enc[torch.int16], p, dscale=DSCALE),
+        "ad_enc": lambda: ex.launch_cloudsc2_ad_encoded(enc[torch.int16], dout, ck, p),
+        "bw_probe": lambda: bw_probe.launch_window_stream([x.pt + j for j in range(15)],
+                                                          2.0, 8),
+        "ad_xscat": lambda: tk.launch_cloudsc2_ad_streams(x, pre, dout, ck, p),
+        "tl_enc_bf16": lambda: ex.launch_cloudsc2_tl_encoded(enc[torch.bfloat16], p,
+                                                             dscale=DSCALE),
+        "ad_enc_bf16": lambda: ex.launch_cloudsc2_ad_encoded(enc[torch.bfloat16], dout,
+                                                             ck, p),
+        "tl_chunk": lambda: tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE, chunk_levels=2),
+        "tl_din_chunk": lambda: tk.launch_cloudsc2_tl_din(x, dx, pre, p, chunk_levels=3),
+        "fwd_chunk": lambda: kmod.launch_cloudsc2_fwd_ckpt(x, pre, p, chunk_levels=4),
+        "ad_chunk": lambda: tk.launch_cloudsc2_ad_streams(x, pre, dout, ck, p,
+                                                          chunk_levels=2),
+    }
+    return runs
+
+
+KERNEL_LIBRARIES = ("nl", "fwd_ckpt", "nl_res", "nl_enc", "tl", "tl_din", "ad",
+                    "tlad_fused", "tl_enc", "ad_enc", "bw_probe", "ad_xscat",
+                    "tl_enc_bf16", "ad_enc_bf16", "tl_chunk", "tl_din_chunk",
+                    "fwd_chunk", "ad_chunk")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", KERNEL_LIBRARIES)
+def test_cuda_kernels_are_deterministic(name):
+    """Two launches of each kernel library on the same inputs give the same
+    bits (a ragged 5,001 f32 columns; the plain versions' half of this runs
+    on the CPU in test_torch_schedules.py)."""
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    x = st.device_kernel_inputs(5001, dtype=torch.float32, device="cuda", pqs=True)
+    run = _kernel_launches(x, st.params)[name]
+    first, second = _flat(run()), _flat(run())
+    torch.cuda.synchronize()
+    assert first and all(torch.equal(a, b) for a, b in zip(first, second))

@@ -290,8 +290,8 @@ def test_kernel_ab_runs_every_config_on_the_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("cfg,message", [
-    ("chunk:64:2", "chunk_levels"),
-    ("xscat:64", "17-stream"),
+    ("chunk:64:2", "sublanes"),
+    ("xscat:64", "sublanes"),
     ("two:64", "sublanes"),
     ("resident", "unknown config"),
 ])

@@ -293,14 +293,26 @@ def test_nl_experiments_refuse_what_they_do_not_take(jax_side):
 
 
 def test_encoded_tl_and_ad_refuse_the_bf16_payload(jax_side):
+    """The encoded TL and AD take a bfloat16 encoding (held against the JAX
+    package in ``test_torch_schedules.py``) but refuse a bfloat16 payload
+    where the JAX package's ``_EncGeometry`` does: in pq, plu or paph, which
+    stay f32, and beside int16 payloads in one encoding."""
     tin, p = jax_side["tin"], jax_side["params"]
     b16 = ex.encode_blocked_inputs(tin, p, fuse_satur=False,
                                    payload_dtype=torch.bfloat16)
     seeds = kmod.Cloudsc2StreamOutputs(*(tin.pt,) * 8)
-    with pytest.raises(TypeError, match="int16 payloads only"):
-        ex.cloudsc2_tl_encoded(b16, p, dscale=DSCALE)
-    with pytest.raises(TypeError, match="int16 payloads only"):
-        ex.cloudsc2_ad_encoded(b16, seeds, (tin.pt,) * 3, p)
+    i16 = ex.encode_blocked_inputs(tin, p, fuse_satur=False)
+    mixed = b16._replace(streams=(i16.streams[0],) + b16.streams[1:])
+    with pytest.raises(TypeError, match="one payload dtype"):
+        ex.cloudsc2_tl_encoded(mixed, p, dscale=DSCALE)
+    with pytest.raises(TypeError, match="one payload dtype"):
+        ex.cloudsc2_ad_encoded(mixed, seeds, (tin.pt,) * 3, p)
+    kept = list(b16.streams)
+    kept[ex.ENCODED_STREAMS.index("plu")] = kept[0]
+    with pytest.raises(ValueError, match="keeps plu f32"):
+        ex.cloudsc2_tl_encoded(b16._replace(streams=tuple(kept)), p, dscale=DSCALE)
+    out = ex.cloudsc2_tl_encoded(b16, p, dscale=DSCALE)
+    assert all(torch.isfinite(x).all() for x in out[1])
 
 
 # --------------------------------------------------- order of the C arguments

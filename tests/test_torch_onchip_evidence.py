@@ -98,7 +98,7 @@ def test_list_and_battery(capsys):
     assert "--kernels" in battery["cli_tlad"][0]
     assert "--noconftest" in battery["cuda_tests"][0]
     # every mix of chip_smoke.py phase 16, plain and compute-weighted
-    assert sum(n.startswith("probe_") for n in names) == 1 + 7 + 5
+    assert sum(n.startswith("probe_") for n in names) == 1 + 8 + 5
     with pytest.raises(SystemExit):
         oe.main(["--steps", "nope", "--no-preflight"])
 

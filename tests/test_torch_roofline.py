@@ -45,6 +45,11 @@ def moved():
     enc = ex.encode_blocked_inputs(x, p, fuse_satur=False)
     tl_enc = ex.cloudsc2_tl_encoded(enc, p, dscale=DSCALE)
     enc_in = _nbytes(enc.streams, enc.enc, pre)
+    b16 = ex.encode_blocked_inputs(x, p, fuse_satur=False,
+                                   payload_dtype=torch.bfloat16)
+    tl_b16 = ex.cloudsc2_tl_encoded(b16, p, dscale=DSCALE)
+    b16_in = _nbytes(b16.streams, b16.enc, pre)
+    ad_in = _nbytes(x, pre, tl[1], tl[2])
     arrs = [torch.rand(NLEV, NCOL) for _ in range(15)]
     return {
         "cloudsc2_nl": _nbytes(nl_in, km.kernel_prelude(nl_in, p), km.cloudsc2_nl(nl_in, p)),
@@ -60,6 +65,18 @@ def moved():
         "cloudsc2_ad_enc": enc_in + _nbytes(
             tl_enc[1], tl_enc[2], ex.cloudsc2_ad_encoded(enc, tl_enc[1], tl_enc[2], p)),
         "bw_probe": _nbytes(arrs, bw_probe.window_stream(arrs, 2.0, 8)),
+        "cloudsc2_ad_xscat": ad_in + _nbytes(
+            tk.cloudsc2_ad_streams_reference(x, tl[1], tl[2], p)),
+        "cloudsc2_ad_chunk": ad_in + _nbytes(
+            tk.cloudsc2_ad_streams_reference(x, tl[1], tl[2], p, chunk_levels=2)),
+        "cloudsc2_fwd_chunk": _nbytes(x, pre, km.cloudsc2_fwd_ckpt(x, p, chunk_levels=2)),
+        "cloudsc2_tl_chunk": _nbytes(x, pre, tk.cloudsc2_tl(x, p, dscale=DSCALE,
+                                                            chunk_levels=2)),
+        "cloudsc2_tl_din_chunk": _nbytes(
+            x, pre, dx, tk.cloudsc2_tl_din(x, dx, p, chunk_levels=2)[:2]),
+        "cloudsc2_tl_enc_bf16": b16_in + _nbytes(tl_b16),
+        "cloudsc2_ad_enc_bf16": b16_in + _nbytes(
+            tl_b16[1], tl_b16[2], ex.cloudsc2_ad_encoded(b16, tl_b16[1], tl_b16[2], p)),
     }
 
 
