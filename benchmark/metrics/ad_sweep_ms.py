@@ -1,0 +1,9 @@
+"""ad_sweep_ms: device milliseconds per traced call of the reverse (AD) sweep:
+the ``cloudsc2.ad_sweep`` span's self time around the hand-written kernel's
+launch, timed by the program's CUDA events."""
+
+from benchmark import program_spans
+
+
+def read(ctx):
+    return program_spans.self_ms(ctx, "ad_sweep")

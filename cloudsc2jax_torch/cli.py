@@ -65,12 +65,20 @@ Observability and golden files, as in the reference (dwarf_cloudsc.F90):
   ``(ncol, nlev)`` contract.  The file is ``reference.npz``, not the JAX
   package's ``reference.h5``: the port's fixtures are ``.npz`` and the card's
   machine has no ``h5py``; ``--reference`` reads either.
-* ``EC_PMON=1`` reads the host's energy counter at the start and prints
-  ``EC_PMON: energy=… J over …s`` after the table (:func:`timer.energy_probe`;
-  nothing is printed where no counter can be read).
+* ``EC_PMON=1`` reads an energy counter at the start and prints
+  ``EC_PMON: energy=… J over …s (<counter>)`` after the table
+  (:func:`timer.energy_probe`): the cards' own through NVML on a card, else
+  the host's; nothing is printed where no counter can be read.
 * ``--profile DIR`` runs everything after the input's expansion under
   ``torch.profiler`` (CPU activity, and CUDA activity on a card) and writes
-  a Chrome trace into ``DIR``.
+  a Chrome trace into ``DIR``, then prints the table of the port's spans
+  (:mod:`cloudsc2jax_torch.spans`, ranges ``cloudsc2.<span>`` in the
+  trace): per span its calls, its self device ms a call (CUDA events on a
+  card, the host's clock on the CPU), its host ms a call and its share of
+  the ``run_nl``/``run_tlad`` spans' device time.  The spans: ``run_nl``,
+  ``run_tlad`` (one per call and lane), ``prelude``, ``nl_sweep``,
+  ``tl_sweep``, ``fwd_sweep``, ``ad_sweep``, ``increments``,
+  ``levels_major``, ``contract``.
 """
 
 from __future__ import annotations
@@ -151,16 +159,36 @@ def profiled(directory, device):
         return
     from torch.profiler import ProfilerActivity, profile
 
+    from . import spans
+
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     path = pathlib.Path(directory)
     path.mkdir(parents=True, exist_ok=True)
+    spans.clear()
     with profile(activities=activities) as prof:
         yield
     trace = path / f"cloudsc2jax_torch.{os.getpid()}.pt.trace.json"
     prof.export_chrome_trace(str(trace))
     print(f"profile written to {trace}", file=sys.stderr)
+    print_spans(spans.summary(), sys.stderr)
+
+
+def print_spans(summary: dict, file) -> None:
+    """The table of :func:`spans.summary`: per span its calls, self device
+    ms and host ms a call, and its self time's share of the entry spans'
+    (``run_nl``, ``run_tlad``) device time."""
+    from . import spans
+
+    entries = sum(s["device_ms"] for name, s in summary.items()
+                  if name in (spans.PREFIX + "run_nl", spans.PREFIX + "run_tlad"))
+    print(f"{'span':>24} {'calls':>7} {'self ms/call':>13} {'host ms/call':>13}"
+          f" {'% of run':>9}", file=file)
+    for name, s in sorted(summary.items(), key=lambda kv: -kv[1]["self_ms"]):
+        share = 100.0 * s["self_ms"] / entries if entries else float("nan")
+        print(f"{name:>24} {s['count']:>7} {s['self_ms'] / s['count']:>13.4f}"
+              f" {s['host_ms'] / s['count']:>13.4f} {share:>9.2f}", file=file)
 
 
 # f32 verdict of the adjoint identity through the kernels: the JAX

@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import spans
 from .constants import Params
 from .dist import ColumnMesh
 from .kernels.cloudsc2_kernel import cloudsc2_nl, kernel_prelude, unblock_outputs
@@ -84,15 +85,20 @@ def run_nl(
     if mesh is not None:
         return _map_lanes(mesh, inputs, partial(run_nl, params=params,
                                                 ldrain1d=ldrain1d, backend=backend))
-    if backend == "streams":
-        return cloudsc2_nl(inputs, params, ldrain1d=ldrain1d)
-    if backend == "kernels":
-        lm = to_levels_major(inputs._replace(pqs=None))
-        return unblock_outputs(cloudsc2_nl(lm, params, ldrain1d=ldrain1d), params)
-    if backend == "truth":
+    _check_backend(backend)
+    with spans.span("run_nl", inputs.pt):
+        if backend == "streams":
+            return cloudsc2_nl(inputs, params, ldrain1d=ldrain1d)
+        if backend == "kernels":
+            lm = to_levels_major(inputs._replace(pqs=None))
+            return unblock_outputs(cloudsc2_nl(lm, params, ldrain1d=ldrain1d), params)
         return cloudsc2(inputs, params, ldrain1d=ldrain1d)
-    raise ValueError(f"backend must be 'streams', 'kernels' or 'truth', "
-                     f"not {backend!r}")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in ("streams", "kernels", "truth"):
+        raise ValueError(f"backend must be 'streams', 'kernels' or 'truth', "
+                         f"not {backend!r}")
 
 
 def _tree_map(fn, tree):
@@ -229,28 +235,28 @@ def run_tlad(
     if not write_primal and backend != "streams":
         raise ValueError("write_primal=False requires backend='streams' "
                          f"(got {backend!r})")
-    if backend == "streams":
-        pre = kernel_prelude(inputs, params)
-        out, dout, ckpts = cloudsc2_tl(inputs, params, dscale=DSCALE, lregcl=lregcl,
-                                       ldrain1d=ldrain1d, write_primal=write_primal,
-                                       pre=pre)
-        adj = cloudsc2_ad(inputs, dout, ckpts, params, lregcl=lregcl,
-                          ldrain1d=ldrain1d, pre=pre)
-        return out, dout, adj
-    if backend == "kernels":
-        lm = to_levels_major(inputs)
-        d_lm = Cloudsc2Inputs(*(DSCALE * x for x in lm))
-        kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, levels_major=True,
-                  pre=kernel_prelude(lm, params))
-        out, dout = cloudsc2_kernel_tl(lm, d_lm, params, **kw)
-        _, adj = cloudsc2_kernel_ad(lm, dout, params, **kw)
-        return tuple(type(t)(*(x.T for x in t)) for t in (out, dout, adj))
-    if backend == "truth":
+    _check_backend(backend)
+    with spans.span("run_tlad", inputs.pt):
+        if backend == "streams":
+            pre = kernel_prelude(inputs, params)
+            out, dout, ckpts = cloudsc2_tl(inputs, params, dscale=DSCALE, lregcl=lregcl,
+                                           ldrain1d=ldrain1d, write_primal=write_primal,
+                                           pre=pre)
+            adj = cloudsc2_ad(inputs, dout, ckpts, params, lregcl=lregcl,
+                              ldrain1d=ldrain1d, pre=pre)
+            return out, dout, adj
+        if backend == "kernels":
+            lm = to_levels_major(inputs)
+            with spans.span("increments", lm.pt):
+                d_lm = Cloudsc2Inputs(*(DSCALE * x for x in lm))
+            kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, levels_major=True,
+                      pre=kernel_prelude(lm, params))
+            out, dout = cloudsc2_kernel_tl(lm, d_lm, params, **kw)
+            _, adj = cloudsc2_kernel_ad(lm, dout, params, **kw)
+            return tuple(type(t)(*(x.T for x in t)) for t in (out, dout, adj))
         unit = partial(_truth_unit, params=params, lregcl=lregcl,
                        ldrain1d=ldrain1d, remat=remat)
         return unit(inputs) if nproma is None else map_columns(unit, inputs, nproma)
-    raise ValueError(f"backend must be 'streams', 'kernels' or 'truth', "
-                     f"not {backend!r}")
 
 
 def _map_lanes(mesh: ColumnMesh, inputs, fn) -> list:

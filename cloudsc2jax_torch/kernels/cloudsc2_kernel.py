@@ -44,6 +44,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import spans
 from ..constants import Params
 from ..ops import damp_tangent
 from ..ops import maximum as _maximum
@@ -472,6 +473,7 @@ def _level_scalars(ceta: Tuple[float, ...], dtype: torch.dtype,
     return ceta, _ZSCAL * torch.clamp_min(ceta - 0.2, _ZEPS1) ** 0.2
 
 
+@spans.spanned("prelude")
 def kernel_prelude(inputs: Cloudsc2Inputs, params: Params) -> KernelPrelude:
     """ceta, zscalm, the tropopause eta and the surface pressure, in the
     working dtype on the inputs' device (``_Layout.__init__``, :582-591)."""
@@ -526,6 +528,7 @@ def _nl_sweep(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool, *,
     return Cloudsc2StreamOutputs(*outs), ckpts
 
 
+@spans.spanned("nl_sweep")
 def cloudsc2_nl_reference(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
 ) -> Cloudsc2StreamOutputs:
@@ -539,6 +542,7 @@ def cloudsc2_nl_reference(
                      checkpoints=False)[0]
 
 
+@spans.spanned("fwd_sweep")
 def cloudsc2_fwd_ckpt_reference(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
     pre: "KernelPrelude | None" = None, chunk_levels: int = 1,
@@ -764,6 +768,7 @@ def _launch(entry: str, streams, n_outputs: int, inputs: Cloudsc2Inputs,
     return outs
 
 
+@spans.spanned("nl_sweep")
 def launch_cloudsc2_nl(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
     ldrain1d: bool = False,
@@ -780,6 +785,7 @@ def launch_cloudsc2_nl(
     return Cloudsc2StreamOutputs(*outs)
 
 
+@spans.spanned("fwd_sweep")
 def launch_cloudsc2_fwd_ckpt(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
     ldrain1d: bool = False, chunk_levels: int = 1,
@@ -938,6 +944,7 @@ cloudsc2_fwd_ckpt.launches = cloudsc2_fwd_ckpt.launches_chunked = 0
 cloudsc2_nl_resident.launches = 0
 
 
+@spans.spanned("contract")
 def unblock_outputs(out: Cloudsc2StreamOutputs, params: Params,
                     levels_major: bool = False) -> Cloudsc2Outputs:
     """Raw streams -> the :class:`Cloudsc2Outputs` contract (flux top row +

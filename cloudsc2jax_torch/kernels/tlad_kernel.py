@@ -59,6 +59,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import spans
 from ..constants import Params
 from ..physics.cloudsc2 import Cloudsc2Inputs, Cloudsc2Outputs
 from .cloudsc2_kernel import (
@@ -193,6 +194,7 @@ def _check_primal(write_primal: bool, chunk_levels: int) -> None:
                          "cloudsc2_pallas_tl")
 
 
+@spans.spanned("contract")
 def assemble_shifted_adjoints(d_plu_k1: torch.Tensor, d_paph_lo: torch.Tensor,
                               d_paph_hi: torch.Tensor, dpaphsfc: torch.Tensor):
     """``(d_plu, d_paph)`` from the 17-stream convention's shifted
@@ -220,6 +222,7 @@ def _one_increment(dscale, d_inputs) -> None:
         raise ValueError("provide exactly one of d_inputs or dscale")
 
 
+@spans.spanned("tl_sweep")
 def cloudsc2_tl_reference(
     inputs: Cloudsc2Inputs, params: Params, *, dscale: Optional[float] = None,
     d_inputs: Optional[Cloudsc2Inputs] = None,
@@ -276,6 +279,7 @@ def cloudsc2_tl_reference(
             Cloudsc2StreamOutputs(*douts), ckpts)
 
 
+@spans.spanned("ad_sweep")
 def cloudsc2_ad_reference(
     inputs: Cloudsc2Inputs, d_outputs: Cloudsc2StreamOutputs,
     checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
@@ -340,6 +344,7 @@ def cloudsc2_ad_reference(
     return Cloudsc2Inputs(paph=d_paph, plu=d_plu, **d)
 
 
+@spans.spanned("ad_sweep")
 def cloudsc2_ad_streams_reference(
     inputs: Cloudsc2Inputs, d_outputs: Cloudsc2StreamOutputs,
     checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
@@ -468,6 +473,7 @@ def _call(lib, name: str, like: torch.Tensor, arrays, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
+@spans.spanned("tl_sweep")
 def launch_cloudsc2_tl(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
     dscale: float, ldrain1d: bool = False, write_primal: bool = True,
@@ -505,6 +511,7 @@ def launch_cloudsc2_tl(
             Cloudsc2StreamOutputs(*new[:8]), tuple(new[8:]))
 
 
+@spans.spanned("tl_sweep")
 def launch_cloudsc2_tl_din(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, pre: KernelPrelude,
     params: Params, *, ldrain1d: bool = False, lregcl: bool = False,
@@ -546,6 +553,7 @@ def launch_cloudsc2_tl_din(
     return Cloudsc2StreamOutputs(*prim), Cloudsc2StreamOutputs(*dout)
 
 
+@spans.spanned("ad_sweep")
 def launch_cloudsc2_ad(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, d_outputs: Cloudsc2StreamOutputs,
     checkpoints: Checkpoints, params: Params, *, ldrain1d: bool = False,
@@ -576,6 +584,7 @@ def launch_cloudsc2_ad(
     return Cloudsc2Inputs(plu=outs[-2], paph=outs[-1], **d)
 
 
+@spans.spanned("ad_sweep")
 def launch_cloudsc2_ad_streams(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, d_outputs: Cloudsc2StreamOutputs,
     checkpoints: Checkpoints, params: Params, *, ldrain1d: bool = False,
@@ -703,6 +712,7 @@ cloudsc2_ad.launches = cloudsc2_ad.launches_xscat = cloudsc2_ad.launches_chunked
 
 
 # ------------------------------------------------------ the standard contract
+@spans.spanned("levels_major")
 def to_levels_major(tree):
     """``(ncol, nlev)`` fields -> contiguous levels-major ``(nlev, ncol)``
     tensors, as the same NamedTuple.  A field that already is a transposed
@@ -711,6 +721,7 @@ def to_levels_major(tree):
     return type(tree)(*(None if x is None else x.T.contiguous() for x in tree))
 
 
+@spans.spanned("contract")
 def seed_streams(d_outputs: Cloudsc2Outputs, params: Params,
                  levels_major: bool = False) -> Cloudsc2StreamOutputs:
     """Cloudsc2Outputs cotangents -> the 8 per-level seed streams,

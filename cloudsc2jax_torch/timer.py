@@ -15,13 +15,16 @@ lane's share on its own card with CUDA events (``measured`` rows).  With a
 process group, ``print_performance(gather=True)`` gathers every rank's
 records to rank 0, which prints rank rows, a ``TOTAL @ rank#N`` row per rank
 and a grand total (the MPI_GATHER of timer_mod.F90:124-171).  With
-``EC_PMON=1`` the host's energy counter is read at the start and printed
-after the table (:func:`energy_probe`, the native shim's reading first).
+``EC_PMON=1`` an energy counter is read at the start and printed after the
+table (:func:`energy_probe`): on CUDA lanes the cards' own (NVML's total
+energy), else the host's (the native shim's reading first); the line says
+which counter was read.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import os
 import sys
@@ -38,8 +41,11 @@ __all__ = ["ZHPM", "PerformanceTimer", "energy_probe"]
 ZHPM = 3996006.0
 
 
-# The counters energy_probe reads, in its order: Cray's pm_counters, which
-# the reference reads (ec_pmon_mod.F90:14-56), then Linux's RAPL powercap.
+# The counters energy_probe reads, in its order: the cards' own through NVML
+# (the library ships with the driver), then the host's: Cray's pm_counters,
+# which the reference reads (ec_pmon_mod.F90:14-56), then Linux's RAPL
+# powercap.
+NVML_LIB = "libnvidia-ml.so.1"
 CRAY_ENERGY = "/sys/cray/pm_counters/energy"
 CRAY_POWER = "/sys/cray/pm_counters/power"
 RAPL_ENERGY_UJ = "/sys/class/powercap/intel-rapl:0/energy_uj"
@@ -53,29 +59,86 @@ def _read_first(path) -> Optional[str]:
         return None
 
 
-def energy_probe() -> Optional[Dict[str, float]]:
-    """The host's energy counter when ``EC_PMON=1`` (``cloudsc2jax/timer.py:
-    40-68``): the native shim's ``energy_uj`` first (power not available:
-    NaN), then ``{"energy_j", "power_w"}`` from Cray's pm_counters, else from
-    RAPL (power NaN); ``None`` when not requested or when no counter can be
-    read."""
+def _load_nvml():
+    """NVML, or None where the driver's library cannot be loaded."""
+    try:
+        lib = ctypes.CDLL(NVML_LIB)
+    except OSError:
+        return None
+    for name, args in (("nvmlInit_v2", []), ("nvmlShutdown", []),
+                       ("nvmlDeviceGetHandleByIndex_v2",
+                        [ctypes.c_uint, ctypes.POINTER(ctypes.c_void_p)]),
+                       ("nvmlDeviceGetTotalEnergyConsumption",
+                        [ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    return lib
+
+
+def _nvml_index(card: int) -> int:
+    """NVML's index of the CUDA device ``card``: its entry of
+    ``CUDA_VISIBLE_DEVICES`` where that lists indices."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+    if card < len(visible) and visible[card].strip().isdigit():
+        return int(visible[card])
+    return card
+
+
+def card_energy_j(cards: Sequence[int]) -> Optional[float]:
+    """The joules the CUDA devices ``cards`` have used since their driver
+    loaded (``nvmlDeviceGetTotalEnergyConsumption``, millijoules), summed;
+    None where NVML or any card's counter cannot be read."""
+    lib = _load_nvml()
+    if lib is None or lib.nvmlInit_v2() != 0:
+        return None
+    try:
+        total = 0
+        for card in cards:
+            handle = ctypes.c_void_p()
+            mj = ctypes.c_ulonglong()
+            if (lib.nvmlDeviceGetHandleByIndex_v2(ctypes.c_uint(_nvml_index(card)),
+                                                  ctypes.byref(handle)) != 0
+                    or lib.nvmlDeviceGetTotalEnergyConsumption(
+                        handle, ctypes.byref(mj)) != 0):
+                return None
+            total += mj.value
+        return total * 1e-3
+    finally:
+        lib.nvmlShutdown()
+
+
+def energy_probe(cards: Sequence[int] = ()) -> Optional[Dict[str, float]]:
+    """An energy counter when ``EC_PMON=1`` (``cloudsc2jax/timer.py:
+    40-68``): ``{"energy_j", "power_w", "counter"}``.  With ``cards`` (CUDA
+    device indices) the cards' own through NVML (:func:`card_energy_j`,
+    power NaN), else the host's: the native shim's ``energy_uj`` (power
+    NaN), Cray's pm_counters, RAPL (power NaN); ``counter`` names the one
+    read.  ``None`` when not requested or when no counter can be read."""
     if os.environ.get("EC_PMON") != "1":
         return None
+    if cards:
+        joules = card_energy_j(cards)
+        if joules is not None:
+            return {"energy_j": joules, "power_w": float("nan"),
+                    "counter": "NVML, card " + ",".join(map(str, cards))}
     from .native import hostinfo
 
     uj = hostinfo.energy_uj()
     if uj > 0:
-        return {"energy_j": uj * 1e-6, "power_w": float("nan")}
+        return {"energy_j": uj * 1e-6, "power_w": float("nan"),
+                "counter": "host, native shim"}
     cray_e = _read_first(CRAY_ENERGY)
     if cray_e is not None:
         cray_p = _read_first(CRAY_POWER)
         return {
             "energy_j": float(cray_e.split()[0]),
             "power_w": float(cray_p.split()[0]) if cray_p else float("nan"),
+            "counter": "host, " + CRAY_ENERGY,
         }
     rapl = _read_first(RAPL_ENERGY_UJ)
     if rapl is not None:
-        return {"energy_j": float(rapl) * 1e-6, "power_w": float("nan")}
+        return {"energy_j": float(rapl) * 1e-6, "power_w": float("nan"),
+                "counter": "host, " + RAPL_ENERGY_UJ}
     return None
 
 
@@ -118,6 +181,7 @@ class PerformanceTimer:
         self._t0 = None
         self._t1 = None
         self._energy0 = None
+        self._cards = [d.index for d in self._devices if d.type == "cuda"]
 
     def _now(self) -> float:
         for d in self._devices:
@@ -140,7 +204,7 @@ class PerformanceTimer:
 
     # -- lifecycle (timer_mod.F90:56-112)
     def start(self, num_lanes: int = 1):
-        self._energy0 = energy_probe()
+        self._energy0 = energy_probe(self._cards)
         self._t0 = self._now()
         for i in range(num_lanes):
             self._lane(i)
@@ -263,10 +327,12 @@ class PerformanceTimer:
             f" {nproma:>8} {1e3*t:>12.1f} {mflops:>12.0f} {cols/t:>14.0f}",
             file=file,
         )
-        e1 = energy_probe()
-        if self._energy0 is not None and e1 is not None:
+        e1 = energy_probe(self._cards)
+        if (self._energy0 is not None and e1 is not None
+                and e1["counter"] == self._energy0["counter"]):
             de = e1["energy_j"] - self._energy0["energy_j"]
-            print(f"EC_PMON: energy={de:.1f} J over {t:.3f}s", file=file)
+            print(f"EC_PMON: energy={de:.1f} J over {t:.3f}s ({e1['counter']})",
+                  file=file)
         return cols / t
 
     def _gather_records(self, zhpm: float) -> torch.Tensor:

@@ -225,3 +225,45 @@ def test_ec_pmon_through_the_cli(monkeypatch, tmp_path, capsys, cray):
     assert rc == 0
     assert ("EC_PMON: energy=0.0 J over " in err) == (cray is not None)
     assert ("EC_PMON" in err) == (cray is not None)
+
+
+def test_energy_probe_reads_the_cards_counter(monkeypatch, tmp_path, capsys):
+    """On CUDA lanes the cards' own counter (NVML's total energy in
+    millijoules, summed over the cards), named on the line; without NVML
+    the host's counters as before."""
+    from types import SimpleNamespace
+
+    monkeypatch.setenv("EC_PMON", "1")
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    _counters(monkeypatch, tmp_path, cray="1000 J")
+    mj = {0: 5_000, 1: 7_000}
+
+    def handle(index, out):
+        out._obj.value = index + 1
+        return 0
+
+    def energy(h, out):
+        out._obj.value = mj[h.value - 1]
+        return 0
+
+    lib = SimpleNamespace(nvmlInit_v2=lambda: 0, nvmlShutdown=lambda: 0,
+                          nvmlDeviceGetHandleByIndex_v2=lambda i, out: handle(i.value, out),
+                          nvmlDeviceGetTotalEnergyConsumption=energy)
+    monkeypatch.setattr(ttimer, "_load_nvml", lambda: lib)
+    assert ttimer.energy_probe([0, 1]) == {
+        "energy_j": 12.0, "power_w": pytest.approx(float("nan"), nan_ok=True),
+        "counter": "NVML, card 0,1"}
+    t = ttimer.PerformanceTimer("cpu")
+    t._cards = [1]
+    t.start(1)
+    mj[1] = 9_500
+    t.thread_start(0)
+    t.thread_log(0, 100)
+    t.thread_end(0)
+    t.end()
+    t.print_performance(100, 1, 100)
+    err = capsys.readouterr().err
+    assert "EC_PMON: energy=2.5 J over " in err and err.rstrip().endswith("(NVML, card 1)")
+    # a card whose counter cannot be read: the host's counter
+    monkeypatch.setattr(ttimer, "_load_nvml", lambda: None)
+    assert ttimer.energy_probe([0])["counter"] == "host, " + ttimer.CRAY_ENERGY
