@@ -24,7 +24,7 @@ and prints no result line):
 1. Card: a CUDA device must be present; print its name and power limit.
 2. Build: compile ``cloudsc2jax_torch/csrc/cloudsc2_{nl,tl,tl_din,ad,
    tl_enc,ad_enc,tlad_fused,nl_enc,nl_res,ad_xscat,ad_chunk,tl_chunk,
-   tl_din_chunk,fwd_chunk,tl_enc_bf16,ad_enc_bf16}.cu`` and ``bw_probe.cu``
+   tl_din_chunk,fwd_chunk,tl_enc_bf16,ad_enc_bf16,prelude}.cu`` and ``bw_probe.cu``
    (one build per probe mix of phase 16) with nvcc from the checkout's
    sources, all builds started together; print the build time and ptxas'
    registers and spills per kernel entry, and for the fused kernel, whose
@@ -39,16 +39,22 @@ and prints no result line):
    (163,840 columns f32 and 16,384 f64, ldrain1d off) on inputs built by
    ``Cloudsc2State.device_kernel_inputs`` as the CLI builds them; max
    |kernel - plain| over the field's max |plain| within 1e-12 (f64) and
-   5e-6 (f32).
+   5e-6 (f32).  In each case the tropopause eta of ``kernel_prelude`` (the
+   prelude's kernel, ``csrc/cloudsc2_prelude.cu``) equals the plain
+   expression's on the same card tensors bit for bit.
 4. Main path through the CLI entry point on ``cuda``:
    ``nl 1 163840 128 --dtype f32 --threshold 10000 --kernels`` and
    ``nl 1 16384 128 --dtype f64 --kernels``, both validating against the
    golden file (the stream contract, assembled once after the timed loop);
    the kernel's launch counter, zeroed just before, must show that both
-   ran through the kernel; then ``nl 1 16384 128 --dtype f64``, the truth
-   path, against the same golden file.
+   ran through the kernel, and the prelude's counter that every call
+   launched the prelude's kernel; then ``nl 1 16384 128 --dtype f64``, the
+   truth path, against the same golden file.
 5. Timing with CUDA events at 327,680 columns f32 over distinct inputs:
-   the kernel, the pre-kernel PyTorch work, the whole ``run_nl`` call on
+   the kernel, the pre-kernel work (one launch of the prelude's kernel,
+   its tropopause eta held bit for bit to the plain expression's on each
+   input set, and the plain expression timed beside it), the whole
+   ``run_nl`` call on
    the stream contract, the output contract's assembly (``unblock_outputs``,
    paid once where a caller validates), ``run_nl(backend="kernels")`` on
    transposed views, and the plain version, with the bytes the sweep must
@@ -64,7 +70,8 @@ and prints no result line):
    ``tlad 1 163840 128 --dtype f32 --kernels`` and ``tlad 1 16384 128
    --dtype f64 --kernels``,
    each passing the adjoint identity within the JAX package's budgets; both
-   kernels' launch counters, zeroed just before, must show that they ran.
+   kernels' launch counters, zeroed just before, must show that they ran,
+   and the prelude's that every call launched the prelude's kernel.
 8. Timing with CUDA events at 327,680 columns f32 over distinct inputs:
    the TL kernel with and without primal streams, the AD kernel, the whole
    ``run_tlad`` call and the plain unit (one call, not warmed up, as for
@@ -263,7 +270,12 @@ card's published f32 rate.  No single PyTorch call computes one of the
 level-recurrent sweeps, so their ``library_ms`` is null; the probe's is
 phase 17's ``torch._foreach_add``.  ``ceiling_ms``
 is the time the window-matched probe of phase 16 would take for the kernel's
-bytes at the kernel's own mix of reads and writes per level.
+bytes at the kernel's own mix of reads and writes per level.  The prelude's
+record comes last: its bytes are the rows of the eta band's hull it reads
+(``tropopause_hull``: pt and ten_t, and ceta's band levels) and the
+tropopause eta it writes, held to the run's own tensors; its
+``library_ms`` is the plain expression ``tropopause_eta_lm`` on the same
+inputs; it has no probe mix, so no ``ceiling_ms``.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -287,7 +299,7 @@ LIBRARIES = ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_tl_din", "cloudsc2_ad",
              "cloudsc2_nl_enc", "cloudsc2_nl_res", "bw_probe",
              "cloudsc2_ad_xscat", "cloudsc2_ad_chunk", "cloudsc2_tl_chunk",
              "cloudsc2_tl_din_chunk", "cloudsc2_fwd_chunk", "cloudsc2_tl_enc_bf16",
-             "cloudsc2_ad_enc_bf16")
+             "cloudsc2_ad_enc_bf16", "cloudsc2_prelude")
 CSRC = ROOT / "cloudsc2jax_torch" / "csrc"
 
 TOLERANCE = {"float32": 5e-6, "float64": 1e-12}
@@ -647,10 +659,11 @@ def cli_tlad():
     """Phase 7: the TL+AD main path through the CLI entry point.  Returns
     the launches it made of the two kernels."""
     from cloudsc2jax_torch import cli
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import kernel_prelude
     from cloudsc2jax_torch.kernels.tlad_kernel import cloudsc2_ad, cloudsc2_tl
 
     # -- 7. TL+AD main path through the CLI entry point
-    cloudsc2_tl.launches = cloudsc2_ad.launches = 0
+    cloudsc2_tl.launches = cloudsc2_ad.launches = kernel_prelude.launches = 0
     for argv in TLAD_RUNS:
         t0 = time.perf_counter()
         rc = cli.main(argv + ["--device", "cuda"])
@@ -658,10 +671,14 @@ def cli_tlad():
               f"({time.perf_counter() - t0:.1f} s)")
         if rc != 0:
             raise AssertionError(f"TL+AD main path failed its check: {argv}")
-    launches = {"tl": cloudsc2_tl.launches, "ad": cloudsc2_ad.launches}
+    launches = {"tl": cloudsc2_tl.launches, "ad": cloudsc2_ad.launches,
+                "prelude": kernel_prelude.launches}
     print(f"[7] kernel launches on the TL+AD main path: {launches}")
-    if min(launches.values()) < len(TLAD_RUNS):
+    if min(launches["tl"], launches["ad"]) < len(TLAD_RUNS):
         raise AssertionError("the TL+AD main path did not run through both kernels")
+    if launches["prelude"] < launches["tl"]:
+        raise AssertionError("the TL+AD main path did not run its prelude through "
+                             "the prelude's kernel")
 
     return launches
 
@@ -2273,6 +2290,7 @@ def _nl_compare_and_cli(state, params):
     from cloudsc2jax_torch.kernels.cloudsc2_kernel import (
         cloudsc2_nl,
         cloudsc2_nl_reference,
+        kernel_prelude,
     )
 
     # -- 3. kernel against the plain version on the card
@@ -2287,6 +2305,7 @@ def _nl_compare_and_cli(state, params):
     for ncol, name, ldrain1d in cases:
         inputs = state.device_kernel_inputs(ncol, dtype=getattr(torch, name),
                                             device="cuda")
+        _check_prelude(inputs, params, f"[3] ncol={ncol} {name}")
         got = cloudsc2_nl(inputs, params, ldrain1d=ldrain1d)
         ref = cloudsc2_nl_reference(inputs, params, ldrain1d=ldrain1d)
         torch.cuda.synchronize()
@@ -2305,7 +2324,7 @@ def _nl_compare_and_cli(state, params):
         raise AssertionError("the comparison did not launch the kernel")
 
     # -- 4. main path through the CLI entry point
-    cloudsc2_nl.launches = 0
+    cloudsc2_nl.launches = kernel_prelude.launches = 0
     for argv in MAIN_PATH_RUNS:
         t0 = time.perf_counter()
         rc = cli.main(argv + ["--device", "cuda"])
@@ -2314,9 +2333,14 @@ def _nl_compare_and_cli(state, params):
         if rc != 0:
             raise AssertionError(f"main path failed validation: {argv}")
     main_launches = cloudsc2_nl.launches
-    print(f"[4] kernel launches on the main path: {main_launches}")
+    prelude_launches = kernel_prelude.launches
+    print(f"[4] kernel launches on the main path: {main_launches}, the "
+          f"prelude's kernel: {prelude_launches}")
     if main_launches < len(MAIN_PATH_RUNS):
         raise AssertionError("the main path did not run through the kernel")
+    if prelude_launches < main_launches:
+        raise AssertionError("the main path did not run its prelude through the "
+                             "prelude's kernel")
     for argv in TRUTH_RUNS:
         t0 = time.perf_counter()
         rc = cli.main(argv + ["--device", "cuda"])
@@ -2324,7 +2348,31 @@ def _nl_compare_and_cli(state, params):
               f"({time.perf_counter() - t0:.1f} s)")
         if rc != 0:
             raise AssertionError(f"the truth path failed validation: {argv}")
-    return worst_abs, worst_rel, main_launches
+    return worst_abs, worst_rel, main_launches, prelude_launches
+
+
+def _check_prelude(inputs, params, what: str) -> None:
+    """The tropopause eta of ``kernel_prelude`` (one launch of the prelude's
+    kernel) against the plain expression on the same card tensors, bit for
+    bit."""
+    import torch
+
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import (
+        kernel_prelude,
+        level_scalars,
+        tropopause_eta_lm,
+    )
+
+    launches = kernel_prelude.launches
+    got = kernel_prelude(inputs, params).ztrpaus
+    want = tropopause_eta_lm(inputs.pt + params.ptsphy * inputs.ten_t,
+                             level_scalars(params, inputs.pt)[0])
+    torch.cuda.synchronize()
+    if kernel_prelude.launches != launches + 1:
+        raise AssertionError(f"{what}: the prelude did not launch its kernel")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: the prelude's kernel gives another "
+                             f"tropopause eta than the plain expression")
 
 
 # ------------------------------------------------------------------ phase 21
@@ -2812,6 +2860,43 @@ def _join_comparisons(started: dict) -> dict:
     return results
 
 
+def _prelude_record(x, pre, params, ms: float, library_ms: float,
+                    launches: int) -> dict:
+    """The prelude's kernel's record at the inputs ``x`` (``pre`` their
+    prelude): its bound from the rows it must move (pt's and ten_t's rows
+    of the eta band's hull, ceta's band levels, the tropopause eta
+    written), held to the bytes of those slices of the run's own tensors,
+    and six operations a level and column (a multiply, an add, three
+    compares and a max)."""
+    from cloudsc2jax_torch import roofline
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import tropopause_hull
+
+    nlev, ncol = x.pt.shape
+    k_lo, k_hi = tropopause_hull(params, x.pt.dtype)
+    levels = k_hi - k_lo + 1
+    rows = 2 * (levels + 1) + 1
+    moved = _nbytes(x.pt[k_lo:k_hi + 2], x.ten_t[k_lo:k_hi + 2], pre.ztrpaus,
+                    pre.ceta[k_lo:k_hi + 1])
+    b = roofline.bound_of(rows * ncol * 4 + levels * 4, 6 * levels * ncol)
+    if b["bytes"] != moved:
+        raise AssertionError(f"cloudsc2_prelude: {b['bytes']} bytes counted, the "
+                             f"run's tensors {moved}")
+    return {
+        **b,
+        "name": "cloudsc2_prelude",
+        "route": "cuda",
+        "source": "cloudsc2jax_torch/csrc/cloudsc2_prelude.cu",
+        "replaces": "cloudsc2jax/pallas/cloudsc2_kernel.py:590",
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "library_ms": library_ms,
+        "hull": [k_lo, k_hi],
+        "ncol": ncol,
+        "nlev": nlev,
+    }
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2839,6 +2924,8 @@ def main(argv=None) -> int:
         cloudsc2_nl_reference,
         kernel_prelude,
         launch_cloudsc2_nl,
+        level_scalars,
+        tropopause_eta_lm,
         unblock_outputs,
     )
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
@@ -2913,18 +3000,24 @@ def main(argv=None) -> int:
                 log.close()
         t_phase = _lap("6, 9, 12, 15, 18, 20a-c, 21 in their processes, waited for",
                        t_phase)
-    worst_abs, worst_rel, main_launches = nl_compare
+    worst_abs, worst_rel, main_launches, prelude_launches = nl_compare
     # -- 5. timing at the headline size, f32, distinct inputs per call
     ncol = TIMING_NCOL
     base = state.device_kernel_inputs(ncol, dtype=torch.float32, device="cuda")
     sets = [base] + [Cloudsc2Inputs(*(None if x is None else x.roll(s, dims=1)
                                       for x in base))
                      for s in (37, 71)]
+    for i, s in enumerate(sets):
+        _check_prelude(s, params, f"[5] set {i} at {ncol} columns f32")
     pres = [kernel_prelude(s, params) for s in sets]
     kernel_ms = _time_ms(
         lambda i, p: launch_cloudsc2_nl(i, p, params), list(zip(sets, pres)), 30)
     prelude_ms = _time_ms(lambda i: kernel_prelude(i, params),
                           [(s,) for s in sets], 30)
+    ceta = level_scalars(params, base.pt)[0]
+    prelude_plain_ms = _time_ms(
+        lambda i: tropopause_eta_lm(i.pt + params.ptsphy * i.ten_t, ceta),
+        [(s,) for s in sets], 30)
     run_nl_ms = _time_ms(lambda i: run_nl(i, params), [(s,) for s in sets], 30)
     streams = [run_nl(s, params) for s in sets]
     contract_ms = _time_ms(lambda o: unblock_outputs(o, params),
@@ -2937,7 +3030,8 @@ def main(argv=None) -> int:
     plain_ms = _time_once_ms(lambda i: cloudsc2_nl_reference(i, params), sets[0])
     nlev = base.pt.shape[0]
     nbytes = (15 * nlev + 1 + 8 * nlev) * ncol * 4
-    for label, ms in (("kernel", kernel_ms), ("pre-kernel torch", prelude_ms),
+    for label, ms in (("kernel", kernel_ms), ("pre-kernel", prelude_ms),
+                      ("pre-kernel's plain expression", prelude_plain_ms),
                       ("run_nl (stream contract: pre-kernel + kernel)", run_nl_ms),
                       ("output contract (unblock_outputs, once per validation)",
                        contract_ms),
@@ -2969,6 +3063,8 @@ def main(argv=None) -> int:
         "ncol": ncol,
         "build_s": build_s,
     }
+    prelude_record = _prelude_record(base, pres[0], params, prelude_ms, prelude_plain_ms,
+                                     prelude_launches + tlad_launches["prelude"])
     del sets, pres, base
     t_phase = _lap("5", t_phase)
     tlad_records = time_tlad(state, params, compared["tlad"], tlad_launches)
@@ -3009,6 +3105,11 @@ def main(argv=None) -> int:
     t_phase = _lap("21 (main process)", t_phase)
     records = [nl_record, *tlad_records, *test_records, *ab_records, *nl_records,
                *schedule_records]
+    # phase 20's bench modes run in processes of their own, on the same card
+    reserved = torch.cuda.memory_reserved() / 1e9
+    torch.cuda.empty_cache()
+    print(f"[20] this process held {reserved:.2f} GB of the card in its cache, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB after emptying it")
     modes = phase_20(records, probes, params.nlev)
     res_record = next(r for r in nl_records if r["name"] == "cloudsc2_nl_res")
     res_record["launches_bench_resident"] = modes["resident"]["launches"]
@@ -3033,6 +3134,11 @@ def main(argv=None) -> int:
               f"{rec['ceiling_ms']:.4f} ms at {rec['ceiling_mix']} "
               f"({rec['ceiling_ms'] / rec['ms']:.1%}), bound "
               f"{rec['bound_ms']:.4f} ms")
+    print(f"bound cloudsc2_prelude: {prelude_record['ms']:.4f} ms against "
+          f"{prelude_record['bound_ms']:.4f} ms by {prelude_record['bound_by']} "
+          f"({prelude_record['bound_ms'] / prelude_record['ms']:.1%}), the plain "
+          f"expression {prelude_record['library_ms']:.4f} ms")
+    records.append(prelude_record)
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -30,7 +30,11 @@ with no column padding.
   version is :func:`cloudsc2_nl_resident_reference`.
 * :func:`kernel_prelude` computes, in the working dtype and before the
   launch, the per-level and per-column scalars the kernel takes (ceta,
-  zscalm, the tropopause eta, the surface pressure), as ``_Layout`` does.
+  zscalm, the tropopause eta, the surface pressure), as ``_Layout`` does;
+  on CUDA the tropopause eta is one launch of ``csrc/cloudsc2_prelude.cu``
+  over the rows of the eta band's hull (:func:`tropopause_hull`).  The
+  plain versions take :func:`plain_prelude`, the plain expression
+  :func:`tropopause_eta_lm` on any device.
 * :func:`unblock_outputs` turns the 8 raw streams into the
   :class:`Cloudsc2Outputs` contract (zero top flux row, enthalpy fluxes)
   as ``(ncol, nlev)`` views of the levels-major tensors.
@@ -79,7 +83,9 @@ __all__ = [
     "resident_ring",
     "level_physics",
     "level_scalars",
+    "plain_prelude",
     "tropopause_eta_lm",
+    "tropopause_hull",
     "unblock_outputs",
 ]
 
@@ -473,20 +479,116 @@ def _level_scalars(ceta: Tuple[float, ...], dtype: torch.dtype,
     return ceta, _ZSCAL * torch.clamp_min(ceta - 0.2, _ZEPS1) ** 0.2
 
 
+def tropopause_hull(params: Params, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(k_lo, k_hi)``: the first and last level ``k <= nlev-2`` whose eta,
+    in ``dtype``, lies in the band of :func:`tropopause_eta_lm` (the same
+    comparison in the same dtype); ``(0, -1)`` where none does.  Only those
+    levels can move the tropopause eta off 0.1, so it depends on the rows
+    ``k_lo..k_hi+1`` of ``pt`` and ``ten_t`` alone.  Made once per ceta and
+    dtype, on the host."""
+    return _tropopause_hull(params.ceta, dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _tropopause_hull(ceta: Tuple[float, ...], dtype: torch.dtype):
+    c = torch.tensor(ceta, dtype=dtype)[:-1]
+    band = torch.nonzero((c > 0.1) & (c < 0.4)).flatten().tolist()
+    return (band[0], band[-1]) if band else (0, -1)
+
+
+_PRELUDE_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pt, ten_t, ceta
+    ctypes.c_void_p,  # ztrpaus
+    ctypes.c_double,  # ptsphy
+    ctypes.c_int,  # ncol
+    ctypes.c_longlong, ctypes.c_longlong,  # pt's row and column strides
+    ctypes.c_longlong, ctypes.c_longlong,  # ten_t's row and column strides
+    ctypes.c_int, ctypes.c_int,  # k_lo, k_hi
+    ctypes.c_void_p,  # stream
+]
+
+
+def _load_prelude_kernel():
+    return bind_library(
+        "cloudsc2_prelude", {"cloudsc2_prelude_abi": (2, 1, 1)},
+        {"cloudsc2_prelude_f32": _PRELUDE_ARGTYPES,
+         "cloudsc2_prelude_f64": _PRELUDE_ARGTYPES})
+
+
+def _launch_tropopause(pt: torch.Tensor, ten_t: torch.Tensor,
+                       ceta: torch.Tensor, params: Params) -> torch.Tensor:
+    """``csrc/cloudsc2_prelude.cu`` on the current stream: the tropopause
+    eta ``(ncol,)`` of ``(nlev, ncol)`` CUDA ``pt`` and ``ten_t`` of one
+    float32 or float64 dtype, in any layout (both strides are passed), read
+    from the rows of the band's hull.  Raises for other dtypes, shapes or
+    devices, where ceta has another number of levels than pt (the plain
+    expression's broadcast raises there too), and if the launch is
+    refused."""
+    if pt.dtype not in (torch.float32, torch.float64) or ten_t.dtype != pt.dtype:
+        raise TypeError(f"the prelude's kernel takes pt and ten_t of one float32 "
+                        f"or float64 dtype, not {pt.dtype} and {ten_t.dtype}")
+    if pt.dim() != 2 or ten_t.shape != pt.shape or ten_t.device != pt.device:
+        raise ValueError(f"the prelude's kernel takes pt and ten_t of one (nlev, "
+                         f"ncol) shape on one card, not {tuple(pt.shape)} on "
+                         f"{pt.device} and {tuple(ten_t.shape)} on {ten_t.device}")
+    if ceta.shape[0] != pt.shape[0]:
+        raise ValueError(f"ceta has {ceta.shape[0]} levels, pt {pt.shape[0]}")
+    lib = _load_prelude_kernel()
+    k_lo, k_hi = tropopause_hull(params, pt.dtype)
+    ncol = pt.shape[1]
+    ztrpaus = torch.empty(ncol, dtype=pt.dtype, device=pt.device)
+    suffix = "f32" if pt.dtype == torch.float32 else "f64"
+    with torch.cuda.device(pt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"cloudsc2_prelude_{suffix}")(
+            pt.data_ptr(), ten_t.data_ptr(), ceta.data_ptr(), ztrpaus.data_ptr(),
+            float(params.ptsphy), ncol, *pt.stride(), *ten_t.stride(), k_lo, k_hi,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"cloudsc2_prelude kernel launch failed: cudaError_t {err}")
+    return ztrpaus
+
+
 @spans.spanned("prelude")
-def kernel_prelude(inputs: Cloudsc2Inputs, params: Params) -> KernelPrelude:
-    """ceta, zscalm, the tropopause eta and the surface pressure, in the
-    working dtype on the inputs' device (``_Layout.__init__``, :582-591)."""
+def plain_prelude(inputs: Cloudsc2Inputs, params: Params) -> KernelPrelude:
+    """:func:`kernel_prelude` by the plain expression, on any device: the
+    tropopause eta is :func:`tropopause_eta_lm` over every level.  The
+    plain versions' prelude, and what the kernel's is held to."""
     pt = inputs.pt
-    nlev = pt.shape[0]
     ceta, zscalm = level_scalars(params, pt)
-    ztp1 = pt + params.ptsphy * inputs.ten_t
     return KernelPrelude(
         ceta=ceta,
         zscalm=zscalm,
-        ztrpaus=tropopause_eta_lm(ztp1, ceta),
-        paph_sfc=inputs.paph[nlev],
+        ztrpaus=tropopause_eta_lm(pt + params.ptsphy * inputs.ten_t, ceta),
+        paph_sfc=inputs.paph[pt.shape[0]],
     )
+
+
+@spans.spanned("prelude")
+def kernel_prelude(inputs: Cloudsc2Inputs, params: Params) -> KernelPrelude:
+    """ceta, zscalm, the tropopause eta and the surface pressure, in the
+    working dtype on the inputs' device (``_Layout.__init__``, :582-591).
+
+    On CUDA the tropopause eta is one launch of the hand-written kernel
+    ``csrc/cloudsc2_prelude.cu`` (float32 or float64, any 2-D layout), which
+    reads only the rows of :func:`tropopause_hull` and is counted in
+    ``kernel_prelude.launches``; on the CPU this is :func:`plain_prelude`.
+    Both give the same bits."""
+    pt = inputs.pt
+    if not pt.is_cuda:
+        return plain_prelude(inputs, params)
+    ceta, zscalm = level_scalars(params, pt)
+    ztrpaus = _launch_tropopause(pt, inputs.ten_t, ceta, params)
+    kernel_prelude.launches += 1
+    return KernelPrelude(
+        ceta=ceta,
+        zscalm=zscalm,
+        ztrpaus=ztrpaus,
+        paph_sfc=inputs.paph[pt.shape[0]],
+    )
+
+
+kernel_prelude.launches = 0
 
 
 def _nl_sweep(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool, *,
@@ -496,11 +598,11 @@ def _nl_sweep(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool, *,
     checkpoint streams | None).  ``pqs_stream`` reads ``inputs.pqs``;
     otherwise qsat is SATUR of pt and pap, level by level, as the NL kernel
     computes it.  ``checkpoints`` stores the carry going into each level.
-    ``pre`` replaces :func:`kernel_prelude` of ``inputs`` (the encoded sweep
+    ``pre`` replaces :func:`plain_prelude` of ``inputs`` (the encoded sweep
     takes the tropopause eta and surface pressure of the exact inputs)."""
     _check_config(params, ldrain1d)
     if pre is None:
-        pre = kernel_prelude(inputs, params)
+        pre = plain_prelude(inputs, params)
     nlev = inputs.pt.shape[0]
     zero = torch.zeros_like(inputs.pt[0])
     carry = (zero, zero, zero)
@@ -550,7 +652,7 @@ def cloudsc2_fwd_ckpt_reference(
     """The plain PyTorch version of the checkpointing forward sweep, on any
     device: ``(outputs, checkpoints)``.  ``inputs.pqs`` is read as it is;
     ``checkpoints`` are the carries (rfl, sfl, covptot) going INTO each
-    level, ``(nlev, ncol)`` each.  ``pre`` replaces :func:`kernel_prelude`
+    level, ``(nlev, ncol)`` each.  ``pre`` replaces :func:`plain_prelude`
     of ``inputs`` where the caller has it.  ``chunk_levels`` is checked as
     the kernels check it and runs the same loop."""
     check_chunk_levels(chunk_levels)

@@ -31,7 +31,7 @@ one set of inputs and prints one timing line per schedule, and
   (decode, then the plain TL / AD sweep), each on the decoded trajectory with
   the encoder's exact tropopause eta and surface pressure, and
   :func:`cloudsc2_tlad_fused_reference` (the plain TL then the plain AD with
-  folded seeds, after one :func:`kernel_prelude`).
+  folded seeds, after one :func:`plain_prelude`).
 * :func:`cloudsc2_nl_encoded`, :func:`cloudsc2_tl_encoded`,
   :func:`cloudsc2_ad_encoded` and :func:`cloudsc2_tlad_fused` are the
   wrappers.  CUDA tensors go to the hand-written kernels
@@ -79,6 +79,7 @@ from .cloudsc2_kernel import (
     check_operands,
     kernel_prelude,
     level_scalars,
+    plain_prelude,
 )
 
 __all__ = [
@@ -347,10 +348,10 @@ def cloudsc2_tlad_fused_reference(
 ):
     """Plain fused unit on any device: the plain TL sweep, then the plain
     reverse sweep seeded with its tangents (flux seeds folded), after one
-    :func:`kernel_prelude` for both.  Returns (outputs, tangents,
+    :func:`plain_prelude` for both.  Returns (outputs, tangents,
     input adjoints) like ``run_tlad(backend="streams")``."""
     tk._need_pqs(inputs)
-    pre = kernel_prelude(inputs, params)
+    pre = plain_prelude(inputs, params)
     out, dout, ckpts = tk.cloudsc2_tl_reference(
         inputs, params, dscale=dscale, lregcl=lregcl, ldrain1d=ldrain1d, pre=pre)
     adj = tk.cloudsc2_ad_reference(inputs, dout, ckpts, params, lregcl=lregcl,

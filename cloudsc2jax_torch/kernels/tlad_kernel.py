@@ -76,6 +76,7 @@ from .cloudsc2_kernel import (
     check_operands,
     cloudsc2_fwd_ckpt_reference,
     kernel_prelude,
+    plain_prelude,
     launch_cloudsc2_fwd_ckpt,
     level_physics,
     unblock_outputs,
@@ -239,7 +240,7 @@ def cloudsc2_tl_reference(
     paph_sfc tangent).  The tropopause eta has a zero tangent
     (``tlad_kernel.py:238-245``).  ``checkpoints`` are the 3 carries (rfl,
     sfl, covptot) going INTO each level, ``(nlev, ncol)`` each.  ``pre``
-    replaces :func:`kernel_prelude` of ``inputs`` where the caller has it.
+    replaces :func:`plain_prelude` of ``inputs`` where the caller has it.
     ``chunk_levels`` is checked as the kernels check it (with more than one
     level a step the primal streams are written) and runs the same loop: the
     results do not depend on it.
@@ -248,7 +249,7 @@ def cloudsc2_tl_reference(
     _check_primal(write_primal, check_chunk_levels(chunk_levels))
     _check_config(params, ldrain1d)
     _need_pqs(inputs)
-    pre = kernel_prelude(inputs, params) if pre is None else pre
+    pre = plain_prelude(inputs, params) if pre is None else pre
     nlev = inputs.pt.shape[0]
     zero = torch.zeros_like(inputs.pt[0])
     carry = dcarry = (zero, zero, zero)
@@ -299,7 +300,7 @@ def cloudsc2_ad_reference(
     0: level 0 is never read as k+1, and the clamped last-level read has a
     zero cotangent), ``d_paph[k+1] = hi(k) + lo(k+1)``, ``d_paph[0] =
     lo(0)``, and the surface row adds the sum over levels of the paph_sfc
-    cotangent.  ``pre`` replaces :func:`kernel_prelude` of ``inputs`` where
+    cotangent.  ``pre`` replaces :func:`plain_prelude` of ``inputs`` where
     the caller has it.  ``inplace_scatter=False`` (the default with
     ``chunk_levels`` > 1, which takes no other) runs
     :func:`cloudsc2_ad_streams_reference` and assembles its 17 streams with
@@ -313,7 +314,7 @@ def cloudsc2_ad_reference(
             chunk_levels=chunk_levels))
     _check_config(params, ldrain1d)
     _need_pqs(inputs)
-    pre = kernel_prelude(inputs, params) if pre is None else pre
+    pre = plain_prelude(inputs, params) if pre is None else pre
     nlev = inputs.pt.shape[0]
     srfl, ssfl = seed_scales(params) if fold_seeds else (1.0, 1.0)
     zero = torch.zeros_like(inputs.pt[0])
@@ -359,7 +360,7 @@ def cloudsc2_ad_streams_reference(
     check_chunk_levels(chunk_levels)
     _check_config(params, ldrain1d)
     _need_pqs(inputs)
-    pre = kernel_prelude(inputs, params) if pre is None else pre
+    pre = plain_prelude(inputs, params) if pre is None else pre
     nlev = inputs.pt.shape[0]
     srfl, ssfl = seed_scales(params) if fold_seeds else (1.0, 1.0)
     zero = torch.zeros_like(inputs.pt[0])

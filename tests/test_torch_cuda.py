@@ -20,6 +20,8 @@ from cloudsc2jax_torch import cli
 from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
 from cloudsc2jax_torch.state import Cloudsc2State
 
+import prelude_cases as cases
+
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 ROOT = FIXTURES.parents[1]
 
@@ -1028,6 +1030,7 @@ def _kernel_launches(x, params):
     enc = {t: ex.encode_blocked_inputs(x, p, fuse_satur=False, payload_dtype=t)
            for t in (torch.int16, torch.bfloat16)}
     runs = {
+        "prelude": lambda: kmod.kernel_prelude(x, p),
         "nl": lambda: kmod.launch_cloudsc2_nl(x, pre, p),
         "fwd_ckpt": lambda: kmod.launch_cloudsc2_fwd_ckpt(x, pre, p),
         "nl_res": lambda: kmod.launch_cloudsc2_nl_resident(x, pre, p),
@@ -1054,7 +1057,7 @@ def _kernel_launches(x, params):
     return runs
 
 
-KERNEL_LIBRARIES = ("nl", "fwd_ckpt", "nl_res", "nl_enc", "tl", "tl_din", "ad",
+KERNEL_LIBRARIES = ("prelude", "nl", "fwd_ckpt", "nl_res", "nl_enc", "tl", "tl_din", "ad",
                     "tlad_fused", "tl_enc", "ad_enc", "bw_probe", "ad_xscat",
                     "tl_enc_bf16", "ad_enc_bf16", "tl_chunk", "tl_din_chunk",
                     "fwd_chunk", "ad_chunk")
@@ -1073,3 +1076,127 @@ def test_cuda_kernels_are_deterministic(name):
     first, second = _flat(run()), _flat(run())
     torch.cuda.synchronize()
     assert first and all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _prelude_inputs(pt, ten_t):
+    nlev, ncol = pt.shape
+    none = kmod.Cloudsc2Inputs(*(None for _ in kmod.Cloudsc2Inputs._fields))
+    return none._replace(pt=pt, ten_t=ten_t, paph=pt.new_zeros(nlev + 1, ncol))
+
+
+def _check_prelude(x, p):
+    launches = kmod.kernel_prelude.launches
+    got = kmod.kernel_prelude(x, p)
+    assert kmod.kernel_prelude.launches == launches + 1
+    want = kmod.plain_prelude(x, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got.ztrpaus, want.ztrpaus)
+    assert got.paph_sfc.data_ptr() == x.paph[x.pt.shape[0]].data_ptr()
+    return got.ztrpaus
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(cases.CETA))
+def test_cuda_prelude_kernel_is_the_plain_expression(name, dtype):
+    """The prelude's kernel against the plain expression on the card, bit for
+    bit, over every eta profile of the CPU tests (a band from level 0, to
+    the bottom, empty, non-monotone, edges that rounding moves), with
+    inversions forced at the hull's first and last level and at nlev-2, on
+    5,001 columns (not a multiple of the block); and against the CPU's
+    answer on the same inputs, which ``test_torch_prelude.py`` holds to
+    the JAX package's ``_tropopause_eta_lm`` (JAX does not run here)."""
+    _need_cuda()
+    p = cases.params(name)
+    pt, ten_t = cases.columns(p, cases.NCOL, dtype)
+    cpu = kmod.kernel_prelude(_prelude_inputs(pt, ten_t), p).ztrpaus
+    ztrpaus = _check_prelude(_prelude_inputs(pt.cuda(), ten_t.cuda()), p)
+    assert torch.equal(ztrpaus, cpu.cuda())
+    k_lo, k_hi = kmod.tropopause_hull(p, dtype)
+    assert (ztrpaus != 0.1).any() == (k_lo <= k_hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["dwarf", "benchmark_seed1", "benchmark_seed7"])
+def test_cuda_prelude_kernel_on_the_dwarfs_columns(name, dtype):
+    """The dwarf's stored columns tiled to 4,099 columns on the card, under
+    its own eta profile and the benchmark's; a column slice of them (rows
+    wider than the slice) and a transposed copy (no unit column stride) go
+    to the kernel too and give the same bits."""
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    p = cases.params(name)
+    x = st.device_kernel_inputs(4099, dtype=dtype, device="cuda")
+    _check_prelude(x, p)
+    cut = kmod.Cloudsc2Inputs(*(None if v is None else v[:, 5:4001] for v in x))
+    assert cut.pt.stride() == (4099, 1)
+    _check_prelude(cut, p)
+    moved = kmod.Cloudsc2Inputs(*(None if v is None else v.T.contiguous().T
+                                  for v in x))
+    assert moved.pt.stride() == (1, 137)
+    _check_prelude(moved, p)
+
+
+@pytest.mark.cuda
+def test_cuda_streams_units_are_bit_for_bit_with_the_plain_prelude():
+    """run_nl and run_tlad on the stream contract give the bits of their
+    sweeps handed the plain expression's prelude."""
+    _need_cuda()
+    from cloudsc2jax_torch.drivers import DSCALE, run_nl, run_tlad
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    p = st.params
+    x = st.device_kernel_inputs(5001, dtype=torch.float32, device="cuda")
+    pre = kmod.plain_prelude(x, p)
+    got, want = run_nl(x, p), kmod.launch_cloudsc2_nl(x, pre, p)
+    xq = st.device_kernel_inputs(5001, dtype=torch.float32, device="cuda", pqs=True)
+    pre = kmod.plain_prelude(xq, p)
+    unit = run_tlad(xq, p, backend="streams")
+    out, dout, ck = tk.cloudsc2_tl(xq, p, dscale=DSCALE, lregcl=True, pre=pre)
+    adj = tk.cloudsc2_ad(xq, dout, ck, p, lregcl=True, pre=pre)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    flat, ref = _flat(unit), _flat((out, dout, adj))
+    assert len(flat) == len(ref) and all(torch.equal(a, b) for a, b in zip(flat, ref))
+
+
+@pytest.mark.cuda
+def test_cuda_prelude_counts_one_launch_a_call():
+    """Each entry computes one prelude a call, and on the card that is one
+    launch of the prelude's kernel."""
+    _need_cuda()
+    from cloudsc2jax_torch.drivers import run_nl, run_tlad
+
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    x = st.device_kernel_inputs(300, dtype=torch.float32, device="cuda", pqs=True)
+    views = st.device_inputs(300, dtype=torch.float32, device="cuda")
+    for call in (lambda: run_nl(x, st.params),
+                 lambda: run_nl(views, st.params, backend="kernels"),
+                 lambda: run_tlad(x, st.params),
+                 lambda: run_tlad(views, st.params, backend="kernels")):
+        launches = kmod.kernel_prelude.launches
+        call()
+        assert kmod.kernel_prelude.launches == launches + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_prelude_kernel_rejects_a_ceta_of_another_length():
+    """The kernel reads the hull's rows of pt: an eta profile with more levels
+    than pt raises before the launch, as the plain expression's broadcast
+    raises; so do CUDA inputs of another dtype, which the kernel does not
+    take."""
+    _need_cuda()
+    p = cases.params("dwarf")
+    pt, ten_t = cases.columns(p, 300, torch.float32, "cuda")
+    launches = kmod.kernel_prelude.launches
+    with pytest.raises(ValueError):
+        kmod.kernel_prelude(_prelude_inputs(pt[:90], ten_t[:90]), p)
+    with pytest.raises(TypeError):
+        kmod.kernel_prelude(_prelude_inputs(pt.bfloat16(), ten_t.bfloat16()), p)
+    with pytest.raises(RuntimeError):
+        kmod.tropopause_eta_lm(pt[:90] + p.ptsphy * ten_t[:90],
+                               kmod.level_scalars(p, pt)[0])
+    assert kmod.kernel_prelude.launches == launches
