@@ -177,18 +177,21 @@ def profiled(directory, device):
 
 def print_spans(summary: dict, file) -> None:
     """The table of :func:`spans.summary`: per span its calls, self device
-    ms and host ms a call, and its self time's share of the entry spans'
-    (``run_nl``, ``run_tlad``) device time."""
+    ms and host ms a call, its self time's share of the entry spans'
+    (``run_nl``, ``run_tlad``) device time, and its counters (the kernel
+    instance a sweep launched), ``name=value`` each."""
     from . import spans
 
     entries = sum(s["device_ms"] for name, s in summary.items()
                   if name in (spans.PREFIX + "run_nl", spans.PREFIX + "run_tlad"))
     print(f"{'span':>24} {'calls':>7} {'self ms/call':>13} {'host ms/call':>13}"
-          f" {'% of run':>9}", file=file)
+          f" {'% of run':>9}  counters", file=file)
     for name, s in sorted(summary.items(), key=lambda kv: -kv[1]["self_ms"]):
         share = 100.0 * s["self_ms"] / entries if entries else float("nan")
+        counters = " ".join(f"{k}={v:g}" for k, v in s.get("counters", {}).items())
         print(f"{name:>24} {s['count']:>7} {s['self_ms'] / s['count']:>13.4f}"
-              f" {s['host_ms'] / s['count']:>13.4f} {share:>9.2f}", file=file)
+              f" {s['host_ms'] / s['count']:>13.4f} {share:>9.2f}  {counters}".rstrip(),
+              file=file)
 
 
 # f32 verdict of the adjoint identity through the kernels: the JAX

@@ -80,8 +80,9 @@ namespace cloudsc2_ad {
 constexpr int kThreads = 128;
 constexpr int kFields = 14;  // level rows read at k; then plu, paph
 
-// Blocks per SM the register budget must allow (f32); the f64 body, the
-// validation path, is left unbounded.
+// Blocks per SM the register budget must allow (f32).  The f64 body runs a
+// benchmarked deployment (the cell tlad.f64) whose budget has not been
+// chosen yet, so it is left unbounded.
 template <typename T>
 constexpr int kMinBlocks = sizeof(T) == 4 ? CLOUDSC2_AD_MIN_BLOCKS_F32 : 1;
 

@@ -3,9 +3,39 @@
 // (cloudsc2jax/pallas/tlad_kernel.py:170), the TL half of the TL+AD work
 // unit.  The kernel and its schedule are in cloudsc2_tl_sweep.cuh; this file
 // instantiates `cloudsc2_tl_kernel` for float/double x evap x lregcl x
-// write_primal and gives it a plain C interface.
+// write_primal and gives it a plain C interface, and reports what each
+// instance costs an SM (cloudsc2_occupancy.cuh).
 
+#include "cloudsc2_occupancy.cuh"
 #include "cloudsc2_tl_sweep.cuh"
+
+namespace {
+
+// The instance `launch_variant` runs for these switches, read at its launch
+// configuration (no dynamic shared memory).
+template <typename T, bool EVAP, bool LREGCL>
+int occupancy_of(const int write_primal, int* out) {
+  using cloudsc2_load::Exact;
+  using cloudsc2_tl::cloudsc2_tl_kernel;
+  using cloudsc2_tl::kThreads;
+  return write_primal
+             ? cloudsc2_occupancy::read(cloudsc2_tl_kernel<T, EVAP, LREGCL, true, Exact>,
+                                        kThreads, 0, out)
+             : cloudsc2_occupancy::read(cloudsc2_tl_kernel<T, EVAP, LREGCL, false, Exact>,
+                                        kThreads, 0, out);
+}
+
+template <typename T>
+int occupancy(const int evap, const int lregcl, const int write_primal, int* out) {
+  if (evap) {
+    return lregcl ? occupancy_of<T, true, true>(write_primal, out)
+                  : occupancy_of<T, true, false>(write_primal, out);
+  }
+  return lregcl ? occupancy_of<T, false, true>(write_primal, out)
+                : occupancy_of<T, false, false>(write_primal, out);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -39,6 +69,17 @@ int cloudsc2_tl_f64(const void* const* in, void* const* out,
   return cloudsc2_tl::launch<double, false>(in, nullptr, out, params, dscale,
                                             ncol, nlev, evap, lregcl,
                                             write_primal, stream);
+}
+
+// Writes registers and local bytes per thread, dynamic shared bytes per
+// block and blocks per SM (cloudsc2_occupancy::Counter) of the instance that
+// cloudsc2_tl_f32/f64 launch for these switches; returns a cudaError_t.
+int cloudsc2_tl_occupancy_f32(int evap, int lregcl, int write_primal, int* out) {
+  return occupancy<float>(evap, lregcl, write_primal, out);
+}
+
+int cloudsc2_tl_occupancy_f64(int evap, int lregcl, int write_primal, int* out) {
+  return occupancy<double>(evap, lregcl, write_primal, out);
 }
 
 }  // extern "C"

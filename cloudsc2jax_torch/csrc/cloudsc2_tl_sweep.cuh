@@ -96,8 +96,9 @@ enum Stream {
 // the same order and shapes.
 constexpr int kTangentStreams = S_PAPH + 1;
 
-// Blocks of kThreads per SM the register budget must allow (f32), by mode;
-// the f64 kernels are left unbounded.
+// Blocks of kThreads per SM the register budget must allow (f32), by mode.
+// The f64 kernels run a benchmarked deployment (the cell tlad.f64) whose
+// budgets have not been chosen yet, so they are left unbounded.
 template <typename T, bool D_INPUTS>
 constexpr int kMinBlocks =
     sizeof(T) != 4 ? 1 : D_INPUTS ? CLOUDSC2_TL_DIN_MIN_BLOCKS_F32

@@ -14,7 +14,9 @@ input (``Cloudsc2State.device_kernel_inputs(..., pqs=True)``).
 * :func:`cloudsc2_tl` and :func:`cloudsc2_ad` are the wrappers.  A CUDA
   tensor goes to the hand-written kernel (``csrc/cloudsc2_tl.cu``,
   ``csrc/cloudsc2_ad.cu``), a CPU tensor to the plain version, any other
-  device raises.  Each counts its kernel launches in ``.launches``.
+  device raises.  Each counts its kernel launches in ``.launches``, and
+  while ``torch.profiler`` records gives its span the counters of the
+  kernel instance it launched (:func:`occupancy`).
 * :func:`cloudsc2_tl_din` is the TL sweep with STREAMED increments
   (``_tl_kernel`` without ``dscale``): its kernel
   (``csrc/cloudsc2_tl_din.cu``) reads a second set of 16 streams and
@@ -106,6 +108,7 @@ __all__ = [
     "launch_cloudsc2_ad_streams",
     "launch_cloudsc2_tl",
     "launch_cloudsc2_tl_din",
+    "occupancy",
     "seed_scales",
     "seed_streams",
     "to_levels_major",
@@ -452,6 +455,36 @@ def _param_array(lib, params: Params):
         *(param_value(params, p) for p in lib.param_names))
 
 
+# The counters of a kernel instance, in the order the libraries' occupancy
+# entries write them (cloudsc2_occupancy::Counter in csrc/cloudsc2_occupancy.cuh).
+OCCUPANCY = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
+_OCCUPANCY_READ = {}
+
+
+def occupancy(name: str, like: torch.Tensor, *switches: int) -> dict:
+    """What the instance of ``csrc/<name>.cu`` that a launch on ``like``'s
+    dtype with ``switches`` (its ints after ``nlev``: evap, lregcl, and for
+    the TL write_primal) runs costs an SM of ``like``'s card: ``dtype`` (its
+    bits), then :data:`OCCUPANCY`, from ``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the launch's own
+    block size and dynamic shared memory.  Read once per instance and card,
+    then cached; ``name`` is ``cloudsc2_tl`` or ``cloudsc2_ad``."""
+    key = (name, like.dtype, like.device, switches)
+    got = _OCCUPANCY_READ.get(key)
+    if got is None:
+        bits = 32 if like.dtype == torch.float32 else 64
+        fn = getattr(_bind(name), f"{name}_occupancy_f{bits}")
+        fn.argtypes = [ctypes.c_int] * len(switches) + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * len(OCCUPANCY))()
+        with torch.cuda.device(like.device):
+            err = fn(*switches, out)
+        if err != 0:
+            raise RuntimeError(f"{name}'s occupancy could not be read: cudaError_t {err}")
+        got = _OCCUPANCY_READ[key] = {"dtype": bits, **dict(zip(OCCUPANCY, out))}
+    return got
+
+
 def _check_launch(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool,
                   what: str) -> None:
     if inputs.pt.device.type != "cuda":
@@ -485,9 +518,10 @@ def launch_cloudsc2_tl(
 
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
-    ``cloudsc2_tl.launches``; with ``chunk_levels`` C > 1 launches the
-    chunked kernel (``csrc/cloudsc2_tl_chunk.cu``, primal streams written)
-    and counts it in ``cloudsc2_tl.launches_chunked``."""
+    ``cloudsc2_tl.launches``, and gives the ``tl_sweep`` span the counters
+    of the instance (:func:`occupancy`); with ``chunk_levels`` C > 1
+    launches the chunked kernel (``csrc/cloudsc2_tl_chunk.cu``, primal
+    streams written) and counts it in ``cloudsc2_tl.launches_chunked``."""
     chunk_levels = check_chunk_levels(chunk_levels)
     _check_primal(write_primal, chunk_levels)
     _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_tl")
@@ -500,11 +534,12 @@ def launch_cloudsc2_tl(
     prim = [torch.empty_like(inputs.pt) if write_primal else None
             for _ in range(8)]
     last = (int(write_primal),) if chunk_levels == 1 else (chunk_levels,)
+    switches = (int(_evap(params, ldrain1d)), int(lregcl))
     _call(lib, name, inputs.pt,
           ([operands[n] for n in TL_STREAMS], new + prim),
-          _param_array(lib, params), float(dscale), ncol, nlev,
-          int(_evap(params, ldrain1d)), int(lregcl), *last)
+          _param_array(lib, params), float(dscale), ncol, nlev, *switches, *last)
     if chunk_levels == 1:
+        spans.count(lambda: occupancy(name, inputs.pt, *switches, *last))
         cloudsc2_tl.launches += 1
     else:
         cloudsc2_tl.launches_chunked += 1
@@ -565,7 +600,8 @@ def launch_cloudsc2_ad(
 
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
-    ``cloudsc2_ad.launches``."""
+    ``cloudsc2_ad.launches``, and gives the ``ad_sweep`` span the counters
+    of the instance (:func:`occupancy`)."""
     _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_ad")
     operands = {**inputs._asdict(), **pre._asdict(),
                 **dict(zip(CHECKPOINTS, checkpoints)),
@@ -576,10 +612,11 @@ def launch_cloudsc2_ad(
     outs = [torch.empty_like(inputs.pt) for _ in _LEVEL_FIELDS] + [
         torch.empty_like(inputs.plu), torch.empty_like(inputs.paph)]
     scales = seed_scales(params) if fold_seeds else (1.0, 1.0)
+    switches = (int(_evap(params, ldrain1d)), int(lregcl))
     _call(lib, "cloudsc2_ad", inputs.pt,
           ([operands[n] for n in AD_STREAMS], outs),
-          _param_array(lib, params), *scales, ncol, nlev,
-          int(_evap(params, ldrain1d)), int(lregcl))
+          _param_array(lib, params), *scales, ncol, nlev, *switches)
+    spans.count(lambda: occupancy("cloudsc2_ad", inputs.pt, *switches))
     cloudsc2_ad.launches += 1
     d = dict(zip(_LEVEL_FIELDS, outs))
     return Cloudsc2Inputs(plu=outs[-2], paph=outs[-1], **d)

@@ -19,9 +19,18 @@ benchmark's traced part, the CLI's ``--profile``) each span
 
 Records stay in memory, the newest :data:`CAP` of them.  :func:`summary`
 resolves them after the caller's synchronise: per range name, the count,
-the device and host milliseconds, and the self device milliseconds (the
-duration less what the span's children cover).  A span does not nest in a
-span of its own name: the inner one is part of the outer.
+the device and host milliseconds, the self device milliseconds (the
+duration less what the span's children cover) and the counters.  A span
+does not nest in a span of its own name: the inner one is part of the
+outer.
+
+``count(get)`` inside a span gives the innermost open span the counters
+``get()`` returns, a small dict of numbers; with the profiler off ``get``
+is not called.  The ``tl_sweep`` and ``ad_sweep`` spans of the
+hand-written kernels' launches carry the counters of the kernel instance
+launched (:func:`~cloudsc2jax_torch.kernels.tlad_kernel.occupancy`):
+``dtype`` (its bits), ``registers`` and ``local_bytes`` per thread,
+``shared_bytes`` (dynamic, per block) and ``blocks_per_sm``.
 
 The spans of a call (``drivers.run_nl``, ``run_tlad`` and the layers they
 reach): ``run_nl``, ``run_tlad``; ``prelude`` (``kernel_prelude``);
@@ -44,8 +53,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["CAP", "PREFIX", "Recorder", "clear", "records", "span", "spanned",
-           "summary"]
+__all__ = ["CAP", "PREFIX", "Recorder", "clear", "count", "records", "span",
+           "spanned", "summary"]
 
 PREFIX = "cloudsc2."
 # records kept; the oldest go first past it
@@ -57,7 +66,7 @@ _OFF = contextlib.nullcontext()
 
 class _Record:
     __slots__ = ("id", "name", "call", "parent", "host_ns", "card", "clock",
-                 "device_ms")
+                 "device_ms", "counters")
 
     def __init__(self, id_, name, call, parent):
         self.id = id_
@@ -68,6 +77,7 @@ class _Record:
         self.card = None  # the CUDA device's index; None on the CPU
         self.clock = None  # (start, end): CUDA events, or host ns on the CPU
         self.device_ms = None
+        self.counters = None  # {name: number}, from count()
 
 
 class Recorder:
@@ -120,6 +130,14 @@ class Recorder:
                 rec.clock = (start, end)
                 self._records.append(rec)
 
+    def count(self, get) -> None:
+        """Give the innermost open span of this thread the counters
+        ``get()`` returns; nothing where no span is open."""
+        stack = self._stack()
+        if stack:
+            rec = stack[-1]
+            rec.counters = {**(rec.counters or {}), **get()}
+
     def _resolve(self, rec: _Record) -> None:
         start, end = rec.clock
         if rec.card is None:
@@ -144,13 +162,15 @@ class Recorder:
     def summary(self, calls: Optional[int] = None) -> Dict[str, dict]:
         """Per range name: ``count``, ``device_ms``, ``self_ms`` and
         ``host_ms``, totals over the records (of the last ``calls`` calls
-        where given)."""
+        where given), and ``counters``: each counter's mean over the
+        records that carry it (empty where none does)."""
         recs = self.records(calls)
         covered = collections.Counter()
         for r in recs:
             if r.parent is not None:
                 covered[r.parent] += r.device_ms
         out: Dict[str, dict] = {}
+        seen: Dict[str, Dict[str, list]] = collections.defaultdict(dict)
         for r in recs:
             s = out.setdefault(r.name, {"count": 0, "device_ms": 0.0,
                                         "self_ms": 0.0, "host_ms": 0.0})
@@ -158,6 +178,10 @@ class Recorder:
             s["device_ms"] += r.device_ms
             s["self_ms"] += r.device_ms - covered[r.id]
             s["host_ms"] += r.host_ns * 1e-6
+            for k, v in (r.counters or {}).items():
+                seen[r.name].setdefault(k, []).append(v)
+        for name, s in out.items():
+            s["counters"] = {k: sum(v) / len(v) for k, v in seen[name].items()}
         return out
 
     def clear(self) -> None:
@@ -194,6 +218,13 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return inner
     return wrap
+
+
+def count(get) -> None:
+    """Give the innermost open span the counters ``get()`` returns (a dict
+    of numbers); ``get`` is not called unless ``torch.profiler`` records."""
+    if _enabled():
+        _recorder.count(get)
 
 
 def summary(calls: Optional[int] = None) -> Dict[str, dict]:

@@ -2,9 +2,11 @@
 the profiler off; under ``torch.profiler`` each layer of ``run_nl`` and
 ``run_tlad`` is a ``cloudsc2.*`` range of the Chrome trace and a record
 with its call, parent and self time; the store is bounded; the CLI's
-``--profile`` prints the spans' table.  On a card (marked ``cuda``): the NL
-sweep's span against the profiler's kernel time, and the layers' self
-times against the entry span.
+``--profile`` prints the spans' table and their counters; no span carries
+counters on the CPU.  On a card (marked ``cuda``): the NL sweep's span
+against the profiler's kernel time, the layers' self times against the
+entry span, and the counters of the TL and AD sweeps' spans against the
+compiler's report and the card's limits, in f32 and f64.
 
 The file imports neither JAX nor ``conftest``; the CPU cases run the plain
 versions on a synthetic store of 13 levels::
@@ -12,7 +14,9 @@ versions on a synthetic store of 13 levels::
     python -m pytest tests/test_torch_spans.py -q -p no:cacheprovider --noconftest
 """
 
+import io
 import json
+import re
 
 import pytest
 import torch
@@ -119,6 +123,48 @@ def test_store_is_bounded_and_a_span_does_not_nest_in_itself():
     assert rec.records() == []
 
 
+def test_counters_go_to_the_innermost_span_and_the_summary_means_them():
+    rec = spans.Recorder()
+    like = torch.zeros(1)
+    for blocks in (5, 2):
+        with rec.span("run_tlad", like):
+            with rec.span("ad_sweep", like):
+                rec.count(lambda: {"dtype": 32, "blocks_per_sm": blocks})
+                rec.count(lambda: {"registers": 95})
+    rec.count(lambda: {"registers": 1})  # no span open: nothing
+    summary = rec.summary()
+    assert summary[P + "ad_sweep"]["counters"] == {"dtype": 32, "blocks_per_sm": 3.5,
+                                                   "registers": 95}
+    assert summary[P + "run_tlad"]["counters"] == {}
+    assert rec.summary(calls=1)[P + "ad_sweep"]["counters"]["blocks_per_sm"] == 2
+
+
+def test_no_counters_on_the_cpu_or_with_the_profiler_off(small):
+    asked = []
+    spans.count(lambda: asked.append(1) or {"registers": 1})
+    assert asked == []  # off: not even asked for
+    call = _call(small, "run_tlad", "streams")
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        call()
+    # the plain versions launch no kernel instance
+    assert all(r.counters is None for r in spans.records())
+    assert {n: s["counters"] for n, s in spans.summary().items()} == {
+        P + n: {} for n in EXPECTED["run_tlad", "streams"]}
+
+
+def test_the_spans_table_prints_the_counters():
+    row = {"count": 2, "device_ms": 4.0, "self_ms": 4.0, "host_ms": 0.1}
+    summary = {P + "run_tlad": {**row, "self_ms": 0.0, "counters": {}},
+               P + "ad_sweep": {**row, "counters": {"dtype": 64.0, "blocks_per_sm": 2.0}}}
+    buf = io.StringIO()
+    cli.print_spans(summary, buf)
+    lines = buf.getvalue().splitlines()
+    assert lines[0].split()[-1] == "counters"
+    rows = {line.split()[0]: line.split()[5:] for line in lines[1:]}
+    assert rows == {P + "ad_sweep": ["dtype=64", "blocks_per_sm=2"], P + "run_tlad": []}
+
+
 def test_cli_profile_prints_the_spans_table(tmp_path, capsys):
     rc = cli.main(["nl", "1", "10", "10", "--device", "cpu", "--no-validate",
                    "--kernels", "--profile", str(tmp_path / "prof")])
@@ -184,3 +230,80 @@ def test_spans_on_the_card_against_the_profiler():
     run = summary[P + "run_nl"]
     layers = sum(s["self_ms"] for name, s in summary.items() if name != P + "run_nl")
     assert layers == pytest.approx(run["device_ms"], rel=0.03)
+
+
+# the stream contract's unit in f32 and f64, one profiled call each (the
+# profiler's CPU activity alone: the spans record, and the card is not
+# traced a second time in the process), then the compiler's report of the
+# two libraries
+_COUNTERS_ON_THE_CARD = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from cloudsc2jax_torch import drivers, spans
+from cloudsc2jax_torch.kernels import build
+from cloudsc2jax_torch.state import Cloudsc2State
+st = Cloudsc2State.synthetic(ngptot=100, nlev=137)
+got = {}
+for dtype in (torch.float32, torch.float64):
+    x = st.device_kernel_inputs(16_384, dtype=dtype, device="cuda", pqs=True)
+    drivers.run_tlad(x, st.params, write_primal=False)
+    torch.cuda.synchronize()
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        drivers.run_tlad(x, st.params, write_primal=False)
+        torch.cuda.synchronize()
+    got[str(dtype)] = {name: s["counters"] for name, s in spans.summary().items()}
+got["ptxas"] = {lib: build.ptxas_report(lib) for lib in ("cloudsc2_tl", "cloudsc2_ad")}
+got["sm"] = {k: getattr(torch.cuda.get_device_properties(0), k) for k in (
+    "regs_per_multiprocessor", "max_threads_per_multi_processor",
+    "shared_memory_per_multiprocessor", "shared_memory_per_block_optin")}
+print(json.dumps(got))
+"""
+
+
+def _blocks_per_sm(registers: int, shared_bytes: int, sm: dict) -> int:
+    """Blocks of 128 threads an SM of compute capability 9.0 holds: its
+    registers (allocated per warp in units of 256), its threads, and its
+    shared memory (each block reserves 1 KB beside its own), at most 32."""
+    per_warp = -(-registers * 32 // 256) * 256
+    by_registers = sm["regs_per_multiprocessor"] // per_warp // 4
+    by_threads = sm["max_threads_per_multi_processor"] // 128
+    by_shared = (sm["shared_memory_per_multiprocessor"] // (shared_bytes + 1024)
+                 if shared_bytes else 32)
+    return min(by_registers, by_threads, by_shared, 32)
+
+
+@pytest.mark.cuda
+def test_sweep_counters_on_the_card():
+    """The ``tl_sweep`` and ``ad_sweep`` spans of the stream contract's unit
+    carry the instance they launched, in f32 and f64: registers and local
+    bytes as ptxas reports them, the AD body's shared-memory slots, and the
+    blocks an SM holds at them; the f32 AD at least its budget's 5."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _COUNTERS_ON_THE_CARD], capture_output=True,
+                         text=True, timeout=900, cwd=root)
+    assert res.returncode == 0, res.stderr[-4000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    level = (root / "cloudsc2jax_torch/csrc/cloudsc2_ad_level.cuh").read_text()
+    slots = int(re.search(r"struct Level<false, true> \{.*?kStashSlots = (\d+);",
+                          level, re.S).group(1))
+    for dtype, code, size in (("torch.float32", "f", 4), ("torch.float64", "d", 8)):
+        for span, lib, entry, shared in (
+                ("tl_sweep", "cloudsc2_tl", f"cloudsc2_tl_kernelI{code}Lb0ELb1ELb0E", 0),
+                ("ad_sweep", "cloudsc2_ad", f"cloudsc2_ad_kernelI{code}Lb0ELb1E",
+                 slots * 128 * size)):
+            counters = got[dtype][P + span]
+            (ptxas,) = [e for e in got["ptxas"][lib] if entry in e["entry"]]
+            assert counters == {
+                "dtype": 8 * size, "registers": ptxas["registers"],
+                "local_bytes": ptxas["stack_bytes"], "shared_bytes": shared,
+                "blocks_per_sm": _blocks_per_sm(ptxas["registers"], shared, got["sm"]),
+            }, (dtype, span, ptxas, got["sm"])
+        assert set(got[dtype]) == {P + n for n in EXPECTED["run_tlad", "streams"]}
+    assert got["torch.float32"][P + "ad_sweep"]["blocks_per_sm"] >= 5
