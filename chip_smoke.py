@@ -55,8 +55,12 @@ and prints no result line):
    its tropopause eta held bit for bit to the plain expression's on each
    input set, and the plain expression timed beside it), the whole
    ``run_nl`` call on
-   the stream contract, the output contract's assembly (``unblock_outputs``,
-   paid once where a caller validates), ``run_nl(backend="kernels")`` on
+   the stream contract, the output contract's assembly (the launch of
+   ``csrc/cloudsc2_contract.cu``: ``unblock_outputs`` of the stream
+   contract's outputs, the copy form, paid once where a caller validates;
+   in place, as the standard paths run it, with and without the seeds; each
+   held bit for bit to the PyTorch expressions ``plain_contract``, timed
+   beside them), ``run_nl(backend="kernels")`` on
    transposed views, and the plain version, with the bytes the sweep must
    move and the attained bandwidth.
 6. TL and AD kernels against their plain versions on the card: 100 and a
@@ -275,7 +279,12 @@ record comes last: its bytes are the rows of the eta band's hull it reads
 (``tropopause_hull``: pt and ten_t, and ceta's band levels) and the
 tropopause eta it writes, held to the run's own tensors; its
 ``library_ms`` is the plain expression ``tropopause_eta_lm`` on the same
-inputs; it has no probe mix, so no ``ceiling_ms``.
+inputs; it has no probe mix, so no ``ceiling_ms``.  So does the contract's
+(``cloudsc2_contract``, in place, no seeds, as ``run_nl(backend="kernels")``
+runs it): its bytes are the flux rows read and the top rows and enthalpy
+fluxes written (``contract_bytes``), held to the run's tensors; its
+``library_ms`` the PyTorch expressions ``plain_contract`` on the same
+streams.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -299,7 +308,7 @@ LIBRARIES = ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_tl_din", "cloudsc2_ad",
              "cloudsc2_nl_enc", "cloudsc2_nl_res", "bw_probe",
              "cloudsc2_ad_xscat", "cloudsc2_ad_chunk", "cloudsc2_tl_chunk",
              "cloudsc2_tl_din_chunk", "cloudsc2_fwd_chunk", "cloudsc2_tl_enc_bf16",
-             "cloudsc2_ad_enc_bf16", "cloudsc2_prelude")
+             "cloudsc2_ad_enc_bf16", "cloudsc2_prelude", "cloudsc2_contract")
 CSRC = ROOT / "cloudsc2jax_torch" / "csrc"
 
 TOLERANCE = {"float32": 5e-6, "float64": 1e-12}
@@ -2897,6 +2906,74 @@ def _prelude_record(x, pre, params, ms: float, library_ms: float,
     }
 
 
+def _in_place_streams(out):
+    """``out`` with its flux streams copied into rows 1.. of new flux
+    fields, as a sweep given ``flux_slots`` writes them: ``(streams,
+    flux)``."""
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import flux_rows, flux_slots
+
+    flux = flux_rows(out.rfln)
+    slots = flux_slots(flux)
+    for name, slot in slots.items():
+        slot.copy_(getattr(out, name))
+    return out._replace(**slots), flux
+
+
+def _check_contract(streams, in_place, params) -> None:
+    """Phase 5: the contract's kernel, as a copy and in place, with and
+    without the seeds, bit for bit ``plain_contract`` (the PyTorch
+    expressions) on the same card tensors, the signs of zeros included."""
+    import torch
+
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import assemble_contract, plain_contract
+
+    for out, (lm, flux) in zip(streams, in_place):
+        want, want_seeds = plain_contract(out, params, seeds=True)
+        for got, seeds in (assemble_contract(out, params, seeds=True),
+                           assemble_contract(lm, params, flux=flux, seeds=True)):
+            for a, b in zip((*got, *seeds), (*want, *want_seeds)):
+                if not (torch.equal(a, b) and torch.equal(a.signbit(), b.signbit())):
+                    raise AssertionError("[5] the contract's kernel is not "
+                                         "plain_contract bit for bit")
+    print(f"[5] contract: the kernel bit for bit plain_contract on {len(streams)} "
+          f"sets, as a copy and in place, with the seeds")
+
+
+def _contract_record(out, flux, params, ms: dict) -> dict:
+    """The contract's kernel's record at the in-place streams ``out`` (rows
+    1.. of ``flux``), as ``run_nl(backend="kernels")`` runs it: its bound
+    from ``contract_bytes`` (the flux rows read, the top rows and the
+    enthalpy fluxes written), held to the bytes of those tensors, and one
+    operation an enthalpy value; its registers from ptxas."""
+    from cloudsc2jax_torch import roofline
+    from cloudsc2jax_torch.kernels import build
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import assemble_contract, contract_bytes
+
+    nlev, ncol = out.rfln.shape
+    res, _ = assemble_contract(out, params, flux=flux)
+    moved = _nbytes(out.rfln, out.sfln, flux.pfplsl[:1], flux.pfplsn[:1],
+                    res.pfhpsl, res.pfhpsn)
+    b = roofline.bound_of(contract_bytes(nlev, ncol, out.rfln.element_size(),
+                                         in_place=True, seeds=False, kernel=True),
+                          2 * (nlev + 1) * ncol)
+    if b["bytes"] != moved:
+        raise AssertionError(f"cloudsc2_contract: {b['bytes']} bytes counted, the "
+                             f"run's tensors {moved}")
+    return {
+        **b,
+        "name": "cloudsc2_contract",
+        "route": "cuda",
+        "source": "cloudsc2jax_torch/csrc/cloudsc2_contract.cu",
+        "replaces": "none: the contract's assembly, left to XLA",
+        "max_abs_err": 0.0,
+        "ms": ms["in_place_ms"],
+        **ms,
+        "ptxas": build.ptxas_report("cloudsc2_contract"),
+        "ncol": ncol,
+        "nlev": nlev,
+    }
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2921,10 +2998,12 @@ def main(argv=None) -> int:
     from cloudsc2jax_torch.drivers import run_nl
     from cloudsc2jax_torch.kernels import build
     from cloudsc2jax_torch.kernels.cloudsc2_kernel import (
+        assemble_contract,
         cloudsc2_nl_reference,
         kernel_prelude,
         launch_cloudsc2_nl,
         level_scalars,
+        plain_contract,
         tropopause_eta_lm,
         unblock_outputs,
     )
@@ -3022,10 +3101,30 @@ def main(argv=None) -> int:
     streams = [run_nl(s, params) for s in sets]
     contract_ms = _time_ms(lambda o: unblock_outputs(o, params),
                            [(o,) for o in streams], 30)
-    del streams
+    in_place = [_in_place_streams(o) for o in streams]
+    contract = {
+        "in_place_ms": _time_ms(lambda o, f: assemble_contract(o, params, flux=f),
+                                in_place, 30),
+        "seeds_ms": _time_ms(
+            lambda o, f: assemble_contract(o, params, flux=f, seeds=True), in_place, 30),
+        "copy_ms": contract_ms,
+        "library_ms": _time_ms(lambda o: plain_contract(o, params),
+                               [(o,) for o in streams], 30),
+        "library_seeds_ms": _time_ms(lambda o: plain_contract(o, params, seeds=True),
+                                     [(o,) for o in streams], 30),
+    }
+    _check_contract(streams, in_place, params)
+    contract_record = _contract_record(*in_place[0], params, contract)
+    del streams, in_place
     views = [Cloudsc2Inputs(*(None if x is None else x.T for x in s)) for s in sets]
+    launches = assemble_contract.launches
     run_nl_kernels_ms = _time_ms(lambda i: run_nl(i, params, backend="kernels"),
                                  [(v,) for v in views], 30)
+    contract_record["launches"] = assemble_contract.launches - launches
+    if contract_record["launches"] != 30 + len(views):
+        raise AssertionError(f"[5] run_nl(backend='kernels'): "
+                             f"{contract_record['launches']} contract launches in "
+                             f"{30 + len(views)} calls")
     del views
     plain_ms = _time_once_ms(lambda i: cloudsc2_nl_reference(i, params), sets[0])
     nlev = base.pt.shape[0]
@@ -3035,6 +3134,13 @@ def main(argv=None) -> int:
                       ("run_nl (stream contract: pre-kernel + kernel)", run_nl_ms),
                       ("output contract (unblock_outputs, once per validation)",
                        contract_ms),
+                      ("output contract in place (run_nl(backend='kernels'))",
+                       contract["in_place_ms"]),
+                      ("output contract in place with the seeds (run_tlad's tangent)",
+                       contract["seeds_ms"]),
+                      ("output contract by PyTorch's expressions (plain_contract)",
+                       contract["library_ms"]),
+                      ("the same with the seeds", contract["library_seeds_ms"]),
                       ("run_nl(backend='kernels') on transposed views", run_nl_kernels_ms),
                       ("plain version", plain_ms)):
         print(f"[5] {label}: {ms:.4f} ms/call, {ncol / (ms * 1e-3):.4e} cols/s"
@@ -3134,11 +3240,12 @@ def main(argv=None) -> int:
               f"{rec['ceiling_ms']:.4f} ms at {rec['ceiling_mix']} "
               f"({rec['ceiling_ms'] / rec['ms']:.1%}), bound "
               f"{rec['bound_ms']:.4f} ms")
-    print(f"bound cloudsc2_prelude: {prelude_record['ms']:.4f} ms against "
-          f"{prelude_record['bound_ms']:.4f} ms by {prelude_record['bound_by']} "
-          f"({prelude_record['bound_ms'] / prelude_record['ms']:.1%}), the plain "
-          f"expression {prelude_record['library_ms']:.4f} ms")
-    records.append(prelude_record)
+    for rec in (prelude_record, contract_record):
+        print(f"bound {rec['name']}: {rec['ms']:.4f} ms against "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+              f"({rec['bound_ms'] / rec['ms']:.1%}), PyTorch's expressions "
+              f"{rec['library_ms']:.4f} ms")
+    records += [prelude_record, contract_record]
 
     print(card)
     print(json.dumps({"kernels": records}))

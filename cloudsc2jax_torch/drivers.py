@@ -26,12 +26,18 @@ import torch
 from . import spans
 from .constants import Params
 from .dist import ColumnMesh
-from .kernels.cloudsc2_kernel import cloudsc2_nl, kernel_prelude, unblock_outputs
+from .kernels.cloudsc2_kernel import (
+    cloudsc2_nl,
+    flux_rows,
+    flux_slots,
+    kernel_prelude,
+    unblock_outputs,
+)
 from .kernels.tlad_kernel import (
+    ad_from_seeds,
     cloudsc2_ad,
-    cloudsc2_kernel_ad,
-    cloudsc2_kernel_tl,
     cloudsc2_tl,
+    tl_contract,
     to_levels_major,
 )
 from .physics.cloudsc2 import Cloudsc2Inputs, cloudsc2
@@ -78,7 +84,10 @@ def run_nl(
     * ``"kernels"`` [``"pallas"``]: the standard ``(ncol, nlev)`` contract
       in and out, through the same sweep; the inputs are made levels-major
       once (no copy for transposed views of levels-major tensors, as
-      ``state.device_inputs`` builds them).
+      ``state.device_inputs`` builds them), and the sweep writes its flux
+      rows into the contract's flux fields, which one assembly finishes in
+      place (:func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.
+      assemble_contract`).
     * ``"truth"`` [``"xla"``]: :func:`~cloudsc2jax_torch.physics.cloudsc2.
       cloudsc2` on the standard contract, the level loop in PyTorch.
     """
@@ -91,7 +100,9 @@ def run_nl(
             return cloudsc2_nl(inputs, params, ldrain1d=ldrain1d)
         if backend == "kernels":
             lm = to_levels_major(inputs._replace(pqs=None))
-            return unblock_outputs(cloudsc2_nl(lm, params, ldrain1d=ldrain1d), params)
+            flux = flux_rows(lm.pt)
+            out = cloudsc2_nl(lm, params, ldrain1d=ldrain1d, out=flux_slots(flux))
+            return unblock_outputs(out, params, flux=flux)
         return cloudsc2(inputs, params, ldrain1d=ldrain1d)
 
 
@@ -214,7 +225,11 @@ def run_tlad(
       seeded with the 10-field tangent.  Results are two
       :class:`Cloudsc2Outputs` and a ``(ncol, nlev)``
       :class:`Cloudsc2Inputs`.  The inputs are transposed to levels-major
-      once for both sweeps.
+      once for both sweeps.  The TL half
+      (:func:`~cloudsc2jax_torch.kernels.tlad_kernel.tl_contract`) assembles
+      both contracts in place, the tangent's with the reverse sweep's seeds
+      in the same launch; the AD half (``ad_from_seeds``) assembles nothing
+      of its forward sweep, whose outputs the unit does not return.
     * ``"truth"`` [``"xla"``]: ``torch.func.jvp``/``vjp`` of
       :func:`~cloudsc2jax_torch.physics.cloudsc2.cloudsc2`, the f64
       validation path, same contract as ``"kernels"``.  ``remat`` (default
@@ -249,10 +264,9 @@ def run_tlad(
             lm = to_levels_major(inputs)
             with spans.span("increments", lm.pt):
                 d_lm = Cloudsc2Inputs(*(DSCALE * x for x in lm))
-            kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, levels_major=True,
-                      pre=kernel_prelude(lm, params))
-            out, dout = cloudsc2_kernel_tl(lm, d_lm, params, **kw)
-            _, adj = cloudsc2_kernel_ad(lm, dout, params, **kw)
+            kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, pre=kernel_prelude(lm, params))
+            out, dout, seeds = tl_contract(lm, d_lm, params, seeds=True, **kw)
+            _, adj = ad_from_seeds(lm, seeds, params, **kw)
             return tuple(type(t)(*(x.T for x in t)) for t in (out, dout, adj))
         unit = partial(_truth_unit, params=params, lregcl=lregcl,
                        ldrain1d=ldrain1d, remat=remat)

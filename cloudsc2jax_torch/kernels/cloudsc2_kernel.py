@@ -37,7 +37,12 @@ with no column padding.
   :func:`tropopause_eta_lm` on any device.
 * :func:`unblock_outputs` turns the 8 raw streams into the
   :class:`Cloudsc2Outputs` contract (zero top flux row, enthalpy fluxes)
-  as ``(ncol, nlev)`` views of the levels-major tensors.
+  as ``(ncol, nlev)`` views of the levels-major tensors, through
+  :func:`assemble_contract`: on CUDA one launch of
+  ``csrc/cloudsc2_contract.cu``, in place where the caller allocated the
+  flux fields before the sweep (:func:`flux_rows`, :func:`flux_slots`: the
+  sweeps write their flux rows into rows 1.. of them), else as a copy; on
+  the CPU the plain expressions :func:`plain_contract`.
 """
 
 from __future__ import annotations
@@ -67,7 +72,9 @@ from ..physics.satur import satur
 __all__ = [
     "CHUNK_LEVELS",
     "Cloudsc2StreamOutputs",
+    "FluxRows",
     "KernelPrelude",
+    "assemble_contract",
     "check_chunk_levels",
     "check_operands",
     "cloudsc2_fwd_ckpt",
@@ -76,6 +83,9 @@ __all__ = [
     "cloudsc2_nl_reference",
     "cloudsc2_nl_resident",
     "cloudsc2_nl_resident_reference",
+    "contract_bytes",
+    "flux_rows",
+    "flux_slots",
     "kernel_prelude",
     "launch_cloudsc2_fwd_ckpt",
     "launch_cloudsc2_nl",
@@ -83,6 +93,8 @@ __all__ = [
     "resident_ring",
     "level_physics",
     "level_scalars",
+    "output_buffers",
+    "plain_contract",
     "plain_prelude",
     "tropopause_eta_lm",
     "tropopause_hull",
@@ -593,20 +605,21 @@ kernel_prelude.launches = 0
 
 def _nl_sweep(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool, *,
               pqs_stream: bool, checkpoints: bool,
-              pre: "KernelPrelude | None" = None):
+              pre: "KernelPrelude | None" = None, out=None):
     """The level loop of the plain versions: (8 output streams, 3
     checkpoint streams | None).  ``pqs_stream`` reads ``inputs.pqs``;
     otherwise qsat is SATUR of pt and pap, level by level, as the NL kernel
     computes it.  ``checkpoints`` stores the carry going into each level.
     ``pre`` replaces :func:`plain_prelude` of ``inputs`` (the encoded sweep
-    takes the tropopause eta and surface pressure of the exact inputs)."""
+    takes the tropopause eta and surface pressure of the exact inputs).
+    ``out`` gives outputs by name, as to the kernels (:func:`output_buffers`)."""
     _check_config(params, ldrain1d)
     if pre is None:
         pre = plain_prelude(inputs, params)
     nlev = inputs.pt.shape[0]
     zero = torch.zeros_like(inputs.pt[0])
     carry = (zero, zero, zero)
-    outs = [torch.empty_like(inputs.pt) for _ in Cloudsc2StreamOutputs._fields]
+    outs = output_buffers(KERNEL_OUTPUTS, out, inputs.pt, "the plain sweep")
     ckpts = (tuple(torch.empty_like(inputs.pt) for _ in CHECKPOINTS)
              if checkpoints else None)
     cols = (pre.ztrpaus, pre.paph_sfc)
@@ -633,33 +646,36 @@ def _nl_sweep(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool, *,
 @spans.spanned("nl_sweep")
 def cloudsc2_nl_reference(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
+    out=None,
 ) -> Cloudsc2StreamOutputs:
     """The plain PyTorch version of the sweep, on any device.
 
     ``inputs`` are levels-major (``(nlev, ncol)``, paph ``(nlev+1, ncol)``).
     qsat is computed from pt and pap level by level, as the kernel does;
-    ``inputs.pqs`` is not read and may be ``None``.
+    ``inputs.pqs`` is not read and may be ``None``.  ``out`` as for
+    :func:`cloudsc2_nl`.
     """
     return _nl_sweep(inputs, params, ldrain1d, pqs_stream=False,
-                     checkpoints=False)[0]
+                     checkpoints=False, out=out)[0]
 
 
 @spans.spanned("fwd_sweep")
 def cloudsc2_fwd_ckpt_reference(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
-    pre: "KernelPrelude | None" = None, chunk_levels: int = 1,
+    pre: "KernelPrelude | None" = None, chunk_levels: int = 1, out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
     """The plain PyTorch version of the checkpointing forward sweep, on any
     device: ``(outputs, checkpoints)``.  ``inputs.pqs`` is read as it is;
     ``checkpoints`` are the carries (rfl, sfl, covptot) going INTO each
     level, ``(nlev, ncol)`` each.  ``pre`` replaces :func:`plain_prelude`
     of ``inputs`` where the caller has it.  ``chunk_levels`` is checked as
-    the kernels check it and runs the same loop."""
+    the kernels check it and runs the same loop; ``out`` as for
+    :func:`cloudsc2_nl`."""
     check_chunk_levels(chunk_levels)
     if inputs.pqs is None:
         raise ValueError("the checkpointing forward sweep reads pqs")
     return _nl_sweep(inputs, params, ldrain1d, pqs_stream=True,
-                     checkpoints=True, pre=pre)
+                     checkpoints=True, pre=pre, out=out)
 
 
 def check_chunk_levels(chunk_levels: int) -> int:
@@ -838,11 +854,27 @@ def check_operands(tensors, names, like: torch.Tensor, what: str) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(entry: str, streams, n_outputs: int, inputs: Cloudsc2Inputs,
+def output_buffers(names, out, like: torch.Tensor, what: str):
+    """One ``(nlev, ncol)`` output like ``like`` per name of ``names``:
+    ``out[name]`` where the caller gives it (checked as
+    :func:`check_operands` checks a level stream; a row view of a wider
+    levels-major tensor, such as :func:`flux_slots`, is contiguous), else a
+    new tensor.  Raises for a name of ``out`` that is not in ``names``."""
+    out = dict(out or {})
+    unknown = sorted(set(out) - set(names))
+    if unknown:
+        raise ValueError(f"{what} writes no output {', '.join(unknown)}")
+    if out:
+        check_operands(out, tuple(out), like, what)
+    return [out[n] if n in out else torch.empty_like(like) for n in names]
+
+
+def _launch(entry: str, streams, outputs, inputs: Cloudsc2Inputs,
             pre: KernelPrelude, params: Params, ldrain1d: bool,
-            lib=None, extra=()):
-    """Check the operands named by ``streams``, allocate ``n_outputs``
-    ``(nlev, ncol)`` outputs and launch ``<entry>_f32|f64`` of ``lib``
+            lib=None, extra=(), out=None):
+    """Check the operands named by ``streams``, take the ``(nlev, ncol)``
+    outputs named by ``outputs`` from ``out`` or allocate them
+    (:func:`output_buffers`), and launch ``<entry>_f32|f64`` of ``lib``
     (``csrc/cloudsc2_nl.cu`` unless given) on the current stream, ``extra``
     going between ``evap`` and the stream; raises if refused."""
     if inputs.pt.device.type != "cuda":
@@ -853,10 +885,10 @@ def _launch(entry: str, streams, n_outputs: int, inputs: Cloudsc2Inputs,
     if lib is None:
         lib = _load_kernel()
     nlev, ncol = inputs.pt.shape
-    outs = [torch.empty_like(inputs.pt) for _ in range(n_outputs)]
+    outs = output_buffers(outputs, out, inputs.pt, entry)
     in_ptrs = (ctypes.c_void_p * len(streams))(
         *(operands[name].data_ptr() for name in streams))
-    out_ptrs = (ctypes.c_void_p * n_outputs)(*(x.data_ptr() for x in outs))
+    out_ptrs = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
     consts = (ctypes.c_double * len(KERNEL_CONSTANTS))(
         *_kernel_constants(params, ldrain1d))
     suffix = "f32" if inputs.pt.dtype == torch.float32 else "f64"
@@ -873,16 +905,17 @@ def _launch(entry: str, streams, n_outputs: int, inputs: Cloudsc2Inputs,
 @spans.spanned("nl_sweep")
 def launch_cloudsc2_nl(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
-    ldrain1d: bool = False,
+    ldrain1d: bool = False, out=None,
 ) -> Cloudsc2StreamOutputs:
     """Launch the CUDA kernel on CUDA tensors, on the current stream.
 
-    Checks device, dtype, shape and contiguity, allocates the 8 outputs,
-    and raises if the launch is refused.  Counts each launch in
+    Checks device, dtype, shape and contiguity, allocates the 8 outputs but
+    those ``out`` gives by name (the flux rows of :func:`flux_slots`), and
+    raises if the launch is refused.  Counts each launch in
     ``cloudsc2_nl.launches``.
     """
-    outs = _launch("cloudsc2_nl", KERNEL_STREAMS, len(KERNEL_OUTPUTS), inputs,
-                   pre, params, ldrain1d)
+    outs = _launch("cloudsc2_nl", KERNEL_STREAMS, KERNEL_OUTPUTS, inputs,
+                   pre, params, ldrain1d, out=out)
     cloudsc2_nl.launches += 1
     return Cloudsc2StreamOutputs(*outs)
 
@@ -890,13 +923,14 @@ def launch_cloudsc2_nl(
 @spans.spanned("fwd_sweep")
 def launch_cloudsc2_fwd_ckpt(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
-    ldrain1d: bool = False, chunk_levels: int = 1,
+    ldrain1d: bool = False, chunk_levels: int = 1, out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
     """Launch the checkpointing forward kernel on CUDA tensors, on the
     current stream: ``(outputs, checkpoints)`` like the plain version.
 
     Checks device, dtype, shape and contiguity (pqs included), allocates
-    the 8 + 3 outputs, and raises if the launch is refused.  Counts each
+    the 8 + 3 outputs but those ``out`` gives by name, and raises if the
+    launch is refused.  Counts each
     launch in ``cloudsc2_fwd_ckpt.launches``; with ``chunk_levels`` C > 1
     launches the chunked kernel (``csrc/cloudsc2_fwd_chunk.cu``) and counts
     it in ``cloudsc2_fwd_ckpt.launches_chunked``.
@@ -905,16 +939,16 @@ def launch_cloudsc2_fwd_ckpt(
     if inputs.pqs is None:
         raise ValueError("the checkpointing forward sweep reads pqs")
     if chunk_levels == 1:
-        outs = _launch("cloudsc2_fwd_ckpt", FWD_CKPT_STREAMS, len(FWD_CKPT_OUTPUTS),
-                       inputs, pre, params, ldrain1d)
+        outs = _launch("cloudsc2_fwd_ckpt", FWD_CKPT_STREAMS, FWD_CKPT_OUTPUTS,
+                       inputs, pre, params, ldrain1d, out=out)
         cloudsc2_fwd_ckpt.launches += 1
     else:
         if inputs.pt.device.type != "cuda":  # before the library is built
             raise ValueError(f"launch_cloudsc2_fwd_chunk needs CUDA tensors, got "
                              f"{inputs.pt.device}")
-        outs = _launch("cloudsc2_fwd_chunk", FWD_CKPT_STREAMS, len(FWD_CKPT_OUTPUTS),
+        outs = _launch("cloudsc2_fwd_chunk", FWD_CKPT_STREAMS, FWD_CKPT_OUTPUTS,
                        inputs, pre, params, ldrain1d, lib=_load_fwd_chunk_kernel(),
-                       extra=(chunk_levels,))
+                       extra=(chunk_levels,), out=out)
         cloudsc2_fwd_ckpt.launches_chunked += 1
     return Cloudsc2StreamOutputs(*outs[:8]), tuple(outs[8:])
 
@@ -967,7 +1001,7 @@ def launch_cloudsc2_nl_resident(
             f"a ring of {depth} levels x {tile} columns of {inputs.pt.dtype} "
             f"takes {ring} bytes of shared memory; a block may have "
             f"{limit.value}: lower tile or depth")
-    outs = _launch("cloudsc2_nl_res", RESIDENT_STREAMS, len(KERNEL_OUTPUTS),
+    outs = _launch("cloudsc2_nl_res", RESIDENT_STREAMS, KERNEL_OUTPUTS,
                    inputs, pre, params, ldrain1d, lib=lib, extra=(tile, depth))
     cloudsc2_nl_resident.launches += 1
     return Cloudsc2StreamOutputs(*outs)
@@ -1002,25 +1036,27 @@ def cloudsc2_nl_resident(
 
 def cloudsc2_nl(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
+    out=None,
 ) -> Cloudsc2StreamOutputs:
     """The fused SATUR+CLOUDSC2 sweep on levels-major inputs.
 
     CUDA tensors run the hand-written kernel (:func:`launch_cloudsc2_nl`,
     after :func:`kernel_prelude`); CPU tensors run the plain version
-    :func:`cloudsc2_nl_reference`; any other device raises.
+    :func:`cloudsc2_nl_reference`; any other device raises.  Both write the
+    outputs ``out`` gives by name into those tensors (:func:`flux_slots`).
     """
     device = inputs.pt.device
     if device.type == "cpu":
-        return cloudsc2_nl_reference(inputs, params, ldrain1d=ldrain1d)
+        return cloudsc2_nl_reference(inputs, params, ldrain1d=ldrain1d, out=out)
     if device.type != "cuda":
         raise ValueError(f"cloudsc2_nl runs on cuda or cpu tensors, not {device}")
     return launch_cloudsc2_nl(inputs, kernel_prelude(inputs, params), params,
-                              ldrain1d=ldrain1d)
+                              ldrain1d=ldrain1d, out=out)
 
 
 def cloudsc2_fwd_ckpt(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
-    chunk_levels: int = 1,
+    chunk_levels: int = 1, out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
     """The checkpointing forward sweep on levels-major inputs with pqs:
     ``(outputs, checkpoints)``.
@@ -1029,10 +1065,11 @@ def cloudsc2_fwd_ckpt(
     (:func:`launch_cloudsc2_fwd_ckpt`, after :func:`kernel_prelude`); CPU
     tensors run the plain version :func:`cloudsc2_fwd_ckpt_reference`; any
     other device raises.  ``chunk_levels``: C levels a step (1 or one of
-    :data:`CHUNK_LEVELS`), with the same results.
+    :data:`CHUNK_LEVELS`), with the same results; ``out`` as for
+    :func:`cloudsc2_nl`.
     """
     device = inputs.pt.device
-    kw = dict(ldrain1d=ldrain1d, chunk_levels=chunk_levels)
+    kw = dict(ldrain1d=ldrain1d, chunk_levels=chunk_levels, out=out)
     if device.type == "cpu":
         return cloudsc2_fwd_ckpt_reference(inputs, params, **kw)
     if device.type != "cuda":
@@ -1046,22 +1083,171 @@ cloudsc2_fwd_ckpt.launches = cloudsc2_fwd_ckpt.launches_chunked = 0
 cloudsc2_nl_resident.launches = 0
 
 
+class FluxRows(NamedTuple):
+    """The contract's two flux fields, levels-major ``(nlev+1, ncol)``,
+    allocated before the sweep that writes their rows 1.. (:func:`flux_rows`,
+    :func:`flux_slots`); the assembly writes their top rows."""
+
+    pfplsl: torch.Tensor
+    pfplsn: torch.Tensor
+
+
+def flux_rows(like: torch.Tensor) -> FluxRows:
+    """Two new ``(nlev+1, ncol)`` flux fields for the ``(nlev, ncol)``
+    streams ``like``."""
+    nlev, ncol = like.shape
+    return FluxRows(*(like.new_empty((nlev + 1, ncol)) for _ in FluxRows._fields))
+
+
+def flux_slots(flux: FluxRows, prefix: str = "") -> dict:
+    """The sweeps' ``out`` for the flux streams: rows 1.. of ``flux`` as
+    ``<prefix>rfln`` and ``<prefix>sfln`` (``d_`` for a TL sweep's
+    tangents)."""
+    return {prefix + "rfln": flux.pfplsl[1:], prefix + "sfln": flux.pfplsn[1:]}
+
+
+def contract_bytes(nlev: int, ncol: int, itemsize: int, *, in_place: bool,
+                   seeds: bool, kernel: bool) -> int:
+    """Bytes the contract's assembly reads and writes: ``kernel`` the one
+    launch of ``csrc/cloudsc2_contract.cu`` (the flux rows read once; the
+    enthalpy fluxes written, and the top rows in place or the whole flux
+    fields as a copy; the seeds written), else the passes of
+    :func:`plain_contract`, each reading its operands and writing its
+    result."""
+    if kernel:
+        rows = 2 * nlev + 2 * (nlev + 1) + (2 if in_place else 2 * (nlev + 1))
+        rows += 2 * nlev if seeds else 0
+    else:
+        # the zero row(s), cat, neg and mul; mul and sub for each seed
+        rows = 2 + 8 * (nlev + 1) if in_place else 1 + 12 * (nlev + 1)
+        rows += 10 * nlev if seeds else 0
+    return rows * ncol * itemsize
+
+
+def _contract(out: Cloudsc2StreamOutputs, pfplsl, pfplsn, pfhpsl, pfhpsn):
+    return Cloudsc2Outputs(
+        tenl_t=out.tenl_t, tenl_q=out.tenl_q, tenl_l=out.tenl_l, tenl_i=out.tenl_i,
+        pclc=out.pclc, pfplsl=pfplsl, pfplsn=pfplsn, pfhpsl=pfhpsl, pfhpsn=pfhpsn,
+        pcovptot=out.pcovptot)
+
+
+def plain_contract(out: Cloudsc2StreamOutputs, params: Params, *,
+                   flux: "FluxRows | None" = None, seeds: bool = False):
+    """The contract's assembly by PyTorch's own expressions, on any device:
+    ``(outputs, seed streams)``, the levels-major :class:`Cloudsc2Outputs`
+    (flux top row + enthalpy fluxes, cloudsc2.F90:694-735) and, with
+    ``seeds``, the rain and snow seed streams of the reverse sweep for the
+    TL image ``out`` (:func:`~cloudsc2jax_torch.kernels.tlad_kernel.
+    seed_streams` of the assembled tangent), else ``None``.
+
+    Without ``flux`` the flux fields are new tensors (a zero row and
+    ``torch.cat``); with it ``out.rfln``/``sfln`` are its rows 1.. and its top
+    rows are zeroed in place.  The plain versions' assembly, and what the
+    kernel's is held to bit for bit.  Linear, so it assembles tangents too."""
+    cst = params.yomcst
+    if flux is None:
+        top = torch.zeros_like(out.rfln[:1])
+        pfplsl = torch.cat([top, out.rfln], dim=0)
+        pfplsn = torch.cat([top, out.sfln], dim=0)
+    else:
+        pfplsl, pfplsn = flux
+        pfplsl[0] = 0.0
+        pfplsn[0] = 0.0
+    res = _contract(out, pfplsl, pfplsn, -pfplsl * cst.rlvtt, -pfplsn * cst.rlstt)
+    if not seeds:
+        return res, None
+    return res, (pfplsl[1:] - cst.rlvtt * res.pfhpsl[1:],
+                 pfplsn[1:] - cst.rlstt * res.pfhpsn[1:])
+
+
+_CONTRACT_ARGTYPES = [ctypes.POINTER(ctypes.c_void_p)] * 4 + [  # src, flux, enth, seed
+    ctypes.c_double, ctypes.c_double,  # rlvtt, rlstt
+    ctypes.c_int, ctypes.c_int,  # ncol, nlev
+    ctypes.c_void_p,  # stream
+]
+
+
+def _load_contract_kernel():
+    return bind_library(
+        "cloudsc2_contract", {"cloudsc2_contract_abi": (2, 2, 2, 2)},
+        {"cloudsc2_contract_f32": _CONTRACT_ARGTYPES,
+         "cloudsc2_contract_f64": _CONTRACT_ARGTYPES})
+
+
+def _launch_contract(out: Cloudsc2StreamOutputs, params: Params,
+                     flux: "FluxRows | None", seeds: bool):
+    """``csrc/cloudsc2_contract.cu`` on the current stream:
+    :func:`plain_contract`'s results, in place where ``flux`` holds the
+    sweep's rows, else as a copy into new flux fields.  Raises for dtypes
+    other than float32 and float64 and if the launch is refused."""
+    src = (out.rfln, out.sfln)
+    if src[0].dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the contract's kernel takes float32 or float64 flux "
+                        f"streams, not {src[0].dtype}")
+    if flux is None:
+        src = tuple(x.contiguous() for x in src)
+        flux = flux_rows(src[0])
+    enth = tuple(torch.empty_like(x) for x in flux)
+    seed = tuple(torch.empty_like(x) for x in src) if seeds else (None, None)
+    nlev, ncol = src[0].shape
+    ptrs = [(ctypes.c_void_p * 2)(*(None if x is None else x.data_ptr() for x in xs))
+            for xs in (src, flux, enth, seed)]
+    cst = params.yomcst
+    lib = _load_contract_kernel()
+    suffix = "f32" if src[0].dtype == torch.float32 else "f64"
+    with torch.cuda.device(src[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"cloudsc2_contract_{suffix}")(
+            *ptrs, float(cst.rlvtt), float(cst.rlstt), ncol, nlev, stream)
+    if err != 0:
+        raise RuntimeError(f"cloudsc2_contract kernel launch failed: cudaError_t {err}")
+    return _contract(out, *flux, *enth), (seed if seeds else None)
+
+
 @spans.spanned("contract")
+def assemble_contract(out: Cloudsc2StreamOutputs, params: Params, *,
+                      flux: "FluxRows | None" = None, seeds: bool = False):
+    """Raw streams -> the levels-major :class:`Cloudsc2Outputs` contract,
+    and with ``seeds`` the rain and snow seed streams of the reverse sweep
+    for a TL image: ``(outputs, seeds | None)``, as :func:`plain_contract`.
+
+    ``flux`` is given where the caller owned the sweep's flux allocation
+    (:func:`flux_rows`, :func:`flux_slots`): ``out.rfln``/``sfln`` must be
+    its rows 1.., and the flux fields are finished in place.  Without it the
+    streams are finished as a copy.  CUDA tensors take one launch of
+    ``csrc/cloudsc2_contract.cu`` for either form (counted in
+    ``assemble_contract.launches``); CPU tensors take
+    :func:`plain_contract`; both give the same bits.  The ``contract`` span
+    carries ``in_place`` (1 or 0) and ``bytes`` (:func:`contract_bytes`)."""
+    in_place = flux is not None
+    if in_place and not all(
+            x.shape[0] + 1 == f.shape[0] and x.data_ptr() == f[1].data_ptr()
+            for x, f in zip((out.rfln, out.sfln), flux)):
+        raise ValueError("the flux streams must be rows 1.. of the flux fields "
+                         "given: the sweep writes them there (flux_slots)")
+    kernel = out.rfln.is_cuda
+    if kernel:
+        res, sd = _launch_contract(out, params, flux, seeds)
+        assemble_contract.launches += 1
+    else:
+        res, sd = plain_contract(out, params, flux=flux, seeds=seeds)
+    nlev, ncol = out.rfln.shape
+    spans.count(lambda: {"in_place": int(in_place), "bytes": contract_bytes(
+        nlev, ncol, out.rfln.element_size(), in_place=in_place, seeds=seeds,
+        kernel=kernel)})
+    return res, sd
+
+
+assemble_contract.launches = 0
+
+
 def unblock_outputs(out: Cloudsc2StreamOutputs, params: Params,
-                    levels_major: bool = False) -> Cloudsc2Outputs:
+                    levels_major: bool = False, *,
+                    flux: "FluxRows | None" = None) -> Cloudsc2Outputs:
     """Raw streams -> the :class:`Cloudsc2Outputs` contract (flux top row +
     enthalpy fluxes, cloudsc2.F90:694-735), as ``(ncol, nlev[+1])`` views
     of levels-major tensors, or those tensors themselves with
-    ``levels_major``.  Linear, so it assembles tangents too."""
-    top = torch.zeros_like(out.rfln[:1])
-    pfplsl = torch.cat([top, out.rfln], dim=0)
-    pfplsn = torch.cat([top, out.sfln], dim=0)
-    res = Cloudsc2Outputs(
-        tenl_t=out.tenl_t, tenl_q=out.tenl_q, tenl_l=out.tenl_l,
-        tenl_i=out.tenl_i, pclc=out.pclc,
-        pfplsl=pfplsl, pfplsn=pfplsn,
-        pfhpsl=-pfplsl * params.yomcst.rlvtt,
-        pfhpsn=-pfplsn * params.yomcst.rlstt,
-        pcovptot=out.pcovptot,
-    )
+    ``levels_major``; :func:`assemble_contract`, in place with ``flux``.
+    Linear, so it assembles tangents too."""
+    res, _ = assemble_contract(out, params, flux=flux)
     return res if levels_major else Cloudsc2Outputs(*(x.T for x in res))

@@ -51,7 +51,13 @@ its own forward sweep
 (:func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.cloudsc2_fwd_ckpt`) and
 seeds the reverse sweep through :func:`seed_streams`.  The transposes to
 and from levels-major are PyTorch passes outside the kernels;
-``levels_major=True`` skips them.
+``levels_major=True`` skips them.  Both assemble the contract in place
+(:func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.assemble_contract`):
+the sweeps write their flux rows into the contract's flux fields.  The
+standard contract's work unit (``drivers.run_tlad(backend="kernels")``)
+runs their halves, :func:`tl_contract` and :func:`ad_from_seeds`: the TL
+tangent's assembly writes the reverse sweep's seeds in the same launch, and
+nothing of the forward-checkpoint sweep's outputs is assembled.
 """
 
 from __future__ import annotations
@@ -74,14 +80,17 @@ from .cloudsc2_kernel import (
     _LEVEL_FIELDS,
     _check_config,
     _evap,
+    assemble_contract,
     check_chunk_levels,
     check_operands,
     cloudsc2_fwd_ckpt_reference,
+    flux_rows,
+    flux_slots,
     kernel_prelude,
     plain_prelude,
     launch_cloudsc2_fwd_ckpt,
     level_physics,
-    unblock_outputs,
+    output_buffers,
 )
 
 __all__ = [
@@ -93,6 +102,7 @@ __all__ = [
     "TL_OUTPUTS",
     "TL_STREAMS",
     "TL_TANGENT_STREAMS",
+    "ad_from_seeds",
     "assemble_shifted_adjoints",
     "check_chunk_levels",
     "cloudsc2_ad",
@@ -111,6 +121,7 @@ __all__ = [
     "occupancy",
     "seed_scales",
     "seed_streams",
+    "tl_contract",
     "to_levels_major",
 ]
 
@@ -121,6 +132,8 @@ TL_STREAMS = _LEVEL_FIELDS + _COMMON
 TL_TANGENT_STREAMS = _LEVEL_FIELDS + ("plu", "paph")
 TL_OUTPUTS = tuple("d_" + n for n in KERNEL_OUTPUTS) + CHECKPOINTS + KERNEL_OUTPUTS
 AD_STREAMS = _LEVEL_FIELDS + _COMMON + CHECKPOINTS + tuple("seed_" + n for n in KERNEL_OUTPUTS)
+# the tangent streams' names among a TL sweep's ``out`` (primal: KERNEL_OUTPUTS)
+_TANGENT_OUTPUTS = TL_OUTPUTS[:8]
 AD_OUTPUTS = tuple("d_" + n for n in _LEVEL_FIELDS) + ("d_plu", "d_paph")
 # the 17-stream convention's outputs (ShiftedOutput in the AD header): the
 # cotangents of a level's 17 reads at its own slot, then the surface row
@@ -231,7 +244,7 @@ def cloudsc2_tl_reference(
     inputs: Cloudsc2Inputs, params: Params, *, dscale: Optional[float] = None,
     d_inputs: Optional[Cloudsc2Inputs] = None,
     lregcl: bool = True, ldrain1d: bool = False, write_primal: bool = True,
-    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
+    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1, out=None,
 ) -> Tuple[Optional[Cloudsc2StreamOutputs], Cloudsc2StreamOutputs, Checkpoints]:
     """Plain TL sweep on any device: returns (outputs | None, tangents,
     checkpoints).
@@ -246,7 +259,9 @@ def cloudsc2_tl_reference(
     replaces :func:`plain_prelude` of ``inputs`` where the caller has it.
     ``chunk_levels`` is checked as the kernels check it (with more than one
     level a step the primal streams are written) and runs the same loop: the
-    results do not depend on it.
+    results do not depend on it.  ``out`` gives outputs by name, as to the
+    kernels (``rfln``, ``d_rfln``, ...; :func:`~cloudsc2jax_torch.kernels.
+    cloudsc2_kernel.output_buffers`).
     """
     _one_increment(dscale, d_inputs)
     _check_primal(write_primal, check_chunk_levels(chunk_levels))
@@ -259,9 +274,9 @@ def cloudsc2_tl_reference(
     cols = (pre.ztrpaus, pre.paph_sfc)
     dcols = (torch.zeros_like(pre.ztrpaus),
              dscale * pre.paph_sfc if d_inputs is None else d_inputs.paph[nlev])
-    outs = ([torch.empty_like(inputs.pt) for _ in KERNEL_OUTPUTS]
-            if write_primal else None)
-    douts = [torch.empty_like(inputs.pt) for _ in KERNEL_OUTPUTS]
+    names = _TANGENT_OUTPUTS + (KERNEL_OUTPUTS if write_primal else ())
+    bufs = output_buffers(names, out, inputs.pt, "the plain TL sweep")
+    douts, outs = bufs[:8], (bufs[8:] if write_primal else None)
     ckpts = tuple(torch.empty_like(inputs.pt) for _ in range(3))
     for k in range(nlev):
         fields = _level_fields(inputs, k, nlev)
@@ -551,16 +566,18 @@ def launch_cloudsc2_tl(
 def launch_cloudsc2_tl_din(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, pre: KernelPrelude,
     params: Params, *, ldrain1d: bool = False, lregcl: bool = False,
-    chunk_levels: int = 1,
+    chunk_levels: int = 1, out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2StreamOutputs]:
     """Launch the streamed-increment TL kernel on CUDA tensors, on the
     current stream: returns (outputs, tangents).
 
     Checks device, dtype, shape and contiguity of the inputs and of the 16
-    tangent streams, allocates the 8 + 8 outputs, and raises if the launch
-    is refused.  Counts each launch in ``cloudsc2_tl_din.launches``; with
-    ``chunk_levels`` C > 1 launches the chunked kernel
-    (``csrc/cloudsc2_tl_din_chunk.cu``) and counts it in
+    tangent streams, allocates the 8 + 8 outputs but those ``out`` gives by
+    name (``rfln``, ``d_rfln``, ...: the flux rows of
+    :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.flux_slots`), and
+    raises if the launch is refused.  Counts each launch in
+    ``cloudsc2_tl_din.launches``; with ``chunk_levels`` C > 1 launches the
+    chunked kernel (``csrc/cloudsc2_tl_din_chunk.cu``) and counts it in
     ``cloudsc2_tl_din.launches_chunked``."""
     chunk_levels = check_chunk_levels(chunk_levels)
     _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_tl_din")
@@ -573,8 +590,8 @@ def launch_cloudsc2_tl_din(
     nlev, ncol = inputs.pt.shape
     name = "cloudsc2_tl_din" if chunk_levels == 1 else "cloudsc2_tl_din_chunk"
     lib = _bind(name)
-    dout = [torch.empty_like(inputs.pt) for _ in range(8)]
-    prim = [torch.empty_like(inputs.pt) for _ in range(8)]
+    bufs = output_buffers(_TANGENT_OUTPUTS + KERNEL_OUTPUTS, out, inputs.pt, name)
+    dout, prim = bufs[:8], bufs[8:]
     _call(lib, name, inputs.pt,
           ([operands[n] for n in TL_STREAMS],
            [tangents[n] for n in TL_TANGENT_STREAMS],
@@ -692,7 +709,7 @@ def cloudsc2_tl(
 def cloudsc2_tl_din(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
     lregcl: bool = False, ldrain1d: bool = False,
-    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
+    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1, out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2StreamOutputs]:
     """The TL sweep with streamed increments ``d_inputs`` (levels-major,
     shaped like ``inputs``): returns (outputs, tangents), 8 streams each.
@@ -700,8 +717,9 @@ def cloudsc2_tl_din(
     CUDA tensors run the hand-written kernel
     (:func:`launch_cloudsc2_tl_din`); CPU tensors run the plain version
     :func:`cloudsc2_tl_reference`; any other device raises.  ``pre`` and
-    ``chunk_levels`` as for :func:`cloudsc2_tl`."""
-    kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, chunk_levels=chunk_levels)
+    ``chunk_levels`` as for :func:`cloudsc2_tl`; both write the outputs
+    ``out`` gives by name into those tensors."""
+    kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, chunk_levels=chunk_levels, out=out)
     if _device(inputs, "cloudsc2_tl_din") == "cpu":
         out, dout, _ = cloudsc2_tl_reference(inputs, params, d_inputs=d_inputs,
                                              pre=pre, **kw)
@@ -778,6 +796,60 @@ def seed_streams(d_outputs: Cloudsc2Outputs, params: Params,
     return Cloudsc2StreamOutputs(*(x.contiguous() for x in seeds))
 
 
+def tl_contract(
+    inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
+    seeds: bool, lregcl: bool = False, ldrain1d: bool = False,
+    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
+):
+    """The standard contract's TL half on levels-major inputs:
+    ``(outputs, d_outputs, seeds | None)``, two levels-major
+    :class:`Cloudsc2Outputs` and, with ``seeds``, the 8 seed streams of the
+    reverse sweep for the tangent (:func:`seed_streams` of ``d_outputs``,
+    folded: the AD takes them with ``fold_seeds=False``).
+
+    :func:`cloudsc2_tl_din` writes its flux rows into the contract's flux
+    fields, and one :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.
+    assemble_contract` each finishes the primal and the tangent in place,
+    the tangent's with the seeds."""
+    flux, d_flux = flux_rows(inputs.pt), flux_rows(inputs.pt)
+    out, dout = cloudsc2_tl_din(
+        inputs, d_inputs, params, lregcl=lregcl, ldrain1d=ldrain1d, pre=pre,
+        chunk_levels=chunk_levels,
+        out={**flux_slots(flux), **flux_slots(d_flux, "d_")})
+    res, _ = assemble_contract(out, params, flux=flux)
+    dres, sd = assemble_contract(dout, params, flux=d_flux, seeds=seeds)
+    return res, dres, (None if sd is None else dout._replace(rfln=sd[0], sfln=sd[1]))
+
+
+def ad_from_seeds(
+    inputs: Cloudsc2Inputs, seeds: Cloudsc2StreamOutputs, params: Params, *,
+    lregcl: bool = True, ldrain1d: bool = False,
+    pre: Optional[KernelPrelude] = None, inplace_scatter: Optional[bool] = None,
+    chunk_levels: int = 1, out=None,
+) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2Inputs]:
+    """The standard contract's AD half on levels-major inputs with pqs: the
+    checkpointing forward sweep, then the reverse sweep seeded with the 8
+    folded ``seeds`` (:func:`seed_streams`, :func:`tl_contract`).  Returns
+    ``(forward streams, input adjoints)``, levels-major, the streams not
+    assembled; the forward sweep writes the outputs ``out`` gives by name
+    into those tensors.  CUDA tensors run the two kernels after one
+    :func:`kernel_prelude` for both (``pre`` where the caller has it), CPU
+    tensors their plain versions.  ``chunk_levels`` and ``inplace_scatter``
+    as for :func:`cloudsc2_ad`."""
+    chunk_levels = check_chunk_levels(chunk_levels)
+    inplace = _inplace(inplace_scatter, chunk_levels)
+    kw = dict(ldrain1d=ldrain1d, chunk_levels=chunk_levels, out=out)
+    if _device(inputs, "cloudsc2_kernel_ad") == "cpu":
+        fwd, ckpts = cloudsc2_fwd_ckpt_reference(inputs, params, pre=pre, **kw)
+    else:
+        pre = kernel_prelude(inputs, params) if pre is None else pre
+        fwd, ckpts = launch_cloudsc2_fwd_ckpt(inputs, pre, params, **kw)
+    adj = cloudsc2_ad(inputs, seeds, ckpts, params, lregcl=lregcl, ldrain1d=ldrain1d,
+                      fold_seeds=False, pre=pre, inplace_scatter=inplace,
+                      chunk_levels=chunk_levels)
+    return fwd, adj
+
+
 def cloudsc2_kernel_tl(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
     lregcl: bool = False, ldrain1d: bool = False, levels_major: bool = False,
@@ -790,16 +862,17 @@ def cloudsc2_kernel_tl(
     LPHYLIN=True: ``(ncol, nlev)`` inputs and increments (paph ``(ncol,
     nlev+1)``), or levels-major ones with ``levels_major``, which come back
     in the same layout.  CUDA tensors run :func:`cloudsc2_tl_din`'s kernel,
-    CPU tensors its plain version.  ``pre`` is :func:`kernel_prelude` of the
+    CPU tensors its plain version; :func:`tl_contract` assembles both
+    contracts in place.  ``pre`` is :func:`kernel_prelude` of the
     levels-major inputs where the caller has it; ``chunk_levels`` as for
     :func:`cloudsc2_tl_din`."""
     if not levels_major:
         inputs, d_inputs = to_levels_major(inputs), to_levels_major(d_inputs)
-    out, dout = cloudsc2_tl_din(inputs, d_inputs, params, lregcl=lregcl,
-                                ldrain1d=ldrain1d, pre=pre,
-                                chunk_levels=chunk_levels)
-    return (unblock_outputs(out, params, levels_major),
-            unblock_outputs(dout, params, levels_major))
+    out, dout, _ = tl_contract(inputs, d_inputs, params, seeds=False, lregcl=lregcl,
+                               ldrain1d=ldrain1d, pre=pre, chunk_levels=chunk_levels)
+    if levels_major:
+        return out, dout
+    return tuple(Cloudsc2Outputs(*(x.T for x in t)) for t in (out, dout))
 
 
 def cloudsc2_kernel_ad(
@@ -815,26 +888,18 @@ def cloudsc2_kernel_ad(
     LPHYLIN=True, with the layouts of :func:`cloudsc2_kernel_tl`.
     ``d_outputs`` is a cotangent on the 10-field contract;
     :func:`seed_streams` folds it into the 8 seed streams, so the reverse
-    sweep applies no (1 + L²) fold of its own.  CUDA tensors run the two
-    kernels after one :func:`kernel_prelude` for both (``pre`` where the
-    caller has it), CPU tensors their plain versions.  ``chunk_levels``
-    runs both sweeps C levels a step, and ``inplace_scatter`` picks the
-    reverse sweep's convention, as for :func:`cloudsc2_ad`."""
-    chunk_levels = check_chunk_levels(chunk_levels)
-    inplace = _inplace(inplace_scatter, chunk_levels)
+    sweep applies no (1 + L²) fold of its own.  :func:`ad_from_seeds` runs
+    the two sweeps, and the forward sweep's outputs are assembled in place.
+    ``pre``, ``chunk_levels`` and ``inplace_scatter`` as for
+    :func:`ad_from_seeds`."""
     if not levels_major:
         inputs = to_levels_major(inputs)
     seeds = seed_streams(d_outputs, params, levels_major)
-    kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, fold_seeds=False)
-    if _device(inputs, "cloudsc2_kernel_ad") == "cpu":
-        out, ckpts = cloudsc2_fwd_ckpt_reference(inputs, params, ldrain1d=ldrain1d,
-                                                 pre=pre, chunk_levels=chunk_levels)
-    else:
-        pre = kernel_prelude(inputs, params) if pre is None else pre
-        out, ckpts = launch_cloudsc2_fwd_ckpt(inputs, pre, params, ldrain1d=ldrain1d,
-                                              chunk_levels=chunk_levels)
-    adj = cloudsc2_ad(inputs, seeds, ckpts, params, pre=pre, inplace_scatter=inplace,
-                      chunk_levels=chunk_levels, **kw)
-    if not levels_major:
-        adj = Cloudsc2Inputs(*(x.T for x in adj))
-    return unblock_outputs(out, params, levels_major), adj
+    flux = flux_rows(inputs.pt)
+    fwd, adj = ad_from_seeds(inputs, seeds, params, lregcl=lregcl, ldrain1d=ldrain1d,
+                             pre=pre, inplace_scatter=inplace_scatter,
+                             chunk_levels=chunk_levels, out=flux_slots(flux))
+    out, _ = assemble_contract(fwd, params, flux=flux)
+    if levels_major:
+        return out, adj
+    return Cloudsc2Outputs(*(x.T for x in out)), Cloudsc2Inputs(*(x.T for x in adj))

@@ -30,14 +30,20 @@ is not called.  The ``tl_sweep`` and ``ad_sweep`` spans of the
 hand-written kernels' launches carry the counters of the kernel instance
 launched (:func:`~cloudsc2jax_torch.kernels.tlad_kernel.occupancy`):
 ``dtype`` (its bits), ``registers`` and ``local_bytes`` per thread,
-``shared_bytes`` (dynamic, per block) and ``blocks_per_sm``.
+``shared_bytes`` (dynamic, per block) and ``blocks_per_sm``.  The
+``contract`` span of the output contract's assembly
+(:func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.assemble_contract`)
+carries ``in_place`` (1 where the sweep wrote its flux rows into the
+contract's flux fields, 0 for a copy of streams it did not allocate) and
+``bytes`` (what the assembly read and wrote), on the card and the CPU.
 
 The spans of a call (``drivers.run_nl``, ``run_tlad`` and the layers they
 reach): ``run_nl``, ``run_tlad``; ``prelude`` (``kernel_prelude``);
 ``nl_sweep``, ``tl_sweep``, ``fwd_sweep``, ``ad_sweep`` (the hand-written
 kernels' launches, or their plain versions); ``increments`` (the 16
 ``DSCALE*x`` of the standard contract's unit), ``levels_major``
-(``to_levels_major``) and ``contract`` (``unblock_outputs``,
+(``to_levels_major``) and ``contract`` (``assemble_contract``, which
+``unblock_outputs`` and the standard contract's TL and AD halves run,
 ``seed_streams``, ``assemble_shifted_adjoints``).
 """
 

@@ -1031,6 +1031,7 @@ def _kernel_launches(x, params):
            for t in (torch.int16, torch.bfloat16)}
     runs = {
         "prelude": lambda: kmod.kernel_prelude(x, p),
+        "contract": lambda: kmod.assemble_contract(dout, p, seeds=True),
         "nl": lambda: kmod.launch_cloudsc2_nl(x, pre, p),
         "fwd_ckpt": lambda: kmod.launch_cloudsc2_fwd_ckpt(x, pre, p),
         "nl_res": lambda: kmod.launch_cloudsc2_nl_resident(x, pre, p),
@@ -1057,7 +1058,7 @@ def _kernel_launches(x, params):
     return runs
 
 
-KERNEL_LIBRARIES = ("prelude", "nl", "fwd_ckpt", "nl_res", "nl_enc", "tl", "tl_din", "ad",
+KERNEL_LIBRARIES = ("prelude", "contract", "nl", "fwd_ckpt", "nl_res", "nl_enc", "tl", "tl_din", "ad",
                     "tlad_fused", "tl_enc", "ad_enc", "bw_probe", "ad_xscat",
                     "tl_enc_bf16", "ad_enc_bf16", "tl_chunk", "tl_din_chunk",
                     "fwd_chunk", "ad_chunk")

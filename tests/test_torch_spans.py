@@ -2,8 +2,8 @@
 the profiler off; under ``torch.profiler`` each layer of ``run_nl`` and
 ``run_tlad`` is a ``cloudsc2.*`` range of the Chrome trace and a record
 with its call, parent and self time; the store is bounded; the CLI's
-``--profile`` prints the spans' table and their counters; no span carries
-counters on the CPU.  On a card (marked ``cuda``): the NL sweep's span
+``--profile`` prints the spans' table and their counters; on the CPU only
+the ``contract`` span carries counters (its form and bytes).  On a card (marked ``cuda``): the NL sweep's span
 against the profiler's kernel time, the layers' self times against the
 entry span, and the counters of the TL and AD sweeps' spans against the
 compiler's report and the card's limits, in f32 and f64.
@@ -151,6 +151,33 @@ def test_no_counters_on_the_cpu_or_with_the_profiler_off(small):
     assert all(r.counters is None for r in spans.records())
     assert {n: s["counters"] for n, s in spans.summary().items()} == {
         P + n: {} for n in EXPECTED["run_tlad", "streams"]}
+
+
+def test_the_contract_span_counts_its_form_and_bytes(small):
+    """The ``contract`` span carries ``in_place`` and ``bytes``: 1 on the
+    standard paths, whose sweeps write into the contract's flux fields (the
+    unit's two assemblies, the tangent's with the seeds), 0 for
+    ``unblock_outputs`` of streams it did not allocate; on the CPU the bytes
+    of the plain passes (``contract_bytes``)."""
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import contract_bytes, unblock_outputs
+
+    def plain(in_place, seeds):
+        return contract_bytes(13, 24, 4, in_place=in_place, seeds=seeds, kernel=False)
+
+    streams = _call(small, "run_nl", "streams")()
+    want = {("run_nl", "kernels"): (1, [plain(True, False)]),
+            ("run_tlad", "kernels"): (1, [plain(True, False), plain(True, True)]),
+            ("unblock_outputs", None): (0, [plain(False, False)])}
+    for (entry, backend), (in_place, moved) in want.items():
+        call = (_call(small, entry, backend) if backend else
+                lambda: unblock_outputs(streams, small.params))
+        spans.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            call()
+        contract = spans.summary()[P + "contract"]
+        assert contract["count"] == len(moved), entry
+        assert contract["counters"] == {"in_place": in_place,
+                                        "bytes": sum(moved) / len(moved)}, entry
 
 
 def test_the_spans_table_prints_the_counters():
