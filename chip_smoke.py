@@ -243,7 +243,8 @@ and prints no result line):
    give the same bits.  In the main process, after phase 19, launch counters
    zeroed before and asserted exactly after: ``kernel_ab`` with ``noprim
    xscatnp two xscat chunk:2 chunk:3 chunk:4`` at 327,680 f32 columns, the
-   standard contract's ``cloudsc2_kernel_tl``/``_ad`` at each C (16,384 f32
+   standard contract assembled from ``kernels.schedules``' chunked sweeps at
+   each C against its drop-ins ``cloudsc2_kernel_tl``/``_ad`` (16,384 f32
    columns, bit for bit one level a step), and the encoded TL and AD on a
    bfloat16 encoding through their wrappers with the adjoint identity; then
    each new kernel's time at 327,680 f32 columns by CUDA events beside the
@@ -420,7 +421,7 @@ BENCH_MODES = ({"CLOUDSC2_BENCH_MODE": "resident"},
 # their plain versions there (at 5,001 and 100 columns: a plain sweep costs
 # the host seconds at any width); the levels a step the chunked libraries
 # are built for; the kernel families of the records; kernel_ab's configs of
-# the schedules; the columns of the standard contract's drop-ins at each C
+# the schedules; the columns of the standard contract at each C
 SCHEDULE_CASES = ((100, "float32", True, True, True, False),
                   (100, "float64", True, False, False, True),
                   (5001, "float32", False, True, True, True),
@@ -1407,7 +1408,7 @@ def compare_nl_experiments(state, params):
     plain_ms = {}
     # -- 15. the two NL kernels against their plain versions on the card
     worst = {"enc": {}, "res": {}}
-    counters = (ex.cloudsc2_nl_encoded, km.cloudsc2_nl_resident)
+    counters = (ex.cloudsc2_nl_encoded, ex.cloudsc2_nl_resident)
     before = [f.launches for f in counters]
     expected = [0, 0]
     every = [(fs, keep, payload) for fs in (True, False) for keep in ENC_KEEPS
@@ -1471,21 +1472,21 @@ def compare_nl_experiments(state, params):
         inputs = state.device_kernel_inputs(ncol, dtype=dtype, device="cuda",
                                             pqs=True)
         nlev = inputs.pt.shape[0]
-        ref, t_res = _timed(lambda: km.cloudsc2_nl_resident_reference(
+        ref, t_res = _timed(lambda: ex.cloudsc2_nl_resident_reference(
             inputs, params, ldrain1d=ldrain1d))
         if (ncol, name) == (PLAIN_NCOL, "float32"):
             plain_ms["res"] = t_res
         fwd, _ = km.cloudsc2_fwd_ckpt(inputs, params, ldrain1d=ldrain1d)
         rings = [("default ring", None, None), ("128 x 8", 128, 8), ("64 x 3", 64, 3)]
         if ncol <= 5001:
-            per_col = km.resident_ring(nlev, dtype, tile=1, depth=nlev)[2]
+            per_col = ex.resident_ring(nlev, dtype, tile=1, depth=nlev)[2]
             rings.append(("every level resident", RESIDENT_LIMIT_BYTES // per_col,
                           nlev))
         for label, tile, depth in rings:
-            got = km.cloudsc2_nl_resident(inputs, params, ldrain1d=ldrain1d,
+            got = ex.cloudsc2_nl_resident(inputs, params, ldrain1d=ldrain1d,
                                           tile=tile, depth=depth)
             expected[1] += 1
-            ring = km.resident_ring(nlev, dtype, tile, depth)
+            ring = ex.resident_ring(nlev, dtype, tile, depth)
             _check(f"{label} {ring}", got, ref, TOLERANCE[name], worst["res"], name)
             same = all(torch.equal(a, b) for a, b in zip(got, fwd))
             print(f"      bit for bit the forward-checkpoint kernel's outputs: {same}")
@@ -1495,7 +1496,7 @@ def compare_nl_experiments(state, params):
                        TOLERANCE[name], {}, name)
         torch.cuda.synchronize()
     try:
-        km.cloudsc2_nl_resident(inputs, params, tile=128, depth=nlev)
+        ex.cloudsc2_nl_resident(inputs, params, tile=128, depth=nlev)
     except ValueError as err:
         print(f"[15] a ring that does not fit is refused before the launch: {err}")
     else:
@@ -1522,7 +1523,7 @@ def cli_nl_experiments(state, params):
 
     # -- 16. the entry points and wrappers as their users run them
     path = {"probe": bw_probe.window_stream, "enc": ex.cloudsc2_nl_encoded,
-            "res": km.cloudsc2_nl_resident}
+            "res": ex.cloudsc2_nl_resident}
     for f in path.values():
         f.launches = 0
     env = {k: os.environ.get(k) for k in os.environ if k.startswith("CLOUDSC2_BW_PROBE_")}
@@ -1572,7 +1573,7 @@ def cli_nl_experiments(state, params):
     fwd, _ = km.cloudsc2_fwd_ckpt(base, params)
     got = ex.cloudsc2_nl_encoded(ex.encode_blocked_inputs(base, params), params)
     l1 = _l1_distance(got, exact)
-    res = km.cloudsc2_nl_resident(base, params)
+    res = ex.cloudsc2_nl_resident(base, params)
     torch.cuda.synchronize()
     finite = all(bool(torch.isfinite(x).all()) for x in (*got, *res))
     res_rel, _ = _max_rel_err(res, fwd)
@@ -1615,9 +1616,9 @@ def time_nl_experiments(state, params, compared, ran):
     enc_variants = {"enc": (True, "default", "int16"), "enc_pq": (True, "pq", "int16"),
                     "enc_bf16": (True, "default", "bfloat16"),
                     "enc_all_f32": (True, "all", "int16")}
-    every_tile, every_depth, _ = km.resident_ring(
+    every_tile, every_depth, _ = ex.resident_ring(
         nlev, torch.float32,
-        tile=RESIDENT_LIMIT_BYTES // km.resident_ring(nlev, torch.float32, 1, nlev)[2],
+        tile=RESIDENT_LIMIT_BYTES // ex.resident_ring(nlev, torch.float32, 1, nlev)[2],
         depth=nlev)
     res_variants = {"res": (None, None, 30), "res_128x8": (128, 8, 30),
                     "res_all": (every_tile, every_depth, 3)}
@@ -1646,7 +1647,7 @@ def time_nl_experiments(state, params, compared, ran):
         del encs
     for label, (tile, depth, calls) in res_variants.items():
         ms[label] = _time_ms(
-            lambda i, q: km.launch_cloudsc2_nl_resident(i, q, params, tile=tile,
+            lambda i, q: ex.launch_cloudsc2_nl_resident(i, q, params, tile=tile,
                                                         depth=depth),
             pairs, calls)
         moved[label] = _nbytes(sets[0], pres[0]) + out_bytes
@@ -1667,7 +1668,7 @@ def time_nl_experiments(state, params, compared, ran):
         if label in kernels:
             line += f", {kernels[label]}-mask kernel"
         print(line + f" at {ncol} columns f32")
-    print(f"[17] resident rings: default {km.resident_ring(nlev, torch.float32)}, "
+    print(f"[17] resident rings: default {ex.resident_ring(nlev, torch.float32)}, "
           f"every level resident {(every_tile, every_depth)}")
     del sets, pres, pairs, base
     # the plain versions were timed in the comparison of phase 15; the probe's
@@ -1772,7 +1773,7 @@ def time_nl_experiments(state, params, compared, ran):
                encoding_study_i16=i16),
         record("res", "cloudsc2_nl_res", "cloudsc2jax/pallas/cloudsc2_kernel.py:424",
                max_rel_err_f64=worst["res"]["float64"],
-               ring=km.resident_ring(nlev, torch.float32)[:2],
+               ring=ex.resident_ring(nlev, torch.float32)[:2],
                ms_128x8=ms["res_128x8"], ms_every_level_resident=ms["res_all"],
                ring_every_level_resident=(every_tile, every_depth)),
         probe_record,
@@ -1813,10 +1814,8 @@ def _bench_worker() -> int:
     kernels zeroed just before; prints the bench's record, then one
     ``LAUNCHES <json>`` line."""
     from cloudsc2jax_torch import bench
-    from cloudsc2jax_torch.kernels.cloudsc2_kernel import (
-        cloudsc2_nl,
-        cloudsc2_nl_resident,
-    )
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import cloudsc2_nl
+    from cloudsc2jax_torch.kernels.experiments import cloudsc2_nl_resident
     from cloudsc2jax_torch.kernels.tlad_kernel import cloudsc2_ad, cloudsc2_tl
 
     kernels = {"nl": cloudsc2_nl, "res": cloudsc2_nl_resident, "tl": cloudsc2_tl,
@@ -2431,6 +2430,7 @@ def _kernel_runs(state, params, ncol: int) -> dict:
     from cloudsc2jax_torch.drivers import DSCALE
     from cloudsc2jax_torch.kernels import cloudsc2_kernel as km
     from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import schedules as sch
     from cloudsc2jax_torch.kernels import tlad_kernel as tk
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
 
@@ -2446,7 +2446,7 @@ def _kernel_runs(state, params, ncol: int) -> dict:
     runs = {
         "cloudsc2_nl": lambda: km.launch_cloudsc2_nl(x, pre, params),
         "cloudsc2_fwd_ckpt": lambda: km.launch_cloudsc2_fwd_ckpt(x, pre, params),
-        "cloudsc2_nl_res": lambda: km.launch_cloudsc2_nl_resident(x, pre, params),
+        "cloudsc2_nl_res": lambda: ex.launch_cloudsc2_nl_resident(x, pre, params),
         "cloudsc2_nl_enc": lambda: ex.launch_cloudsc2_nl_encoded(nl_enc, params),
         "cloudsc2_tl": lambda: tk.launch_cloudsc2_tl(x, pre, params, dscale=DSCALE),
         "cloudsc2_tl_din": lambda: tk.launch_cloudsc2_tl_din(x, dx, pre, params),
@@ -2455,21 +2455,23 @@ def _kernel_runs(state, params, ncol: int) -> dict:
         "cloudsc2_tl_enc": lambda: ex.launch_cloudsc2_tl_encoded(enc, params, dscale=DSCALE),
         "cloudsc2_ad_enc": lambda: ex.launch_cloudsc2_ad_encoded(enc, dout, ck, params),
         "bw_probe": lambda: bw_probe.launch_window_stream(arrs, 2.0, 8),
-        "cloudsc2_ad_xscat": lambda: tk.launch_cloudsc2_ad_streams(x, pre, dout, ck,
-                                                                   params),
+        "cloudsc2_ad_xscat": lambda: sch.launch_cloudsc2_ad_streams(x, pre, dout, ck,
+                                                                    params),
         "cloudsc2_tl_enc_bf16": lambda: ex.launch_cloudsc2_tl_encoded(
             b16, params, dscale=DSCALE),
         "cloudsc2_ad_enc_bf16": lambda: ex.launch_cloudsc2_ad_encoded(b16, dout, ck,
                                                                       params),
     }
     for c in CHUNK_LEVELS_RUN:
-        runs[f"cloudsc2_tl_chunk C={c}"] = (lambda c=c: tk.launch_cloudsc2_tl(
+        runs[f"cloudsc2_tl_chunk C={c}"] = (lambda c=c: sch.launch_cloudsc2_tl_chunked(
             x, pre, params, dscale=DSCALE, chunk_levels=c))
-        runs[f"cloudsc2_tl_din_chunk C={c}"] = (lambda c=c: tk.launch_cloudsc2_tl_din(
-            x, dx, pre, params, chunk_levels=c))
-        runs[f"cloudsc2_fwd_chunk C={c}"] = (lambda c=c: km.launch_cloudsc2_fwd_ckpt(
-            x, pre, params, chunk_levels=c))
-        runs[f"cloudsc2_ad_chunk C={c}"] = (lambda c=c: tk.launch_cloudsc2_ad_streams(
+        runs[f"cloudsc2_tl_din_chunk C={c}"] = (
+            lambda c=c: sch.launch_cloudsc2_tl_din_chunked(x, dx, pre, params,
+                                                           chunk_levels=c))
+        runs[f"cloudsc2_fwd_chunk C={c}"] = (
+            lambda c=c: sch.launch_cloudsc2_fwd_ckpt_chunked(x, pre, params,
+                                                             chunk_levels=c))
+        runs[f"cloudsc2_ad_chunk C={c}"] = (lambda c=c: sch.launch_cloudsc2_ad_streams(
             x, pre, dout, ck, params, chunk_levels=c))
     return runs
 
@@ -2486,11 +2488,12 @@ def compare_schedules(state, params):
     from cloudsc2jax_torch.drivers import DSCALE
     from cloudsc2jax_torch.kernels import cloudsc2_kernel as km
     from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import schedules as sch
     from cloudsc2jax_torch.kernels import tlad_kernel as tk
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
 
-    if CHUNK_LEVELS_RUN != km.CHUNK_LEVELS:
-        raise AssertionError(f"the chunked libraries are built for {km.CHUNK_LEVELS}")
+    if CHUNK_LEVELS_RUN != sch.CHUNK_LEVELS:
+        raise AssertionError(f"the chunked libraries are built for {sch.CHUNK_LEVELS}")
     worst = {k: {} for k in SCHEDULE_KINDS}
     distances, plain_ms, same_as_inplace = {}, {}, {}
     # -- 21. the new kernels against the kernels they reschedule and their
@@ -2515,9 +2518,9 @@ def compare_schedules(state, params):
                                                         ldrain1d=ldrain1d)}
         _, seeds, ckpts = one["tl_chunk"]
         inplace = tk.launch_cloudsc2_ad(inputs, pre, seeds, ckpts, params, **akw)
-        one["ad_chunk"] = raw = tk.launch_cloudsc2_ad_streams(
+        one["ad_chunk"] = raw = sch.launch_cloudsc2_ad_streams(
             inputs, pre, seeds, ckpts, params, **akw)
-        same = _same(tk._assembled(raw), inplace)
+        same = _same(sch._assembled(raw), inplace)
         same_as_inplace[f"{ncol} {name}"] = same
         print(f"    17-stream AD assembled vs the in-place AD bit for bit: {same}")
         if not same:
@@ -2531,7 +2534,7 @@ def compare_schedules(state, params):
                 inputs, params, d_inputs=dx, pre=pre, **kw)[:2])
             ref["fwd_chunk"], t_fwd = _timed(lambda: km.cloudsc2_fwd_ckpt_reference(
                 inputs, params, ldrain1d=ldrain1d, pre=pre))
-            ref["ad_chunk"], t_ad = _timed(lambda: tk.cloudsc2_ad_streams_reference(
+            ref["ad_chunk"], t_ad = _timed(lambda: sch.cloudsc2_ad_streams_reference(
                 inputs, seeds, ckpts, params, pre=pre, **akw))
             if name == "float32":
                 plain_ms.update(tl_chunk=t_tl, din_chunk=t_din, fwd_chunk=t_fwd,
@@ -2539,15 +2542,13 @@ def compare_schedules(state, params):
             _check("17-stream AD raw streams", raw, ref["ad_chunk"], tol["xscat"],
                    worst["xscat"], name)
         for c in CHUNK_LEVELS_RUN:
-            got = {"tl_chunk": tk.launch_cloudsc2_tl(inputs, pre, params,
-                                                      dscale=DSCALE, chunk_levels=c,
-                                                      **kw),
-                   "din_chunk": tk.launch_cloudsc2_tl_din(inputs, dx, pre, params,
-                                                          chunk_levels=c, **kw),
-                   "fwd_chunk": km.launch_cloudsc2_fwd_ckpt(inputs, pre, params,
-                                                            ldrain1d=ldrain1d,
-                                                            chunk_levels=c),
-                   "ad_chunk": tk.launch_cloudsc2_ad_streams(
+            got = {"tl_chunk": sch.launch_cloudsc2_tl_chunked(
+                       inputs, pre, params, dscale=DSCALE, chunk_levels=c, **kw),
+                   "din_chunk": sch.launch_cloudsc2_tl_din_chunked(
+                       inputs, dx, pre, params, chunk_levels=c, **kw),
+                   "fwd_chunk": sch.launch_cloudsc2_fwd_ckpt_chunked(
+                       inputs, pre, params, ldrain1d=ldrain1d, chunk_levels=c),
+                   "ad_chunk": sch.launch_cloudsc2_ad_streams(
                        inputs, pre, seeds, ckpts, params, chunk_levels=c, **akw)}
             print(f"    C={c}: " + ", ".join(
                 f"{k} bit for bit {_same(v, one[k])}" for k, v in got.items()))
@@ -2617,19 +2618,21 @@ def schedules_main(state, params, compared) -> list:
     from cloudsc2jax_torch.drivers import DSCALE
     from cloudsc2jax_torch.kernels import cloudsc2_kernel as km
     from cloudsc2jax_torch.kernels import experiments as ex
+    from cloudsc2jax_torch.kernels import schedules as sch
     from cloudsc2jax_torch.kernels import tlad_kernel as tk
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
 
-    counters = {"xscat": (tk.cloudsc2_ad, "launches_xscat"),
-                "ad_chunk": (tk.cloudsc2_ad, "launches_chunked"),
-                "tl_chunk": (tk.cloudsc2_tl, "launches_chunked"),
-                "din_chunk": (tk.cloudsc2_tl_din, "launches_chunked"),
-                "fwd_chunk": (km.cloudsc2_fwd_ckpt, "launches_chunked"),
+    counters = {"xscat": (sch.cloudsc2_ad_xscat, "launches"),
+                "ad_chunk": (sch.cloudsc2_ad_chunked, "launches"),
+                "tl_chunk": (sch.cloudsc2_tl_chunked, "launches"),
+                "din_chunk": (sch.cloudsc2_tl_din_chunked, "launches"),
+                "fwd_chunk": (sch.cloudsc2_fwd_ckpt_chunked, "launches"),
                 "tl_bf16": (ex.cloudsc2_tl_encoded, "launches_bf16"),
                 "ad_bf16": (ex.cloudsc2_ad_encoded, "launches_bf16")}
     # -- 21. the main paths: kernel_ab's configs of the schedules at 327,680
-    # f32 columns; the standard contract's drop-ins at each C; the encoded
-    # TL and AD on a bfloat16 encoding through their wrappers
+    # f32 columns; the standard contract assembled from the chunked sweeps at
+    # each C against its drop-ins; the encoded TL and AD on a bfloat16
+    # encoding through their wrappers
     for f, attr in counters.values():
         setattr(f, attr, 0)
     os.environ["CLOUDSC2_AB_NGPTOT"] = str(TIMING_NCOL)
@@ -2640,15 +2643,24 @@ def schedules_main(state, params, compared) -> list:
     dstd = Cloudsc2Inputs(*(DSCALE * x for x in std))
     out1, dout1 = tk.cloudsc2_kernel_tl(std, dstd, params)
     adj1 = tk.cloudsc2_kernel_ad(std, dout1, params)
+    lm, dlm = tk.to_levels_major(std), tk.to_levels_major(dstd)
+    seeds = tk.seed_streams(dout1, params)
     for c in CHUNK_LEVELS_RUN:
-        outc, doutc = tk.cloudsc2_kernel_tl(std, dstd, params, chunk_levels=c)
-        adjc = tk.cloudsc2_kernel_ad(std, doutc, params, chunk_levels=c)
-        same = _same((outc, doutc, adjc), (out1, dout1, adj1))
-        print(f"[21] cloudsc2_kernel_tl/ad at {STD_CHUNK_NCOL} f32 columns, C={c}: "
+        # the standard contract's halves with the chunked sweeps in place of
+        # the one-level ones, assembled as the drop-ins assemble theirs
+        streams = sch.cloudsc2_tl_din_chunked(lm, dlm, params, chunk_levels=c)
+        outc, doutc = (km.unblock_outputs(x, params) for x in streams)
+        fwd, ckpts = sch.cloudsc2_fwd_ckpt_chunked(lm, params, chunk_levels=c)
+        adjc = sch.cloudsc2_ad_chunked(lm, seeds, ckpts, params, chunk_levels=c,
+                                       fold_seeds=False)
+        got = (outc, doutc, km.unblock_outputs(fwd, params),
+               Cloudsc2Inputs(*(x.T for x in adjc)))
+        same = _same(got, (out1, dout1, *adj1))
+        print(f"[21] the standard contract at {STD_CHUNK_NCOL} f32 columns, C={c}: "
               f"bit for bit one level a step: {same}")
-        _held(f"the standard contract at C={c}", (outc, doutc, adjc),
-              (out1, dout1, adj1), TLAD_TOLERANCE["ad"]["float32"], {}, "")
-    del std, dstd, out1, dout1, adj1, outc, doutc, adjc
+        _held(f"the standard contract at C={c}", got, (out1, dout1, *adj1),
+              TLAD_TOLERANCE["ad"]["float32"], {}, "")
+    del std, dstd, lm, dlm, seeds, out1, dout1, adj1, outc, doutc, adjc, fwd, got
     base = state.device_kernel_inputs(TIMING_NCOL, dtype=torch.float32, device="cuda",
                                       pqs=True)
     b16 = ex.encode_blocked_inputs(base, params, fuse_satur=False,
@@ -2686,27 +2698,36 @@ def schedules_main(state, params, compared) -> list:
     ad_args = list(zip(sets, pres, tls))
 
     def tl(c):
-        return _time_ms(lambda i, p: tk.launch_cloudsc2_tl(
+        if c == 1:
+            return _time_ms(lambda i, p: tk.launch_cloudsc2_tl(
+                i, p, params, dscale=DSCALE), pairs, 20)
+        return _time_ms(lambda i, p: sch.launch_cloudsc2_tl_chunked(
             i, p, params, dscale=DSCALE, chunk_levels=c), pairs, 20)
 
     def din(c):
-        return _time_ms(lambda i, d, p: tk.launch_cloudsc2_tl_din(
+        if c == 1:
+            return _time_ms(lambda i, d, p: tk.launch_cloudsc2_tl_din(
+                i, d, p, params), list(zip(sets, dsets, pres)), 20)
+        return _time_ms(lambda i, d, p: sch.launch_cloudsc2_tl_din_chunked(
             i, d, p, params, chunk_levels=c), list(zip(sets, dsets, pres)), 20)
 
     def fwd(c):
-        return _time_ms(lambda i, p: km.launch_cloudsc2_fwd_ckpt(
+        if c == 1:
+            return _time_ms(lambda i, p: km.launch_cloudsc2_fwd_ckpt(i, p, params),
+                            pairs, 20)
+        return _time_ms(lambda i, p: sch.launch_cloudsc2_fwd_ckpt_chunked(
             i, p, params, chunk_levels=c), pairs, 20)
 
     def ad_streams(c):
-        return _time_ms(lambda i, p, t: tk.launch_cloudsc2_ad_streams(
+        return _time_ms(lambda i, p, t: sch.launch_cloudsc2_ad_streams(
             i, p, t[1], t[2], params, chunk_levels=c), ad_args, 20)
 
     ms = {"ad": _time_ms(lambda i, p, t: tk.launch_cloudsc2_ad(i, p, t[1], t[2], params),
                          ad_args, 20),
           "xscat": ad_streams(1), "tl": tl(1), "din": din(1), "fwd": fwd(1)}
-    raws = [tk.launch_cloudsc2_ad_streams(i, p, t[1], t[2], params)
+    raws = [sch.launch_cloudsc2_ad_streams(i, p, t[1], t[2], params)
             for i, p, t in ad_args]
-    ms["assembly"] = _time_ms(lambda r: tk.assemble_shifted_adjoints(*r[-4:]),
+    ms["assembly"] = _time_ms(lambda r: sch.assemble_shifted_adjoints(*r[-4:]),
                               [(r,) for r in raws], 20)
     by_chunk = {k: {} for k in ("tl_chunk", "din_chunk", "fwd_chunk", "ad_chunk")}
     for c in CHUNK_LEVELS_RUN:

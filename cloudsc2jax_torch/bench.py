@@ -31,7 +31,7 @@ error).  ``CLOUDSC2_BENCH_VARIANT`` picks the variant:
   (``state.device_inputs``).  It is bound by the host; give it a small
   ``CLOUDSC2_BENCH_NGPTOT`` and ``_REPEATS``.
 * For ``nl``, ``CLOUDSC2_BENCH_MODE=resident`` times kernel #2, the
-  resident sweep (``kernels.cloudsc2_kernel.cloudsc2_nl_resident`` at its
+  resident sweep (``kernels.experiments.cloudsc2_nl_resident`` at its
   default ring), on levels-major inputs with pqs, ``impl`` ``resident``;
   ``CLOUDSC2_BENCH_LAYOUT=standard`` times the standard contract,
   ``run_nl(backend="kernels")`` on transposed views, ``impl`` ``kernels``
@@ -148,7 +148,7 @@ def _unit(variant: str, state, ngptot: int, device, impl: str):
     import torch
 
     from .drivers import run_nl, run_tlad
-    from .kernels.cloudsc2_kernel import cloudsc2_nl_resident
+    from .kernels.experiments import cloudsc2_nl_resident
 
     params = state.params
     if impl == "truth":

@@ -125,7 +125,7 @@ def launch_window_stream(
     allocated).  Builds the kernel for this mix at first use, and raises if
     the launch is refused.  Counts each launch in
     ``window_stream.launches``."""
-    from .kernels.cloudsc2_kernel import bind_library
+    from .kernels import build
 
     like = arrs[0]
     if like.device.type != "cuda":
@@ -148,19 +148,14 @@ def launch_window_stream(
             raise ValueError(f"{name} must be contiguous")
     reads = len(arrs)
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    lib = bind_library(
+    lib = build.bind(
         "bw_probe", {"bw_probe_abi": (reads, writes, *compute)},
         {"bw_probe_f32": [ptrs, ptrs, ctypes.c_double, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_void_p]},
         defines=probe_defines(reads, writes, compute))
     nlev, ncol = like.shape
-    in_ptrs = (ctypes.c_void_p * reads)(*(x.data_ptr() for x in arrs))
-    out_ptrs = (ctypes.c_void_p * writes)(*(x.data_ptr() for x in out))
-    with torch.cuda.device(like.device):
-        err = lib.bw_probe_f32(in_ptrs, out_ptrs, float(s), ncol, nlev, int(rev),
-                               torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bw_probe kernel launch failed: cudaError_t {err}")
+    build.launch(lib, "bw_probe", like, list(arrs), list(out), float(s), ncol, nlev,
+                 int(rev))
     window_stream.launches += 1
     return out
 

@@ -21,12 +21,13 @@ Configs:
              that the data lives encoded in device memory.
 - ``encnp``  both diets: encoded, and no primal streams.
 - ``xscat``  ``two`` with the reverse sweep under the 17-stream adjoint
-             convention (``cloudsc2_ad(inplace_scatter=False)``): 17
+             convention (``kernels.schedules.cloudsc2_ad_xscat``): 17
              shifted-view streams a level, d_plu and d_paph assembled by
              PyTorch passes after it.  A/B against ``two``.
 - ``xscatnp`` the same without the primal streams; A/B against ``noprim``.
 - ``chunk:<C>`` ``two`` with both sweeps C levels a step
-             (``chunk_levels=C``, C one of the built 2, 3, 4; the reverse
+             (``kernels.schedules.cloudsc2_tl_chunked`` and
+             ``cloudsc2_ad_chunked``, C one of the built 2, 3, 4; the reverse
              sweep under the 17-stream convention, its only one).
 
 A config named twice is run twice and keyed ``name#2``: a drift control.
@@ -69,7 +70,7 @@ DEFAULT_CONFIGS = ("two", "noprim", "fused")
 def _check_config(cfg: str) -> int:
     """Raise ``ValueError`` for a config this harness does not run; returns
     its levels a step (1 but for ``chunk:<C>``)."""
-    from .kernels.cloudsc2_kernel import CHUNK_LEVELS
+    from .kernels.schedules import CHUNK_LEVELS
 
     kind, *args = cfg.split(":")
     if kind not in CONFIGS:
@@ -97,21 +98,35 @@ def _step_fn(cfg: str, params):
         cloudsc2_tl_encoded,
         cloudsc2_tlad_fused,
     )
-    from .kernels.tlad_kernel import cloudsc2_ad, cloudsc2_tl
+    from .kernels.schedules import (
+        cloudsc2_ad_chunked,
+        cloudsc2_ad_xscat,
+        cloudsc2_tl_chunked,
+    )
+    from .kernels.tlad_kernel import cloudsc2_tl
 
     kind, chunk = cfg.partition(":")[0], _check_config(cfg)
-    if kind in ("xscat", "xscatnp", "chunk"):
-        # the two-kernel unit of run_tlad with the reverse sweep's
-        # convention or both sweeps' levels a step changed
+    if kind in ("xscat", "xscatnp"):
+        # the two-kernel unit of run_tlad with the reverse sweep under the
+        # 17-stream convention
         def unit(v):
             pre = kernel_prelude(v, params)
-            out, dout, ckpts = cloudsc2_tl(
-                v, params, dscale=DSCALE, lregcl=True, write_primal=kind != "xscatnp",
-                pre=pre, chunk_levels=chunk)
-            adj = cloudsc2_ad(v, dout, ckpts, params, lregcl=True, pre=pre,
-                              inplace_scatter=False, chunk_levels=chunk)
+            out, dout, ckpts = cloudsc2_tl(v, params, dscale=DSCALE, lregcl=True,
+                                           write_primal=kind == "xscat", pre=pre)
+            adj = cloudsc2_ad_xscat(v, dout, ckpts, params, lregcl=True, pre=pre)
             return out, dout, adj
         return unit
+    if kind == "chunk":
+        # the same with both sweeps C levels a step
+        def chunked(v):
+            pre = kernel_prelude(v, params)
+            out, dout, ckpts = cloudsc2_tl_chunked(v, params, dscale=DSCALE,
+                                                   chunk_levels=chunk, lregcl=True,
+                                                   pre=pre)
+            adj = cloudsc2_ad_chunked(v, dout, ckpts, params, chunk_levels=chunk,
+                                      lregcl=True, pre=pre)
+            return out, dout, adj
+        return chunked
     if kind == "fused":
         return lambda v: cloudsc2_tlad_fused(v, params, lregcl=True)
     if kind in ("enc", "encnp"):

@@ -2,8 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so ``nvcc`` compiles it in seconds into a shared library that
-:mod:`ctypes` loads (pointers come from ``Tensor.data_ptr()``, the stream
-from ``torch.cuda.current_stream().cuda_stream``).  The library goes to
+:mod:`ctypes` loads.  :func:`bind` checks a library's argument layout
+against its wrapper's and declares its entries, once per library and
+process; :func:`launch` calls an entry with tensors as pointers (from
+``Tensor.data_ptr()``) on the current stream
+(``torch.cuda.current_stream().cuda_stream``): the one way Python reaches a
+library of ``csrc/``.  The library goes to
 ``build/cloudsc2jax_torch/<hash>/`` under the checkout, keyed by a hash of
 the sources, the flags, the ``-D`` defines, the library's extra flags and
 the compiler's ``nvcc --version``, so an edited source or a new toolkit is
@@ -30,11 +34,13 @@ import pathlib
 import re
 import shutil
 import subprocess
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Sequence, Tuple, Union
 
-__all__ = ["NVCC_FLAGS", "SHIPPED_FLAGS", "VARIANTS", "load_libraries", "load_library",
-           "library_digest", "loop_census", "nvcc_path", "nvcc_version", "ptxas_report",
-           "role_registers", "sass", "sass_digests", "variant"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "SHIPPED_FLAGS", "VARIANTS", "bind", "launch", "load_libraries",
+           "load_library", "library_digest", "loop_census", "nvcc_path", "nvcc_version",
+           "ptxas_report", "role_registers", "sass", "sass_digests", "variant"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cloudsc2jax_torch"
@@ -195,6 +201,87 @@ def load_libraries(specs: Sequence[Spec]) -> List[ctypes.CDLL]:
             _LIBRARIES[key] = ctypes.CDLL(
                 str(_build_dir(*key) / f"lib{key[0]}.so"))
     return [_LIBRARIES[key] for key in keys]
+
+
+def bind(name: str, layouts: Mapping[str, Sequence], launchers: Mapping[str, Sequence],
+         defines: Sequence[str] = (), strings: Sequence[str] = ()) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu`` (:func:`load_library` with ``defines``) and,
+    the first time, check its argument layout against the wrapper's and
+    declare its entries.
+
+    ``layouts`` maps an ``*_abi`` function to the counts it must write (an
+    entry ``None`` is read but not checked; the counts read are kept in
+    ``lib.layouts``); ``launchers`` maps an entry's name to its argument
+    types (it returns a ``cudaError_t``); ``strings`` names entries that
+    take nothing and return a C string.  Raises ``RuntimeError`` on a
+    layout mismatch."""
+    lib = load_library(name, defines)
+    if getattr(lib, "_bound", False):
+        return lib
+    lib.layouts = {}
+    for abi, expected in layouts.items():
+        counts = (ctypes.c_int * len(expected))()
+        fn = getattr(lib, abi)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        fn(counts)
+        if any(e is not None and c != e for c, e in zip(counts, expected)):
+            raise RuntimeError(
+                f"{name}.cu: {abi} gives the layout {tuple(counts)}, the "
+                f"wrapper expects {tuple(expected)}")
+        lib.layouts[abi] = tuple(counts)
+    for fn_name, argtypes in launchers.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    for fn_name in strings:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = []
+        fn.restype = ctypes.c_char_p
+    lib._bound = True
+    return lib
+
+
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
+
+
+def _argument(x):
+    """A tensor as its pointer, a list or tuple as an array of pointers
+    (``None`` a null pointer), anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.data_ptr()
+    if isinstance(x, (list, tuple)):
+        return (ctypes.c_void_p * len(x))(*(None if t is None else t.data_ptr()
+                                            for t in x))
+    return x
+
+
+def launch(lib: ctypes.CDLL, entry: str, like, *args, stream: bool = True) -> None:
+    """Call ``entry`` of the bound library ``lib`` on ``like``'s card.
+
+    ``like`` is a tensor, whose dtype picks ``<entry>_f32`` or
+    ``<entry>_f64``, or a ``torch.device`` for an entry without a suffix.
+    Each tensor of ``args`` goes as its pointer and each list or tuple of
+    tensors as an array of pointers (``None`` a null pointer); the current
+    stream goes last, unless ``stream`` is false (a query of the card, not a
+    launch).  Raises ``RuntimeError`` if the entry returns a nonzero
+    ``cudaError_t``."""
+    if isinstance(like, torch.device):
+        device, name = like, entry
+    else:
+        suffix = _SUFFIX.get(like.dtype)
+        if suffix is None:
+            raise TypeError(f"{entry} takes float32 or float64, not {like.dtype}")
+        device, name = like.device, entry + suffix
+    fn = getattr(lib, name)
+    values = [_argument(x) for x in args]
+    with torch.cuda.device(device):
+        if stream:
+            values.append(torch.cuda.current_stream().cuda_stream)
+        err = fn(*values)
+    if err != 0:
+        what = "kernel launch" if stream else "query"
+        raise RuntimeError(f"{entry} {what} failed: cudaError_t {err}")
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")

@@ -22,12 +22,6 @@ with no column padding.
   Its kernel shares the hand-written level body
   (``csrc/cloudsc2_nl_sweep.cuh``); its plain version is
   :func:`cloudsc2_fwd_ckpt_reference`.
-* :func:`cloudsc2_nl_resident` is the wrapper of the shared-memory-staged
-  sweep, the port of ``_resident_kernel`` (``mode="resident"``): the sweep
-  with ``inputs.pqs`` read as a stream, no checkpoints, its kernel
-  ``csrc/cloudsc2_nl_res.cu`` copying ``depth`` levels of a ``tile``-column
-  block ahead of the arithmetic into a ring in shared memory; its plain
-  version is :func:`cloudsc2_nl_resident_reference`.
 * :func:`kernel_prelude` computes, in the working dtype and before the
   launch, the per-level and per-column scalars the kernel takes (ceta,
   zscalm, the tropopause eta, the surface pressure), as ``_Layout`` does;
@@ -43,6 +37,11 @@ with no column padding.
   flux fields before the sweep (:func:`flux_rows`, :func:`flux_slots`: the
   sweeps write their flux rows into rows 1.. of them), else as a copy; on
   the CPU the plain expressions :func:`plain_contract`.
+
+Every kernel here is reached through :func:`~cloudsc2jax_torch.kernels.
+build.bind` and :func:`~cloudsc2jax_torch.kernels.build.launch`.  The
+sweeps' other schedules live in :mod:`~cloudsc2jax_torch.kernels.schedules`,
+the NL sweep's experiments in :mod:`~cloudsc2jax_torch.kernels.experiments`.
 """
 
 from __future__ import annotations
@@ -55,6 +54,7 @@ import torch
 
 from .. import spans
 from ..constants import Params
+from . import build
 from ..ops import damp_tangent
 from ..ops import maximum as _maximum
 from ..ops import minimum as _minimum
@@ -70,27 +70,22 @@ from ..physics.cloudsc2 import (
 from ..physics.satur import satur
 
 __all__ = [
-    "CHUNK_LEVELS",
     "Cloudsc2StreamOutputs",
     "FluxRows",
     "KernelPrelude",
     "assemble_contract",
-    "check_chunk_levels",
     "check_operands",
     "cloudsc2_fwd_ckpt",
     "cloudsc2_fwd_ckpt_reference",
     "cloudsc2_nl",
     "cloudsc2_nl_reference",
-    "cloudsc2_nl_resident",
-    "cloudsc2_nl_resident_reference",
     "contract_bytes",
     "flux_rows",
+    "flux_seeds",
     "flux_slots",
     "kernel_prelude",
     "launch_cloudsc2_fwd_ckpt",
     "launch_cloudsc2_nl",
-    "launch_cloudsc2_nl_resident",
-    "resident_ring",
     "level_physics",
     "level_scalars",
     "output_buffers",
@@ -119,21 +114,8 @@ KERNEL_OUTPUTS = (
 # the checkpointing sweep appends pqs to the streams and the 3 carry-in
 # checkpoints to the outputs (kFwdStreams, kFwdOutputs in the source)
 CHECKPOINTS = ("ckpt_rfl", "ckpt_sfl", "ckpt_covptot")
-# the levels a step may take besides 1 (``chunk_levels``): the chunked
-# libraries' instantiations (the cases of their launchers' switch in
-# csrc/cloudsc2_{fwd,tl,tl_din,ad}_chunk.cu and cloudsc2_tl_sweep.cuh), the
-# JAX tests' 2 and 3 and the JAX harness's example 4
-CHUNK_LEVELS = (2, 3, 4)
 FWD_CKPT_STREAMS = KERNEL_STREAMS + ("pqs",)
 FWD_CKPT_OUTPUTS = KERNEL_OUTPUTS + CHECKPOINTS
-# the resident sweep takes pqs in its place among the level fields
-# (Order<true>), the order of the TL and AD sweeps
-RESIDENT_STREAMS = _LEVEL_FIELDS + KERNEL_STREAMS[len(_LEVEL_FIELDS) - 1:]
-# its default block and ring: 128 columns x 2 levels in flight, the fastest of
-# the rings measured on an NVIDIA H100 (PERF.md): a deeper ring takes shared
-# memory that costs more warps per SM than its lookahead gains
-RESIDENT_TILE = 128
-RESIDENT_DEPTH = 2
 KERNEL_CONSTANTS = (
     "ptsphy", "rg", "rd", "rcpd", "retv", "rlvtt", "rlstt", "rlmlt", "rtt",
     "rcpd_rvtmp2", "inv_rcpd", "zcons2", "zcons3", "zmeltp2", "zqtmst",
@@ -521,7 +503,7 @@ _PRELUDE_ARGTYPES = [
 
 
 def _load_prelude_kernel():
-    return bind_library(
+    return build.bind(
         "cloudsc2_prelude", {"cloudsc2_prelude_abi": (2, 1, 1)},
         {"cloudsc2_prelude_f32": _PRELUDE_ARGTYPES,
          "cloudsc2_prelude_f64": _PRELUDE_ARGTYPES})
@@ -545,19 +527,12 @@ def _launch_tropopause(pt: torch.Tensor, ten_t: torch.Tensor,
                          f"{pt.device} and {tuple(ten_t.shape)} on {ten_t.device}")
     if ceta.shape[0] != pt.shape[0]:
         raise ValueError(f"ceta has {ceta.shape[0]} levels, pt {pt.shape[0]}")
-    lib = _load_prelude_kernel()
     k_lo, k_hi = tropopause_hull(params, pt.dtype)
     ncol = pt.shape[1]
     ztrpaus = torch.empty(ncol, dtype=pt.dtype, device=pt.device)
-    suffix = "f32" if pt.dtype == torch.float32 else "f64"
-    with torch.cuda.device(pt.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"cloudsc2_prelude_{suffix}")(
-            pt.data_ptr(), ten_t.data_ptr(), ceta.data_ptr(), ztrpaus.data_ptr(),
-            float(params.ptsphy), ncol, *pt.stride(), *ten_t.stride(), k_lo, k_hi,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_prelude kernel launch failed: cudaError_t {err}")
+    build.launch(_load_prelude_kernel(), "cloudsc2_prelude", pt, pt, ten_t, ceta,
+                 ztrpaus, float(params.ptsphy), ncol, *pt.stride(), *ten_t.stride(),
+                 k_lo, k_hi)
     return ztrpaus
 
 
@@ -662,46 +637,18 @@ def cloudsc2_nl_reference(
 @spans.spanned("fwd_sweep")
 def cloudsc2_fwd_ckpt_reference(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
-    pre: "KernelPrelude | None" = None, chunk_levels: int = 1, out=None,
+    pre: "KernelPrelude | None" = None, out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
     """The plain PyTorch version of the checkpointing forward sweep, on any
     device: ``(outputs, checkpoints)``.  ``inputs.pqs`` is read as it is;
     ``checkpoints`` are the carries (rfl, sfl, covptot) going INTO each
     level, ``(nlev, ncol)`` each.  ``pre`` replaces :func:`plain_prelude`
-    of ``inputs`` where the caller has it.  ``chunk_levels`` is checked as
-    the kernels check it and runs the same loop; ``out`` as for
+    of ``inputs`` where the caller has it; ``out`` as for
     :func:`cloudsc2_nl`."""
-    check_chunk_levels(chunk_levels)
     if inputs.pqs is None:
         raise ValueError("the checkpointing forward sweep reads pqs")
     return _nl_sweep(inputs, params, ldrain1d, pqs_stream=True,
                      checkpoints=True, pre=pre, out=out)
-
-
-def check_chunk_levels(chunk_levels: int) -> int:
-    """``chunk_levels`` as an int; raises ``ValueError`` unless it is 1 or one
-    of the built :data:`CHUNK_LEVELS`, on any device."""
-    if chunk_levels not in (1, *CHUNK_LEVELS):
-        raise ValueError(f"chunk_levels must be 1 or one of the built "
-                         f"{', '.join(map(str, CHUNK_LEVELS))}, got {chunk_levels!r}")
-    return int(chunk_levels)
-
-
-def _need_pqs_stream(inputs: Cloudsc2Inputs) -> None:
-    if inputs.pqs is None:
-        raise ValueError("the resident sweep reads pqs as a stream: build the "
-                         "inputs with device_kernel_inputs(..., pqs=True)")
-
-
-def cloudsc2_nl_resident_reference(
-    inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
-) -> Cloudsc2StreamOutputs:
-    """The plain PyTorch version of the resident sweep, on any device: the
-    level loop of :func:`cloudsc2_fwd_ckpt_reference` (``inputs.pqs`` read as
-    it is), outputs only."""
-    _need_pqs_stream(inputs)
-    return _nl_sweep(inputs, params, ldrain1d, pqs_stream=True,
-                     checkpoints=False)[0]
 
 
 def _kernel_constants(params: Params, ldrain1d: bool):
@@ -763,39 +710,9 @@ _NL_ARGTYPES = [
 ]
 
 
-def bind_library(name: str, layouts, launchers, defines=()):
-    """Load ``csrc/<name>.cu`` and, the first time, check its argument
-    layout against the wrapper's and declare its launchers.
-
-    ``layouts`` maps an ``*_abi`` function to the counts it must write;
-    ``launchers`` maps a launcher's name to its argument types (it returns
-    the launch's ``cudaError_t``)."""
-    from . import build
-
-    lib = build.load_library(name, defines)
-    if getattr(lib, "_bound", False):
-        return lib
-    for abi, expected in layouts.items():
-        counts = (ctypes.c_int * len(expected))()
-        fn = getattr(lib, abi)
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        fn(counts)
-        if tuple(counts) != tuple(expected):
-            raise RuntimeError(
-                f"{name}.cu: {abi} gives the layout {tuple(counts)}, the "
-                f"wrapper expects {tuple(expected)}")
-    for fn_name, argtypes in launchers.items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib._bound = True
-    return lib
-
-
 def _load_kernel():
     n_out, n_const = len(KERNEL_OUTPUTS), len(KERNEL_CONSTANTS)
-    return bind_library(
+    return build.bind(
         "cloudsc2_nl",
         {"cloudsc2_nl_abi": (len(KERNEL_STREAMS), n_out, n_const),
          "cloudsc2_fwd_ckpt_abi": (len(FWD_CKPT_STREAMS), len(FWD_CKPT_OUTPUTS),
@@ -803,31 +720,6 @@ def _load_kernel():
         {f"{entry}_{suffix}": _NL_ARGTYPES
          for entry in ("cloudsc2_nl", "cloudsc2_fwd_ckpt")
          for suffix in ("f32", "f64")})
-
-
-def _load_fwd_chunk_kernel():
-    argtypes = _NL_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]  # chunk
-    return bind_library(
-        "cloudsc2_fwd_chunk",
-        {"cloudsc2_fwd_chunk_abi": (len(FWD_CKPT_STREAMS), len(FWD_CKPT_OUTPUTS),
-                                    len(KERNEL_CONSTANTS))},
-        {"cloudsc2_fwd_chunk_f32": argtypes, "cloudsc2_fwd_chunk_f64": argtypes})
-
-
-# streams staged per level and the largest block of csrc/cloudsc2_nl_res.cu
-_RESIDENT_STAGED = len(_LEVEL_FIELDS) + 2
-_RESIDENT_MAX_TILE = 256
-
-
-def _load_resident_kernel():
-    argtypes = _NL_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return bind_library(
-        "cloudsc2_nl_res",
-        {"cloudsc2_nl_res_abi": (len(RESIDENT_STREAMS), len(KERNEL_OUTPUTS),
-                                 len(KERNEL_CONSTANTS), _RESIDENT_STAGED,
-                                 _RESIDENT_MAX_TILE)},
-        {"cloudsc2_nl_res_f32": argtypes, "cloudsc2_nl_res_f64": argtypes,
-         "cloudsc2_nl_res_max_ring_bytes": [ctypes.POINTER(ctypes.c_int)]})
 
 
 def check_operands(tensors, names, like: torch.Tensor, what: str) -> None:
@@ -871,34 +763,25 @@ def output_buffers(names, out, like: torch.Tensor, what: str):
 
 def _launch(entry: str, streams, outputs, inputs: Cloudsc2Inputs,
             pre: KernelPrelude, params: Params, ldrain1d: bool,
-            lib=None, extra=(), out=None):
+            library=_load_kernel, extra=(), out=None):
     """Check the operands named by ``streams``, take the ``(nlev, ncol)``
     outputs named by ``outputs`` from ``out`` or allocate them
-    (:func:`output_buffers`), and launch ``<entry>_f32|f64`` of ``lib``
-    (``csrc/cloudsc2_nl.cu`` unless given) on the current stream, ``extra``
-    going between ``evap`` and the stream; raises if refused."""
+    (:func:`output_buffers`), and launch ``<entry>_f32|f64`` of the library
+    ``library()`` binds (``csrc/cloudsc2_nl.cu`` unless given) on the
+    current stream, ``extra`` going between ``evap`` and the stream; raises
+    if refused."""
     if inputs.pt.device.type != "cuda":
         raise ValueError(f"launch_{entry} needs CUDA tensors, got {inputs.pt.device}")
     _check_config(params, ldrain1d)
     operands = {**inputs._asdict(), **pre._asdict()}
     check_operands(operands, streams, inputs.pt, entry)
-    if lib is None:
-        lib = _load_kernel()
     nlev, ncol = inputs.pt.shape
     outs = output_buffers(outputs, out, inputs.pt, entry)
-    in_ptrs = (ctypes.c_void_p * len(streams))(
-        *(operands[name].data_ptr() for name in streams))
-    out_ptrs = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
     consts = (ctypes.c_double * len(KERNEL_CONSTANTS))(
         *_kernel_constants(params, ldrain1d))
-    suffix = "f32" if inputs.pt.dtype == torch.float32 else "f64"
-    with torch.cuda.device(inputs.pt.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{entry}_{suffix}")(
-            in_ptrs, out_ptrs, consts, ncol, nlev,
-            int(_evap(params, ldrain1d)), *extra, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: cudaError_t {err}")
+    build.launch(library(), entry, inputs.pt,
+                 [operands[name] for name in streams], outs, consts, ncol, nlev,
+                 int(_evap(params, ldrain1d)), *extra)
     return outs
 
 
@@ -923,115 +806,22 @@ def launch_cloudsc2_nl(
 @spans.spanned("fwd_sweep")
 def launch_cloudsc2_fwd_ckpt(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
-    ldrain1d: bool = False, chunk_levels: int = 1, out=None,
+    ldrain1d: bool = False, out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
     """Launch the checkpointing forward kernel on CUDA tensors, on the
     current stream: ``(outputs, checkpoints)`` like the plain version.
 
     Checks device, dtype, shape and contiguity (pqs included), allocates
     the 8 + 3 outputs but those ``out`` gives by name, and raises if the
-    launch is refused.  Counts each
-    launch in ``cloudsc2_fwd_ckpt.launches``; with ``chunk_levels`` C > 1
-    launches the chunked kernel (``csrc/cloudsc2_fwd_chunk.cu``) and counts
-    it in ``cloudsc2_fwd_ckpt.launches_chunked``.
+    launch is refused.  Counts each launch in
+    ``cloudsc2_fwd_ckpt.launches``.
     """
-    chunk_levels = check_chunk_levels(chunk_levels)
     if inputs.pqs is None:
         raise ValueError("the checkpointing forward sweep reads pqs")
-    if chunk_levels == 1:
-        outs = _launch("cloudsc2_fwd_ckpt", FWD_CKPT_STREAMS, FWD_CKPT_OUTPUTS,
-                       inputs, pre, params, ldrain1d, out=out)
-        cloudsc2_fwd_ckpt.launches += 1
-    else:
-        if inputs.pt.device.type != "cuda":  # before the library is built
-            raise ValueError(f"launch_cloudsc2_fwd_chunk needs CUDA tensors, got "
-                             f"{inputs.pt.device}")
-        outs = _launch("cloudsc2_fwd_chunk", FWD_CKPT_STREAMS, FWD_CKPT_OUTPUTS,
-                       inputs, pre, params, ldrain1d, lib=_load_fwd_chunk_kernel(),
-                       extra=(chunk_levels,), out=out)
-        cloudsc2_fwd_ckpt.launches_chunked += 1
+    outs = _launch("cloudsc2_fwd_ckpt", FWD_CKPT_STREAMS, FWD_CKPT_OUTPUTS,
+                   inputs, pre, params, ldrain1d, out=out)
+    cloudsc2_fwd_ckpt.launches += 1
     return Cloudsc2StreamOutputs(*outs[:8]), tuple(outs[8:])
-
-
-def resident_ring(nlev: int, dtype: torch.dtype, tile=None, depth=None):
-    """The resident sweep's block and ring for ``nlev`` levels of ``dtype``:
-    ``(tile, depth, bytes)``.  ``tile`` columns to a block (default
-    ``RESIDENT_TILE``), ``depth`` levels staged ahead, at most ``nlev``
-    (default ``RESIDENT_DEPTH``); 16 streams of ``tile`` values per level."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    tile = RESIDENT_TILE if tile is None else int(tile)
-    if not 1 <= tile <= _RESIDENT_MAX_TILE:
-        raise ValueError(f"tile must lie in 1..{_RESIDENT_MAX_TILE}, got {tile}")
-    level_bytes = _RESIDENT_STAGED * itemsize * tile
-    depth = RESIDENT_DEPTH if depth is None else int(depth)
-    if depth < 1:
-        raise ValueError(f"depth must be at least 1, got {depth}")
-    depth = min(depth, nlev)
-    return tile, depth, level_bytes * depth
-
-
-def launch_cloudsc2_nl_resident(
-    inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
-    ldrain1d: bool = False, tile=None, depth=None,
-) -> Cloudsc2StreamOutputs:
-    """Launch the resident kernel on CUDA tensors, on the current stream.
-
-    Checks device, dtype, shape and contiguity (pqs included), allocates the
-    8 outputs, and raises, before launching, when the ring of
-    :func:`resident_ring` exceeds the shared memory a block may have on the
-    device, and after it if the launch is refused.  Counts each launch in
-    ``cloudsc2_nl_resident.launches``."""
-    _need_pqs_stream(inputs)
-    if inputs.pt.device.type != "cuda":
-        raise ValueError("launch_cloudsc2_nl_resident needs CUDA tensors, got "
-                         f"{inputs.pt.device}")
-    if inputs.pt.dim() != 2:
-        raise ValueError("expected levels-major (nlev, ncol) inputs, got "
-                         f"{tuple(inputs.pt.shape)}")
-    tile, depth, ring = resident_ring(inputs.pt.shape[0], inputs.pt.dtype,
-                                      tile, depth)
-    lib = _load_resident_kernel()
-    limit = ctypes.c_int()
-    with torch.cuda.device(inputs.pt.device):
-        err = lib.cloudsc2_nl_res_max_ring_bytes(ctypes.byref(limit))
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_nl_res: device query failed: cudaError_t {err}")
-    if ring > limit.value:
-        raise ValueError(
-            f"a ring of {depth} levels x {tile} columns of {inputs.pt.dtype} "
-            f"takes {ring} bytes of shared memory; a block may have "
-            f"{limit.value}: lower tile or depth")
-    outs = _launch("cloudsc2_nl_res", RESIDENT_STREAMS, KERNEL_OUTPUTS,
-                   inputs, pre, params, ldrain1d, lib=lib, extra=(tile, depth))
-    cloudsc2_nl_resident.launches += 1
-    return Cloudsc2StreamOutputs(*outs)
-
-
-def cloudsc2_nl_resident(
-    inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
-    tile=None, depth=None,
-) -> Cloudsc2StreamOutputs:
-    """The NL sweep with pqs streamed and the inputs staged through shared
-    memory (``cloudsc2_pallas(mode="resident")``), on levels-major inputs
-    with pqs.
-
-    CUDA tensors run the hand-written kernel
-    (:func:`launch_cloudsc2_nl_resident`, after :func:`kernel_prelude`) with
-    blocks of ``tile`` columns and ``depth`` levels in flight
-    (:func:`resident_ring`; ``depth >= nlev`` holds every level on chip before
-    the first is computed); CPU tensors run the plain version
-    :func:`cloudsc2_nl_resident_reference`, which has no ring; any other
-    device raises."""
-    _need_pqs_stream(inputs)
-    device = inputs.pt.device
-    if device.type == "cpu":
-        resident_ring(inputs.pt.shape[0], inputs.pt.dtype, tile, depth)
-        return cloudsc2_nl_resident_reference(inputs, params, ldrain1d=ldrain1d)
-    if device.type != "cuda":
-        raise ValueError(f"cloudsc2_nl_resident runs on cuda or cpu tensors, not {device}")
-    return launch_cloudsc2_nl_resident(
-        inputs, kernel_prelude(inputs, params), params, ldrain1d=ldrain1d,
-        tile=tile, depth=depth)
 
 
 def cloudsc2_nl(
@@ -1056,7 +846,7 @@ def cloudsc2_nl(
 
 def cloudsc2_fwd_ckpt(
     inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
-    chunk_levels: int = 1, out=None,
+    out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Checkpoints]:
     """The checkpointing forward sweep on levels-major inputs with pqs:
     ``(outputs, checkpoints)``.
@@ -1064,12 +854,10 @@ def cloudsc2_fwd_ckpt(
     CUDA tensors run the hand-written kernel
     (:func:`launch_cloudsc2_fwd_ckpt`, after :func:`kernel_prelude`); CPU
     tensors run the plain version :func:`cloudsc2_fwd_ckpt_reference`; any
-    other device raises.  ``chunk_levels``: C levels a step (1 or one of
-    :data:`CHUNK_LEVELS`), with the same results; ``out`` as for
-    :func:`cloudsc2_nl`.
+    other device raises.  ``out`` as for :func:`cloudsc2_nl`.
     """
     device = inputs.pt.device
-    kw = dict(ldrain1d=ldrain1d, chunk_levels=chunk_levels, out=out)
+    kw = dict(ldrain1d=ldrain1d, out=out)
     if device.type == "cpu":
         return cloudsc2_fwd_ckpt_reference(inputs, params, **kw)
     if device.type != "cuda":
@@ -1079,8 +867,7 @@ def cloudsc2_fwd_ckpt(
 
 
 cloudsc2_nl.launches = 0
-cloudsc2_fwd_ckpt.launches = cloudsc2_fwd_ckpt.launches_chunked = 0
-cloudsc2_nl_resident.launches = 0
+cloudsc2_fwd_ckpt.launches = 0
 
 
 class FluxRows(NamedTuple):
@@ -1131,14 +918,27 @@ def _contract(out: Cloudsc2StreamOutputs, pfplsl, pfplsn, pfhpsl, pfhpsn):
         pcovptot=out.pcovptot)
 
 
+def flux_seeds(d: Cloudsc2Outputs, params: Params):
+    """The rain and snow seed streams of the reverse sweep for the
+    cotangent ``d`` on the levels-major contract: the flux rows k+1 and the
+    enthalpy fluxes (pfhpsl = -rlvtt·pfplsl, cloudsc2.F90:730-735) seed the
+    level-k rain and snow outputs, ``pfplsl[1:] - rlvtt·pfhpsl[1:]`` and
+    ``pfplsn[1:] - rlstt·pfhpsn[1:]`` (pfplsl[0] is the constant zero top
+    row, its cotangent drops).  The one definition of the fold, which
+    ``csrc/cloudsc2_contract.cu`` computes bit for bit."""
+    cst = params.yomcst
+    return (d.pfplsl[1:] - cst.rlvtt * d.pfhpsl[1:],
+            d.pfplsn[1:] - cst.rlstt * d.pfhpsn[1:])
+
+
 def plain_contract(out: Cloudsc2StreamOutputs, params: Params, *,
                    flux: "FluxRows | None" = None, seeds: bool = False):
     """The contract's assembly by PyTorch's own expressions, on any device:
     ``(outputs, seed streams)``, the levels-major :class:`Cloudsc2Outputs`
     (flux top row + enthalpy fluxes, cloudsc2.F90:694-735) and, with
     ``seeds``, the rain and snow seed streams of the reverse sweep for the
-    TL image ``out`` (:func:`~cloudsc2jax_torch.kernels.tlad_kernel.
-    seed_streams` of the assembled tangent), else ``None``.
+    TL image ``out`` (:func:`flux_seeds` of the assembled tangent), else
+    ``None``.
 
     Without ``flux`` the flux fields are new tensors (a zero row and
     ``torch.cat``); with it ``out.rfln``/``sfln`` are its rows 1.. and its top
@@ -1154,10 +954,7 @@ def plain_contract(out: Cloudsc2StreamOutputs, params: Params, *,
         pfplsl[0] = 0.0
         pfplsn[0] = 0.0
     res = _contract(out, pfplsl, pfplsn, -pfplsl * cst.rlvtt, -pfplsn * cst.rlstt)
-    if not seeds:
-        return res, None
-    return res, (pfplsl[1:] - cst.rlvtt * res.pfhpsl[1:],
-                 pfplsn[1:] - cst.rlstt * res.pfhpsn[1:])
+    return res, (flux_seeds(res, params) if seeds else None)
 
 
 _CONTRACT_ARGTYPES = [ctypes.POINTER(ctypes.c_void_p)] * 4 + [  # src, flux, enth, seed
@@ -1168,7 +965,7 @@ _CONTRACT_ARGTYPES = [ctypes.POINTER(ctypes.c_void_p)] * 4 + [  # src, flux, ent
 
 
 def _load_contract_kernel():
-    return bind_library(
+    return build.bind(
         "cloudsc2_contract", {"cloudsc2_contract_abi": (2, 2, 2, 2)},
         {"cloudsc2_contract_f32": _CONTRACT_ARGTYPES,
          "cloudsc2_contract_f64": _CONTRACT_ARGTYPES})
@@ -1190,17 +987,9 @@ def _launch_contract(out: Cloudsc2StreamOutputs, params: Params,
     enth = tuple(torch.empty_like(x) for x in flux)
     seed = tuple(torch.empty_like(x) for x in src) if seeds else (None, None)
     nlev, ncol = src[0].shape
-    ptrs = [(ctypes.c_void_p * 2)(*(None if x is None else x.data_ptr() for x in xs))
-            for xs in (src, flux, enth, seed)]
     cst = params.yomcst
-    lib = _load_contract_kernel()
-    suffix = "f32" if src[0].dtype == torch.float32 else "f64"
-    with torch.cuda.device(src[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"cloudsc2_contract_{suffix}")(
-            *ptrs, float(cst.rlvtt), float(cst.rlstt), ncol, nlev, stream)
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_contract kernel launch failed: cudaError_t {err}")
+    build.launch(_load_contract_kernel(), "cloudsc2_contract", src[0], src, flux,
+                 enth, seed, float(cst.rlvtt), float(cst.rlstt), ncol, nlev)
     return _contract(out, *flux, *enth), (seed if seeds else None)
 
 

@@ -1,12 +1,15 @@
-"""The scheduling experiments over 16-bit-encoded streams and the fused
-unit: the stream encoder, the encoded NL, TL and AD sweeps, and the
-single-launch fused TL+AD unit.
+"""The scheduling experiments over 16-bit-encoded streams, the fused unit
+and the resident NL sweep: the stream encoder, the encoded NL, TL and AD
+sweeps, the single-launch fused TL+AD unit and the shared-memory-staged NL
+sweep.
 
-Port of :mod:`cloudsc2jax.pallas.experiments`.  None of these is on a
+Port of :mod:`cloudsc2jax.pallas.experiments` and of the resident mode of
+:mod:`cloudsc2jax.pallas.cloudsc2_kernel`.  None of these is on a
 production path; :mod:`cloudsc2jax_torch.kernel_ab` runs the TL+AD ones
 beside the two-kernel unit (:func:`~cloudsc2jax_torch.drivers.run_tlad`) on
 one set of inputs and prints one timing line per schedule, and
-``chip_smoke.py`` times the encoded NL sweep beside the exact one.
+``chip_smoke.py`` times the encoded and resident NL sweeps beside the exact
+one.
 
 * :class:`EncodedInputs` and :func:`encode_blocked_inputs` (the JAX
   package's names; "blocked" is its word for the stream contract, which
@@ -39,6 +42,13 @@ one set of inputs and prints one timing line per schedule, and
   ``csrc/cloudsc2_ad_enc.cu``, ``csrc/cloudsc2_tlad_fused.cu``), CPU tensors
   to the plain versions, any other device raises.  Each counts its kernel
   launches in ``.launches``.
+* :func:`cloudsc2_nl_resident` is the wrapper of the shared-memory-staged
+  sweep, the port of ``_resident_kernel`` (``mode="resident"``): the sweep
+  with ``inputs.pqs`` read as a stream, no checkpoints, its kernel
+  ``csrc/cloudsc2_nl_res.cu`` copying ``depth`` levels of a ``tile``-column
+  block ahead of the arithmetic into a ring in shared memory
+  (:func:`resident_ring`); its plain version is
+  :func:`cloudsc2_nl_resident_reference`.
 
 The encoded sweeps are f32 only.  The NL sweep takes any subset of its
 streams encoded, plu and paph included, either payload, and both
@@ -61,11 +71,12 @@ import torch
 
 from ..constants import Params
 from ..physics.cloudsc2 import Cloudsc2Inputs
-from . import fused_plan
+from . import build, fused_plan
 from . import tlad_kernel as tk
 from .cloudsc2_kernel import (
     KERNEL_CONSTANTS,
     KERNEL_OUTPUTS,
+    KERNEL_STREAMS,
     Checkpoints,
     Cloudsc2StreamOutputs,
     KernelPrelude,
@@ -74,8 +85,8 @@ from .cloudsc2_kernel import (
     _check_config,
     _evap,
     _kernel_constants,
+    _launch,
     _nl_sweep,
-    bind_library,
     check_operands,
     kernel_prelude,
     level_scalars,
@@ -85,11 +96,14 @@ from .cloudsc2_kernel import (
 __all__ = [
     "ENCODED_STREAMS",
     "FUSED_OUTPUTS",
+    "RESIDENT_STREAMS",
     "EncodedInputs",
     "cloudsc2_ad_encoded",
     "cloudsc2_ad_encoded_reference",
     "cloudsc2_nl_encoded",
     "cloudsc2_nl_encoded_reference",
+    "cloudsc2_nl_resident",
+    "cloudsc2_nl_resident_reference",
     "cloudsc2_tl_encoded",
     "cloudsc2_tl_encoded_reference",
     "cloudsc2_tlad_fused",
@@ -100,10 +114,12 @@ __all__ = [
     "fused_launch_plan",
     "launch_cloudsc2_ad_encoded",
     "launch_cloudsc2_nl_encoded",
+    "launch_cloudsc2_nl_resident",
     "launch_cloudsc2_tl_encoded",
     "launch_cloudsc2_tlad_fused",
     "level_major",
     "nl_encoded_kernel",
+    "resident_ring",
 ]
 
 # the 16 streams of a `fuse_satur=False` encoding, in the kernels' pointer
@@ -122,6 +138,17 @@ NL_DEFAULT_MASKS = {True: 0x1FFD, False: 0x3FFD}
 # csrc/cloudsc2_tlad_fused.cu)
 FUSED_OUTPUTS = (KERNEL_OUTPUTS + tuple("d_" + n for n in KERNEL_OUTPUTS)
                  + tk.AD_OUTPUTS)
+# the resident sweep takes pqs in its place among the level fields
+# (Order<true>), the order of the TL and AD sweeps
+RESIDENT_STREAMS = _LEVEL_FIELDS + KERNEL_STREAMS[len(_LEVEL_FIELDS) - 1:]
+# its default block and ring: 128 columns x 2 levels in flight, the fastest of
+# the rings measured on an NVIDIA H100 (PERF.md): a deeper ring takes shared
+# memory that costs more warps per SM than its lookahead gains
+RESIDENT_TILE = 128
+RESIDENT_DEPTH = 2
+# streams staged per level and the largest block of csrc/cloudsc2_nl_res.cu
+_RESIDENT_STAGED = len(_LEVEL_FIELDS) + 2
+_RESIDENT_MAX_TILE = 256
 
 
 # ------------------------------------------------------------------ encoder
@@ -359,6 +386,24 @@ def cloudsc2_tlad_fused_reference(
     return out, dout, adj
 
 
+def _need_pqs_stream(inputs: Cloudsc2Inputs) -> None:
+    if inputs.pqs is None:
+        raise ValueError("the resident sweep reads pqs as a stream: build the "
+                         "inputs with device_kernel_inputs(..., pqs=True)")
+
+
+def cloudsc2_nl_resident_reference(
+    inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
+) -> Cloudsc2StreamOutputs:
+    """The plain PyTorch version of the resident sweep, on any device: the
+    level loop of :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.
+    cloudsc2_fwd_ckpt_reference` (``inputs.pqs`` read as it is), outputs
+    only."""
+    _need_pqs_stream(inputs)
+    return _nl_sweep(inputs, params, ldrain1d, pqs_stream=True,
+                     checkpoints=False)[0]
+
+
 # -------------------------------------------------------------- CUDA kernels
 # per library: the pointer arrays it takes, then its scalar arguments between
 # the params array and the stream
@@ -385,11 +430,17 @@ _LAYOUT = {
 # the bfloat16 payloads' libraries take the int16 ones' arguments
 _LAYOUT.update({f"{name}_bf16": _LAYOUT[name]
                 for name in ("cloudsc2_tl_enc", "cloudsc2_ad_enc")})
+# the encoded sweeps are built for f32 only; the fused kernel for both, with
+# the query of its plan (fused_launch_plan: dtype, evap, lregcl, the plan)
+_BINDINGS = {name: tk._binding(name, layout, ("f32",))
+             for name, layout in _LAYOUT.items() if name != "cloudsc2_tlad_fused"}
+_BINDINGS["cloudsc2_tlad_fused"] = tk._binding(
+    "cloudsc2_tlad_fused", _LAYOUT["cloudsc2_tlad_fused"], queries={
+        "cloudsc2_tlad_fused_plan": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]})
 
 
-def _bind(name: str):
-    return tk._bind(name, _LAYOUT[name],
-                    ("f32", "f64") if name == "cloudsc2_tlad_fused" else ("f32",))
+def _library(name: str):
+    return build.bind(name, **_BINDINGS[name])
 
 
 def _encoded_operands(enc: EncodedInputs, params: Params, ldrain1d: bool,
@@ -454,7 +505,7 @@ def nl_encoded_kernel(enc: EncodedInputs, kernel: Optional[str] = None) -> str:
 
 def _bind_nl_encoded():
     n = len(ENCODED_STREAMS) + 4  # then ceta, zscalm, ztrpaus, paph_sfc
-    return bind_library(
+    return build.bind(
         "cloudsc2_nl_enc",
         {"cloudsc2_nl_enc_abi": (n - 1, n, len(KERNEL_OUTPUTS),
                                  len(KERNEL_CONSTANTS))},
@@ -509,23 +560,16 @@ def launch_cloudsc2_nl_encoded(
         raise TypeError(f"{what} is f32 only: levels is {enc.levels.dtype}")
     if enc.levels.data_ptr() % 16:
         raise ValueError(f"{what} reads levels as float4: it must be 16 B aligned")
-    lib = _bind_nl_encoded()
     outs = [torch.empty((nlev, ncol), dtype=torch.float32, device=device)
             for _ in KERNEL_OUTPUTS]
     order = names + tuple(KernelPrelude._fields)
-    in_ptrs = (ctypes.c_void_p * len(order))(
-        *(operands[n].data_ptr() for n in order))
-    out_ptrs = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
     consts = (ctypes.c_double * len(KERNEL_CONSTANTS))(
         *_kernel_constants(params, ldrain1d))
-    with torch.cuda.device(device):
-        err = lib.cloudsc2_nl_enc_f32(
-            in_ptrs, out_ptrs, consts, enc.levels.data_ptr(), encoded_mask(enc),
-            int(kernel == "fixed"), int(payload == torch.bfloat16),
-            int(not enc.fuse_satur), ncol, nlev, int(_evap(params, ldrain1d)),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")
+    build.launch(_bind_nl_encoded(), "cloudsc2_nl_enc", enc.paphsfc,
+                 [operands[n] for n in order], outs, consts, enc.levels,
+                 encoded_mask(enc), int(kernel == "fixed"),
+                 int(payload == torch.bfloat16), int(not enc.fuse_satur), ncol, nlev,
+                 int(_evap(params, ldrain1d)))
     cloudsc2_nl_encoded.launches += 1
     return Cloudsc2StreamOutputs(*outs)
 
@@ -548,14 +592,13 @@ def launch_cloudsc2_tl_encoded(
     like = operands["pq"]
     nlev, ncol = like.shape
     name = "cloudsc2_tl_enc" + suffix
-    lib = _bind(name)
+    lib = _library(name)
     new = [torch.empty_like(like) for _ in range(8 + 3)]
     prim = [torch.empty_like(like) if write_primal else None for _ in range(8)]
-    tk._call(lib, name, like,
-             ([operands[n] for n in tk.TL_STREAMS], new + prim),
-             tk._param_array(lib, params), enc.levels.data_ptr(), mask,
-             float(dscale), ncol, nlev, int(_evap(params, ldrain1d)),
-             int(lregcl), int(write_primal))
+    build.launch(lib, name, like, [operands[n] for n in tk.TL_STREAMS], new + prim,
+                 tk._param_array(lib, name, params), enc.levels, mask, float(dscale),
+                 ncol, nlev, int(_evap(params, ldrain1d)), int(lregcl),
+                 int(write_primal))
     if suffix:
         cloudsc2_tl_encoded.launches_bf16 += 1
     else:
@@ -585,14 +628,13 @@ def launch_cloudsc2_ad_encoded(
     like = operands["pq"]
     nlev, ncol = like.shape
     name = "cloudsc2_ad_enc" + suffix
-    lib = _bind(name)
+    lib = _library(name)
     outs = [torch.empty_like(like) for _ in _LEVEL_FIELDS] + [
         torch.empty_like(like), torch.empty_like(operands["paph"])]
     scales = tk.seed_scales(params) if fold_seeds else (1.0, 1.0)
-    tk._call(lib, name, like,
-             ([operands[n] for n in tk.AD_STREAMS], outs),
-             tk._param_array(lib, params), enc.levels.data_ptr(), mask, *scales,
-             ncol, nlev, int(_evap(params, ldrain1d)), int(lregcl))
+    build.launch(lib, name, like, [operands[n] for n in tk.AD_STREAMS], outs,
+                 tk._param_array(lib, name, params), enc.levels, mask, *scales,
+                 ncol, nlev, int(_evap(params, ldrain1d)), int(lregcl))
     if suffix:
         cloudsc2_ad_encoded.launches_bf16 += 1
     else:
@@ -616,20 +658,15 @@ def fused_launch_plan(inputs: Cloudsc2Inputs, params: Params, *,
     of the checkpoint ring in device memory.  Raises where the roles'
     budgets do not fit the registers the kernel was given (the launch would
     be refused)."""
-    lib = _bind("cloudsc2_tlad_fused")
+    lib = _library("cloudsc2_tlad_fused")
     dtype = "float64" if inputs.pt.dtype == torch.float64 else "float32"
     key = (dtype, bool(_evap(params, ldrain1d)), bool(lregcl))
     cache = lib.__dict__.setdefault("plans", {})
     if key not in cache:
-        fn = lib.cloudsc2_tlad_fused_plan
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
         values = (ctypes.c_int * len(_PLAN_FIELDS))()
-        with torch.cuda.device(inputs.pt.device):
-            err = fn(int(dtype == "float64"), int(key[1]), int(key[2]), values)
-        if err != 0:
-            raise RuntimeError(f"cloudsc2_tlad_fused plan query failed: "
-                               f"cudaError_t {err}")
+        build.launch(lib, "cloudsc2_tlad_fused_plan", inputs.pt.device,
+                     int(dtype == "float64"), int(key[1]), int(key[2]), values,
+                     stream=False)
         plan = dict(zip(_PLAN_FIELDS, values))
         split = fused_plan.Split(*(plan[f] for f in _PLAN_FIELDS[:6]))
         given = -(-plan["kernel_registers"] // 8) * 8
@@ -666,22 +703,85 @@ def launch_cloudsc2_tlad_fused(
     operands = {**inputs._asdict(), **pre._asdict()}
     check_operands(operands, tk.TL_STREAMS, inputs.pt, "cloudsc2_tlad_fused")
     nlev, ncol = inputs.pt.shape
-    lib = _bind("cloudsc2_tlad_fused")
+    lib = _library("cloudsc2_tlad_fused")
     plan = fused_launch_plan(inputs, params, lregcl=lregcl, ldrain1d=ldrain1d)
     scratch = inputs.pt.new_empty(plan["scratch_bytes"] // inputs.pt.element_size())
     next_tile = torch.empty(1, dtype=torch.int32, device=inputs.pt.device)
     outs = [torch.empty_like(inputs.pt) for _ in range(8 + 8 + len(_LEVEL_FIELDS))]
     outs += [torch.empty_like(inputs.plu), torch.empty_like(inputs.paph)]
-    tk._call(lib, "cloudsc2_tlad_fused", inputs.pt,
-             ([operands[n] for n in tk.TL_STREAMS], outs),
-             tk._param_array(lib, params), scratch.data_ptr(),
-             next_tile.data_ptr(), plan["blocks"], float(dscale),
-             *tk.seed_scales(params), ncol, nlev,
-             int(_evap(params, ldrain1d)), int(lregcl))
+    build.launch(lib, "cloudsc2_tlad_fused", inputs.pt,
+                 [operands[n] for n in tk.TL_STREAMS], outs,
+                 tk._param_array(lib, "cloudsc2_tlad_fused", params), scratch,
+                 next_tile, plan["blocks"], float(dscale), *tk.seed_scales(params),
+                 ncol, nlev, int(_evap(params, ldrain1d)), int(lregcl))
     cloudsc2_tlad_fused.launches += 1
     d = dict(zip(_LEVEL_FIELDS, outs[16:]))
     return (Cloudsc2StreamOutputs(*outs[:8]), Cloudsc2StreamOutputs(*outs[8:16]),
             Cloudsc2Inputs(plu=outs[-2], paph=outs[-1], **d))
+
+
+def _load_resident_kernel():
+    argtypes = _NL_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return build.bind(
+        "cloudsc2_nl_res",
+        {"cloudsc2_nl_res_abi": (len(RESIDENT_STREAMS), len(KERNEL_OUTPUTS),
+                                 len(KERNEL_CONSTANTS), _RESIDENT_STAGED,
+                                 _RESIDENT_MAX_TILE)},
+        {"cloudsc2_nl_res_f32": argtypes, "cloudsc2_nl_res_f64": argtypes,
+         "cloudsc2_nl_res_max_ring_bytes": [ctypes.POINTER(ctypes.c_int)]})
+
+
+def resident_ring(nlev: int, dtype: torch.dtype, tile=None, depth=None):
+    """The resident sweep's block and ring for ``nlev`` levels of ``dtype``:
+    ``(tile, depth, bytes)``.  ``tile`` columns to a block (default
+    ``RESIDENT_TILE``), ``depth`` levels staged ahead, at most ``nlev``
+    (default ``RESIDENT_DEPTH``); 16 streams of ``tile`` values per level."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    tile = RESIDENT_TILE if tile is None else int(tile)
+    if not 1 <= tile <= _RESIDENT_MAX_TILE:
+        raise ValueError(f"tile must lie in 1..{_RESIDENT_MAX_TILE}, got {tile}")
+    level_bytes = _RESIDENT_STAGED * itemsize * tile
+    depth = RESIDENT_DEPTH if depth is None else int(depth)
+    if depth < 1:
+        raise ValueError(f"depth must be at least 1, got {depth}")
+    depth = min(depth, nlev)
+    return tile, depth, level_bytes * depth
+
+
+def launch_cloudsc2_nl_resident(
+    inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
+    ldrain1d: bool = False, tile=None, depth=None,
+) -> Cloudsc2StreamOutputs:
+    """Launch the resident kernel on CUDA tensors, on the current stream.
+
+    Checks device, dtype, shape and contiguity (pqs included), allocates the
+    8 outputs, and raises, before launching, when the ring of
+    :func:`resident_ring` exceeds the shared memory a block may have on the
+    device, and after it if the launch is refused.  Counts each launch in
+    ``cloudsc2_nl_resident.launches``."""
+    _need_pqs_stream(inputs)
+    if inputs.pt.device.type != "cuda":
+        raise ValueError("launch_cloudsc2_nl_resident needs CUDA tensors, got "
+                         f"{inputs.pt.device}")
+    if inputs.pt.dim() != 2:
+        raise ValueError("expected levels-major (nlev, ncol) inputs, got "
+                         f"{tuple(inputs.pt.shape)}")
+    tile, depth, ring = resident_ring(inputs.pt.shape[0], inputs.pt.dtype,
+                                      tile, depth)
+    lib = _load_resident_kernel()
+    limit = ctypes.c_int()
+    build.launch(lib, "cloudsc2_nl_res_max_ring_bytes", inputs.pt.device,
+                 ctypes.byref(limit), stream=False)
+    if ring > limit.value:
+        raise ValueError(
+            f"a ring of {depth} levels x {tile} columns of {inputs.pt.dtype} "
+            f"takes {ring} bytes of shared memory; a block may have "
+            f"{limit.value}: lower tile or depth")
+    outs = _launch("cloudsc2_nl_res", RESIDENT_STREAMS, KERNEL_OUTPUTS,
+                   inputs, pre, params, ldrain1d, library=lambda: lib,
+                   extra=(tile, depth))
+    cloudsc2_nl_resident.launches += 1
+    return Cloudsc2StreamOutputs(*outs)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -766,7 +866,35 @@ def cloudsc2_tlad_fused(
                                       params, **kw)
 
 
+def cloudsc2_nl_resident(
+    inputs: Cloudsc2Inputs, params: Params, *, ldrain1d: bool = False,
+    tile=None, depth=None,
+) -> Cloudsc2StreamOutputs:
+    """The NL sweep with pqs streamed and the inputs staged through shared
+    memory (``cloudsc2_pallas(mode="resident")``), on levels-major inputs
+    with pqs.
+
+    CUDA tensors run the hand-written kernel
+    (:func:`launch_cloudsc2_nl_resident`, after :func:`kernel_prelude`) with
+    blocks of ``tile`` columns and ``depth`` levels in flight
+    (:func:`resident_ring`; ``depth >= nlev`` holds every level on chip before
+    the first is computed); CPU tensors run the plain version
+    :func:`cloudsc2_nl_resident_reference`, which has no ring; any other
+    device raises."""
+    _need_pqs_stream(inputs)
+    device = inputs.pt.device
+    if device.type == "cpu":
+        resident_ring(inputs.pt.shape[0], inputs.pt.dtype, tile, depth)
+        return cloudsc2_nl_resident_reference(inputs, params, ldrain1d=ldrain1d)
+    if device.type != "cuda":
+        raise ValueError(f"cloudsc2_nl_resident runs on cuda or cpu tensors, not {device}")
+    return launch_cloudsc2_nl_resident(
+        inputs, kernel_prelude(inputs, params), params, ldrain1d=ldrain1d,
+        tile=tile, depth=depth)
+
+
 cloudsc2_nl_encoded.launches = 0
+cloudsc2_nl_resident.launches = 0
 cloudsc2_tl_encoded.launches = cloudsc2_tl_encoded.launches_bf16 = 0
 cloudsc2_ad_encoded.launches = cloudsc2_ad_encoded.launches_bf16 = 0
 cloudsc2_tlad_fused.launches = 0

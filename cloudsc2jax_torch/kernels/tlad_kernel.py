@@ -21,19 +21,8 @@ input (``Cloudsc2State.device_kernel_inputs(..., pqs=True)``).
   (``_tl_kernel`` without ``dscale``): its kernel
   (``csrc/cloudsc2_tl_din.cu``) reads a second set of 16 streams and
   writes no checkpoints.
-* The schedules JAX keeps beside those: ``chunk_levels`` C in
-  :data:`CHUNK_LEVELS` (C levels a step, ``_tl_kernel``/``_rev_kernel``
-  with ``chunk``; ``csrc/cloudsc2_tl_chunk.cu``,
-  ``csrc/cloudsc2_tl_din_chunk.cu``, ``csrc/cloudsc2_ad_chunk.cu``, and the
-  forward-checkpoint sweep's ``csrc/cloudsc2_fwd_chunk.cu``), and the
-  17-stream adjoint convention (``cloudsc2_ad(inplace_scatter=False)``,
-  ``csrc/cloudsc2_ad_xscat.cu``): the reverse sweep writes the cotangents
-  of all 17 values a level reads at that level's slot
-  (:class:`ShiftedAdjoints`) and :func:`assemble_shifted_adjoints` adds the
-  shifted ones in PyTorch.  Each counts its launches beside the kernel of
-  its wrapper (``cloudsc2_tl.launches_chunked``, ``cloudsc2_ad.launches_xscat``,
-  ...).  The results do not depend on the schedule: every level runs the
-  same body on the same values in the same order.
+* The schedules JAX keeps beside those (C levels a step, the 17-stream
+  adjoint convention) are :mod:`~cloudsc2jax_torch.kernels.schedules`.
 * :func:`cloudsc2_tl_reference` and :func:`cloudsc2_ad_reference` are the
   plain versions: a Python loop over levels of ``torch.func.jvp`` of
   :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.level_physics`, and a
@@ -63,16 +52,16 @@ nothing of the forward-checkpoint sweep's outputs is assembled.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import spans
 from ..constants import Params
 from ..physics.cloudsc2 import Cloudsc2Inputs, Cloudsc2Outputs
+from . import build
 from .cloudsc2_kernel import (
     CHECKPOINTS,
-    CHUNK_LEVELS,
     KERNEL_OUTPUTS,
     Checkpoints,
     Cloudsc2StreamOutputs,
@@ -81,10 +70,10 @@ from .cloudsc2_kernel import (
     _check_config,
     _evap,
     assemble_contract,
-    check_chunk_levels,
     check_operands,
     cloudsc2_fwd_ckpt_reference,
     flux_rows,
+    flux_seeds,
     flux_slots,
     kernel_prelude,
     plain_prelude,
@@ -95,19 +84,13 @@ from .cloudsc2_kernel import (
 
 __all__ = [
     "AD_OUTPUTS",
-    "AD_SHIFTED_OUTPUTS",
     "AD_STREAMS",
-    "CHUNK_LEVELS",
-    "ShiftedAdjoints",
     "TL_OUTPUTS",
     "TL_STREAMS",
     "TL_TANGENT_STREAMS",
     "ad_from_seeds",
-    "assemble_shifted_adjoints",
-    "check_chunk_levels",
     "cloudsc2_ad",
     "cloudsc2_ad_reference",
-    "cloudsc2_ad_streams_reference",
     "cloudsc2_kernel_ad",
     "cloudsc2_kernel_tl",
     "cloudsc2_tl",
@@ -115,7 +98,6 @@ __all__ = [
     "cloudsc2_tl_reference",
     "fold_flux_seeds",
     "launch_cloudsc2_ad",
-    "launch_cloudsc2_ad_streams",
     "launch_cloudsc2_tl",
     "launch_cloudsc2_tl_din",
     "occupancy",
@@ -135,21 +117,6 @@ AD_STREAMS = _LEVEL_FIELDS + _COMMON + CHECKPOINTS + tuple("seed_" + n for n in 
 # the tangent streams' names among a TL sweep's ``out`` (primal: KERNEL_OUTPUTS)
 _TANGENT_OUTPUTS = TL_OUTPUTS[:8]
 AD_OUTPUTS = tuple("d_" + n for n in _LEVEL_FIELDS) + ("d_plu", "d_paph")
-# the 17-stream convention's outputs (ShiftedOutput in the AD header): the
-# cotangents of a level's 17 reads at its own slot, then the surface row
-AD_SHIFTED_OUTPUTS = tuple("d_" + n for n in _LEVEL_FIELDS) + (
-    "d_plu_k1", "d_paph_lo", "d_paph_hi", "d_paph_sfc")
-
-
-ShiftedAdjoints = NamedTuple("ShiftedAdjoints", [
-    (n.removeprefix("d_"), torch.Tensor) for n in AD_SHIFTED_OUTPUTS])
-ShiftedAdjoints.__doc__ = """The reverse sweep's results under the 17-stream
-convention (``_rev_kernel``, ``tlad_kernel.py:564-610``), levels-major: the
-adjoints of the 14 level rows, then the cotangents of each level's plu(k+1),
-paph(k) and paph(k+1) reads at the level's own slot, each ``(nlev, ncol)``,
-and the sum over levels of the paph_sfc cotangent, ``(ncol,)``; the
-kernels' outputs in their order (:data:`AD_SHIFTED_OUTPUTS`).
-:func:`assemble_shifted_adjoints` makes d_plu and d_paph of them."""
 
 
 def seed_scales(params: Params) -> Tuple[float, float]:
@@ -193,46 +160,6 @@ def _need_pqs(inputs: Cloudsc2Inputs) -> None:
                          "device_kernel_inputs(..., pqs=True)")
 
 
-def _inplace(inplace_scatter: Optional[bool], chunk_levels: int) -> bool:
-    """``inplace_scatter`` resolved as ``cloudsc2_pallas_ad`` resolves it
-    (``tlad_kernel.py:662-668``): on by default for one level a step, and
-    refused with more."""
-    if inplace_scatter is None:
-        return chunk_levels == 1
-    if inplace_scatter and chunk_levels != 1:
-        raise ValueError("inplace_scatter requires chunk_levels == 1 (the "
-                         "17-stream convention is the chunked sweeps' only one)")
-    return bool(inplace_scatter)
-
-
-def _check_primal(write_primal: bool, chunk_levels: int) -> None:
-    if not write_primal and chunk_levels != 1:
-        raise ValueError("write_primal=False requires chunk_levels == 1, as in "
-                         "cloudsc2_pallas_tl")
-
-
-@spans.spanned("contract")
-def assemble_shifted_adjoints(d_plu_k1: torch.Tensor, d_paph_lo: torch.Tensor,
-                              d_paph_hi: torch.Tensor, dpaphsfc: torch.Tensor):
-    """``(d_plu, d_paph)`` from the 17-stream convention's shifted
-    cotangents, as ``cloudsc2_pallas_ad`` assembles them
-    (``tlad_kernel.py:790-803``): plu(k+1) read at level k gives ``d_plu[k+1]``
-    (level 0 is never read as k+1; the clamped last-level read has a zero
-    cotangent and is dropped); paph is read as lo(k) and hi(k+1), so ``d_paph
-    = [lo; 0] + [0; hi]``; the surface row adds ``dpaphsfc`` last."""
-    zrow = d_plu_k1.new_zeros((1, d_plu_k1.shape[1]))
-    d_plu = torch.cat([zrow, d_plu_k1[:-1]])
-    d_paph = torch.cat([d_paph_lo, zrow]) + torch.cat([zrow, d_paph_hi])
-    d_paph[-1] = d_paph[-1] + dpaphsfc
-    return d_plu, d_paph
-
-
-def _assembled(streams: ShiftedAdjoints) -> Cloudsc2Inputs:
-    d_plu, d_paph = assemble_shifted_adjoints(*streams[len(_LEVEL_FIELDS):])
-    return Cloudsc2Inputs(plu=d_plu, paph=d_paph,
-                          **dict(zip(_LEVEL_FIELDS, streams)))
-
-
 # ------------------------------------------------------------ plain versions
 def _one_increment(dscale, d_inputs) -> None:
     if (d_inputs is None) == (dscale is None):
@@ -244,7 +171,7 @@ def cloudsc2_tl_reference(
     inputs: Cloudsc2Inputs, params: Params, *, dscale: Optional[float] = None,
     d_inputs: Optional[Cloudsc2Inputs] = None,
     lregcl: bool = True, ldrain1d: bool = False, write_primal: bool = True,
-    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1, out=None,
+    pre: Optional[KernelPrelude] = None, out=None,
 ) -> Tuple[Optional[Cloudsc2StreamOutputs], Cloudsc2StreamOutputs, Checkpoints]:
     """Plain TL sweep on any device: returns (outputs | None, tangents,
     checkpoints).
@@ -257,14 +184,10 @@ def cloudsc2_tl_reference(
     (``tlad_kernel.py:238-245``).  ``checkpoints`` are the 3 carries (rfl,
     sfl, covptot) going INTO each level, ``(nlev, ncol)`` each.  ``pre``
     replaces :func:`plain_prelude` of ``inputs`` where the caller has it.
-    ``chunk_levels`` is checked as the kernels check it (with more than one
-    level a step the primal streams are written) and runs the same loop: the
-    results do not depend on it.  ``out`` gives outputs by name, as to the
-    kernels (``rfln``, ``d_rfln``, ...; :func:`~cloudsc2jax_torch.kernels.
-    cloudsc2_kernel.output_buffers`).
+    ``out`` gives outputs by name, as to the kernels (``rfln``, ``d_rfln``,
+    ...; :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.output_buffers`).
     """
     _one_increment(dscale, d_inputs)
-    _check_primal(write_primal, check_chunk_levels(chunk_levels))
     _check_config(params, ldrain1d)
     _need_pqs(inputs)
     pre = plain_prelude(inputs, params) if pre is None else pre
@@ -304,7 +227,6 @@ def cloudsc2_ad_reference(
     checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
     ldrain1d: bool = False, fold_seeds: bool = True,
     pre: Optional[KernelPrelude] = None,
-    inplace_scatter: Optional[bool] = None, chunk_levels: int = 1,
 ) -> Cloudsc2Inputs:
     """Plain reverse sweep on any device: the input adjoints, levels-major.
 
@@ -319,17 +241,8 @@ def cloudsc2_ad_reference(
     zero cotangent), ``d_paph[k+1] = hi(k) + lo(k+1)``, ``d_paph[0] =
     lo(0)``, and the surface row adds the sum over levels of the paph_sfc
     cotangent.  ``pre`` replaces :func:`plain_prelude` of ``inputs`` where
-    the caller has it.  ``inplace_scatter=False`` (the default with
-    ``chunk_levels`` > 1, which takes no other) runs
-    :func:`cloudsc2_ad_streams_reference` and assembles its 17 streams with
-    :func:`assemble_shifted_adjoints`: the same adjoints bit for bit.
+    the caller has it.
     """
-    chunk_levels = check_chunk_levels(chunk_levels)
-    if not _inplace(inplace_scatter, chunk_levels):
-        return _assembled(cloudsc2_ad_streams_reference(
-            inputs, d_outputs, checkpoints, params, lregcl=lregcl,
-            ldrain1d=ldrain1d, fold_seeds=fold_seeds, pre=pre,
-            chunk_levels=chunk_levels))
     _check_config(params, ldrain1d)
     _need_pqs(inputs)
     pre = plain_prelude(inputs, params) if pre is None else pre
@@ -363,43 +276,6 @@ def cloudsc2_ad_reference(
     return Cloudsc2Inputs(paph=d_paph, plu=d_plu, **d)
 
 
-@spans.spanned("ad_sweep")
-def cloudsc2_ad_streams_reference(
-    inputs: Cloudsc2Inputs, d_outputs: Cloudsc2StreamOutputs,
-    checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
-    ldrain1d: bool = False, fold_seeds: bool = True,
-    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
-) -> ShiftedAdjoints:
-    """Plain reverse sweep under the 17-stream convention, on any device:
-    the :class:`ShiftedAdjoints` of :func:`cloudsc2_ad_reference`'s loop,
-    each level's 17 cotangents stored at its own slot and the paph_sfc
-    cotangents summed over the levels in the same order.  ``chunk_levels``
-    is checked and does not change the loop."""
-    check_chunk_levels(chunk_levels)
-    _check_config(params, ldrain1d)
-    _need_pqs(inputs)
-    pre = plain_prelude(inputs, params) if pre is None else pre
-    nlev = inputs.pt.shape[0]
-    srfl, ssfl = seed_scales(params) if fold_seeds else (1.0, 1.0)
-    zero = torch.zeros_like(inputs.pt[0])
-    dcarry = (zero, zero, zero)
-    dsfc = zero
-    cols = (pre.ztrpaus, pre.paph_sfc)
-    streams = [torch.empty_like(inputs.pt) for _ in range(len(_LEVEL_FIELDS) + 3)]
-    for k in reversed(range(nlev)):
-        carry_in = tuple(c[k] for c in checkpoints)
-        _, vjp_fn = torch.func.vjp(
-            _level_fn(params, ldrain1d, lregcl, pre, k, nlev),
-            _level_fields(inputs, k, nlev), cols, carry_in)
-        seeds = tuple(s[k] for s in d_outputs)
-        seeds = seeds[:6] + (seeds[6] * srfl, seeds[7] * ssfl)
-        dfields, dcols, dcarry = vjp_fn((seeds, dcarry))
-        for buf, v in zip(streams, dfields):
-            buf[k] = v
-        dsfc = dsfc + dcols[1]
-    return ShiftedAdjoints(*streams, dsfc)
-
-
 # -------------------------------------------------------------- CUDA kernels
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 # per library: the pointer arrays it takes, then its scalar arguments
@@ -414,60 +290,53 @@ _LAYOUT = {
     "cloudsc2_ad": (
         (AD_STREAMS, AD_OUTPUTS),
         [ctypes.c_double] * 2 + [ctypes.c_int] * 4),  # seed scales; ncol nlev evap lregcl
-    "cloudsc2_ad_xscat": (
-        (AD_STREAMS, AD_SHIFTED_OUTPUTS),
-        [ctypes.c_double] * 2 + [ctypes.c_int] * 4),  # seed scales; ncol nlev evap lregcl
-    # the chunked libraries: as their one-level twins, then chunk
-    "cloudsc2_tl_chunk": (
-        (TL_STREAMS, TL_OUTPUTS),
-        [ctypes.c_double] + [ctypes.c_int] * 5),  # dscale; ncol nlev evap lregcl chunk
-    "cloudsc2_tl_din_chunk": (
-        (TL_STREAMS, TL_TANGENT_STREAMS, TL_OUTPUTS),
-        [ctypes.c_int] * 5),  # ncol nlev evap lregcl chunk
-    "cloudsc2_ad_chunk": (
-        (AD_STREAMS, AD_SHIFTED_OUTPUTS),
-        [ctypes.c_double] * 2 + [ctypes.c_int] * 5),  # seed scales; ncol nlev evap lregcl chunk
 }
+def _binding(name: str, layout, suffixes=("f32", "f64"), queries=None) -> dict:
+    """:func:`~cloudsc2jax_torch.kernels.build.bind`'s arguments for a
+    library of the TL/AD family, whose launchers take one pointer array per
+    entry of ``layout[0]``, the params array, the scalars ``layout[1]`` and
+    the stream, for each precision of ``suffixes``; ``queries`` adds entries
+    by name and argument types.  Its ``*_abi`` writes the arrays' lengths,
+    then the params' count, which :func:`_param_array` checks against the
+    names ``<name>_param_names`` returns."""
+    arrays, scalars = layout
+    launchers = {f"{name}_{s}": [_PTRS] * len(arrays) + [ctypes.POINTER(ctypes.c_double)]
+                 + scalars + [ctypes.c_void_p] for s in suffixes}
+    return {"layouts": {f"{name}_abi": tuple(len(a) for a in arrays) + (None,)},
+            "launchers": {**launchers, **(queries or {})},
+            "strings": (f"{name}_param_names",)}
 
 
-def _bind(name: str, layout=None, suffixes=("f32", "f64")):
-    """Load ``csrc/<name>.cu``, check its argument layout against the
-    wrapper's, and declare the launchers' argument types.  ``layout`` is an
-    entry like ``_LAYOUT``'s for a library of another module, ``suffixes``
-    the precisions it was built for."""
-    from . import build
-
-    lib = build.load_library(name)
-    if getattr(lib, "_bound", False):
-        return lib
-    arrays, scalars = layout or _LAYOUT[name]
-    abi = getattr(lib, f"{name}_abi")
-    abi.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    abi.restype = ctypes.c_int
-    counts = (ctypes.c_int * (len(arrays) + 1))()
-    abi(counts)
-    names_fn = getattr(lib, f"{name}_param_names")
-    names_fn.argtypes = []
-    names_fn.restype = ctypes.c_char_p
-    lib.param_names = names_fn().decode().split()
-    expected = tuple(len(a) for a in arrays) + (len(lib.param_names),)
-    if tuple(counts) != expected:
-        raise RuntimeError(f"{name}.cu argument layout {tuple(counts)} does "
-                           f"not match the wrapper's {expected}")
-    for suffix in suffixes:
-        fn = getattr(lib, f"{name}_{suffix}")
-        fn.argtypes = ([_PTRS] * len(arrays) + [ctypes.POINTER(ctypes.c_double)]
-                       + scalars + [ctypes.c_void_p])  # ..., params, ..., stream
-        fn.restype = ctypes.c_int
-    lib._bound = True
-    return lib
+# the TL and AD libraries' occupancy entries (:func:`occupancy`): the ints
+# they take before their counters are the launch's after nlev (evap, lregcl,
+# and for the TL write_primal)
+_OCCUPANCY_QUERIES = {
+    name: {f"{name}_occupancy_{s}": [ctypes.c_int] * n + [ctypes.POINTER(ctypes.c_int)]
+           for s in ("f32", "f64")}
+    for name, n in (("cloudsc2_tl", 3), ("cloudsc2_ad", 2))}
+_BINDINGS = {name: _binding(name, layout, queries=_OCCUPANCY_QUERIES.get(name))
+             for name, layout in _LAYOUT.items()}
 
 
-def _param_array(lib, params: Params):
+def _library(name: str):
+    return build.bind(name, **_BINDINGS[name])
+
+
+def _param_array(lib, name: str, params: Params):
+    """The params array of a launch of ``csrc/<name>.cu``: the values of the
+    names its ``<name>_param_names`` gives, read once per library, held to
+    the count its ``*_abi`` wrote (:func:`_binding`) and cached on it."""
     from .emit import param_value
 
-    return (ctypes.c_double * len(lib.param_names))(
-        *(param_value(params, p) for p in lib.param_names))
+    names = getattr(lib, "param_names", None)
+    if names is None:
+        names = getattr(lib, f"{name}_param_names")().decode().split()
+        counts = lib.layouts[f"{name}_abi"]
+        if counts[-1] != len(names):
+            raise RuntimeError(f"{name}.cu argument layout {counts} does not match "
+                               f"the wrapper's {counts[:-1] + (len(names),)}")
+        lib.param_names = names
+    return (ctypes.c_double * len(names))(*(param_value(params, p) for p in names))
 
 
 # The counters of a kernel instance, in the order the libraries' occupancy
@@ -487,15 +356,10 @@ def occupancy(name: str, like: torch.Tensor, *switches: int) -> dict:
     key = (name, like.dtype, like.device, switches)
     got = _OCCUPANCY_READ.get(key)
     if got is None:
-        bits = 32 if like.dtype == torch.float32 else 64
-        fn = getattr(_bind(name), f"{name}_occupancy_f{bits}")
-        fn.argtypes = [ctypes.c_int] * len(switches) + [ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
         out = (ctypes.c_int * len(OCCUPANCY))()
-        with torch.cuda.device(like.device):
-            err = fn(*switches, out)
-        if err != 0:
-            raise RuntimeError(f"{name}'s occupancy could not be read: cudaError_t {err}")
+        build.launch(_library(name), f"{name}_occupancy", like, *switches, out,
+                     stream=False)
+        bits = 32 if like.dtype == torch.float32 else 64
         got = _OCCUPANCY_READ[key] = {"dtype": bits, **dict(zip(OCCUPANCY, out))}
     return got
 
@@ -508,25 +372,11 @@ def _check_launch(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool,
     _need_pqs(inputs)
 
 
-def _call(lib, name: str, like: torch.Tensor, arrays, *args) -> None:
-    """Launch ``<name>_f32|f64`` on the current stream with one pointer
-    array per entry of ``arrays`` (``None`` gives a null pointer), then the
-    params and ``args``; raises if the launch is refused."""
-    fn = getattr(lib, name + ("_f32" if like.dtype == torch.float32 else "_f64"))
-    ptrs = [(ctypes.c_void_p * len(xs))(
-        *(None if x is None else x.data_ptr() for x in xs)) for xs in arrays]
-    with torch.cuda.device(like.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*ptrs, *args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-
-
 @spans.spanned("tl_sweep")
 def launch_cloudsc2_tl(
     inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
     dscale: float, ldrain1d: bool = False, write_primal: bool = True,
-    lregcl: bool = True, chunk_levels: int = 1,
+    lregcl: bool = True,
 ):
     """Launch the TL kernel on CUDA tensors, on the current stream: returns
     (outputs | None, tangents, checkpoints) like the plain version.
@@ -534,30 +384,34 @@ def launch_cloudsc2_tl(
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_tl.launches``, and gives the ``tl_sweep`` span the counters
-    of the instance (:func:`occupancy`); with ``chunk_levels`` C > 1
-    launches the chunked kernel (``csrc/cloudsc2_tl_chunk.cu``, primal
-    streams written) and counts it in ``cloudsc2_tl.launches_chunked``."""
-    chunk_levels = check_chunk_levels(chunk_levels)
-    _check_primal(write_primal, chunk_levels)
-    _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_tl")
+    of the instance (:func:`occupancy`)."""
+    outs = _tl_launch("cloudsc2_tl", _library, inputs, pre, params, dscale=dscale,
+                      ldrain1d=ldrain1d, lregcl=lregcl, write_primal=write_primal,
+                      extra=(int(write_primal),))
+    switches = (int(_evap(params, ldrain1d)), int(lregcl), int(write_primal))
+    spans.count(lambda: occupancy("cloudsc2_tl", inputs.pt, *switches))
+    cloudsc2_tl.launches += 1
+    return outs
+
+
+def _tl_launch(name: str, library, inputs: Cloudsc2Inputs, pre: KernelPrelude,
+               params: Params, *, dscale: float, ldrain1d: bool, lregcl: bool,
+               write_primal: bool, extra):
+    """Check the operands of an in-register-increment TL launch, allocate
+    its outputs (the primal streams with ``write_primal``), and launch
+    ``csrc/<name>.cu``, bound by ``library(name)``, with ``extra`` after
+    ``lregcl``: ``(outputs | None, tangents, checkpoints)``."""
+    _check_launch(inputs, params, ldrain1d, f"launch_{name}")
     operands = {**inputs._asdict(), **pre._asdict()}
-    check_operands(operands, TL_STREAMS, inputs.pt, "cloudsc2_tl")
+    check_operands(operands, TL_STREAMS, inputs.pt, name)
     nlev, ncol = inputs.pt.shape
-    name = "cloudsc2_tl" if chunk_levels == 1 else "cloudsc2_tl_chunk"
-    lib = _bind(name)
+    lib = library(name)
     new = [torch.empty_like(inputs.pt) for _ in range(8 + 3)]
     prim = [torch.empty_like(inputs.pt) if write_primal else None
             for _ in range(8)]
-    last = (int(write_primal),) if chunk_levels == 1 else (chunk_levels,)
-    switches = (int(_evap(params, ldrain1d)), int(lregcl))
-    _call(lib, name, inputs.pt,
-          ([operands[n] for n in TL_STREAMS], new + prim),
-          _param_array(lib, params), float(dscale), ncol, nlev, *switches, *last)
-    if chunk_levels == 1:
-        spans.count(lambda: occupancy(name, inputs.pt, *switches, *last))
-        cloudsc2_tl.launches += 1
-    else:
-        cloudsc2_tl.launches_chunked += 1
+    build.launch(lib, name, inputs.pt, [operands[n] for n in TL_STREAMS], new + prim,
+                 _param_array(lib, name, params), float(dscale), ncol, nlev,
+                 int(_evap(params, ldrain1d)), int(lregcl), *extra)
     return (Cloudsc2StreamOutputs(*prim) if write_primal else None,
             Cloudsc2StreamOutputs(*new[:8]), tuple(new[8:]))
 
@@ -565,8 +419,7 @@ def launch_cloudsc2_tl(
 @spans.spanned("tl_sweep")
 def launch_cloudsc2_tl_din(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, pre: KernelPrelude,
-    params: Params, *, ldrain1d: bool = False, lregcl: bool = False,
-    chunk_levels: int = 1, out=None,
+    params: Params, *, ldrain1d: bool = False, lregcl: bool = False, out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2StreamOutputs]:
     """Launch the streamed-increment TL kernel on CUDA tensors, on the
     current stream: returns (outputs, tangents).
@@ -576,34 +429,47 @@ def launch_cloudsc2_tl_din(
     name (``rfln``, ``d_rfln``, ...: the flux rows of
     :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.flux_slots`), and
     raises if the launch is refused.  Counts each launch in
-    ``cloudsc2_tl_din.launches``; with ``chunk_levels`` C > 1 launches the
-    chunked kernel (``csrc/cloudsc2_tl_din_chunk.cu``) and counts it in
-    ``cloudsc2_tl_din.launches_chunked``."""
-    chunk_levels = check_chunk_levels(chunk_levels)
-    _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_tl_din")
+    ``cloudsc2_tl_din.launches``."""
+    outs = _tl_din_launch("cloudsc2_tl_din", _library, inputs, d_inputs, pre, params,
+                          ldrain1d=ldrain1d, lregcl=lregcl, out=out)
+    cloudsc2_tl_din.launches += 1
+    return outs
+
+
+def _tl_din_launch(name: str, library, inputs: Cloudsc2Inputs,
+                  d_inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
+                  ldrain1d: bool, lregcl: bool, out=None, extra=()):
+    """Check the operands of a streamed-increment TL launch, allocate its
+    outputs but those ``out`` gives, and launch ``csrc/<name>.cu``, bound by
+    ``library(name)``, with ``extra`` after ``lregcl``: ``(outputs,
+    tangents)``."""
+    _check_launch(inputs, params, ldrain1d, f"launch_{name}")
     _need_pqs(d_inputs)
     operands = {**inputs._asdict(), **pre._asdict()}
-    check_operands(operands, TL_STREAMS, inputs.pt, "cloudsc2_tl_din")
+    check_operands(operands, TL_STREAMS, inputs.pt, name)
     tangents = d_inputs._asdict()
-    check_operands(tangents, TL_TANGENT_STREAMS, inputs.pt,
-                   "cloudsc2_tl_din (tangents)")
+    check_operands(tangents, TL_TANGENT_STREAMS, inputs.pt, f"{name} (tangents)")
     nlev, ncol = inputs.pt.shape
-    name = "cloudsc2_tl_din" if chunk_levels == 1 else "cloudsc2_tl_din_chunk"
-    lib = _bind(name)
+    lib = library(name)
     bufs = output_buffers(_TANGENT_OUTPUTS + KERNEL_OUTPUTS, out, inputs.pt, name)
     dout, prim = bufs[:8], bufs[8:]
-    _call(lib, name, inputs.pt,
-          ([operands[n] for n in TL_STREAMS],
-           [tangents[n] for n in TL_TANGENT_STREAMS],
-           dout + [None] * 3 + prim),
-          _param_array(lib, params), ncol, nlev,
-          int(_evap(params, ldrain1d)), int(lregcl),
-          *(() if chunk_levels == 1 else (chunk_levels,)))
-    if chunk_levels == 1:
-        cloudsc2_tl_din.launches += 1
-    else:
-        cloudsc2_tl_din.launches_chunked += 1
+    build.launch(lib, name, inputs.pt, [operands[n] for n in TL_STREAMS],
+                 [tangents[n] for n in TL_TANGENT_STREAMS], dout + [None] * 3 + prim,
+                 _param_array(lib, name, params), ncol, nlev,
+                 int(_evap(params, ldrain1d)), int(lregcl), *extra)
     return Cloudsc2StreamOutputs(*prim), Cloudsc2StreamOutputs(*dout)
+
+
+def _ad_operands(inputs: Cloudsc2Inputs, pre: KernelPrelude,
+                d_outputs: Cloudsc2StreamOutputs, checkpoints: Checkpoints,
+                what: str):
+    """The reverse sweep's operands in the order of :data:`AD_STREAMS`,
+    checked for device, dtype, shape and contiguity."""
+    operands = {**inputs._asdict(), **pre._asdict(),
+                **dict(zip(CHECKPOINTS, checkpoints)),
+                **{"seed_" + n: x for n, x in zip(KERNEL_OUTPUTS, d_outputs)}}
+    check_operands(operands, AD_STREAMS, inputs.pt, what)
+    return [operands[n] for n in AD_STREAMS]
 
 
 @spans.spanned("ad_sweep")
@@ -620,60 +486,20 @@ def launch_cloudsc2_ad(
     ``cloudsc2_ad.launches``, and gives the ``ad_sweep`` span the counters
     of the instance (:func:`occupancy`)."""
     _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_ad")
-    operands = {**inputs._asdict(), **pre._asdict(),
-                **dict(zip(CHECKPOINTS, checkpoints)),
-                **{"seed_" + n: x for n, x in zip(KERNEL_OUTPUTS, d_outputs)}}
-    check_operands(operands, AD_STREAMS, inputs.pt, "cloudsc2_ad")
+    streams = _ad_operands(inputs, pre, d_outputs, checkpoints, "cloudsc2_ad")
     nlev, ncol = inputs.pt.shape
-    lib = _bind("cloudsc2_ad")
+    lib = _library("cloudsc2_ad")
     outs = [torch.empty_like(inputs.pt) for _ in _LEVEL_FIELDS] + [
         torch.empty_like(inputs.plu), torch.empty_like(inputs.paph)]
     scales = seed_scales(params) if fold_seeds else (1.0, 1.0)
     switches = (int(_evap(params, ldrain1d)), int(lregcl))
-    _call(lib, "cloudsc2_ad", inputs.pt,
-          ([operands[n] for n in AD_STREAMS], outs),
-          _param_array(lib, params), *scales, ncol, nlev, *switches)
+    build.launch(lib, "cloudsc2_ad", inputs.pt, streams, outs,
+                 _param_array(lib, "cloudsc2_ad", params), *scales, ncol, nlev,
+                 *switches)
     spans.count(lambda: occupancy("cloudsc2_ad", inputs.pt, *switches))
     cloudsc2_ad.launches += 1
     d = dict(zip(_LEVEL_FIELDS, outs))
     return Cloudsc2Inputs(plu=outs[-2], paph=outs[-1], **d)
-
-
-@spans.spanned("ad_sweep")
-def launch_cloudsc2_ad_streams(
-    inputs: Cloudsc2Inputs, pre: KernelPrelude, d_outputs: Cloudsc2StreamOutputs,
-    checkpoints: Checkpoints, params: Params, *, ldrain1d: bool = False,
-    lregcl: bool = True, fold_seeds: bool = True, chunk_levels: int = 1,
-) -> ShiftedAdjoints:
-    """Launch the reverse-adjoint kernel of the 17-stream convention on CUDA
-    tensors, on the current stream: returns the raw :class:`ShiftedAdjoints`
-    like :func:`cloudsc2_ad_streams_reference`.
-
-    One level a step runs ``csrc/cloudsc2_ad_xscat.cu`` and counts in
-    ``cloudsc2_ad.launches_xscat``; ``chunk_levels`` C > 1 runs
-    ``csrc/cloudsc2_ad_chunk.cu`` and counts in
-    ``cloudsc2_ad.launches_chunked``.  Checks as :func:`launch_cloudsc2_ad`."""
-    chunk_levels = check_chunk_levels(chunk_levels)
-    _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_ad_streams")
-    operands = {**inputs._asdict(), **pre._asdict(),
-                **dict(zip(CHECKPOINTS, checkpoints)),
-                **{"seed_" + n: x for n, x in zip(KERNEL_OUTPUTS, d_outputs)}}
-    check_operands(operands, AD_STREAMS, inputs.pt, "cloudsc2_ad")
-    nlev, ncol = inputs.pt.shape
-    name = "cloudsc2_ad_xscat" if chunk_levels == 1 else "cloudsc2_ad_chunk"
-    lib = _bind(name)
-    outs = [torch.empty_like(inputs.pt) for _ in range(len(_LEVEL_FIELDS) + 3)]
-    outs.append(torch.empty_like(inputs.pt[0]))
-    scales = seed_scales(params) if fold_seeds else (1.0, 1.0)
-    _call(lib, name, inputs.pt, ([operands[n] for n in AD_STREAMS], outs),
-          _param_array(lib, params), *scales, ncol, nlev,
-          int(_evap(params, ldrain1d)), int(lregcl),
-          *(() if chunk_levels == 1 else (chunk_levels,)))
-    if chunk_levels == 1:
-        cloudsc2_ad.launches_xscat += 1
-    else:
-        cloudsc2_ad.launches_chunked += 1
-    return ShiftedAdjoints(*outs)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -687,7 +513,7 @@ def _device(inputs: Cloudsc2Inputs, what: str) -> str:
 def cloudsc2_tl(
     inputs: Cloudsc2Inputs, params: Params, *, dscale: float,
     lregcl: bool = True, ldrain1d: bool = False, write_primal: bool = True,
-    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
+    pre: Optional[KernelPrelude] = None,
 ):
     """The TL sweep with in-register increments ``dscale·x``: returns
     (outputs | None, tangents, checkpoints).
@@ -695,11 +521,9 @@ def cloudsc2_tl(
     CUDA tensors run the hand-written kernel (:func:`launch_cloudsc2_tl`);
     CPU tensors run the plain version :func:`cloudsc2_tl_reference`; any
     other device raises.  ``pre`` is :func:`kernel_prelude` of ``inputs``
-    where the caller has it (computed here otherwise).  ``chunk_levels``: C
-    levels a step (1 or one of :data:`CHUNK_LEVELS`; with more than one the
-    primal streams are written, as ``cloudsc2_pallas_tl`` requires)."""
+    where the caller has it (computed here otherwise)."""
     kw = dict(dscale=dscale, lregcl=lregcl, ldrain1d=ldrain1d,
-              write_primal=write_primal, chunk_levels=chunk_levels)
+              write_primal=write_primal)
     if _device(inputs, "cloudsc2_tl") == "cpu":
         return cloudsc2_tl_reference(inputs, params, pre=pre, **kw)
     pre = kernel_prelude(inputs, params) if pre is None else pre
@@ -709,17 +533,17 @@ def cloudsc2_tl(
 def cloudsc2_tl_din(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
     lregcl: bool = False, ldrain1d: bool = False,
-    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1, out=None,
+    pre: Optional[KernelPrelude] = None, out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2StreamOutputs]:
     """The TL sweep with streamed increments ``d_inputs`` (levels-major,
     shaped like ``inputs``): returns (outputs, tangents), 8 streams each.
 
     CUDA tensors run the hand-written kernel
     (:func:`launch_cloudsc2_tl_din`); CPU tensors run the plain version
-    :func:`cloudsc2_tl_reference`; any other device raises.  ``pre`` and
-    ``chunk_levels`` as for :func:`cloudsc2_tl`; both write the outputs
-    ``out`` gives by name into those tensors."""
-    kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, chunk_levels=chunk_levels, out=out)
+    :func:`cloudsc2_tl_reference`; any other device raises.  ``pre`` as for
+    :func:`cloudsc2_tl`; both write the outputs ``out`` gives by name into
+    those tensors."""
+    kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, out=out)
     if _device(inputs, "cloudsc2_tl_din") == "cpu":
         out, dout, _ = cloudsc2_tl_reference(inputs, params, d_inputs=d_inputs,
                                              pre=pre, **kw)
@@ -733,7 +557,6 @@ def cloudsc2_ad(
     checkpoints: Checkpoints, params: Params, *, lregcl: bool = True,
     ldrain1d: bool = False, fold_seeds: bool = True,
     pre: Optional[KernelPrelude] = None,
-    inplace_scatter: Optional[bool] = None, chunk_levels: int = 1,
 ) -> Cloudsc2Inputs:
     """The reverse sweep from a forward sweep's carry checkpoints, seeded
     with 8 raw cotangent streams: returns the input adjoints, levels-major.
@@ -741,30 +564,18 @@ def cloudsc2_ad(
 
     CUDA tensors run the hand-written kernel (:func:`launch_cloudsc2_ad`);
     CPU tensors run the plain version :func:`cloudsc2_ad_reference`; any
-    other device raises.  ``pre`` as for :func:`cloudsc2_tl`.
-    ``inplace_scatter`` as ``cloudsc2_pallas_ad`` takes it (default on for
-    one level a step, refused with more): off, the kernel writes the 17
-    streams of :func:`launch_cloudsc2_ad_streams` and
-    :func:`assemble_shifted_adjoints` adds them up, with the same results.
-    ``chunk_levels``: C levels a step (1 or one of :data:`CHUNK_LEVELS`)."""
-    chunk_levels = check_chunk_levels(chunk_levels)
-    inplace = _inplace(inplace_scatter, chunk_levels)
+    other device raises.  ``pre`` as for :func:`cloudsc2_tl`."""
     kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, fold_seeds=fold_seeds)
     if _device(inputs, "cloudsc2_ad") == "cpu":
         return cloudsc2_ad_reference(inputs, d_outputs, checkpoints, params,
-                                     pre=pre, inplace_scatter=inplace,
-                                     chunk_levels=chunk_levels, **kw)
+                                     pre=pre, **kw)
     pre = kernel_prelude(inputs, params) if pre is None else pre
-    if inplace:
-        return launch_cloudsc2_ad(inputs, pre, d_outputs, checkpoints, params, **kw)
-    return _assembled(launch_cloudsc2_ad_streams(
-        inputs, pre, d_outputs, checkpoints, params, chunk_levels=chunk_levels,
-        **kw))
+    return launch_cloudsc2_ad(inputs, pre, d_outputs, checkpoints, params, **kw)
 
 
-cloudsc2_tl.launches = cloudsc2_tl.launches_chunked = 0
-cloudsc2_tl_din.launches = cloudsc2_tl_din.launches_chunked = 0
-cloudsc2_ad.launches = cloudsc2_ad.launches_xscat = cloudsc2_ad.launches_chunked = 0
+cloudsc2_tl.launches = 0
+cloudsc2_tl_din.launches = 0
+cloudsc2_ad.launches = 0
 
 
 # ------------------------------------------------------ the standard contract
@@ -783,23 +594,21 @@ def seed_streams(d_outputs: Cloudsc2Outputs, params: Params,
     """Cloudsc2Outputs cotangents -> the 8 per-level seed streams,
     levels-major (``_seed_streams``, ``tlad_kernel.py:134-150``).
 
-    Transpose of the output assembly: the flux rows k+1 and both enthalpy
-    fluxes seed the level-k rain/snow outputs (pfhpsl = -rlvtt·pfplsl,
-    cloudsc2.F90:730-735; pfplsl[0] is the constant zero top row, its
-    cotangent drops)."""
+    Transpose of the output assembly: the rain and snow streams are
+    :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.flux_seeds` of the
+    flux and enthalpy-flux cotangents."""
     d = d_outputs if levels_major else Cloudsc2Outputs(*(x.T for x in d_outputs))
-    cst = params.yomcst
+    rfln, sfln = flux_seeds(d, params)
     seeds = Cloudsc2StreamOutputs(
         d.tenl_t, d.tenl_q, d.tenl_l, d.tenl_i, d.pclc, d.pcovptot,
-        rfln=d.pfplsl[1:] - cst.rlvtt * d.pfhpsl[1:],
-        sfln=d.pfplsn[1:] - cst.rlstt * d.pfhpsn[1:])
+        rfln=rfln, sfln=sfln)
     return Cloudsc2StreamOutputs(*(x.contiguous() for x in seeds))
 
 
 def tl_contract(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
     seeds: bool, lregcl: bool = False, ldrain1d: bool = False,
-    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
+    pre: Optional[KernelPrelude] = None,
 ):
     """The standard contract's TL half on levels-major inputs:
     ``(outputs, d_outputs, seeds | None)``, two levels-major
@@ -814,7 +623,6 @@ def tl_contract(
     flux, d_flux = flux_rows(inputs.pt), flux_rows(inputs.pt)
     out, dout = cloudsc2_tl_din(
         inputs, d_inputs, params, lregcl=lregcl, ldrain1d=ldrain1d, pre=pre,
-        chunk_levels=chunk_levels,
         out={**flux_slots(flux), **flux_slots(d_flux, "d_")})
     res, _ = assemble_contract(out, params, flux=flux)
     dres, sd = assemble_contract(dout, params, flux=d_flux, seeds=seeds)
@@ -824,8 +632,7 @@ def tl_contract(
 def ad_from_seeds(
     inputs: Cloudsc2Inputs, seeds: Cloudsc2StreamOutputs, params: Params, *,
     lregcl: bool = True, ldrain1d: bool = False,
-    pre: Optional[KernelPrelude] = None, inplace_scatter: Optional[bool] = None,
-    chunk_levels: int = 1, out=None,
+    pre: Optional[KernelPrelude] = None, out=None,
 ) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2Inputs]:
     """The standard contract's AD half on levels-major inputs with pqs: the
     checkpointing forward sweep, then the reverse sweep seeded with the 8
@@ -834,26 +641,22 @@ def ad_from_seeds(
     assembled; the forward sweep writes the outputs ``out`` gives by name
     into those tensors.  CUDA tensors run the two kernels after one
     :func:`kernel_prelude` for both (``pre`` where the caller has it), CPU
-    tensors their plain versions.  ``chunk_levels`` and ``inplace_scatter``
-    as for :func:`cloudsc2_ad`."""
-    chunk_levels = check_chunk_levels(chunk_levels)
-    inplace = _inplace(inplace_scatter, chunk_levels)
-    kw = dict(ldrain1d=ldrain1d, chunk_levels=chunk_levels, out=out)
+    tensors their plain versions."""
+    kw = dict(ldrain1d=ldrain1d, out=out)
     if _device(inputs, "cloudsc2_kernel_ad") == "cpu":
         fwd, ckpts = cloudsc2_fwd_ckpt_reference(inputs, params, pre=pre, **kw)
     else:
         pre = kernel_prelude(inputs, params) if pre is None else pre
         fwd, ckpts = launch_cloudsc2_fwd_ckpt(inputs, pre, params, **kw)
     adj = cloudsc2_ad(inputs, seeds, ckpts, params, lregcl=lregcl, ldrain1d=ldrain1d,
-                      fold_seeds=False, pre=pre, inplace_scatter=inplace,
-                      chunk_levels=chunk_levels)
+                      fold_seeds=False, pre=pre)
     return fwd, adj
 
 
 def cloudsc2_kernel_tl(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
     lregcl: bool = False, ldrain1d: bool = False, levels_major: bool = False,
-    pre: Optional[KernelPrelude] = None, chunk_levels: int = 1,
+    pre: Optional[KernelPrelude] = None,
 ) -> Tuple[Cloudsc2Outputs, Cloudsc2Outputs]:
     """Tangent-linear CLOUDSC2 through the streamed-increment sweep:
     returns (outputs, d_outputs) in the 10-field contract.
@@ -864,12 +667,11 @@ def cloudsc2_kernel_tl(
     in the same layout.  CUDA tensors run :func:`cloudsc2_tl_din`'s kernel,
     CPU tensors its plain version; :func:`tl_contract` assembles both
     contracts in place.  ``pre`` is :func:`kernel_prelude` of the
-    levels-major inputs where the caller has it; ``chunk_levels`` as for
-    :func:`cloudsc2_tl_din`."""
+    levels-major inputs where the caller has it."""
     if not levels_major:
         inputs, d_inputs = to_levels_major(inputs), to_levels_major(d_inputs)
     out, dout, _ = tl_contract(inputs, d_inputs, params, seeds=False, lregcl=lregcl,
-                               ldrain1d=ldrain1d, pre=pre, chunk_levels=chunk_levels)
+                               ldrain1d=ldrain1d, pre=pre)
     if levels_major:
         return out, dout
     return tuple(Cloudsc2Outputs(*(x.T for x in t)) for t in (out, dout))
@@ -878,8 +680,7 @@ def cloudsc2_kernel_tl(
 def cloudsc2_kernel_ad(
     inputs: Cloudsc2Inputs, d_outputs: Cloudsc2Outputs, params: Params, *,
     lregcl: bool = True, ldrain1d: bool = False, levels_major: bool = False,
-    pre: Optional[KernelPrelude] = None, inplace_scatter: Optional[bool] = None,
-    chunk_levels: int = 1,
+    pre: Optional[KernelPrelude] = None,
 ) -> Tuple[Cloudsc2Outputs, Cloudsc2Inputs]:
     """Adjoint CLOUDSC2 through the checkpointing forward sweep and the
     reverse sweep: returns (outputs, input_adjoints).
@@ -890,15 +691,13 @@ def cloudsc2_kernel_ad(
     :func:`seed_streams` folds it into the 8 seed streams, so the reverse
     sweep applies no (1 + L²) fold of its own.  :func:`ad_from_seeds` runs
     the two sweeps, and the forward sweep's outputs are assembled in place.
-    ``pre``, ``chunk_levels`` and ``inplace_scatter`` as for
-    :func:`ad_from_seeds`."""
+    ``pre`` as for :func:`ad_from_seeds`."""
     if not levels_major:
         inputs = to_levels_major(inputs)
     seeds = seed_streams(d_outputs, params, levels_major)
     flux = flux_rows(inputs.pt)
     fwd, adj = ad_from_seeds(inputs, seeds, params, lregcl=lregcl, ldrain1d=ldrain1d,
-                             pre=pre, inplace_scatter=inplace_scatter,
-                             chunk_levels=chunk_levels, out=flux_slots(flux))
+                             pre=pre, out=flux_slots(flux))
     out, _ = assemble_contract(fwd, params, flux=flux)
     if levels_major:
         return out, adj

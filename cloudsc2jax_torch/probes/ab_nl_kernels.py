@@ -1,7 +1,7 @@
 """Time the NL kernel and the forward-checkpoint kernel of any checkout, to
-compare two commits on one card at the kernels themselves (``ab_unit.py``
-times the whole ``run_nl`` and ``run_tlad`` calls, in which a few percent of
-one kernel drown).
+compare two commits on one card at the kernels themselves (the benchmark,
+``python3 -m benchmark.run``, times the whole ``run_nl`` and ``run_tlad``
+calls, in which a few percent of one kernel drown).
 
 Run on a machine with one CUDA card, from the root of a checkout that holds
 ``tests/fixtures``::

@@ -70,23 +70,19 @@ def main() -> int:
     i16 = [torch.randint(-32767, 32768, (nlev, NCOL), generator=gen,
                          device="cuda", dtype=torch.int16) for _ in range(READS)]
     out = [torch.empty((nlev, NCOL), device="cuda") for _ in range(WRITES)]
-    out_ptrs = (ctypes.c_void_p * WRITES)(*(x.data_ptr() for x in out))
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     calls, moved = {}, {}
     for mix, (r16, compute) in MIXES.items():
-        lib = km.bind_library(
+        lib = build.bind(
             "bw_probe", {"bw_probe_abi": (READS, WRITES, *compute)},
             {"bw_probe_f32": [ptrs, ptrs, ctypes.c_double, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
             defines=specs[mix])
         arrs = i16[:r16] + f32[r16:]
-        in_ptrs = (ctypes.c_void_p * READS)(*(x.data_ptr() for x in arrs))
 
-        def launch(i, lib=lib, in_ptrs=in_ptrs):
-            err = lib.bw_probe_f32(in_ptrs, out_ptrs, 1e-6 * (i + 1), NCOL, nlev,
-                                   0, torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"bw_probe launch failed: cudaError_t {err}")
+        def launch(i, lib=lib, arrs=arrs):
+            build.launch(lib, "bw_probe", out[0], arrs, out, 1e-6 * (i + 1), NCOL,
+                         nlev, 0)
 
         calls[mix] = launch
         moved[mix] = (2 * r16 + 4 * (READS - r16) + 4 * WRITES) * nlev * NCOL

@@ -21,6 +21,7 @@ def main() -> None:
     import torch
 
     from cloudsc2jax_torch.kernels import cloudsc2_kernel as km
+    from cloudsc2jax_torch.kernels import experiments as ex
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
     from cloudsc2jax_torch.state import Cloudsc2State
 
@@ -53,8 +54,8 @@ def main() -> None:
     print(json.dumps(controls()), flush=True)
     for ring in rings:
         tile, depth = (int(x) for x in ring.split(":"))
-        _, depth, ring_bytes = km.resident_ring(nlev, torch.float32, tile, depth)
-        ms = time_ms(lambda i, q: km.launch_cloudsc2_nl_resident(
+        _, depth, ring_bytes = ex.resident_ring(nlev, torch.float32, tile, depth)
+        ms = time_ms(lambda i, q: ex.launch_cloudsc2_nl_resident(
             i, q, p, tile=tile, depth=depth), 30 if depth < nlev else 3)
         print(json.dumps({"tile": tile, "depth": depth, "ring_bytes": ring_bytes,
                           "ms": ms}), flush=True)

@@ -145,7 +145,7 @@ def main() -> None:
     }
     counters = [(km.cloudsc2_nl, "launches"), (km.cloudsc2_fwd_ckpt, "launches"),
                 (tk.cloudsc2_tl, "launches"), (tk.cloudsc2_tl_din, "launches"),
-                (tk.cloudsc2_ad, "launches"), (tk.cloudsc2_ad, "launches_xscat")]
+                (tk.cloudsc2_ad, "launches")]
     enabled = spans._enabled
     events = (spans.Recorder.__dict__["_event"], spans.Recorder._resolve)
 

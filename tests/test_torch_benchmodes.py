@@ -10,7 +10,7 @@ import json
 import pytest
 
 from cloudsc2jax_torch import bench
-from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
+from cloudsc2jax_torch.kernels import experiments as ex
 
 NLEV = 9
 NCOL = 100
@@ -44,8 +44,8 @@ def _env(monkeypatch, variant, knobs):
 @pytest.mark.parametrize("variant,knobs,impl", MODES)
 def test_bench_mode_record(monkeypatch, capsys, variant, knobs, impl):
     calls = []
-    resident = kmod.cloudsc2_nl_resident
-    monkeypatch.setattr(kmod, "cloudsc2_nl_resident",
+    resident = ex.cloudsc2_nl_resident
+    monkeypatch.setattr(ex, "cloudsc2_nl_resident",
                         lambda *a, **k: calls.append(1) or resident(*a, **k))
     _env(monkeypatch, variant, knobs)
     record = bench.main(["--device", "cpu", "--nlev", str(NLEV)])

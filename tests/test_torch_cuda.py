@@ -18,6 +18,8 @@ import torch
 
 from cloudsc2jax_torch import cli
 from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
+from cloudsc2jax_torch.kernels import experiments as ex
+from cloudsc2jax_torch.kernels import schedules as sch
 from cloudsc2jax_torch.state import Cloudsc2State
 
 import prelude_cases as cases
@@ -303,10 +305,9 @@ def test_cuda_shipped_f32_kernels_meet_their_register_budget(lib, source, macro,
     registers within 64K / (128 threads x the chosen blocks per SM), and no
     more spill than SPILL_LIMIT."""
     from cloudsc2jax_torch.kernels import build
-    from cloudsc2jax_torch.kernels import tlad_kernel as tk
 
     _need_cuda()
-    tk._bind(lib)
+    build.load_library(lib)
     blocks = _budget(source, macro)
     limit = 65536 // (128 * blocks)
     entries = [e for e in build.ptxas_report(lib) if entry in e["entry"]]
@@ -657,12 +658,12 @@ def test_cuda_resident_kernel_matches_plain_version(dtype, tol, tile, depth):
     st = Cloudsc2State.load(FIXTURES / "input.npz")
     inputs = st.device_kernel_inputs(1000, dtype=dtype, device="cuda", pqs=True)
     if tile == "widest":
-        tile = 232_448 // kmod.resident_ring(137, dtype, 1, 137)[2]
-    launches = kmod.cloudsc2_nl_resident.launches
-    got = kmod.cloudsc2_nl_resident(inputs, st.params, ldrain1d=True, tile=tile,
+        tile = 232_448 // ex.resident_ring(137, dtype, 1, 137)[2]
+    launches = ex.cloudsc2_nl_resident.launches
+    got = ex.cloudsc2_nl_resident(inputs, st.params, ldrain1d=True, tile=tile,
                                     depth=depth)
-    assert kmod.cloudsc2_nl_resident.launches == launches + 1
-    ref = kmod.cloudsc2_nl_resident_reference(inputs, st.params, ldrain1d=True)
+    assert ex.cloudsc2_nl_resident.launches == launches + 1
+    ref = ex.cloudsc2_nl_resident_reference(inputs, st.params, ldrain1d=True)
     fwd, _ = kmod.cloudsc2_fwd_ckpt(inputs, st.params, ldrain1d=True)
     assert all(torch.isfinite(x).all() for x in got)
     assert _rel_err(got, ref) <= tol
@@ -677,17 +678,17 @@ def test_cuda_nl_experiment_kernels_reject_bad_operands():
     st = Cloudsc2State.load(FIXTURES / "input.npz")
     inputs = st.device_kernel_inputs(300, dtype=torch.float32, device="cuda", pqs=True)
     pre = kmod.kernel_prelude(inputs, st.params)
-    launches = kmod.cloudsc2_nl_resident.launches
+    launches = ex.cloudsc2_nl_resident.launches
     with pytest.raises(ValueError, match="shared memory"):
-        kmod.launch_cloudsc2_nl_resident(inputs, pre, st.params, tile=128, depth=137)
+        ex.launch_cloudsc2_nl_resident(inputs, pre, st.params, tile=128, depth=137)
     with pytest.raises(ValueError, match="tile"):
-        kmod.launch_cloudsc2_nl_resident(inputs, pre, st.params, tile=512)
+        ex.launch_cloudsc2_nl_resident(inputs, pre, st.params, tile=512)
     with pytest.raises(ValueError, match="pqs=True"):
-        kmod.launch_cloudsc2_nl_resident(inputs._replace(pqs=None), pre, st.params)
+        ex.launch_cloudsc2_nl_resident(inputs._replace(pqs=None), pre, st.params)
     with pytest.raises(ValueError):
-        kmod.launch_cloudsc2_nl_resident(
+        ex.launch_cloudsc2_nl_resident(
             inputs._replace(pqs=inputs.pqs.T.contiguous().T), pre, st.params)
-    assert kmod.cloudsc2_nl_resident.launches == launches
+    assert ex.cloudsc2_nl_resident.launches == launches
     enc = ex.encode_blocked_inputs(inputs, st.params, keep_f32=("pq",))
     streams = list(enc.streams)
     for bad in (enc._replace(streams=tuple([streams[0].T.contiguous().T] + streams[1:])),
@@ -941,10 +942,9 @@ def test_cuda_xscat_ad_assembles_the_inplace_adjoints(dtype, ncol):
     pre = kmod.kernel_prelude(x, st.params)
     _, dout, ck = tk.launch_cloudsc2_tl(x, pre, st.params, dscale=DSCALE)
     for fold in (True, False):
-        launches = tk.cloudsc2_ad.launches_xscat
-        xscat = tk.cloudsc2_ad(x, dout, ck, st.params, fold_seeds=fold,
-                               inplace_scatter=False)
-        assert tk.cloudsc2_ad.launches_xscat == launches + 1
+        launches = sch.cloudsc2_ad_xscat.launches
+        xscat = sch.cloudsc2_ad_xscat(x, dout, ck, st.params, fold_seeds=fold)
+        assert sch.cloudsc2_ad_xscat.launches == launches + 1
         inplace = tk.cloudsc2_ad(x, dout, ck, st.params, fold_seeds=fold)
         assert _equal(xscat, inplace) and len(xscat) == len(inplace)
 
@@ -970,18 +970,18 @@ def test_cuda_chunked_kernels_equal_one_level_a_step(dtype, ncol):
     tl = tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE)
     din = tk.launch_cloudsc2_tl_din(x, dx, pre, p)
     fwd = kmod.launch_cloudsc2_fwd_ckpt(x, pre, p)
-    raw = tk.launch_cloudsc2_ad_streams(x, pre, tl[1], tl[2], p)
+    raw = sch.launch_cloudsc2_ad_streams(x, pre, tl[1], tl[2], p)
     for c in CHUNKS:
-        _same_or_within(tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE, chunk_levels=c),
-                        tl, tol_tl)
-        _same_or_within(tk.launch_cloudsc2_tl_din(x, dx, pre, p, chunk_levels=c),
+        _same_or_within(sch.launch_cloudsc2_tl_chunked(x, pre, p, dscale=DSCALE,
+                                                       chunk_levels=c), tl, tol_tl)
+        _same_or_within(sch.launch_cloudsc2_tl_din_chunked(x, dx, pre, p, chunk_levels=c),
                         din, tol_tl)
-        _same_or_within(kmod.launch_cloudsc2_fwd_ckpt(x, pre, p, chunk_levels=c),
+        _same_or_within(sch.launch_cloudsc2_fwd_ckpt_chunked(x, pre, p, chunk_levels=c),
                         fwd, tol_nl)
-        _same_or_within(tk.launch_cloudsc2_ad_streams(x, pre, tl[1], tl[2], p,
-                                                      chunk_levels=c), raw, tol_ad)
+        _same_or_within(sch.launch_cloudsc2_ad_streams(x, pre, tl[1], tl[2], p,
+                                                       chunk_levels=c), raw, tol_ad)
     with pytest.raises(ValueError, match="built 2, 3, 4"):
-        tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE, chunk_levels=5)
+        sch.launch_cloudsc2_tl_chunked(x, pre, p, dscale=DSCALE, chunk_levels=5)
 
 
 @pytest.mark.cuda
@@ -1034,7 +1034,7 @@ def _kernel_launches(x, params):
         "contract": lambda: kmod.assemble_contract(dout, p, seeds=True),
         "nl": lambda: kmod.launch_cloudsc2_nl(x, pre, p),
         "fwd_ckpt": lambda: kmod.launch_cloudsc2_fwd_ckpt(x, pre, p),
-        "nl_res": lambda: kmod.launch_cloudsc2_nl_resident(x, pre, p),
+        "nl_res": lambda: ex.launch_cloudsc2_nl_resident(x, pre, p),
         "nl_enc": lambda: ex.launch_cloudsc2_nl_encoded(ex.encode_blocked_inputs(x, p), p),
         "tl": lambda: tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE),
         "tl_din": lambda: tk.launch_cloudsc2_tl_din(x, dx, pre, p),
@@ -1044,16 +1044,19 @@ def _kernel_launches(x, params):
         "ad_enc": lambda: ex.launch_cloudsc2_ad_encoded(enc[torch.int16], dout, ck, p),
         "bw_probe": lambda: bw_probe.launch_window_stream([x.pt + j for j in range(15)],
                                                           2.0, 8),
-        "ad_xscat": lambda: tk.launch_cloudsc2_ad_streams(x, pre, dout, ck, p),
+        "ad_xscat": lambda: sch.launch_cloudsc2_ad_streams(x, pre, dout, ck, p),
         "tl_enc_bf16": lambda: ex.launch_cloudsc2_tl_encoded(enc[torch.bfloat16], p,
                                                              dscale=DSCALE),
         "ad_enc_bf16": lambda: ex.launch_cloudsc2_ad_encoded(enc[torch.bfloat16], dout,
                                                              ck, p),
-        "tl_chunk": lambda: tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE, chunk_levels=2),
-        "tl_din_chunk": lambda: tk.launch_cloudsc2_tl_din(x, dx, pre, p, chunk_levels=3),
-        "fwd_chunk": lambda: kmod.launch_cloudsc2_fwd_ckpt(x, pre, p, chunk_levels=4),
-        "ad_chunk": lambda: tk.launch_cloudsc2_ad_streams(x, pre, dout, ck, p,
-                                                          chunk_levels=2),
+        "tl_chunk": lambda: sch.launch_cloudsc2_tl_chunked(x, pre, p, dscale=DSCALE,
+                                                           chunk_levels=2),
+        "tl_din_chunk": lambda: sch.launch_cloudsc2_tl_din_chunked(x, dx, pre, p,
+                                                                   chunk_levels=3),
+        "fwd_chunk": lambda: sch.launch_cloudsc2_fwd_ckpt_chunked(x, pre, p,
+                                                                  chunk_levels=4),
+        "ad_chunk": lambda: sch.launch_cloudsc2_ad_streams(x, pre, dout, ck, p,
+                                                           chunk_levels=2),
     }
     return runs
 

@@ -165,7 +165,7 @@ def test_encoded_nl_tracks_the_exact_sweep(jax_side, keep, fuse_satur):
     tin, p = jax_side["tin"], jax_side["params"]
     keep_f32 = KEEPS[keep]
     exact = (kmod.cloudsc2_nl_reference(tin, p) if fuse_satur
-             else kmod.cloudsc2_nl_resident_reference(tin, p))
+             else ex.cloudsc2_nl_resident_reference(tin, p))
     enc = ex.encode_blocked_inputs(tin, p, keep_f32=keep_f32,
                                    fuse_satur=fuse_satur)
     assert sum(s.dtype == torch.float32 for s in enc.streams) == len(
@@ -213,7 +213,7 @@ def test_plain_resident_matches_pallas_interpret(jax_side, ldrain1d):
     want = cloudsc2_pallas(std, st.params, mode="resident", sublanes=2,
                            ldrain1d=ldrain1d, interpret=True)
     got = kmod.unblock_outputs(
-        kmod.cloudsc2_nl_resident(jax_side["tin"], jax_side["params"],
+        ex.cloudsc2_nl_resident(jax_side["tin"], jax_side["params"],
                                   ldrain1d=ldrain1d), jax_side["params"])
     for name, a, b in zip(got._fields, got, want):
         assert a.shape == b.shape, name
@@ -225,7 +225,7 @@ def test_plain_resident_is_the_forward_checkpoint_sweep(jax_side):
     # pqs off SATUR: the sweep must follow the stream, not recompute it
     bumped = tin._replace(pqs=tin.pqs * 1.01)
     for inputs in (tin, bumped):
-        got = kmod.cloudsc2_nl_resident(inputs, p, tile=64, depth=3)
+        got = ex.cloudsc2_nl_resident(inputs, p, tile=64, depth=3)
         want, _ = kmod.cloudsc2_fwd_ckpt_reference(inputs, p)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
@@ -235,17 +235,17 @@ def test_plain_resident_is_the_forward_checkpoint_sweep(jax_side):
 
 def test_resident_ring_sizes():
     f32, f64 = torch.float32, torch.float64
-    assert kmod.resident_ring(137, f32) == (128, 2, 16 * 1024)
-    assert kmod.resident_ring(137, f64) == (128, 2, 32 * 1024)
-    assert kmod.resident_ring(137, f32, depth=8) == (128, 8, 64 * 1024)
+    assert ex.resident_ring(137, f32) == (128, 2, 16 * 1024)
+    assert ex.resident_ring(137, f64) == (128, 2, 32 * 1024)
+    assert ex.resident_ring(137, f32, depth=8) == (128, 8, 64 * 1024)
     # every level resident: 16 streams x 137 levels is 8,768 B a column in f32
-    assert kmod.resident_ring(137, f32, tile=26, depth=137) == (26, 137, 227968)
-    assert kmod.resident_ring(137, f64, tile=13, depth=500) == (13, 137, 227968)
-    assert kmod.resident_ring(5, f32, depth=8) == (128, 5, 5 * 8192)  # nlev < depth
-    assert kmod.resident_ring(1, f32) == (128, 1, 8192)
+    assert ex.resident_ring(137, f32, tile=26, depth=137) == (26, 137, 227968)
+    assert ex.resident_ring(137, f64, tile=13, depth=500) == (13, 137, 227968)
+    assert ex.resident_ring(5, f32, depth=8) == (128, 5, 5 * 8192)  # nlev < depth
+    assert ex.resident_ring(1, f32) == (128, 1, 8192)
     for bad in (dict(tile=0), dict(tile=257), dict(depth=0)):
         with pytest.raises(ValueError):
-            kmod.resident_ring(137, f32, **bad)
+            ex.resident_ring(137, f32, **bad)
 
 
 # ----------------------------------------------------------- contract errors
@@ -253,15 +253,15 @@ def test_nl_experiments_refuse_what_they_do_not_take(jax_side):
     tin, p = jax_side["tin"], jax_side["params"]
     enc = ex.encode_blocked_inputs(tin, p)
     with pytest.raises(ValueError, match="pqs=True"):
-        kmod.cloudsc2_nl_resident(tin._replace(pqs=None), p)
+        ex.cloudsc2_nl_resident(tin._replace(pqs=None), p)
     with pytest.raises(ValueError, match="pqs=True"):
-        kmod.cloudsc2_nl_resident_reference(tin._replace(pqs=None), p)
+        ex.cloudsc2_nl_resident_reference(tin._replace(pqs=None), p)
     with pytest.raises(ValueError, match="tile"):
-        kmod.cloudsc2_nl_resident(tin, p, tile=1000)
+        ex.cloudsc2_nl_resident(tin, p, tile=1000)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kmod.launch_cloudsc2_nl_resident(tin, kmod.kernel_prelude(tin, p), p)
+        ex.launch_cloudsc2_nl_resident(tin, kmod.kernel_prelude(tin, p), p)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        kmod.cloudsc2_nl_resident(type(tin)(*(x.to("meta") for x in tin)), p)
+        ex.cloudsc2_nl_resident(type(tin)(*(x.to("meta") for x in tin)), p)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ex.launch_cloudsc2_nl_encoded(enc, p)
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -287,7 +287,7 @@ def test_nl_experiments_refuse_what_they_do_not_take(jax_side):
     with pytest.raises(NotImplementedError):
         ex.cloudsc2_nl_encoded(enc, no_phylin)
     with pytest.raises(NotImplementedError):
-        kmod.cloudsc2_nl_resident(tin, no_phylin)
+        ex.cloudsc2_nl_resident(tin, no_phylin)
     assert all(torch.isfinite(x).all()
                for x in ex.cloudsc2_nl_encoded(enc, no_phylin, ldrain1d=True))
 
@@ -326,7 +326,7 @@ def test_new_kernels_take_their_streams_in_the_wrappers_order():
     order = [t.split("=")[0].strip().lower() for t in body.split(",") if t.strip()]
     assert order.pop() == "n"
     tail = list(kmod.KernelPrelude._fields)
-    assert order == list(ex.ENCODED_STREAMS) + tail == list(kmod.RESIDENT_STREAMS)
+    assert order == list(ex.ENCODED_STREAMS) + tail == list(ex.RESIDENT_STREAMS)
     without = [n for n in order if n != "pqs"]
     assert without[:15] == [n for n in ex.ENCODED_STREAMS if n != "pqs"]
     # the sources name the same layouts in their abi functions
@@ -334,8 +334,8 @@ def test_new_kernels_take_their_streams_in_the_wrappers_order():
     assert "counts[0] = Order<false>::N;" in enc_src
     assert "counts[1] = Order<true>::N;" in enc_src
     res_src = (CSRC / "cloudsc2_nl_res.cu").read_text()
-    assert "kStaged = O::PAPH + 1" in res_src and kmod._RESIDENT_STAGED == 16
-    assert f"kMaxTile = {kmod._RESIDENT_MAX_TILE};" in res_src
+    assert "kStaged = O::PAPH + 1" in res_src and ex._RESIDENT_STAGED == 16
+    assert f"kMaxTile = {ex._RESIDENT_MAX_TILE};" in res_src
     probe_src = (CSRC / "bw_probe.cu").read_text()
     for define in bw_probe.probe_defines(15, 8, (10, 292)):
         assert define.split("=")[0] in probe_src

@@ -38,6 +38,7 @@ from cloudsc2jax_torch.convert import inputs_from_numpy, params_from_jax
 from cloudsc2jax_torch.drivers import run_nl
 from cloudsc2jax_torch.kernels.cloudsc2_kernel import unblock_outputs
 from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
+from cloudsc2jax_torch.kernels import experiments as ex
 from cloudsc2jax_torch.physics.satur import satur
 
 from conftest import FIXTURES
@@ -268,7 +269,7 @@ def test_kernel_argument_order_matches_cuda_source():
     src = (pathlib.Path(kmod.__file__).parents[1] / "csrc"
            / "cloudsc2_nl_sweep.cuh").read_text()
     order = _enum(src, ": int", prefix=False)
-    assert order == list(kmod.RESIDENT_STREAMS)
+    assert order == list(ex.RESIDENT_STREAMS)
     assert [n for n in order if n != "pqs"] == list(kmod.KERNEL_STREAMS)
     assert kmod.FWD_CKPT_STREAMS == kmod.KERNEL_STREAMS + ("pqs",)
     assert _enum(src, "Output") == list(kmod.KERNEL_OUTPUTS)

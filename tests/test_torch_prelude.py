@@ -17,6 +17,7 @@ import torch
 
 from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
 from cloudsc2jax_torch.kernels import experiments as ex
+from cloudsc2jax_torch.kernels import schedules as sch
 from cloudsc2jax_torch.kernels import tlad_kernel as tk
 from cloudsc2jax_torch.state import Cloudsc2State
 
@@ -117,7 +118,7 @@ PLAIN_SWEEPS = {
     "fwd_ckpt": lambda x, p, d, c: kmod.cloudsc2_fwd_ckpt_reference(x, p),
     "tl": lambda x, p, d, c: tk.cloudsc2_tl_reference(x, p, dscale=0.01),
     "ad": lambda x, p, d, c: tk.cloudsc2_ad_reference(x, d, c, p),
-    "ad_streams": lambda x, p, d, c: tk.cloudsc2_ad_streams_reference(x, d, c, p),
+    "ad_streams": lambda x, p, d, c: sch.cloudsc2_ad_streams_reference(x, d, c, p),
     "tlad_fused": lambda x, p, d, c: ex.cloudsc2_tlad_fused_reference(x, p),
 }
 
@@ -138,7 +139,7 @@ def test_the_plain_sweeps_take_the_plain_prelude(name, plain_unit, monkeypatch):
         called.append(1)
         return plain(*args, **kwargs)
 
-    for mod in (kmod, tk, ex):
+    for mod in (kmod, tk, ex, sch):
         monkeypatch.setattr(mod, "kernel_prelude", refuse)
         monkeypatch.setattr(mod, "plain_prelude", counted)
     PLAIN_SWEEPS[name](*plain_unit)

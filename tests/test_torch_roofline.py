@@ -13,6 +13,7 @@ from cloudsc2jax_torch import bw_probe, roofline
 from cloudsc2jax_torch.drivers import DSCALE
 from cloudsc2jax_torch.kernels import cloudsc2_kernel as km
 from cloudsc2jax_torch.kernels import experiments as ex
+from cloudsc2jax_torch.kernels import schedules as sch
 from cloudsc2jax_torch.kernels import tlad_kernel as tk
 from cloudsc2jax_torch.state import Cloudsc2State
 
@@ -53,7 +54,7 @@ def moved():
     arrs = [torch.rand(NLEV, NCOL) for _ in range(15)]
     return {
         "cloudsc2_nl": _nbytes(nl_in, km.kernel_prelude(nl_in, p), km.cloudsc2_nl(nl_in, p)),
-        "cloudsc2_nl_res": _nbytes(x, pre, km.cloudsc2_nl_resident(x, p)),
+        "cloudsc2_nl_res": _nbytes(x, pre, ex.cloudsc2_nl_resident(x, p)),
         "cloudsc2_nl_enc": _nbytes(enc_nl.streams, enc_nl.levels, pre,
                                    ex.cloudsc2_nl_encoded(enc_nl, p)),
         "cloudsc2_fwd_ckpt": _nbytes(x, pre, km.cloudsc2_fwd_ckpt(x, p)),
@@ -66,14 +67,16 @@ def moved():
             tl_enc[1], tl_enc[2], ex.cloudsc2_ad_encoded(enc, tl_enc[1], tl_enc[2], p)),
         "bw_probe": _nbytes(arrs, bw_probe.window_stream(arrs, 2.0, 8)),
         "cloudsc2_ad_xscat": ad_in + _nbytes(
-            tk.cloudsc2_ad_streams_reference(x, tl[1], tl[2], p)),
+            sch.cloudsc2_ad_streams_reference(x, tl[1], tl[2], p)),
+        # the chunked kernel writes the 17-stream convention's raw streams
         "cloudsc2_ad_chunk": ad_in + _nbytes(
-            tk.cloudsc2_ad_streams_reference(x, tl[1], tl[2], p, chunk_levels=2)),
-        "cloudsc2_fwd_chunk": _nbytes(x, pre, km.cloudsc2_fwd_ckpt(x, p, chunk_levels=2)),
-        "cloudsc2_tl_chunk": _nbytes(x, pre, tk.cloudsc2_tl(x, p, dscale=DSCALE,
-                                                            chunk_levels=2)),
+            sch.cloudsc2_ad_streams_reference(x, tl[1], tl[2], p)),
+        "cloudsc2_fwd_chunk": _nbytes(
+            x, pre, sch.cloudsc2_fwd_ckpt_chunked(x, p, chunk_levels=2)),
+        "cloudsc2_tl_chunk": _nbytes(
+            x, pre, sch.cloudsc2_tl_chunked(x, p, dscale=DSCALE, chunk_levels=2)),
         "cloudsc2_tl_din_chunk": _nbytes(
-            x, pre, dx, tk.cloudsc2_tl_din(x, dx, p, chunk_levels=2)[:2]),
+            x, pre, dx, sch.cloudsc2_tl_din_chunked(x, dx, p, chunk_levels=2)),
         "cloudsc2_tl_enc_bf16": b16_in + _nbytes(tl_b16),
         "cloudsc2_ad_enc_bf16": b16_in + _nbytes(
             tl_b16[1], tl_b16[2], ex.cloudsc2_ad_encoded(b16, tl_b16[1], tl_b16[2], p)),

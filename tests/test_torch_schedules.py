@@ -1,7 +1,10 @@
 """The TPU kernels' other schedules in the port, against the JAX package: the
-17-stream adjoint convention (``inplace_scatter=False``), C levels a step
-(``chunk_levels``) for the TL, forward-checkpoint and reverse sweeps, and
-the bfloat16 payload of the encoded TL and AD sweeps.
+17-stream adjoint convention (``inplace_scatter=False`` there,
+``schedules.cloudsc2_ad_xscat`` here), C levels a step (``chunk_levels``)
+for the TL, forward-checkpoint and reverse sweeps (the ``*_chunked``
+entries of ``kernels/schedules.py``), and the bfloat16 payload of the
+encoded TL and AD sweeps.  The main-path wrappers take no schedule
+parameter.
 
 Inputs are the JAX package's synthetic state (nlev 23, 256 columns, f32,
 one sublane), fed to both packages, as ``tests/test_torch_tlad.py`` and
@@ -19,6 +22,7 @@ the results are equal bit for bit: every level runs the same body on the
 same values in the same order.
 """
 
+import inspect
 import json
 from pathlib import Path
 
@@ -44,6 +48,7 @@ from cloudsc2jax_torch.convert import (
 from cloudsc2jax_torch.drivers import DSCALE
 from cloudsc2jax_torch.kernels import cloudsc2_kernel as km
 from cloudsc2jax_torch.kernels import experiments as ex
+from cloudsc2jax_torch.kernels import schedules as sch
 from cloudsc2jax_torch.kernels import tlad_kernel as tk
 from cloudsc2jax_torch.state import Cloudsc2State
 
@@ -114,11 +119,10 @@ def test_plain_xscat_ad_matches_pallas_interpret(jax_side, route):
     seeds = _streams(jdout)
     if route == "checkpoints":
         ckpts = tuple(torch.from_numpy(_lm(x)) for x in jck)
-        adj = tk.cloudsc2_ad(tin, seeds, ckpts, p, inplace_scatter=False)
+        adj = sch.cloudsc2_ad_xscat(tin, seeds, ckpts, p)
     else:
         _, ckpts = km.cloudsc2_fwd_ckpt(tin, p)
-        adj = tk.cloudsc2_ad(tin, seeds, ckpts, p, fold_seeds=False,
-                             inplace_scatter=False)
+        adj = sch.cloudsc2_ad_xscat(tin, seeds, ckpts, p, fold_seeds=False)
     jadj = jax_side["xscat"][route]
     for n in adj._fields:
         assert _rel(getattr(adj, n).numpy(), _lm(getattr(jadj, n))) < 1e-4, n
@@ -133,16 +137,16 @@ def test_plain_xscat_ad_equals_the_inplace_ad_bit_for_bit(jax_side, lregcl, fold
     _, dout, ckpts = tk.cloudsc2_tl(tin, p, dscale=DSCALE, lregcl=lregcl)
     kw = dict(lregcl=lregcl, fold_seeds=fold_seeds)
     inplace = tk.cloudsc2_ad(tin, dout, ckpts, p, **kw)
-    xscat = tk.cloudsc2_ad(tin, dout, ckpts, p, inplace_scatter=False, **kw)
+    xscat = sch.cloudsc2_ad_xscat(tin, dout, ckpts, p, **kw)
     for n in inplace._fields:
         assert torch.equal(getattr(xscat, n), getattr(inplace, n)), n
-    raw = tk.cloudsc2_ad_streams_reference(tin, dout, ckpts, p, **kw)
+    raw = sch.cloudsc2_ad_streams_reference(tin, dout, ckpts, p, **kw)
     nlev = tin.pt.shape[0]
     assert raw.paph_sfc.shape == (tin.pt.shape[1],)
     assert all(x.shape == tin.pt.shape for x in raw[:-1])
     # the clamped plu(k+1) read of the last level has a zero cotangent
     assert torch.equal(raw.plu_k1[-1], torch.zeros_like(raw.plu_k1[-1]))
-    d_plu, d_paph = tk.assemble_shifted_adjoints(*raw[-4:])
+    d_plu, d_paph = sch.assemble_shifted_adjoints(*raw[-4:])
     assert d_plu.shape == (nlev, tin.pt.shape[1]) and d_paph.shape == tin.paph.shape
     assert torch.equal(d_plu, inplace.plu) and torch.equal(d_paph, inplace.paph)
 
@@ -152,7 +156,7 @@ def test_plain_xscat_ad_equals_the_inplace_ad_bit_for_bit(jax_side, lregcl, fold
 def test_plain_chunked_tl_matches_pallas_interpret(jax_side, chunk):
     p, tin = jax_side["params"], jax_side["tin"]
     (jout, jdout, jck), _ = jax_side["chunk"][chunk]
-    out, dout, ck = tk.cloudsc2_tl(tin, p, dscale=DSCALE, chunk_levels=chunk)
+    out, dout, ck = sch.cloudsc2_tl_chunked(tin, p, dscale=DSCALE, chunk_levels=chunk)
     for a, b in zip((*out, *dout, *ck), (*jout, *jdout, *jck)):
         assert _rel(a.numpy(), _lm(b)) < 1e-5
 
@@ -166,19 +170,21 @@ def test_plain_chunked_forward_and_ad_match_pallas_interpret(jax_side, chunk):
     p, tin = jax_side["params"], jax_side["tin"]
     _, (jout, jadj) = jax_side["chunk"][chunk]
     _, jdout, _ = jax_side["tl"]
-    out, ckpts = km.cloudsc2_fwd_ckpt(tin, p, chunk_levels=chunk)
+    out, ckpts = sch.cloudsc2_fwd_ckpt_chunked(tin, p, chunk_levels=chunk)
     for a, b in zip(out, jout):
         assert _rel(a.numpy(), _lm(b)) < 1e-5
     seeds = tk.fold_flux_seeds(_streams(jdout), p)
-    adj = tk.cloudsc2_ad(tin, seeds, ckpts, p, fold_seeds=False, chunk_levels=chunk)
+    adj = sch.cloudsc2_ad_chunked(tin, seeds, ckpts, p, fold_seeds=False,
+                                  chunk_levels=chunk)
     for n in adj._fields:
         assert _rel(getattr(adj, n).numpy(), _lm(getattr(jadj, n))) < 1e-4, n
 
 
 @pytest.mark.parametrize("chunk", [2, 3, 4])
 def test_plain_chunked_sweeps_equal_one_level_a_step(jax_side, chunk):
-    """Every wrapper's plain version gives its one-level results bit for bit
-    at any built C, the standard contract's drop-ins included."""
+    """Every chunked entry's plain version gives the one-level wrapper's
+    results bit for bit at any built C, and so does the standard contract
+    assembled from the chunked sweeps against its drop-ins."""
     p, tin = jax_side["params"], jax_side["tin"]
     din = type(tin)(*(DSCALE * x for x in tin))
 
@@ -188,26 +194,33 @@ def test_plain_chunked_sweeps_equal_one_level_a_step(jax_side, chunk):
             assert torch.equal(x, y)
 
     one = tk.cloudsc2_tl(tin, p, dscale=DSCALE)
-    many = tk.cloudsc2_tl(tin, p, dscale=DSCALE, chunk_levels=chunk)
+    many = sch.cloudsc2_tl_chunked(tin, p, dscale=DSCALE, chunk_levels=chunk)
     same((*one[0], *one[1], *one[2]), (*many[0], *many[1], *many[2]))
     same(sum(tk.cloudsc2_tl_din(tin, din, p), ()),
-         sum(tk.cloudsc2_tl_din(tin, din, p, chunk_levels=chunk), ()))
-    f1, fc = km.cloudsc2_fwd_ckpt(tin, p), km.cloudsc2_fwd_ckpt(tin, p, chunk_levels=chunk)
+         sum(sch.cloudsc2_tl_din_chunked(tin, din, p, chunk_levels=chunk), ()))
+    f1 = km.cloudsc2_fwd_ckpt(tin, p)
+    fc = sch.cloudsc2_fwd_ckpt_chunked(tin, p, chunk_levels=chunk)
     same((*f1[0], *f1[1]), (*fc[0], *fc[1]))
-    same(tk.cloudsc2_ad_streams_reference(tin, one[1], one[2], p),
-         tk.cloudsc2_ad_streams_reference(tin, one[1], one[2], p, chunk_levels=chunk))
     same(tk.cloudsc2_ad(tin, one[1], one[2], p),
-         tk.cloudsc2_ad(tin, one[1], one[2], p, chunk_levels=chunk))
-    std = type(tin)(*(x.T for x in tin))
-    dstd = type(tin)(*(x.T for x in din))
-    same(sum(tk.cloudsc2_kernel_tl(std, dstd, p), ()),
-         sum(tk.cloudsc2_kernel_tl(std, dstd, p, chunk_levels=chunk), ()))
-    out, dout = tk.cloudsc2_kernel_tl(std, dstd, p)
-    a1, ac = (tk.cloudsc2_kernel_ad(std, dout, p, chunk_levels=c) for c in (1, chunk))
-    same((*a1[0], *a1[1]), (*ac[0], *ac[1]))
+         sch.cloudsc2_ad_chunked(tin, one[1], one[2], p, chunk_levels=chunk))
+    # the standard contract: its drop-ins against the contract assembled
+    # from the chunked sweeps, levels-major
+    out, dout = tk.cloudsc2_kernel_tl(tin, din, p, levels_major=True)
+    cout, cdout = sch.cloudsc2_tl_din_chunked(tin, din, p, chunk_levels=chunk)
+    same((*out, *dout), (*km.unblock_outputs(cout, p, levels_major=True),
+                         *km.unblock_outputs(cdout, p, levels_major=True)))
+    a1 = tk.cloudsc2_kernel_ad(tin, dout, p, levels_major=True)
+    fwd, ckpts = sch.cloudsc2_fwd_ckpt_chunked(tin, p, chunk_levels=chunk)
+    adj = sch.cloudsc2_ad_chunked(tin, tk.seed_streams(dout, p, levels_major=True),
+                                  ckpts, p, chunk_levels=chunk, fold_seeds=False)
+    same((*a1[0], *a1[1]), (*km.unblock_outputs(fwd, p, levels_major=True), *adj))
 
 
 def test_refusals_mirror_the_jax_package(jax_side):
+    """The JAX package refuses write_primal=False and an in-place scatter
+    with chunks; the chunked entries offer neither (the chunked TL always
+    writes the primal streams, the chunked AD runs the 17-stream
+    convention), and refuse a C that no library was built for."""
     p, tin = jax_side["params"], jax_side["tin"]
     _, dout, ck = tk.cloudsc2_tl(tin, p, dscale=DSCALE)
     jp, blk = jax_side["jax_params"], jax_side["blk"]
@@ -215,24 +228,19 @@ def test_refusals_mirror_the_jax_package(jax_side):
     with pytest.raises(ValueError, match="write_primal"):
         cloudsc2_pallas_tl(blk, None, jp, blocked=True, dscale=JDSCALE,
                            chunk_levels=2, write_primal=False, interpret=True)
-    with pytest.raises(ValueError, match="write_primal"):
-        tk.cloudsc2_tl(tin, p, dscale=DSCALE, chunk_levels=2, write_primal=False)
+    assert "write_primal" not in inspect.signature(sch.cloudsc2_tl_chunked).parameters
     # inplace_scatter with chunks (tlad_kernel.py:664-667)
     with pytest.raises(ValueError, match="inplace_scatter"):
         cloudsc2_pallas_ad(blk, jax_side["tl"][1], jp, blocked=True,
                            checkpoints=jax_side["tl"][2], chunk_levels=2,
                            inplace_scatter=True, interpret=True)
-    with pytest.raises(ValueError, match="inplace_scatter"):
-        tk.cloudsc2_ad(tin, dout, ck, p, chunk_levels=2, inplace_scatter=True)
-    with pytest.raises(ValueError, match="inplace_scatter"):
-        tk.cloudsc2_kernel_ad(type(tin)(*(x.T for x in tin)),
-                              km.unblock_outputs(dout, p), p, chunk_levels=3,
-                              inplace_scatter=True)
+    assert "inplace_scatter" not in inspect.signature(sch.cloudsc2_ad_chunked).parameters
     # a C that no library was built for, on any device
-    for call in (lambda: tk.cloudsc2_tl(tin, p, dscale=DSCALE, chunk_levels=5),
-                 lambda: tk.cloudsc2_ad(tin, dout, ck, p, chunk_levels=0),
-                 lambda: km.cloudsc2_fwd_ckpt(tin, p, chunk_levels=8),
-                 lambda: tk.cloudsc2_tl_din(tin, tin, p, chunk_levels=6)):
+    for call in (lambda: sch.cloudsc2_tl_chunked(tin, p, dscale=DSCALE, chunk_levels=5),
+                 lambda: sch.cloudsc2_ad_chunked(tin, dout, ck, p, chunk_levels=0),
+                 lambda: sch.cloudsc2_ad_chunked(tin, dout, ck, p, chunk_levels=1),
+                 lambda: sch.cloudsc2_fwd_ckpt_chunked(tin, p, chunk_levels=8),
+                 lambda: sch.cloudsc2_tl_din_chunked(tin, tin, p, chunk_levels=6)):
         with pytest.raises(ValueError, match="built 2, 3, 4"):
             call()
 
@@ -248,7 +256,7 @@ def test_chunk_levels_are_the_sources_instantiations():
         text = (csrc / name).read_text()
         switch = re.search(r"switch \(chunk\) \{(.*?)default:", text, re.S).group(1)
         cases = tuple(int(c) for c in re.findall(r"case (\d+):", switch))
-        assert cases == km.CHUNK_LEVELS == tk.CHUNK_LEVELS, name
+        assert cases == sch.CHUNK_LEVELS, name
     assert "cloudsc2_tl::launch_chunked" in (csrc / "cloudsc2_tl_chunk.cu").read_text()
     assert "cloudsc2_tl::launch_chunked" in (csrc / "cloudsc2_tl_din_chunk.cu").read_text()
 
@@ -258,18 +266,18 @@ def test_launchers_take_cuda_tensors_only(jax_side):
     pre = km.kernel_prelude(tin, p)
     _, dout, ck = tk.cloudsc2_tl(tin, p, dscale=DSCALE)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tk.launch_cloudsc2_ad_streams(tin, pre, dout, ck, p)
+        sch.launch_cloudsc2_ad_streams(tin, pre, dout, ck, p)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tk.launch_cloudsc2_ad_streams(tin, pre, dout, ck, p, chunk_levels=2)
+        sch.launch_cloudsc2_ad_streams(tin, pre, dout, ck, p, chunk_levels=2)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tk.launch_cloudsc2_tl(tin, pre, p, dscale=DSCALE, chunk_levels=3)
+        sch.launch_cloudsc2_tl_chunked(tin, pre, p, dscale=DSCALE, chunk_levels=3)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tk.launch_cloudsc2_tl_din(tin, tin, pre, p, chunk_levels=4)
+        sch.launch_cloudsc2_tl_din_chunked(tin, tin, pre, p, chunk_levels=4)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        km.launch_cloudsc2_fwd_ckpt(tin, pre, p, chunk_levels=2)
+        sch.launch_cloudsc2_fwd_ckpt_chunked(tin, pre, p, chunk_levels=2)
     meta = type(tin)(*(x.to("meta") for x in tin))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        tk.cloudsc2_ad(meta, dout, ck, p, inplace_scatter=False)
+        sch.cloudsc2_ad_xscat(meta, dout, ck, p)
 
 
 # ------------------------------------------------- the bfloat16 payload
@@ -331,12 +339,13 @@ def test_plain_versions_are_deterministic():
     enc = ex.encode_blocked_inputs(x, p, fuse_satur=False, payload_dtype=torch.bfloat16)
     _, dout, ck = tk.cloudsc2_tl(x, p, dscale=DSCALE)
     runs = {
-        "xscat": lambda: tk.cloudsc2_ad_streams_reference(x, dout, ck, p),
-        "tl_chunk": lambda: sum(map(tuple, tk.cloudsc2_tl(x, p, dscale=DSCALE,
-                                                          chunk_levels=3)), ()),
-        "din_chunk": lambda: sum(tk.cloudsc2_tl_din(x, x, p, chunk_levels=2), ()),
-        "fwd_chunk": lambda: sum(map(tuple, km.cloudsc2_fwd_ckpt(x, p, chunk_levels=4)), ()),
-        "ad_chunk": lambda: tk.cloudsc2_ad_streams_reference(x, dout, ck, p, chunk_levels=2),
+        "xscat": lambda: sch.cloudsc2_ad_streams_reference(x, dout, ck, p),
+        "tl_chunk": lambda: sum(map(tuple, sch.cloudsc2_tl_chunked(
+            x, p, dscale=DSCALE, chunk_levels=3)), ()),
+        "din_chunk": lambda: sum(sch.cloudsc2_tl_din_chunked(x, x, p, chunk_levels=2), ()),
+        "fwd_chunk": lambda: sum(map(tuple, sch.cloudsc2_fwd_ckpt_chunked(
+            x, p, chunk_levels=4)), ()),
+        "ad_chunk": lambda: sch.cloudsc2_ad_chunked(x, dout, ck, p, chunk_levels=2),
         "tl_bf16": lambda: sum(map(tuple, ex.cloudsc2_tl_encoded(enc, p, dscale=DSCALE)), ()),
         "ad_bf16": lambda: ex.cloudsc2_ad_encoded(enc, dout, ck, p),
     }
@@ -368,3 +377,27 @@ def test_evidence_battery_derives_the_scatter_ratios():
         "two": {"ms": 12.0}, "xscat": {"ms": 13.2}}}}})
     assert d["ab_scatter_speedup_noprim"] == pytest.approx(1.1)
     assert d["ab_scatter_speedup_two"] == pytest.approx(1.1)
+
+
+# the main-path wrappers of ``cloudsc2_kernel`` and ``tlad_kernel``, which run
+# one schedule each (the plain versions and the standard contract's halves
+# and drop-ins among them)
+MAIN_PATH = (
+    "tk.cloudsc2_tl", "tk.cloudsc2_tl_din", "tk.cloudsc2_ad",
+    "tk.launch_cloudsc2_tl", "tk.launch_cloudsc2_tl_din", "km.launch_cloudsc2_fwd_ckpt",
+    "km.cloudsc2_fwd_ckpt", "tk.cloudsc2_tl_reference", "tk.cloudsc2_ad_reference",
+    "km.cloudsc2_fwd_ckpt_reference", "tk.tl_contract", "tk.ad_from_seeds",
+    "tk.cloudsc2_kernel_tl", "tk.cloudsc2_kernel_ad", "tk.launch_cloudsc2_ad",
+    "km.cloudsc2_nl", "km.launch_cloudsc2_nl", "km.cloudsc2_nl_reference",
+)
+
+
+@pytest.mark.parametrize("name", MAIN_PATH)
+def test_main_path_wrappers_take_no_schedule_parameter(name):
+    """The schedules are the entries of ``kernels/schedules.py``: no
+    main-path wrapper takes C or the scatter convention, and none counts a
+    launch of another schedule."""
+    module, attr = name.split(".")
+    fn = getattr({"tk": tk, "km": km}[module], attr)
+    assert not {"chunk_levels", "inplace_scatter"} & set(inspect.signature(fn).parameters)
+    assert not {"launches_chunked", "launches_xscat"} & set(vars(fn))
