@@ -24,7 +24,8 @@ and prints no result line):
 1. Card: a CUDA device must be present; print its name and power limit.
 2. Build: compile ``cloudsc2jax_torch/csrc/cloudsc2_{nl,tl,tl_din,ad,
    tl_enc,ad_enc,tlad_fused,nl_enc,nl_res,ad_xscat,ad_chunk,tl_chunk,
-   tl_din_chunk,fwd_chunk,tl_enc_bf16,ad_enc_bf16,prelude}.cu`` and ``bw_probe.cu``
+   tl_din_chunk,fwd_chunk,tl_enc_bf16,ad_enc_bf16,prelude}.cu``, ``cloudsc2_tl.cu``
+   a second time with ``-fmad=false`` (``STD_TL``) and ``bw_probe.cu``
    (one build per probe mix of phase 16) with nvcc from the checkout's
    sources, all builds started together; print the build time and ptxas'
    registers and spills per kernel entry, and for the fused kernel, whose
@@ -83,26 +84,33 @@ and prints no result line):
    bandwidth.
 
 9. The checkpointing forward kernel and the streamed-increment TL kernel
-   against their plain versions on the card: 100 and a ragged 5,000
-   columns, f32 and f64, ldrain1d off and on, the TL with lregcl off and
-   on, pqs perturbed by up to 1% away from SATUR in the ragged f64 cases; the
-   AD kernel with lregcl off and unfolded seeds likewise; the forward
-   kernel against the TL kernel's own checkpoints and primal streams; then
-   the standalone paths' shapes (163,840 columns f32, 16,384 f64).
-   Tolerances as in 3 and 6.
+   (the drop-ins' sweeps) and the standard contract's TL (``STD_TL``, the
+   unit's: primal, tangents and checkpoints) against their plain versions
+   on the card: 100 and a ragged 5,000 columns, f32 and f64, ldrain1d off
+   and on, the TLs with lregcl off and on, pqs perturbed by up to 1% away
+   from SATUR in the ragged f64 cases; the AD kernel with lregcl off and
+   unfolded seeds likewise; the forward kernel against both in-register
+   TLs' own checkpoints and primal streams; then the standalone paths'
+   shapes (163,840 columns f32, 16,384 f64; the standard TL with lregcl
+   on). Tolerances as in 3 and 6.
 10. The standalone TL and AD paths through the CLI entry point on
    ``cuda``: ``tl 1 16384 128 --dtype f64 --kernels`` (Taylor test on the
    truth path, then the f32 parity of the TL kernel) and ``ad 1 16384 128
    --dtype f64 --kernels`` (adjoint test, then the f32 identity through the
-   kernels), and ``measure_f32_verdicts`` at 163,840 f32 columns; the launch
-   counters of the forward, streamed-TL and AD kernels, zeroed just before,
-   must show that each ran.  Also printed: how far the TL kernel and the
+   kernels), and ``measure_f32_verdicts`` at 163,840 f32 columns, whose
+   unit (``run_tlad(backend="kernels")``) runs the standard contract's TL
+   (increments in registers, built with ``-fmad=false``) and the AD from
+   its checkpoints; the launch counters, zeroed just before, must show
+   that those two kernels ran and that the forward-checkpoint and
+   streamed-increment kernels did not.  Also printed: how far the TL kernel and the
    truth path, both f32, sit from the truth path in f64; and the JAX
    package's f32 TL parity, 1e-6, held by the streamed-increment TL kernel
    (shipped built with ``-fmad=false``) at 16,384 columns with ``lregcl``
    off and on.
 11. Timing with CUDA events at 327,680 columns f32 over distinct inputs:
-   the forward kernel, the streamed-increment TL kernel, the
+   the standard contract's TL (record ``cloudsc2_tl_std``, with phase
+   10's launches and verdicts), the forward and streamed-increment TL
+   kernels (the drop-ins' records, with phase 9's launches), the
    standard-contract ``run_tlad`` on ``(ncol, nlev)``-contiguous inputs
    (with its transposes) and on transposed views of levels-major inputs
    (without), and the plain versions once.
@@ -310,6 +318,9 @@ LIBRARIES = ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_tl_din", "cloudsc2_ad",
              "cloudsc2_ad_xscat", "cloudsc2_ad_chunk", "cloudsc2_tl_chunk",
              "cloudsc2_tl_din_chunk", "cloudsc2_fwd_chunk", "cloudsc2_tl_enc_bf16",
              "cloudsc2_ad_enc_bf16", "cloudsc2_prelude", "cloudsc2_contract")
+# the standard contract's TL (tlad_kernel.launch_cloudsc2_tl_std): the build
+# of cloudsc2_tl.cu with build.NO_FMA, beside its default build
+STD_TL = ("cloudsc2_tl", (), ("-fmad=false",))
 CSRC = ROOT / "cloudsc2jax_torch" / "csrc"
 
 TOLERANCE = {"float32": 5e-6, "float64": 1e-12}
@@ -361,7 +372,8 @@ AB_SHAPES = ((163840, "float32"), (16384, "float64"))
 KERNEL_MIX = {
     "cloudsc2_nl": "nl", "cloudsc2_nl_enc": "nl", "bw_probe": "nl",
     "cloudsc2_nl_res": "res", "cloudsc2_fwd_ckpt": "fwd", "cloudsc2_tl": "tl",
-    "cloudsc2_tl_enc": "tl", "cloudsc2_tl_din": "din", "cloudsc2_ad": "ad",
+    "cloudsc2_tl_enc": "tl", "cloudsc2_tl_din": "din", "cloudsc2_tl_std": "tl",
+    "cloudsc2_ad": "ad",
     "cloudsc2_ad_enc": "ad", "cloudsc2_tlad_fused": "fused",
     "cloudsc2_ad_xscat": "xscat", "cloudsc2_ad_chunk": "xscat",
     "cloudsc2_tl_chunk": "tl", "cloudsc2_tl_din_chunk": "din",
@@ -448,9 +460,11 @@ BF16_TOLERANCE = 1e-4
 # policy (cloudsc2jax_torch/probes/nl_enc_ab.py), the others from the tree
 # before #8 and #9 were redesigned (probes/enc_ab.py), but the
 # streamed-increment TL's, which is its build with -fmad=false
-# (probes/din_fmad_ab.py; its contracted build is ab85341a...); and the seven
+# (probes/din_fmad_ab.py; its contracted build is ab85341a...); the seven
 # libraries of the schedules (phase 21: the 17-stream AD, the chunked sweeps,
-# the bfloat16 encoded sweeps) as first built, on the same card and release.
+# the bfloat16 encoded sweeps) as first built, on the same card and release;
+# and the standard contract's TL, STD_TL, keyed by its name and flags, as
+# first built.
 # Phase 2 fails if a build differs under that release; under another release
 # it says that it did not check.
 EXACT_SASS_RELEASE = "release 12.9, V12.9.86"
@@ -463,6 +477,8 @@ EXACT_SASS = {
         "cbba2c4115e373e581b4ef161242bfc1f2981263125c58f42cfc53e3e07dbfc6",
     "cloudsc2_tl_din":
         "d36ff22e14257deed01a6850a7e8da8d32e21691f7406829897970c855661a81",
+    "cloudsc2_tl -fmad=false":
+        "179821ae64a97a4439128be91298904eba0ebb44734113dc43a823ae816c9cad",
     "cloudsc2_ad":
         "927e675bcceda99b119f0d4d09b29d05baeb99919f838b6e909cdff0dd148e05",
     "cloudsc2_tlad_fused":
@@ -776,9 +792,10 @@ def time_tlad(state, params, compared, launches):
 
 def compare_variants(state, params):
     """Phase 9: the checkpointing forward kernel, the streamed-increment TL
-    kernel and the AD kernel's second instantiation against their plain
-    versions on the card.  Returns the worst errors and the plain versions'
-    times."""
+    kernel (the drop-ins' sweeps), the standard contract's TL (``STD_TL``,
+    the unit's) and the AD kernel's second instantiation against their plain
+    versions on the card.  Returns the worst errors, the plain versions'
+    times and the launches of each kernel."""
     import torch
 
     from cloudsc2jax_torch.drivers import DSCALE
@@ -792,6 +809,7 @@ def compare_variants(state, params):
         cloudsc2_tl,
         cloudsc2_tl_din,
         cloudsc2_tl_reference,
+        cloudsc2_tl_std,
     )
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
 
@@ -804,10 +822,11 @@ def compare_variants(state, params):
 
     plain_ms = {}
     # -- 9. the new kernels against their plain versions on the card
-    worst = {"fwd": {}, "din": {}, "ad": {}}
-    counters = (cloudsc2_fwd_ckpt, cloudsc2_tl_din, cloudsc2_tl, cloudsc2_ad)
-    before = [f.launches for f in counters]
-    expected = [0, 0, 0, 0]
+    worst = {"fwd": {}, "din": {}, "tl_std": {}, "ad": {}}
+    counters = {"fwd": cloudsc2_fwd_ckpt, "din": cloudsc2_tl_din, "tl": cloudsc2_tl,
+                "tl_std": cloudsc2_tl_std, "ad": cloudsc2_ad}
+    before = {k: f.launches for k, f in counters.items()}
+    expected = dict.fromkeys(counters, 0)
     cases = SMALL_CASES + COMPARE_SHAPES
     for ncol, name, ldrain1d in cases:
         small = ncol <= 5000
@@ -830,16 +849,33 @@ def compare_variants(state, params):
         out, ckpts = cloudsc2_fwd_ckpt(inputs, params, ldrain1d=ldrain1d)
         (r_out, r_ckpts), t_fwd = _timed(lambda: cloudsc2_fwd_ckpt_reference(
             inputs, params, ldrain1d=ldrain1d))
-        expected[0] += 1
+        expected["fwd"] += 1
         _check("forward outputs", out, r_out, tol_nl, worst["fwd"], name)
         _check("forward checkpoints", ckpts, r_ckpts, tol_nl, worst["fwd"], name)
         # the TL kernel reads the same pqs: its checkpoints and primal
         # streams are the forward kernel's, up to the two bodies' rounding
         t_out, _, t_ckpts = cloudsc2_tl(inputs, params, dscale=DSCALE,
                                         ldrain1d=ldrain1d)
-        expected[2] += 1
+        expected["tl"] += 1
         _check("forward vs TL kernel", (*out, *ckpts), (*t_out, *t_ckpts),
                tol_nl if name == "float64" else tol_tl, {}, name)
+        for lregcl in ((False, True) if small else (True,)):
+            # the unit's TL: increments in registers, uncontracted, and the
+            # checkpoints its reverse sweep reads in place of the forward's
+            kw = dict(dscale=DSCALE, lregcl=lregcl, ldrain1d=ldrain1d)
+            s_out, s_dout, s_ckpts = cloudsc2_tl_std(inputs, params, **kw)
+            (rs_out, rs_dout, rs_ckpts), t_std = _timed(
+                lambda: cloudsc2_tl_reference(inputs, params, **kw))
+            if (ncol, name) == (PLAIN_NCOL, "float32"):
+                plain_ms["tl_std"] = t_std
+            expected["tl_std"] += 1
+            what = f"standard TL lregcl={lregcl}"
+            w = worst["tl_std"]
+            _check(f"{what} primal", s_out, rs_out, tol_tl, w, name)
+            _check(f"{what} tangents", s_dout, rs_dout, tol_tl, w, name)
+            _check(f"{what} checkpoints", s_ckpts, rs_ckpts, tol_tl, w, name)
+            _check(f"forward vs {what}", (*out, *ckpts), (*s_out, *s_ckpts),
+                   tol_nl if name == "float64" else tol_tl, {}, name)
         for lregcl in ((False, True) if small else (False,)):
             kw = dict(lregcl=lregcl, ldrain1d=ldrain1d)
             p_out, p_dout = cloudsc2_tl_din(inputs, d_inputs, params, **kw)
@@ -847,7 +883,7 @@ def compare_variants(state, params):
                 inputs, params, d_inputs=d_inputs, **kw))
             if (ncol, name) == (PLAIN_NCOL, "float32"):
                 plain_ms.update(fwd=t_fwd, din=t_din)
-            expected[1] += 1
+            expected["din"] += 1
             what = f"streamed TL lregcl={lregcl}"
             _check(f"{what} primal", p_out, rp_out, tol_tl, worst["din"], name)
             _check(f"{what} tangents", p_dout, rp_dout, tol_tl, worst["din"], name)
@@ -858,16 +894,16 @@ def compare_variants(state, params):
             r_adj = cloudsc2_ad_reference(inputs, rp_dout, r_ckpts, params,
                                           lregcl=False, ldrain1d=ldrain1d,
                                           fold_seeds=False)
-            expected[3] += 1
+            expected["ad"] += 1
             _check("AD lregcl=False, unfolded seeds", adj, r_adj, tol_ad,
                    worst["ad"], name)
         torch.cuda.synchronize()
-    if [f.launches - b for f, b in zip(counters, before)] != expected:
+    if {k: f.launches - before[k] for k, f in counters.items()} != expected:
         raise AssertionError("the comparison did not launch the kernels")
     del inputs, d_inputs, out, ckpts, r_out, r_ckpts, t_out, t_ckpts
-    del p_out, p_dout, rp_out, rp_dout
+    del p_out, p_dout, rp_out, rp_dout, s_out, s_dout, s_ckpts, rs_out, rs_dout, rs_ckpts
 
-    return {"worst": worst, "plain_ms": plain_ms}
+    return {"worst": worst, "plain_ms": plain_ms, "launches": expected}
 
 
 def cli_variants(state, params):
@@ -879,12 +915,17 @@ def cli_variants(state, params):
     from cloudsc2jax_torch import cli
     from cloudsc2jax_torch.drivers import DSCALE, run_tlad
     from cloudsc2jax_torch.kernels.cloudsc2_kernel import cloudsc2_fwd_ckpt
-    from cloudsc2jax_torch.kernels.tlad_kernel import cloudsc2_ad, cloudsc2_tl_din
+    from cloudsc2jax_torch.kernels.tlad_kernel import (
+        cloudsc2_ad,
+        cloudsc2_tl_din,
+        cloudsc2_tl_std,
+    )
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
     from cloudsc2jax_torch.tlad import cloudsc2_tl as truth_tl
 
     # -- 10. the standalone TL and AD paths through the CLI entry point
-    path = {"fwd": cloudsc2_fwd_ckpt, "din": cloudsc2_tl_din, "ad": cloudsc2_ad}
+    path = {"tl_std": cloudsc2_tl_std, "ad": cloudsc2_ad, "fwd": cloudsc2_fwd_ckpt,
+            "din": cloudsc2_tl_din}
     for f in path.values():
         f.launches = 0
     for argv in TEST_RUNS:
@@ -905,9 +946,12 @@ def cli_variants(state, params):
         raise AssertionError("the f32 verdicts through the kernels failed")
     launches = {k: f.launches for k, f in path.items()}
     print(f"[10] kernel launches on the standalone TL and AD paths: {launches}")
-    if min(launches.values()) < len(TEST_RUNS) + 1:
+    if min(launches["tl_std"], launches["ad"]) < len(TEST_RUNS) + 1:
         raise AssertionError("the standalone paths did not run through "
                              "every kernel")
+    if launches["fwd"] or launches["din"]:
+        raise AssertionError("the standard contract's unit ran the forward-checkpoint "
+                             "or the streamed-increment sweep")
     # where the f32 parity's budget goes: the TL kernel and the truth path,
     # both f32, each against the truth path in f64 (exact TL, lregcl off)
     ncol = 16384
@@ -948,8 +992,9 @@ def cli_variants(state, params):
 
 def time_variants(state, params, compared, ran, ad_record):
     """Phase 11: timing at the headline size, f32, distinct inputs per call.
-    Returns the forward and the streamed-TL kernels' JSON records and adds
-    the standalone paths' launches to the AD kernel's record."""
+    Returns the JSON records of the standard contract's TL (the unit's) and
+    of the forward and the streamed-TL kernels (the drop-ins'), and adds the
+    standalone paths' launches to the AD kernel's record."""
     import torch
 
     from cloudsc2jax_torch.drivers import DSCALE, run_tlad
@@ -957,7 +1002,10 @@ def time_variants(state, params, compared, ran, ad_record):
         kernel_prelude,
         launch_cloudsc2_fwd_ckpt,
     )
-    from cloudsc2jax_torch.kernels.tlad_kernel import launch_cloudsc2_tl_din
+    from cloudsc2jax_torch.kernels.tlad_kernel import (
+        launch_cloudsc2_tl_din,
+        launch_cloudsc2_tl_std,
+    )
     from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
 
     worst, plain = compared["worst"], compared["plain_ms"]
@@ -972,6 +1020,9 @@ def time_variants(state, params, compared, ran, ad_record):
     dsets = [Cloudsc2Inputs(*(DSCALE * x for x in s)) for s in sets]
     views = [Cloudsc2Inputs(*(x.T for x in s)) for s in sets]
     ms = {
+        "tl_std": _time_ms(
+            lambda i, p: launch_cloudsc2_tl_std(i, p, params, dscale=DSCALE),
+            list(zip(sets, pres)), 20),
         "fwd": _time_ms(lambda i, p: launch_cloudsc2_fwd_ckpt(i, p, params),
                         list(zip(sets, pres)), 20),
         "din": _time_ms(lambda i, d, p: launch_cloudsc2_tl_din(i, d, p, params),
@@ -982,14 +1033,16 @@ def time_variants(state, params, compared, ran, ad_record):
     }
     fwd0 = launch_cloudsc2_fwd_ckpt(sets[0], pres[0], params)
     din0 = launch_cloudsc2_tl_din(sets[0], dsets[0], pres[0], params)
+    std0 = launch_cloudsc2_tl_std(sets[0], pres[0], params, dscale=DSCALE)
     nlev = base.pt.shape[0]
     bounds = {
+        "tl_std": _bound("cloudsc2_tl_std", ncol, nlev, _nbytes(sets[0], pres[0], std0)),
         "fwd": _bound("cloudsc2_fwd_ckpt", ncol, nlev,
                       _nbytes(sets[0], pres[0], fwd0)),
         "din": _bound("cloudsc2_tl_din", ncol, nlev,
                       _nbytes(sets[0], pres[0], dsets[0], din0)),
     }
-    del dsets, views, fwd0, din0
+    del dsets, views, fwd0, din0, std0
     contiguous = [Cloudsc2Inputs(*(x.T.contiguous() for x in s)) for s in sets[:2]]
     ms["run_tlad_kernels"] = _time_ms(
         lambda i: run_tlad(i, params, backend="kernels"),
@@ -1011,7 +1064,7 @@ def time_variants(state, params, compared, ran, ad_record):
     ad_record["max_rel_err_f32_lregcl_off"] = worst["ad"]["float32"]
     ad_record["max_rel_err_f64_lregcl_off"] = worst["ad"]["float64"]
 
-    def record(kind, name, source, replaces, **extra):
+    def record(kind, name, source, replaces, path, launched, **extra):
         w = worst[kind]
         return {
             **bounds[kind],
@@ -1019,7 +1072,8 @@ def time_variants(state, params, compared, ran, ad_record):
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[kind],
+            "path": path,
+            "launches": launched,
             "max_abs_err": w["abs"],
             "max_rel_err_f32": w["float32"],
             "max_rel_err_f64": w["float64"],
@@ -1031,17 +1085,26 @@ def time_variants(state, params, compared, ran, ad_record):
             **extra,
         }
 
+    # the unit's TL with phase 10's launches (the standard contract's verdicts
+    # ran it); the drop-ins' sweeps with those of their comparison in phase 9
+    ran_in_phase_9 = compared["launches"]
     return [
-        record("fwd", "cloudsc2_fwd_ckpt", "cloudsc2jax_torch/csrc/cloudsc2_nl.cu",
-               "cloudsc2jax/pallas/tlad_kernel.py:405"),
-        record("din", "cloudsc2_tl_din", "cloudsc2jax_torch/csrc/cloudsc2_tl_din.cu",
+        record("tl_std", "cloudsc2_tl_std", "cloudsc2jax_torch/csrc/cloudsc2_tl.cu",
                "cloudsc2jax/pallas/tlad_kernel.py:170",
+               'run_tlad(backend="kernels")', launches["tl_std"],
+               flags=" ".join(STD_TL[2]),
                run_tlad_kernels_ms=ms["run_tlad_kernels"],
                run_tlad_kernels_views_ms=ms["run_tlad_kernels_views"],
                tl_parity_rel_err=verdicts["tl_parity_rel_err"],
-               tl_parity_rel_err_by_lregcl=ran["tl_parity"],
                ad_identity_rel_err=verdicts["ad_identity_rel_err"],
                tl_f32_vs_f64=dist),
+        record("fwd", "cloudsc2_fwd_ckpt", "cloudsc2jax_torch/csrc/cloudsc2_nl.cu",
+               "cloudsc2jax/pallas/tlad_kernel.py:405", "drop-in cloudsc2_kernel_ad",
+               ran_in_phase_9["fwd"]),
+        record("din", "cloudsc2_tl_din", "cloudsc2jax_torch/csrc/cloudsc2_tl_din.cu",
+               "cloudsc2jax/pallas/tlad_kernel.py:170", "drop-in cloudsc2_kernel_tl",
+               ran_in_phase_9["din"],
+               tl_parity_rel_err_by_lregcl=ran["tl_parity"]),
     ]
 
 
@@ -1348,18 +1411,17 @@ def check_exact_sass(specs) -> None:
         return
     changed = {}
     for lib, defines, flags in specs:
-        key = lib if lib != "bw_probe" else "bw_probe " + " ".join(defines)
-        if key not in EXACT_SASS or flags:
+        # a library by its name, a build of it by the defines and flags it names
+        key = " ".join((lib, *defines, *flags))
+        if key not in EXACT_SASS and defines:
             continue
-        digest = build.library_digest(build.sass_digests(build.sass(lib, defines)))
-        if digest != EXACT_SASS[key]:
+        digest = build.library_digest(build.sass_digests(build.sass(lib, defines, flags)))
+        if key not in EXACT_SASS:
+            print(f"[2] {key}'s SASS (not held): {digest}")
+        elif digest != EXACT_SASS[key]:
             changed[key] = digest
     print(f"[2] exact kernels' SASS: {len(EXACT_SASS) - len(changed)} of "
           f"{len(EXACT_SASS)} libraries as recorded (nvcc {release})")
-    for lib in [lib for lib, defines, _ in specs if not defines
-                and lib not in EXACT_SASS]:
-        digest = build.library_digest(build.sass_digests(build.sass(lib)))
-        print(f"[2] {lib}'s SASS (not held): {digest}")
     if changed:
         raise AssertionError(f"the exact kernels' code changed: {changed}")
 
@@ -3042,7 +3104,7 @@ def main(argv=None) -> int:
     # -- 2. build, every nvcc run together: the shipped libraries and the
     # probe's mixes
     t0 = time.perf_counter()
-    specs = [(lib, (), ()) for lib in LIBRARIES if lib != "bw_probe"]
+    specs = [(lib, (), ()) for lib in LIBRARIES if lib != "bw_probe"] + [STD_TL]
     for _, reads, writes, _, weighted in KERNEL_MIXES:
         specs += [("bw_probe", probe_defines(reads, writes, c), ())
                   for c in ((0, 0), weighted) if c is not None]

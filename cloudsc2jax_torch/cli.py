@@ -77,8 +77,8 @@ Observability and golden files, as in the reference (dwarf_cloudsc.F90):
   card, the host's clock on the CPU), its host ms a call and its share of
   the ``run_nl``/``run_tlad`` spans' device time.  The spans: ``run_nl``,
   ``run_tlad`` (one per call and lane), ``prelude``, ``nl_sweep``,
-  ``tl_sweep``, ``fwd_sweep``, ``ad_sweep``, ``increments``,
-  ``levels_major``, ``contract``.
+  ``tl_sweep``, ``fwd_sweep``, ``ad_sweep``, ``levels_major``,
+  ``contract``.
 """
 
 from __future__ import annotations
@@ -214,8 +214,9 @@ def scaled_identity_tol(base: float, n_terms: int) -> float:
 # f32 verdict of the TL parity through the kernel: max over the 10 fields
 # of max |kernel - jvp| / max |jvp|, independent of the reduction length, so
 # it is not scaled.  The JAX package's value (cloudsc2jax/cli.py:288).  The
-# streamed-increment TL kernel behind it ships built with -fmad=false
-# (kernels/build.py, SHIPPED_FLAGS): with nvcc's FMA contraction it sat
+# TL kernel behind it (the standard contract's: csrc/cloudsc2_tl.cu's sweep,
+# as the streamed-increment one before it) runs built with -fmad=false
+# (kernels/build.py, NO_FMA): with nvcc's FMA contraction it sat
 # 2.73-3.28e-6 from jvp of the truth path in f32 on an NVIDIA H100 80GB HBM3
 # (the contracted multiply-adds against eager PyTorch's separately rounded
 # ones), without it 1.412e-7 (PERF.md section 6).  A damp site broken on the

@@ -37,6 +37,7 @@ from .kernels.tlad_kernel import (
     ad_from_seeds,
     cloudsc2_ad,
     cloudsc2_tl,
+    cloudsc2_tl_std,
     tl_contract,
     to_levels_major,
 )
@@ -220,16 +221,18 @@ def run_tlad(
       ``write_primal=False``, the reference AD driver's contract), the 8
       tangent streams, and the levels-major adjoints of the 16 inputs.
     * ``"kernels"`` [``"pallas"``]: the standard contract through the
-      kernels.  ``inputs`` are ``(ncol, nlev)``; the increments are
-      streamed, the adjoint runs its own checkpointing forward sweep and is
-      seeded with the 10-field tangent.  Results are two
-      :class:`Cloudsc2Outputs` and a ``(ncol, nlev)``
-      :class:`Cloudsc2Inputs`.  The inputs are transposed to levels-major
-      once for both sweeps.  The TL half
-      (:func:`~cloudsc2jax_torch.kernels.tlad_kernel.tl_contract`) assembles
-      both contracts in place, the tangent's with the reverse sweep's seeds
-      in the same launch; the AD half (``ad_from_seeds``) assembles nothing
-      of its forward sweep, whose outputs the unit does not return.
+      kernels.  ``inputs`` are ``(ncol, nlev)``; the adjoint is seeded with
+      the 10-field tangent.  Results are two :class:`Cloudsc2Outputs` and a
+      ``(ncol, nlev)`` :class:`Cloudsc2Inputs`.  The inputs are transposed
+      to levels-major once for both sweeps.  The TL sweep
+      (:func:`~cloudsc2jax_torch.kernels.tlad_kernel.cloudsc2_tl_std`) forms
+      the increments in registers, as ``"streams"`` does, in a build of the
+      sweep without FMA contraction (the f32 TL parity of
+      ``cli.measure_f32_verdicts``), and writes the primal and the tangent
+      into the contracts' fields and the 3 carry checkpoints; ``tl_contract``
+      assembles both contracts in place, the tangent's with the reverse
+      sweep's seeds in the same launch; ``ad_from_seeds`` runs the reverse
+      sweep from those checkpoints.
     * ``"truth"`` [``"xla"``]: ``torch.func.jvp``/``vjp`` of
       :func:`~cloudsc2jax_torch.physics.cloudsc2.cloudsc2`, the f64
       validation path, same contract as ``"kernels"``.  ``remat`` (default
@@ -262,11 +265,11 @@ def run_tlad(
             return out, dout, adj
         if backend == "kernels":
             lm = to_levels_major(inputs)
-            with spans.span("increments", lm.pt):
-                d_lm = Cloudsc2Inputs(*(DSCALE * x for x in lm))
             kw = dict(lregcl=lregcl, ldrain1d=ldrain1d, pre=kernel_prelude(lm, params))
-            out, dout, seeds = tl_contract(lm, d_lm, params, seeds=True, **kw)
-            _, adj = ad_from_seeds(lm, seeds, params, **kw)
+            out, dout, seeds, ckpts = tl_contract(
+                lambda slots: cloudsc2_tl_std(lm, params, dscale=DSCALE, out=slots, **kw),
+                lm.pt, params, seeds=True)
+            adj = ad_from_seeds(lm, seeds, ckpts, params, **kw)
             return tuple(type(t)(*(x.T for x in t)) for t in (out, dout, adj))
         unit = partial(_truth_unit, params=params, lregcl=lregcl,
                        ldrain1d=ldrain1d, remat=remat)

@@ -38,9 +38,10 @@ from typing import Dict, List, Mapping, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "SHIPPED_FLAGS", "VARIANTS", "bind", "launch", "load_libraries",
-           "load_library", "library_digest", "loop_census", "nvcc_path", "nvcc_version",
-           "ptxas_report", "role_registers", "sass", "sass_digests", "variant"]
+__all__ = ["NO_FMA", "NVCC_FLAGS", "SHIPPED_FLAGS", "VARIANTS", "bind", "launch",
+           "load_libraries", "load_library", "library_digest", "loop_census", "nvcc_path",
+           "nvcc_version", "ptxas_report", "role_registers", "sass", "sass_digests",
+           "variant"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cloudsc2jax_torch"
@@ -62,12 +63,14 @@ VARIANTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {}
 # The streamed-increment TL kernel ships without FMA contraction: contracted,
 # its f32 tangents sit 2.7-3.3e-6 from jvp of the truth path, above the JAX
 # package's TL parity of 1e-6 (cloudsc2jax/cli.py:288); uncontracted, 1.4e-7.
-# It carries only the standard contract's TL (run_tlad(backend="kernels"),
-# tl --kernels); the stream contract's TL and the headline NL sweep keep
-# nvcc's default.  Its chunked twin is built the same way, so that the two
-# give the same bits.
-SHIPPED_FLAGS = {"cloudsc2_tl_din": ("-fmad=false",),
-                 "cloudsc2_tl_din_chunk": ("-fmad=false",)}
+# It carries the standard contract's TL drop-in (cloudsc2_kernel_tl); its
+# chunked twin is built the same way, so that the two give the same bits.
+# The standard contract's TL+AD unit (run_tlad(backend="kernels"), which the
+# f32 verdicts of tl/ad --kernels run) binds a second build of cloudsc2_tl
+# with NO_FMA (tlad_kernel.launch_cloudsc2_tl_std); the stream contract keeps
+# cloudsc2_tl's nvcc default build, as does the headline NL sweep.
+NO_FMA = ("-fmad=false",)
+SHIPPED_FLAGS = {"cloudsc2_tl_din": NO_FMA, "cloudsc2_tl_din_chunk": NO_FMA}
 
 
 def _shipped(name: str) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
@@ -204,10 +207,11 @@ def load_libraries(specs: Sequence[Spec]) -> List[ctypes.CDLL]:
 
 
 def bind(name: str, layouts: Mapping[str, Sequence], launchers: Mapping[str, Sequence],
-         defines: Sequence[str] = (), strings: Sequence[str] = ()) -> ctypes.CDLL:
-    """Load ``csrc/<name>.cu`` (:func:`load_library` with ``defines``) and,
-    the first time, check its argument layout against the wrapper's and
-    declare its entries.
+         defines: Sequence[str] = (), strings: Sequence[str] = (),
+         flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu`` (:func:`load_library` with ``defines`` and
+    ``flags``) and, the first time for that build, check its argument
+    layout against the wrapper's and declare its entries.
 
     ``layouts`` maps an ``*_abi`` function to the counts it must write (an
     entry ``None`` is read but not checked; the counts read are kept in
@@ -215,7 +219,7 @@ def bind(name: str, layouts: Mapping[str, Sequence], launchers: Mapping[str, Seq
     types (it returns a ``cudaError_t``); ``strings`` names entries that
     take nothing and return a C string.  Raises ``RuntimeError`` on a
     layout mismatch."""
-    lib = load_library(name, defines)
+    lib = load_library(name, defines, flags)
     if getattr(lib, "_bound", False):
         return lib
     lib.layouts = {}

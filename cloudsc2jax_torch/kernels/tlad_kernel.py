@@ -21,6 +21,9 @@ input (``Cloudsc2State.device_kernel_inputs(..., pqs=True)``).
   (``_tl_kernel`` without ``dscale``): its kernel
   (``csrc/cloudsc2_tl_din.cu``) reads a second set of 16 streams and
   writes no checkpoints.
+* :func:`cloudsc2_tl_std` is :func:`cloudsc2_tl`'s sweep with the primal
+  written, from a second build of ``csrc/cloudsc2_tl.cu`` without FMA
+  contraction (``build.NO_FMA``), as the standard contract's unit runs it.
 * The schedules JAX keeps beside those (C levels a step, the 17-stream
   adjoint convention) are :mod:`~cloudsc2jax_torch.kernels.schedules`.
 * :func:`cloudsc2_tl_reference` and :func:`cloudsc2_ad_reference` are the
@@ -44,14 +47,18 @@ and from levels-major are PyTorch passes outside the kernels;
 (:func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.assemble_contract`):
 the sweeps write their flux rows into the contract's flux fields.  The
 standard contract's work unit (``drivers.run_tlad(backend="kernels")``)
-runs their halves, :func:`tl_contract` and :func:`ad_from_seeds`: the TL
-tangent's assembly writes the reverse sweep's seeds in the same launch, and
-nothing of the forward-checkpoint sweep's outputs is assembled.
+runs one forward sweep and the reverse sweep: the TL forms the increments
+``DSCALE·x`` in registers and writes the primal, the tangents and the
+carry checkpoints (:func:`cloudsc2_tl_std`), :func:`tl_contract` assembles
+both contracts, the tangent's with the reverse sweep's seeds in the same
+launch, and :func:`ad_from_seeds` runs the AD from those checkpoints, with
+no forward-checkpoint sweep.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -96,10 +103,12 @@ __all__ = [
     "cloudsc2_tl",
     "cloudsc2_tl_din",
     "cloudsc2_tl_reference",
+    "cloudsc2_tl_std",
     "fold_flux_seeds",
     "launch_cloudsc2_ad",
     "launch_cloudsc2_tl",
     "launch_cloudsc2_tl_din",
+    "launch_cloudsc2_tl_std",
     "occupancy",
     "seed_scales",
     "seed_streams",
@@ -318,8 +327,8 @@ _BINDINGS = {name: _binding(name, layout, queries=_OCCUPANCY_QUERIES.get(name))
              for name, layout in _LAYOUT.items()}
 
 
-def _library(name: str):
-    return build.bind(name, **_BINDINGS[name])
+def _library(name: str, flags=()):
+    return build.bind(name, flags=flags, **_BINDINGS[name])
 
 
 def _param_array(lib, name: str, params: Params):
@@ -345,19 +354,20 @@ OCCUPANCY = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
 _OCCUPANCY_READ = {}
 
 
-def occupancy(name: str, like: torch.Tensor, *switches: int) -> dict:
-    """What the instance of ``csrc/<name>.cu`` that a launch on ``like``'s
-    dtype with ``switches`` (its ints after ``nlev``: evap, lregcl, and for
-    the TL write_primal) runs costs an SM of ``like``'s card: ``dtype`` (its
-    bits), then :data:`OCCUPANCY`, from ``cudaFuncGetAttributes`` and
+def occupancy(name: str, like: torch.Tensor, *switches: int, flags=()) -> dict:
+    """What the instance of ``csrc/<name>.cu`` (its build with the extra
+    nvcc ``flags``) that a launch on ``like``'s dtype with ``switches`` (its
+    ints after ``nlev``: evap, lregcl, and for the TL write_primal) runs
+    costs an SM of ``like``'s card: ``dtype`` (its bits), then
+    :data:`OCCUPANCY`, from ``cudaFuncGetAttributes`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the launch's own
     block size and dynamic shared memory.  Read once per instance and card,
     then cached; ``name`` is ``cloudsc2_tl`` or ``cloudsc2_ad``."""
-    key = (name, like.dtype, like.device, switches)
+    key = (name, tuple(flags), like.dtype, like.device, switches)
     got = _OCCUPANCY_READ.get(key)
     if got is None:
         out = (ctypes.c_int * len(OCCUPANCY))()
-        build.launch(_library(name), f"{name}_occupancy", like, *switches, out,
+        build.launch(_library(name, flags), f"{name}_occupancy", like, *switches, out,
                      stream=False)
         bits = 32 if like.dtype == torch.float32 else 64
         got = _OCCUPANCY_READ[key] = {"dtype": bits, **dict(zip(OCCUPANCY, out))}
@@ -396,24 +406,55 @@ def launch_cloudsc2_tl(
 
 def _tl_launch(name: str, library, inputs: Cloudsc2Inputs, pre: KernelPrelude,
                params: Params, *, dscale: float, ldrain1d: bool, lregcl: bool,
-               write_primal: bool, extra):
+               write_primal: bool, extra, out=None):
     """Check the operands of an in-register-increment TL launch, allocate
-    its outputs (the primal streams with ``write_primal``), and launch
-    ``csrc/<name>.cu``, bound by ``library(name)``, with ``extra`` after
-    ``lregcl``: ``(outputs | None, tangents, checkpoints)``."""
+    its outputs (the primal streams with ``write_primal``) but those ``out``
+    gives by name (``rfln``, ``d_rfln``, ...: the flux rows of
+    :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.flux_slots`), and
+    launch ``csrc/<name>.cu``, bound by ``library(name)``, with ``extra``
+    after ``lregcl``: ``(outputs | None, tangents, checkpoints)``."""
     _check_launch(inputs, params, ldrain1d, f"launch_{name}")
     operands = {**inputs._asdict(), **pre._asdict()}
     check_operands(operands, TL_STREAMS, inputs.pt, name)
     nlev, ncol = inputs.pt.shape
     lib = library(name)
-    new = [torch.empty_like(inputs.pt) for _ in range(8 + 3)]
-    prim = [torch.empty_like(inputs.pt) if write_primal else None
-            for _ in range(8)]
-    build.launch(lib, name, inputs.pt, [operands[n] for n in TL_STREAMS], new + prim,
-                 _param_array(lib, name, params), float(dscale), ncol, nlev,
-                 int(_evap(params, ldrain1d)), int(lregcl), *extra)
+    names = _TANGENT_OUTPUTS + (KERNEL_OUTPUTS if write_primal else ())
+    bufs = output_buffers(names, out, inputs.pt, name)
+    dout, prim = bufs[:8], (bufs[8:] if write_primal else [None] * 8)
+    ckpts = [torch.empty_like(inputs.pt) for _ in CHECKPOINTS]
+    build.launch(lib, name, inputs.pt, [operands[n] for n in TL_STREAMS],
+                 dout + ckpts + prim, _param_array(lib, name, params), float(dscale),
+                 ncol, nlev, int(_evap(params, ldrain1d)), int(lregcl), *extra)
     return (Cloudsc2StreamOutputs(*prim) if write_primal else None,
-            Cloudsc2StreamOutputs(*new[:8]), tuple(new[8:]))
+            Cloudsc2StreamOutputs(*dout), tuple(ckpts))
+
+
+@spans.spanned("tl_sweep")
+def launch_cloudsc2_tl_std(
+    inputs: Cloudsc2Inputs, pre: KernelPrelude, params: Params, *,
+    dscale: float, ldrain1d: bool = False, lregcl: bool = True, out=None,
+):
+    """Launch the standard contract's in-register-increment TL kernel, the
+    build of ``csrc/cloudsc2_tl.cu`` without FMA contraction
+    (``build.NO_FMA``), on CUDA tensors, on the current stream: returns
+    (outputs, tangents, checkpoints), the primal always written.
+
+    Checks device, dtype, shape and contiguity, allocates the outputs but
+    those ``out`` gives by name (the flux rows of
+    :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.flux_slots`), and
+    raises if the launch is refused.  Counts each launch in
+    ``cloudsc2_tl_std.launches``, and gives the ``tl_sweep`` span the
+    counters of the instance (:func:`occupancy`) and ``checkpoints`` 1: the
+    carries of the reverse sweep were written."""
+    outs = _tl_launch("cloudsc2_tl", partial(_library, flags=build.NO_FMA), inputs, pre,
+                      params, dscale=dscale, ldrain1d=ldrain1d, lregcl=lregcl,
+                      write_primal=True, extra=(1,), out=out)
+    switches = (int(_evap(params, ldrain1d)), int(lregcl), 1)
+    spans.count(lambda: {**occupancy("cloudsc2_tl", inputs.pt, *switches,
+                                     flags=build.NO_FMA),
+                         "checkpoints": 1})
+    cloudsc2_tl_std.launches += 1
+    return outs
 
 
 @spans.spanned("tl_sweep")
@@ -530,6 +571,28 @@ def cloudsc2_tl(
     return launch_cloudsc2_tl(inputs, pre, params, **kw)
 
 
+def cloudsc2_tl_std(
+    inputs: Cloudsc2Inputs, params: Params, *, dscale: float,
+    lregcl: bool = True, ldrain1d: bool = False,
+    pre: Optional[KernelPrelude] = None, out=None,
+) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2StreamOutputs, Checkpoints]:
+    """The standard contract's TL sweep: :func:`cloudsc2_tl` with the primal
+    written, its kernel built without FMA contraction, so that its primal and
+    tangents are :func:`cloudsc2_tl_din`'s on the increments ``dscale·x``
+    bit for bit: returns (outputs, tangents, checkpoints).
+
+    CUDA tensors run the hand-written kernel
+    (:func:`launch_cloudsc2_tl_std`); CPU tensors run the plain version
+    :func:`cloudsc2_tl_reference`; any other device raises.  ``pre`` as for
+    :func:`cloudsc2_tl`; both write the outputs ``out`` gives by name into
+    those tensors."""
+    kw = dict(dscale=dscale, lregcl=lregcl, ldrain1d=ldrain1d, out=out)
+    if _device(inputs, "cloudsc2_tl_std") == "cpu":
+        return cloudsc2_tl_reference(inputs, params, pre=pre, **kw)
+    pre = kernel_prelude(inputs, params) if pre is None else pre
+    return launch_cloudsc2_tl_std(inputs, pre, params, **kw)
+
+
 def cloudsc2_tl_din(
     inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
     lregcl: bool = False, ldrain1d: bool = False,
@@ -574,6 +637,7 @@ def cloudsc2_ad(
 
 
 cloudsc2_tl.launches = 0
+cloudsc2_tl_std.launches = 0
 cloudsc2_tl_din.launches = 0
 cloudsc2_ad.launches = 0
 
@@ -605,52 +669,41 @@ def seed_streams(d_outputs: Cloudsc2Outputs, params: Params,
     return Cloudsc2StreamOutputs(*(x.contiguous() for x in seeds))
 
 
-def tl_contract(
-    inputs: Cloudsc2Inputs, d_inputs: Cloudsc2Inputs, params: Params, *,
-    seeds: bool, lregcl: bool = False, ldrain1d: bool = False,
-    pre: Optional[KernelPrelude] = None,
-):
-    """The standard contract's TL half on levels-major inputs:
-    ``(outputs, d_outputs, seeds | None)``, two levels-major
-    :class:`Cloudsc2Outputs` and, with ``seeds``, the 8 seed streams of the
+def tl_contract(sweep, like: torch.Tensor, params: Params, *, seeds: bool):
+    """The standard contract's TL half around a levels-major TL ``sweep``:
+    ``(outputs, d_outputs, seeds | None, *rest)``, two levels-major
+    :class:`Cloudsc2Outputs`, with ``seeds`` the 8 seed streams of the
     reverse sweep for the tangent (:func:`seed_streams` of ``d_outputs``,
-    folded: the AD takes them with ``fold_seeds=False``).
+    folded: the AD takes them with ``fold_seeds=False``), then what else the
+    sweep returned.
 
-    :func:`cloudsc2_tl_din` writes its flux rows into the contract's flux
-    fields, and one :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.
-    assemble_contract` each finishes the primal and the tangent in place,
-    the tangent's with the seeds."""
-    flux, d_flux = flux_rows(inputs.pt), flux_rows(inputs.pt)
-    out, dout = cloudsc2_tl_din(
-        inputs, d_inputs, params, lregcl=lregcl, ldrain1d=ldrain1d, pre=pre,
-        out={**flux_slots(flux), **flux_slots(d_flux, "d_")})
+    ``sweep(out)`` runs a TL sweep (:func:`cloudsc2_tl_std`,
+    :func:`cloudsc2_tl_din`) that writes its flux rows into the contract's
+    flux fields, the slots ``out`` gives, and returns ``(outputs, tangents,
+    *rest)``; ``like`` is a levels-major field of its inputs.  One
+    :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.assemble_contract`
+    each finishes the primal and the tangent in place, the tangent's with
+    the seeds."""
+    flux, d_flux = flux_rows(like), flux_rows(like)
+    out, dout, *rest = sweep({**flux_slots(flux), **flux_slots(d_flux, "d_")})
     res, _ = assemble_contract(out, params, flux=flux)
     dres, sd = assemble_contract(dout, params, flux=d_flux, seeds=seeds)
-    return res, dres, (None if sd is None else dout._replace(rfln=sd[0], sfln=sd[1]))
+    return (res, dres, None if sd is None else dout._replace(rfln=sd[0], sfln=sd[1]),
+            *rest)
 
 
 def ad_from_seeds(
-    inputs: Cloudsc2Inputs, seeds: Cloudsc2StreamOutputs, params: Params, *,
-    lregcl: bool = True, ldrain1d: bool = False,
-    pre: Optional[KernelPrelude] = None, out=None,
-) -> Tuple[Cloudsc2StreamOutputs, Cloudsc2Inputs]:
+    inputs: Cloudsc2Inputs, seeds: Cloudsc2StreamOutputs, checkpoints: Checkpoints,
+    params: Params, *, lregcl: bool = True, ldrain1d: bool = False,
+    pre: Optional[KernelPrelude] = None,
+) -> Cloudsc2Inputs:
     """The standard contract's AD half on levels-major inputs with pqs: the
-    checkpointing forward sweep, then the reverse sweep seeded with the 8
-    folded ``seeds`` (:func:`seed_streams`, :func:`tl_contract`).  Returns
-    ``(forward streams, input adjoints)``, levels-major, the streams not
-    assembled; the forward sweep writes the outputs ``out`` gives by name
-    into those tensors.  CUDA tensors run the two kernels after one
-    :func:`kernel_prelude` for both (``pre`` where the caller has it), CPU
-    tensors their plain versions."""
-    kw = dict(ldrain1d=ldrain1d, out=out)
-    if _device(inputs, "cloudsc2_kernel_ad") == "cpu":
-        fwd, ckpts = cloudsc2_fwd_ckpt_reference(inputs, params, pre=pre, **kw)
-    else:
-        pre = kernel_prelude(inputs, params) if pre is None else pre
-        fwd, ckpts = launch_cloudsc2_fwd_ckpt(inputs, pre, params, **kw)
-    adj = cloudsc2_ad(inputs, seeds, ckpts, params, lregcl=lregcl, ldrain1d=ldrain1d,
-                      fold_seeds=False, pre=pre)
-    return fwd, adj
+    reverse sweep (:func:`cloudsc2_ad`) seeded with the 8 folded ``seeds``
+    (:func:`seed_streams`, :func:`tl_contract`) from the carry
+    ``checkpoints`` a forward sweep wrote.  Returns the levels-major input
+    adjoints."""
+    return cloudsc2_ad(inputs, seeds, checkpoints, params, lregcl=lregcl,
+                       ldrain1d=ldrain1d, fold_seeds=False, pre=pre)
 
 
 def cloudsc2_kernel_tl(
@@ -670,8 +723,10 @@ def cloudsc2_kernel_tl(
     levels-major inputs where the caller has it."""
     if not levels_major:
         inputs, d_inputs = to_levels_major(inputs), to_levels_major(d_inputs)
-    out, dout, _ = tl_contract(inputs, d_inputs, params, seeds=False, lregcl=lregcl,
-                               ldrain1d=ldrain1d, pre=pre)
+    out, dout, _ = tl_contract(
+        lambda slots: cloudsc2_tl_din(inputs, d_inputs, params, lregcl=lregcl,
+                                      ldrain1d=ldrain1d, pre=pre, out=slots),
+        inputs.pt, params, seeds=False)
     if levels_major:
         return out, dout
     return tuple(Cloudsc2Outputs(*(x.T for x in t)) for t in (out, dout))
@@ -689,15 +744,26 @@ def cloudsc2_kernel_ad(
     LPHYLIN=True, with the layouts of :func:`cloudsc2_kernel_tl`.
     ``d_outputs`` is a cotangent on the 10-field contract;
     :func:`seed_streams` folds it into the 8 seed streams, so the reverse
-    sweep applies no (1 + L²) fold of its own.  :func:`ad_from_seeds` runs
-    the two sweeps, and the forward sweep's outputs are assembled in place.
-    ``pre`` as for :func:`ad_from_seeds`."""
+    sweep applies no (1 + L²) fold of its own.  The forward sweep
+    (:func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.cloudsc2_fwd_ckpt`)
+    writes its flux rows into the contract's flux fields, which one
+    :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.assemble_contract`
+    finishes in place, and :func:`ad_from_seeds` runs the reverse sweep from
+    its checkpoints.  CUDA tensors run the kernels after one
+    :func:`kernel_prelude` for both (``pre`` where the caller has it), CPU
+    tensors their plain versions."""
     if not levels_major:
         inputs = to_levels_major(inputs)
     seeds = seed_streams(d_outputs, params, levels_major)
     flux = flux_rows(inputs.pt)
-    fwd, adj = ad_from_seeds(inputs, seeds, params, lregcl=lregcl, ldrain1d=ldrain1d,
-                             pre=pre, out=flux_slots(flux))
+    kw = dict(ldrain1d=ldrain1d, out=flux_slots(flux))
+    if _device(inputs, "cloudsc2_kernel_ad") == "cpu":
+        fwd, ckpts = cloudsc2_fwd_ckpt_reference(inputs, params, pre=pre, **kw)
+    else:
+        pre = kernel_prelude(inputs, params) if pre is None else pre
+        fwd, ckpts = launch_cloudsc2_fwd_ckpt(inputs, pre, params, **kw)
+    adj = ad_from_seeds(inputs, seeds, ckpts, params, lregcl=lregcl, ldrain1d=ldrain1d,
+                        pre=pre)
     out, _ = assemble_contract(fwd, params, flux=flux)
     if levels_major:
         return out, adj

@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, on a machine with one card::
 
-    python3 cloudsc2jax_torch/probes/tlad_budget.py [sweep] [ad|tl|din|tl_enc|ad_enc ...]
+    python3 cloudsc2jax_torch/probes/tlad_budget.py [sweep] [ad|tl|din|std|tl_enc|ad_enc ...]
 
 It builds each kernel once per budget (blocks of 128 threads per SM that
 the register budget must allow, ``-DCLOUDSC2_*_MIN_BLOCKS_F32``), all nvcc
@@ -14,10 +14,14 @@ block, 16 blocks of 128 threads), the shared bytes per block and the
 kernel's time by CUDA events over 20 launches on three input sets.  Kinds:
 ``ad`` (cloudsc2_ad.cu), ``tl`` (cloudsc2_tl.cu, in-register increments,
 primal streams written), ``din`` (cloudsc2_tl_din.cu, streamed
-increments), ``tl_enc`` (cloudsc2_tl_enc.cu, the int16-encoded TL with
-primal streams, default encoding) and ``ad_enc`` (cloudsc2_ad_enc.cu, the
-encoded AD from the encoded TL's checkpoints).  A block's shared memory is
-the AD body's slots.  Every line carries the card's name and power limit.
+increments), ``std`` (``tl`` built without FMA contraction,
+``build.NO_FMA``, as the standard contract's unit runs it), ``tl_enc``
+(cloudsc2_tl_enc.cu, the int16-encoded TL with primal streams, default
+encoding) and ``ad_enc`` (cloudsc2_ad_enc.cu, the encoded AD from the
+encoded TL's checkpoints).  Each build takes the nvcc flags its library
+ships with (``build.SHIPPED_FLAGS``), ``std`` ``build.NO_FMA``.  A block's
+shared memory is the AD body's slots.  Every line carries the card's name
+and power limit.
 """
 import json
 import pathlib
@@ -27,12 +31,14 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 NCOL = 327_680
 # min blocks of each kind's sweep
-SWEEP = {"ad": (3, 4, 5, 6), "tl": (5, 6, 7, 8), "din": (6, 7, 8),
+SWEEP = {"ad": (3, 4, 5, 6), "tl": (5, 6, 7, 8), "din": (6, 7, 8), "std": (6, 7, 8),
          "tl_enc": (6, 7, 8, 9), "ad_enc": (4, 5, 6)}
 LIBRARY = {"ad": "cloudsc2_ad", "tl": "cloudsc2_tl", "din": "cloudsc2_tl_din",
-           "tl_enc": "cloudsc2_tl_enc", "ad_enc": "cloudsc2_ad_enc"}
+           "std": "cloudsc2_tl", "tl_enc": "cloudsc2_tl_enc",
+           "ad_enc": "cloudsc2_ad_enc"}
 _MACRO = {"ad": "CLOUDSC2_AD", "tl": "CLOUDSC2_TL", "din": "CLOUDSC2_TL_DIN",
-          "tl_enc": "CLOUDSC2_TL_ENC", "ad_enc": "CLOUDSC2_AD_ENC"}
+          "std": "CLOUDSC2_TL", "tl_enc": "CLOUDSC2_TL_ENC",
+          "ad_enc": "CLOUDSC2_AD_ENC"}
 # the f32 entry of the work unit's body (evap off, lregcl on; TL with primal;
 # the encoded kernels at the default encoding's mask, 0x3FFD, which has a
 # kernel of its own)
@@ -40,6 +46,7 @@ _DEFAULT_MASK = "N13cloudsc2_load14EncodedLevelsTILj16381EEE"
 ENTRY = {"ad": ("cloudsc2_ad_kernel", "IfLb0ELb1EN13cloudsc2_load5ExactE"),
          "tl": ("cloudsc2_tl_kernel", "IfLb0ELb1ELb1EN13cloudsc2_load5ExactE"),
          "din": ("cloudsc2_tl_din_kernel", "IfLb0ELb1EE"),
+         "std": ("cloudsc2_tl_kernel", "IfLb0ELb1ELb1EN13cloudsc2_load5ExactE"),
          "tl_enc": ("cloudsc2_tl_enc_kernel", "ILb0ELb1ELb1E" + _DEFAULT_MASK),
          "ad_enc": ("cloudsc2_ad_enc_kernel", "ILb0ELb1E" + _DEFAULT_MASK)}
 
@@ -137,6 +144,9 @@ class Unit:
                                                   dscale=DSCALE),
             "din": lambda i: tk.launch_cloudsc2_tl_din(
                 self.sets[i], self.dsets[i], self.pres[i], p, lregcl=True),
+            # the build is the variant's, so the same launcher as ``tl``
+            "std": lambda i: tk.launch_cloudsc2_tl(self.sets[i], self.pres[i], p,
+                                                   dscale=DSCALE),
             "tl_enc": lambda i: ex.launch_cloudsc2_tl_encoded(
                 self.encs[i], p, dscale=DSCALE),
             "ad_enc": lambda i: ex.launch_cloudsc2_ad_encoded(
@@ -151,8 +161,13 @@ def sweep(kinds, state) -> list:
     """The budget table of ``kinds``: one dict per build."""
     from cloudsc2jax_torch.kernels import build
 
+    def flags(kind):
+        if kind == "std":
+            return build.NO_FMA
+        return build.SHIPPED_FLAGS.get(LIBRARY[kind], ())
+
     build.load_libraries(["cloudsc2_tl", "cloudsc2_tl_enc"]
-                         + [(LIBRARY[k], budget_defines(k, b))
+                         + [(LIBRARY[k], budget_defines(k, b), flags(k))
                             for k in kinds for b in SWEEP[k]])
     unit = Unit(state)
     rows = []
@@ -160,9 +175,9 @@ def sweep(kinds, state) -> list:
         slots = stash_slots() if kind in ("ad", "ad_enc") else 0
         for blocks in SWEEP[kind]:
             defines = budget_defines(kind, blocks)
-            e = entry_report(kind, defines)
+            e = entry_report(kind, defines, flags(kind))
             shared = slots * 4 * 128
-            with build.variant(LIBRARY[kind], defines):
+            with build.variant(LIBRARY[kind], defines, flags(kind)):
                 ms = unit.time(kind)
             row = {"kind": kind, "min_blocks": blocks,
                    "registers": e["registers"],

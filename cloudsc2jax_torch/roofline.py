@@ -121,6 +121,8 @@ KERNELS = {
 KERNELS.update({
     "cloudsc2_fwd_chunk": KERNELS["cloudsc2_fwd_ckpt"],
     "cloudsc2_tl_chunk": KERNELS["cloudsc2_tl"],
+    # the standard contract's TL: cloudsc2_tl's uncontracted build, primal written
+    "cloudsc2_tl_std": KERNELS["cloudsc2_tl"],
     "cloudsc2_tl_din_chunk": KERNELS["cloudsc2_tl_din"],
     "cloudsc2_ad_chunk": KERNELS["cloudsc2_ad_xscat"],
     "cloudsc2_tl_enc_bf16": KERNELS["cloudsc2_tl_enc"],

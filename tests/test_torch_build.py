@@ -67,7 +67,8 @@ def fake_cuda(monkeypatch):
 def _bound(monkeypatch, lib, layouts, launchers, **kw):
     loaded = []
     monkeypatch.setattr(build, "load_library",
-                        lambda name, defines=(): loaded.append((name, defines)) or lib)
+                        lambda name, defines=(), flags=():
+                        loaded.append((name, defines, flags)) or lib)
     return build.bind("fake", layouts, launchers, **kw), loaded
 
 
@@ -78,7 +79,7 @@ def test_bind_checks_the_layout_once_and_declares_the_entries(monkeypatch):
     got, loaded = _bound(monkeypatch, lib, {"fake_abi": (3, 5, None)},
                          {"fake_f32": argtypes, "fake_f64": argtypes},
                          strings=("fake_names",))
-    assert got is lib and loaded == [("fake", ())]
+    assert got is lib and loaded == [("fake", (), ())]
     assert lib.layouts == {"fake_abi": (3, 5, 7)}
     for entry in (lib.fake_f32, lib.fake_f64, lib.fake_abi):
         assert entry.restype is ctypes.c_int
@@ -165,3 +166,62 @@ def test_param_array_holds_the_names_to_the_layout():
     short = Library(layouts={"fake_abi": (2, 4)}, fake_param_names=lambda: b"ptsphy")
     with pytest.raises(RuntimeError, match="argument layout"):
         tk._param_array(short, "fake", params)
+
+
+def test_the_standard_tl_launch_writes_into_the_rows_given(fake_cuda, monkeypatch):
+    """``launch_cloudsc2_tl_std`` launches the build of ``cloudsc2_tl``
+    without FMA contraction (``build.NO_FMA``), bound beside the stream
+    contract's default build, in its layout: the 20 streams, then 8
+    tangents, 3 checkpoints and 8 primal outputs, the flux streams the rows
+    1.. of the fields given; then the params, dscale, the shape, the
+    switches and write_primal 1."""
+    from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
+
+    st = Cloudsc2State.synthetic(ngptot=6, nlev=5)
+    x = st.device_kernel_inputs(6, dtype=torch.float32, device="cpu", pqs=True)
+    pre = kmod.plain_prelude(x, st.params)
+    entry, bound = Entry(), []
+
+    def library(name, flags=()):
+        bound.append((name, flags))
+        return Library(cloudsc2_tl_f32=entry)
+
+    monkeypatch.setattr(tk, "_library", library)
+    monkeypatch.setattr(tk, "_param_array", lambda lib, name, params: "params")
+    monkeypatch.setattr(tk, "_check_launch", lambda *args: None)
+    flux, d_flux = kmod.flux_rows(x.pt), kmod.flux_rows(x.pt)
+    launches = tk.cloudsc2_tl_std.launches
+    out, dout, ckpts = tk.launch_cloudsc2_tl_std(
+        x, pre, st.params, dscale=0.01,
+        out={**kmod.flux_slots(flux), **kmod.flux_slots(d_flux, "d_")})
+    assert tk.cloudsc2_tl_std.launches == launches + 1
+    assert bound == [("cloudsc2_tl", build.NO_FMA)]
+    (args,) = entry.calls
+    operands = {**x._asdict(), **pre._asdict()}
+    assert list(args[0]) == [operands[n].data_ptr() for n in tk.TL_STREAMS]
+    outs = list(args[1])
+    assert outs == [t.data_ptr() for t in (*dout, *ckpts, *out)]
+    assert outs[6:8] == [d_flux.pfplsl[1].data_ptr(), d_flux.pfplsn[1].data_ptr()]
+    assert outs[17:] == [flux.pfplsl[1].data_ptr(), flux.pfplsn[1].data_ptr()]
+    assert len(set(outs)) == 19
+    assert args[2:] == ("params", 0.01, 6, 5, 0, 1, 1, STREAM)
+    assert build.NO_FMA == ("-fmad=false",)
+    assert build._key(("cloudsc2_tl", (), build.NO_FMA))[2] == build.NO_FMA
+    assert "-fmad=false" not in build._key("cloudsc2_tl")[2]
+
+
+def test_the_smoke_builds_and_pins_the_standard_tl(monkeypatch):
+    """``chip_smoke.py`` phase 2 builds ``cloudsc2_tl`` a second time with
+    ``build.NO_FMA`` (the standard contract's TL) and holds that build's
+    SASS to a recorded digest of its own, beside the default build, whose
+    digest stays the one recorded before."""
+    monkeypatch.syspath_prepend(str(build.CSRC.parents[1]))
+    import chip_smoke
+
+    assert chip_smoke.STD_TL == ("cloudsc2_tl", (), build.NO_FMA)
+    assert "cloudsc2_tl" in chip_smoke.LIBRARIES
+    assert chip_smoke.KERNEL_MIX["cloudsc2_tl_std"] == chip_smoke.KERNEL_MIX["cloudsc2_tl"]
+    pinned = {k: v for k, v in chip_smoke.EXACT_SASS.items() if k.startswith("cloudsc2_tl")}
+    assert pinned["cloudsc2_tl"].startswith("cbba2c41")
+    assert len(set(pinned.values())) == len(pinned)
+    assert set(pinned) >= {"cloudsc2_tl", "cloudsc2_tl -fmad=false", "cloudsc2_tl_din"}

@@ -9,11 +9,16 @@ expressions the port assembled with before (a zero row, ``torch.cat``,
 ``-x * L``; ``seed_streams`` of the assembled tangent), ``-0.0`` top rows
 included; the sweeps write the outputs they are given; the standard paths
 assemble in place and ``run_tlad(backend="kernels")`` assembles nothing of
-its forward-checkpoint sweep, with the same results.  On a card (marked
-``cuda``): the kernel against those expressions on the card, bit for bit,
-in both forms, both dtypes and a column count that is neither a multiple of
-4 nor of the block; every standard path against its composition from the
-sweeps and those expressions; the launches a call issues.
+its forward-checkpoint sweep, with the same results: it runs none, its
+reverse sweep reads the checkpoints its TL sweep wrote, and its primal and
+tangents are the streamed-increment TL's on PyTorch's increments, its
+adjoints within the AD's tolerance of the drop-ins' (at the fixture's 100
+columns).  On a card (marked ``cuda``): the kernel against those
+expressions on the card, bit for bit, in both forms, both dtypes and a
+column count that is neither a multiple of 4 nor of the block; every
+standard path against its composition from the sweeps and those
+expressions; the unit against the drop-ins at 16,384 columns; the launches
+a call issues.
 
 The file imports neither JAX nor ``conftest``::
 
@@ -36,6 +41,17 @@ from cloudsc2jax_torch.state import Cloudsc2State
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DTYPES = [torch.float32, torch.float64]
+# the unit's adjoints against the drop-ins', as a share of each field's
+# largest value: the f32 AD kernel's tolerance against its plain version
+# (tests/test_torch_cuda.py TLAD_TOL), and the float64 configuration's
+# (benchmark/configs/cloudsc2-tlad-f64.json)
+ADJOINT_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# and a limit set from the readings: the largest gap read, 7.18e-10 in f32
+# and 4.18e-20 in f64 at 16,384 columns on an NVIDIA H100 (the carries of
+# the TL and NL bodies differ by ulps), 0 on the plain versions at 100
+# columns; the sfl checkpoint scaled by 1 + 1e-6 moves the plain versions'
+# adjoints at 100 columns by 1.08e-8 in f32 and 5.85e-9 in f64
+ADJOINT_GAP = {torch.float32: 1e-8, torch.float64: 1e-14}
 # neither a multiple of 4 (a 16 B pack of f32) nor of the block
 RAGGED = 5001
 
@@ -142,7 +158,7 @@ def test_unblock_outputs_is_the_plain_contract(small, dtype):
     _same(got, tuple(x.T for x in want), "views")
 
 
-@pytest.mark.parametrize("sweep", ["nl", "fwd_ckpt", "tl_din"])
+@pytest.mark.parametrize("sweep", ["nl", "fwd_ckpt", "tl_din", "tl_std"])
 def test_sweeps_write_the_outputs_they_are_given(small, sweep):
     """Each sweep the standard contract runs writes its flux rows into the
     rows 1.. given (``flux_slots``), with the values it returns without."""
@@ -157,16 +173,18 @@ def test_sweeps_write_the_outputs_they_are_given(small, sweep):
             return (kmod.cloudsc2_nl(x, p, out=out),)
         if sweep == "fwd_ckpt":
             return kmod.cloudsc2_fwd_ckpt(x, p, out=out)[:1]
+        if sweep == "tl_std":
+            return tk.cloudsc2_tl_std(x, p, dscale=0.01, out=out)
         return tk.cloudsc2_tl_din(x, d, p, out=out)
 
-    if sweep == "tl_din":
+    if sweep.startswith("tl_"):
         slots = {**slots, **kmod.flux_slots(d_flux, "d_")}
     got, want = run(slots), run()
     for g, w in zip(got, want):
         _same(g, w, sweep)
     assert got[0].rfln.data_ptr() == flux.pfplsl[1].data_ptr()
     assert got[0].sfln.data_ptr() == flux.pfplsn[1].data_ptr()
-    if sweep == "tl_din":
+    if sweep.startswith("tl_"):
         assert got[1].rfln.data_ptr() == d_flux.pfplsl[1].data_ptr()
 
 
@@ -199,8 +217,9 @@ def _counting(monkeypatch, name, modules):
 
 def _unit_before(x, p):
     """``run_tlad(backend="kernels")`` composed as the port ran it before:
-    the TL sweep, both contracts and the seeds by the expressions above,
-    the forward-checkpoint and reverse sweeps, levels-major."""
+    the streamed-increment TL sweep on PyTorch's increments, both contracts
+    and the seeds by the expressions above, the forward-checkpoint and
+    reverse sweeps, levels-major."""
     lm = tk.to_levels_major(x)
     d = type(lm)(*(drivers.DSCALE * v for v in lm))
     pre = kmod.kernel_prelude(lm, p)
@@ -213,21 +232,106 @@ def _unit_before(x, p):
     return o, do, adj
 
 
+def _unit(x, p):
+    """``run_tlad(backend="kernels")`` composed from its sweeps: the
+    standard contract's TL sweep (the increments formed in it, the
+    checkpoints written), both contracts and the seeds by the expressions
+    above, the reverse sweep from the TL's checkpoints, levels-major."""
+    lm = tk.to_levels_major(x)
+    pre = kmod.kernel_prelude(lm, p)
+    out, dout, ckpts = tk.cloudsc2_tl_std(lm, p, dscale=drivers.DSCALE, pre=pre)
+    o, do = _before_unblock(out, p), _before_unblock(dout, p)
+    seeds = dout._replace(**dict(zip(("rfln", "sfln"), _before_seeds(do, p))))
+    adj = tk.cloudsc2_ad(lm, seeds, ckpts, p, fold_seeds=False, pre=pre)
+    return o, do, adj
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_run_tlad_assembles_no_forward_outputs(small, monkeypatch, dtype):
     """The unit assembles two contracts (its TL's primal, and its tangent
-    with the seeds) and never calls ``unblock_outputs``: the forward sweep's
-    outputs are dropped unassembled; the triple is what it was."""
+    with the seeds), never calls ``unblock_outputs`` and runs no
+    forward-checkpoint sweep: its reverse sweep reads the checkpoints of
+    its TL sweep, which forms the increments itself.  The triple is that
+    composition's; and on the plain versions, whose TL carries are the
+    forward sweep's bit for bit, what it was."""
     unblocks = _counting(monkeypatch, "unblock_outputs", (kmod, drivers))
     assembles = _counting(monkeypatch, "assemble_contract", (kmod, tk))
+    forward = _counting(monkeypatch, "cloudsc2_fwd_ckpt_reference", (kmod, tk))
+    streamed = _counting(monkeypatch, "cloudsc2_tl_din", (tk,))
     x = small.device_inputs(23, dtype=dtype, device="cpu")
     got = drivers.run_tlad(x, small.params, backend="kernels")
-    assert unblocks == []
+    assert unblocks == [] and forward == [] and streamed == []
     assert [(c["flux"] is not None, c.get("seeds", False)) for c in assembles] == [
         (True, False), (True, True)]
     for name, g, w in zip(("outputs", "tangents", "adjoints"), got,
+                          _unit(x, small.params)):
+        _same(tuple(g), tuple(v.T for v in w), name)
+    for name, g, w in zip(("outputs", "tangents", "adjoints"), got,
                           _unit_before(x, small.params)):
         _same(tuple(g), tuple(v.T for v in w), name)
+
+
+def _against_drop_ins(x, p):
+    """``run_tlad(backend="kernels")`` on ``x`` against the drop-ins: its
+    primal and tangents are ``cloudsc2_kernel_tl(x, DSCALE·x)``'s (the
+    streamed-increment TL on PyTorch's increments) bit for bit, its
+    adjoints ``cloudsc2_kernel_ad(x, tangents)``'s (the forward-checkpoint
+    sweep's carries) within :data:`ADJOINT_TOL` of each field's largest
+    value; prints and returns the largest gap."""
+    out, dout, adj = drivers.run_tlad(x, p, backend="kernels")
+    d = type(x)(*(drivers.DSCALE * v for v in x))
+    o, do = tk.cloudsc2_kernel_tl(x, d, p, lregcl=True)
+    _same(tuple(out), tuple(o), "outputs")
+    _same(tuple(dout), tuple(do), "tangents")
+    _, want = tk.cloudsc2_kernel_ad(x, dout, p, lregcl=True)
+    gap = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
+              for g, w in zip(adj, want))
+    assert all(torch.isfinite(g).all() for g in adj)
+    print(f"largest adjoint gap against the drop-ins, {x.pt.dtype}: {gap:.3e}")
+    assert gap <= ADJOINT_TOL[x.pt.dtype]
+    assert gap <= ADJOINT_GAP[x.pt.dtype]
+    return gap
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_run_tlad_against_the_drop_ins_at_the_fixture(dtype):
+    """At the fixture's 100 columns, on the plain versions: the unit's primal
+    and tangents are the streamed-increment TL's bit for bit, its adjoints
+    within the tolerance of those the forward-checkpoint sweep's carries
+    give."""
+    st = Cloudsc2State.load(ROOT / "tests" / "fixtures" / "input.npz")
+    _against_drop_ins(st.device_inputs(100, dtype=dtype, device="cpu"), st.params)
+
+
+def test_the_halves_assemble_around_the_sweep_and_read_the_checkpoints(small):
+    """``tl_contract`` hands the TL sweep it is given the contract's flux
+    rows as its ``out``, assembles both contracts there and passes on what
+    else the sweep returned (the standard TL's checkpoints; nothing after the
+    streamed TL's primal and tangents, the same bits on ``dscale·x``);
+    ``ad_from_seeds`` is the reverse sweep from the checkpoints handed to
+    it, the seeds taken as folded."""
+    p = small.params
+    lm = small.device_kernel_inputs(23, dtype=torch.float64, device="cpu", pqs=True)
+    given = []
+
+    def sweep(out):
+        given.append(out)
+        return tk.cloudsc2_tl_std(lm, p, dscale=0.01, out=out)
+
+    out, dout, seeds, ckpts = tk.tl_contract(sweep, lm.pt, p, seeds=True)
+    (slots,) = given
+    assert set(slots) == {"rfln", "sfln", "d_rfln", "d_sfln"}
+    assert slots["rfln"].data_ptr() == out.pfplsl[1].data_ptr()
+    assert slots["d_sfln"].data_ptr() == dout.pfplsn[1].data_ptr()
+    assert seeds is not None and len(ckpts) == 3
+    d = type(lm)(*(0.01 * v for v in lm))
+    o, do, none = tk.tl_contract(
+        lambda out: tk.cloudsc2_tl_din(lm, d, p, lregcl=True, out=out), lm.pt, p,
+        seeds=False)
+    assert none is None
+    _same(tuple(o) + tuple(do), tuple(out) + tuple(dout), "streamed TL")
+    _same(tk.ad_from_seeds(lm, seeds, ckpts, p),
+          tk.cloudsc2_ad(lm, seeds, ckpts, p, fold_seeds=False), "adjoints")
 
 
 @pytest.mark.parametrize("levels_major", [False, True])
@@ -314,7 +418,8 @@ def test_cuda_standard_paths_are_bit_for_bit(dtype):
     ``backend="kernels"`` (outputs, tangents, adjoints), the drop-ins in
     both layouts, and ``unblock_outputs`` on streams of the stream
     contract, each against its composition from the sweeps and the
-    expressions above."""
+    expressions above; ``run_tlad``'s outputs and tangents also against its
+    composition before, the streamed-increment TL's."""
     _need_cuda()
     st = Cloudsc2State.load(ROOT / "tests" / "fixtures" / "input.npz")
     p = st.params
@@ -325,8 +430,10 @@ def test_cuda_standard_paths_are_bit_for_bit(dtype):
     _same(tuple(got), tuple(v.T for v in want), "run_nl")
     _check_top_rows(Cloudsc2Outputs(*(v.T for v in got)))
     got = drivers.run_tlad(x, p, backend="kernels")
-    for name, g, w in zip(("outputs", "tangents", "adjoints"), got, _unit_before(x, p)):
+    for name, g, w in zip(("outputs", "tangents", "adjoints"), got, _unit(x, p)):
         _same(tuple(g), tuple(v.T for v in w), "run_tlad " + name)
+    for name, g, w in zip(("outputs", "tangents"), got, _unit_before(x, p)):
+        _same(tuple(g), tuple(v.T for v in w), "run_tlad before " + name)
     d = type(lm)(*(0.01 * v for v in lm))
     ws, wd = tk.cloudsc2_tl_din(lm, d, p, lregcl=True)
     fwd, _ = kmod.cloudsc2_fwd_ckpt(lm, p)
@@ -370,12 +477,32 @@ print(json.dumps({"ops": sorted(e.name for e in prof.events()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_run_tlad_against_the_drop_ins(dtype):
+    """At 16,384 columns of the fixture on the card: ``run_tlad``'s primal
+    and tangents are the streamed-increment TL's on PyTorch's increments
+    bit for bit (both kernels built without FMA contraction), its adjoints
+    within :data:`ADJOINT_TOL` of the drop-in AD's (the forward-checkpoint
+    sweep's carries); one launch of the standard contract's TL and of the
+    AD, none of the forward-checkpoint or streamed-increment sweeps."""
+    _need_cuda()
+    st = Cloudsc2State.load(ROOT / "tests" / "fixtures" / "input.npz")
+    x = st.device_inputs(16_384, dtype=dtype, device="cuda")
+    counters = (tk.cloudsc2_tl_std, tk.cloudsc2_ad, kmod.cloudsc2_fwd_ckpt,
+                tk.cloudsc2_tl_din)
+    before = [f.launches for f in counters]
+    drivers.run_tlad(x, st.params, backend="kernels")
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0]
+    _against_drop_ins(x, st.params)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("entry,ops,seeds", [("run_nl", 3, (False,)),
-                                             ("run_tlad", 22, (False, True))])
+                                             ("run_tlad", 5, (False, True))])
 def test_cuda_launches_of_the_standard_paths(entry, ops, seeds):
     """``run_nl(backend="kernels")`` issues 3 device operations (prelude,
-    NL sweep, contract), ``run_tlad`` 22 (16 increments, prelude, TL, two
-    contracts, forward-checkpoint, AD); every contract in place, its bytes
+    NL sweep, contract), ``run_tlad`` 5 (prelude, TL with the increments
+    formed in it, two contracts, AD); every contract in place, its bytes
     those of the kernel's in-place form."""
     _need_cuda()
     res = subprocess.run([sys.executable, "-c", _LAUNCHES, entry], capture_output=True,

@@ -212,14 +212,19 @@ def test_cuda_standalone_kernels_match_plain_versions(dtype, lregcl):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["tl", "ad"])
 def test_cuda_cli_tl_ad_through_the_kernels(variant):
+    """``tl``/``ad --kernels`` check the f32 verdicts through
+    ``run_tlad(backend="kernels")``: one launch of the standard contract's
+    TL and of the AD, none of the forward-checkpoint or streamed-increment
+    sweeps."""
     from cloudsc2jax_torch.kernels import tlad_kernel as tk
 
     _need_cuda()
-    counters = (kmod.cloudsc2_fwd_ckpt, tk.cloudsc2_tl_din, tk.cloudsc2_ad)
+    counters = (kmod.cloudsc2_fwd_ckpt, tk.cloudsc2_tl_din, tk.cloudsc2_tl_std,
+                tk.cloudsc2_ad)
     before = [f.launches for f in counters]
     assert cli.main([variant, "1", "2048", "128", "--dtype", "f64", "--kernels",
                      "--device", "cuda"]) == 0
-    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    assert [f.launches - b for f, b in zip(counters, before)] == [0, 0, 1, 1]
 
 
 # ------------------------------ the rescheduled AD body and register budgets
@@ -298,21 +303,26 @@ SPILL_LIMIT = {"cloudsc2_ad": (0, 0), "cloudsc2_tl": (128, 192),
      "cloudsc2_tl_kernelIf"),
     ("cloudsc2_tl_din", "cloudsc2_tl_sweep.cuh", "CLOUDSC2_TL_DIN_MIN_BLOCKS_F32",
      "cloudsc2_tl_din_kernelIf"),
+    # the standard contract's TL: the same source built without FMA contraction
+    ("cloudsc2_tl -fmad=false", "cloudsc2_tl_sweep.cuh", "CLOUDSC2_TL_MIN_BLOCKS_F32",
+     "cloudsc2_tl_kernelIf"),
 ])
 def test_cuda_shipped_f32_kernels_meet_their_register_budget(lib, source, macro,
                                                              entry):
-    """ptxas' report of every f32 entry of the shipped TL and AD kernels:
+    """ptxas' report of every f32 entry of the shipped TL and AD kernels
+    (``lib``: a library's name, then the extra nvcc flags of a build of it):
     registers within 64K / (128 threads x the chosen blocks per SM), and no
     more spill than SPILL_LIMIT."""
     from cloudsc2jax_torch.kernels import build
 
     _need_cuda()
-    build.load_library(lib)
+    name, *flags = lib.split()
+    build.load_library(name, (), flags)
     blocks = _budget(source, macro)
     limit = 65536 // (128 * blocks)
-    entries = [e for e in build.ptxas_report(lib) if entry in e["entry"]]
-    assert len(entries) == (8 if lib == "cloudsc2_tl" else 4)
-    stores, loads = SPILL_LIMIT[lib]
+    entries = [e for e in build.ptxas_report(name, (), flags) if entry in e["entry"]]
+    assert len(entries) == (8 if name == "cloudsc2_tl" else 4)
+    stores, loads = SPILL_LIMIT[name]
     for e in entries:
         assert e["registers"] <= limit, e
         assert e["spill_store_bytes"] <= stores and e["spill_load_bytes"] <= loads, e
@@ -341,6 +351,49 @@ def test_cuda_tl_parity_without_fma_contraction(lregcl):
     assert tk.cloudsc2_tl_din.launches == launches + 1
     assert "-fmad=false" in build._key("cloudsc2_tl_din")[2]
     assert cli.tl_parity(i32, dout, st.params, lregcl=lregcl) < cli.PALLAS_TL_PARITY_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lregcl", [False, True])
+def test_cuda_tl_std_parity_without_fma_contraction(lregcl):
+    """The standard contract's TL+AD unit's TL (increments in registers) is
+    ``cloudsc2_tl`` bound from its build with ``build.NO_FMA``, apart from
+    the stream contract's contracted build, and holds the JAX package's f32
+    TL parity, ``cli.PALLAS_TL_PARITY_TOL`` = 1e-6, on the contract's
+    fields; its primal and tangents are the streamed-increment TL's on
+    PyTorch's increments bit for bit, and it matches its plain version."""
+    from cloudsc2jax_torch.drivers import DSCALE
+    from cloudsc2jax_torch.kernels import build
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+    from cloudsc2jax_torch.physics.cloudsc2 import Cloudsc2Inputs
+
+    _need_cuda()
+    st = Cloudsc2State.load(FIXTURES / "input.npz")
+    i32 = Cloudsc2Inputs(*(x.float() for x in st.device_inputs(
+        2048, dtype=torch.float64, device="cuda")))
+    lm = tk.to_levels_major(i32)
+    launches = tk.cloudsc2_tl_std.launches
+    out, dout, _, ckpts = tk.tl_contract(
+        lambda slots: tk.cloudsc2_tl_std(lm, st.params, dscale=DSCALE, lregcl=lregcl,
+                                         out=slots),
+        lm.pt, st.params, seeds=False)
+    assert tk.cloudsc2_tl_std.launches == launches + 1 and len(ckpts) == 3
+    std = build._key(("cloudsc2_tl", (), build.NO_FMA))
+    assert std[2] == ("-fmad=false",) and build._LIBRARIES[std] is not tk._library("cloudsc2_tl")
+    assert "-fmad=false" not in build._key("cloudsc2_tl")[2]
+    dout_t = type(dout)(*(x.T for x in dout))
+    assert cli.tl_parity(i32, dout_t, st.params, lregcl=lregcl) < cli.PALLAS_TL_PARITY_TOL
+    d = Cloudsc2Inputs(*(DSCALE * x for x in lm))
+    s_out, s_dout = tk.cloudsc2_kernel_tl(lm, d, st.params, lregcl=lregcl,
+                                          levels_major=True)
+    for a, b in zip((*out, *dout), (*s_out, *s_dout)):
+        assert torch.equal(a, b)
+    r_out, r_dout, r_ck = tk.cloudsc2_tl_reference(lm, st.params, dscale=DSCALE,
+                                                   lregcl=lregcl)
+    tol_tl, _ = TLAD_TOL[torch.float32]
+    got = tk.cloudsc2_tl_std(lm, st.params, dscale=DSCALE, lregcl=lregcl)
+    for g, r in zip(got, (r_out, r_dout, r_ck)):
+        assert _rel_err(g, r) <= tol_tl
 
 
 @pytest.mark.cuda
@@ -1038,6 +1091,7 @@ def _kernel_launches(x, params):
         "nl_enc": lambda: ex.launch_cloudsc2_nl_encoded(ex.encode_blocked_inputs(x, p), p),
         "tl": lambda: tk.launch_cloudsc2_tl(x, pre, p, dscale=DSCALE),
         "tl_din": lambda: tk.launch_cloudsc2_tl_din(x, dx, pre, p),
+        "tl_std": lambda: tk.launch_cloudsc2_tl_std(x, pre, p, dscale=DSCALE),
         "ad": lambda: tk.launch_cloudsc2_ad(x, pre, dout, ck, p),
         "tlad_fused": lambda: ex.launch_cloudsc2_tlad_fused(x, pre, p),
         "tl_enc": lambda: ex.launch_cloudsc2_tl_encoded(enc[torch.int16], p, dscale=DSCALE),
@@ -1061,7 +1115,8 @@ def _kernel_launches(x, params):
     return runs
 
 
-KERNEL_LIBRARIES = ("prelude", "contract", "nl", "fwd_ckpt", "nl_res", "nl_enc", "tl", "tl_din", "ad",
+KERNEL_LIBRARIES = ("prelude", "contract", "nl", "fwd_ckpt", "nl_res", "nl_enc", "tl", "tl_din",
+                    "tl_std", "ad",
                     "tlad_fused", "tl_enc", "ad_enc", "bw_probe", "ad_xscat",
                     "tl_enc_bf16", "ad_enc_bf16", "tl_chunk", "tl_din_chunk",
                     "fwd_chunk", "ad_chunk")

@@ -59,6 +59,7 @@ def moved():
                                    ex.cloudsc2_nl_encoded(enc_nl, p)),
         "cloudsc2_fwd_ckpt": _nbytes(x, pre, km.cloudsc2_fwd_ckpt(x, p)),
         "cloudsc2_tl": _nbytes(x, pre, tl),
+        "cloudsc2_tl_std": _nbytes(x, pre, tk.cloudsc2_tl_std(x, p, dscale=DSCALE)),
         "cloudsc2_tl_din": _nbytes(x, pre, dx, tk.cloudsc2_tl_din(x, dx, p)[:2]),
         "cloudsc2_ad": _nbytes(x, pre, tl[1], tl[2], tk.cloudsc2_ad(x, tl[1], tl[2], p)),
         "cloudsc2_tlad_fused": _nbytes(x, pre, ex.cloudsc2_tlad_fused(x, p)),

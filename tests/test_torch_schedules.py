@@ -383,8 +383,9 @@ def test_evidence_battery_derives_the_scatter_ratios():
 # one schedule each (the plain versions and the standard contract's halves
 # and drop-ins among them)
 MAIN_PATH = (
-    "tk.cloudsc2_tl", "tk.cloudsc2_tl_din", "tk.cloudsc2_ad",
-    "tk.launch_cloudsc2_tl", "tk.launch_cloudsc2_tl_din", "km.launch_cloudsc2_fwd_ckpt",
+    "tk.cloudsc2_tl", "tk.cloudsc2_tl_din", "tk.cloudsc2_tl_std", "tk.cloudsc2_ad",
+    "tk.launch_cloudsc2_tl", "tk.launch_cloudsc2_tl_din", "tk.launch_cloudsc2_tl_std",
+    "km.launch_cloudsc2_fwd_ckpt",
     "km.cloudsc2_fwd_ckpt", "tk.cloudsc2_tl_reference", "tk.cloudsc2_ad_reference",
     "km.cloudsc2_fwd_ckpt_reference", "tk.tl_contract", "tk.ad_from_seeds",
     "tk.cloudsc2_kernel_tl", "tk.cloudsc2_kernel_ad", "tk.launch_cloudsc2_ad",

@@ -6,7 +6,8 @@ with its call, parent and self time; the store is bounded; the CLI's
 the ``contract`` span carries counters (its form and bytes).  On a card (marked ``cuda``): the NL sweep's span
 against the profiler's kernel time, the layers' self times against the
 entry span, and the counters of the TL and AD sweeps' spans against the
-compiler's report and the card's limits, in f32 and f64.
+compiler's report and the card's limits, in f32 and f64, for both
+contracts' units.
 
 The file imports neither JAX nor ``conftest``; the CPU cases run the plain
 versions on a synthetic store of 13 levels::
@@ -31,8 +32,8 @@ EXPECTED = {
     ("run_nl", "streams"): {"run_nl", "prelude", "nl_sweep"},
     ("run_nl", "kernels"): {"run_nl", "levels_major", "prelude", "nl_sweep", "contract"},
     ("run_tlad", "streams"): {"run_tlad", "prelude", "tl_sweep", "ad_sweep"},
-    ("run_tlad", "kernels"): {"run_tlad", "levels_major", "increments", "prelude",
-                              "tl_sweep", "contract", "fwd_sweep", "ad_sweep"},
+    ("run_tlad", "kernels"): {"run_tlad", "levels_major", "prelude", "tl_sweep",
+                              "contract", "ad_sweep"},
 }
 
 
@@ -334,3 +335,62 @@ def test_sweep_counters_on_the_card():
             }, (dtype, span, ptxas, got["sm"])
         assert set(got[dtype]) == {P + n for n in EXPECTED["run_tlad", "streams"]}
     assert got["torch.float32"][P + "ad_sweep"]["blocks_per_sm"] >= 5
+
+
+# the standard contract's unit in f32 and f64, one profiled call each, as
+# above, then the compiler's report of its TL library
+_STD_COUNTERS_ON_THE_CARD = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from cloudsc2jax_torch import drivers, spans
+from cloudsc2jax_torch.kernels import build
+from cloudsc2jax_torch.state import Cloudsc2State
+st = Cloudsc2State.synthetic(ngptot=100, nlev=137)
+got = {}
+for dtype in (torch.float32, torch.float64):
+    x = st.device_inputs(16_384, dtype=dtype, device="cuda")
+    drivers.run_tlad(x, st.params, backend="kernels")
+    torch.cuda.synchronize()
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        drivers.run_tlad(x, st.params, backend="kernels")
+        torch.cuda.synchronize()
+    got[str(dtype)] = {name: s["counters"] for name, s in spans.summary().items()}
+got["ptxas"] = build.ptxas_report("cloudsc2_tl", (), build.NO_FMA)
+got["sm"] = {k: getattr(torch.cuda.get_device_properties(0), k) for k in (
+    "regs_per_multiprocessor", "max_threads_per_multi_processor",
+    "shared_memory_per_multiprocessor", "shared_memory_per_block_optin")}
+print(json.dumps(got))
+"""
+
+
+@pytest.mark.cuda
+def test_standard_unit_tl_counters_on_the_card():
+    """The ``tl_sweep`` span of ``run_tlad(backend="kernels")`` carries the
+    instance of the standard contract's TL it launched, in f32 and f64
+    (registers and local bytes as ptxas reports them for the build of
+    ``cloudsc2_tl`` with ``build.NO_FMA``, the blocks an SM holds at them), and
+    ``checkpoints`` 1: the same launch wrote the reverse sweep's carries,
+    and no ``fwd_sweep`` span ran."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _STD_COUNTERS_ON_THE_CARD],
+                         capture_output=True, text=True, timeout=900, cwd=root)
+    assert res.returncode == 0, res.stderr[-4000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    for dtype, code, size in (("torch.float32", "f", 4), ("torch.float64", "d", 8)):
+        counters = got[dtype][P + "tl_sweep"]
+        (ptxas,) = [e for e in got["ptxas"]
+                    if f"cloudsc2_tl_kernelI{code}Lb0ELb1ELb1E" in e["entry"]]
+        assert counters == {
+            "dtype": 8 * size, "registers": ptxas["registers"],
+            "local_bytes": ptxas["stack_bytes"], "shared_bytes": 0,
+            "blocks_per_sm": _blocks_per_sm(ptxas["registers"], 0, got["sm"]),
+            "checkpoints": 1,
+        }, (dtype, ptxas, got["sm"])
+        assert set(got[dtype]) == {P + n for n in EXPECTED["run_tlad", "kernels"]}
