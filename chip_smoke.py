@@ -42,7 +42,9 @@ and prints no result line):
    |kernel - plain| over the field's max |plain| within 1e-12 (f64) and
    5e-6 (f32).  In each case the tropopause eta of ``kernel_prelude`` (the
    prelude's kernel, ``csrc/cloudsc2_prelude.cu``) equals the plain
-   expression's on the same card tensors bit for bit.
+   expression's on the same card tensors bit for bit.  Then one line: the
+   f64 NL sweep's registers, local bytes and blocks per SM as its span's
+   counters read them (``build.occupancy``), beside ptxas' spills.
 4. Main path through the CLI entry point on ``cuda``:
    ``nl 1 163840 128 --dtype f32 --threshold 10000 --kernels`` and
    ``nl 1 16384 128 --dtype f64 --kernels``, both validating against the
@@ -2392,6 +2394,7 @@ def _nl_compare_and_cli(state, params):
         worst_abs = max(worst_abs, absolute)
     if cloudsc2_nl.launches - launches0 != len(cases):
         raise AssertionError("the comparison did not launch the kernel")
+    _nl_f64_counters(state, params)
 
     # -- 4. main path through the CLI entry point
     cloudsc2_nl.launches = kernel_prelude.launches = 0
@@ -2419,6 +2422,26 @@ def _nl_compare_and_cli(state, params):
         if rc != 0:
             raise AssertionError(f"the truth path failed validation: {argv}")
     return worst_abs, worst_rel, main_launches, prelude_launches
+
+
+def _nl_f64_counters(state, params) -> None:
+    """Phase 3's line on the f64 NL sweep the main path launches (ldrain1d
+    off): the counters its ``nl_sweep`` span carries, read by the one reader
+    of the sweeps' counters, beside ptxas' spills of the same entry."""
+    import torch
+
+    from cloudsc2jax_torch.kernels import build
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import _evap, _load_kernel
+
+    like = state.device_kernel_inputs(128, dtype=torch.float64, device="cuda").pt
+    evap = int(_evap(params, False))
+    got = build.occupancy(_load_kernel(), "cloudsc2_nl", like, evap)
+    mark = f"cloudsc2_nl_kernelIdLb{evap}E"
+    (ptxas,) = [e for e in build.ptxas_report("cloudsc2_nl") if mark in e["entry"]]
+    print(f"[3] f64 NL sweep (evap {evap}): {got['registers']} registers, "
+          f"{got['local_bytes']} B local, {ptxas['spill_store_bytes']} / "
+          f"{ptxas['spill_load_bytes']} B spill stores / loads (ptxas), "
+          f"{got['blocks_per_sm']} blocks ({4 * got['blocks_per_sm']} warps) per SM")
 
 
 def _check_prelude(inputs, params, what: str) -> None:

@@ -7,9 +7,12 @@
 //
 // `cloudsc2_nl_kernel` computes pqs in registers and writes no checkpoint;
 // `cloudsc2_fwd_ckpt_kernel` reads pqs as a 16th stream and writes the 3
-// carry-in checkpoints.  Both load with cloudsc2_load::Exact.
+// carry-in checkpoints.  Both load with cloudsc2_load::Exact.  The file
+// also reports what each instance of the NL sweep costs an SM
+// (cloudsc2_occupancy.cuh).
 
 #include "cloudsc2_nl_sweep.cuh"
+#include "cloudsc2_occupancy.cuh"
 
 namespace {
 
@@ -35,6 +38,14 @@ __global__ void __launch_bounds__(kThreads)
     cloudsc2_fwd_ckpt_kernel(const __grid_constant__ Args<T> a, const int ncol,
                              const int nlev) {
   sweep<T, EVAP, true, true, Exact>(a, ncol, nlev);
+}
+
+// The instance of the NL sweep `launch_variant` runs for `evap`, read at its
+// launch configuration (no dynamic shared memory).
+template <typename T>
+int nl_occupancy(const int evap, int* out) {
+  return evap ? cloudsc2_occupancy::read(cloudsc2_nl_kernel<T, true>, kThreads, 0, out)
+              : cloudsc2_occupancy::read(cloudsc2_nl_kernel<T, false>, kThreads, 0, out);
 }
 
 template <typename T, bool EVAP, bool FWD_CKPT>
@@ -95,6 +106,13 @@ int cloudsc2_nl_f64(const void* const* in, void* const* out,
                     void* stream) {
   return launch<double, false>(in, out, consts, ncol, nlev, evap, stream);
 }
+
+// Writes registers and local bytes per thread, dynamic shared bytes per
+// block and blocks per SM (cloudsc2_occupancy::Counter) of the instance that
+// cloudsc2_nl_f32/f64 launch for `evap`; returns a cudaError_t.
+int cloudsc2_nl_occupancy_f32(int evap, int* out) { return nl_occupancy<float>(evap, out); }
+
+int cloudsc2_nl_occupancy_f64(int evap, int* out) { return nl_occupancy<double>(evap, out); }
 
 // The lengths of the checkpointing sweep's argument arrays.
 int cloudsc2_fwd_ckpt_abi(int* counts) {

@@ -1,12 +1,12 @@
 // What a kernel instance costs an SM, as the runtime reports it: registers
 // and local memory per thread from cudaFuncGetAttributes, and the blocks an
 // SM holds at the launch's own block size and dynamic shared memory from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor.  The TL and AD libraries
-// export one entry per precision that reads the instance a launch with the
-// same switches runs (cloudsc2_tl.cu, cloudsc2_ad.cu); the wrappers read
-// each instance once and hand the numbers to the sweeps' spans
-// (`occupancy` in kernels/tlad_kernel.py).  Host code only: no kernel's
-// code changes.
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor.  The NL, TL and AD
+// libraries export one entry per precision that reads the instance a launch
+// with the same switches runs (cloudsc2_nl.cu, cloudsc2_tl.cu,
+// cloudsc2_ad.cu); the wrappers read each instance once and hand the numbers
+// to the sweeps' spans (`occupancy` in kernels/build.py).  Host code only:
+// no kernel's code changes.
 
 #pragma once
 
@@ -16,7 +16,7 @@
 
 namespace cloudsc2_occupancy {
 
-// Pointer order of the entries' `out` (OCCUPANCY in kernels/tlad_kernel.py).
+// Pointer order of the entries' `out` (OCCUPANCY in kernels/build.py).
 enum Counter { C_REGISTERS, C_LOCAL_BYTES, C_SHARED_BYTES, C_BLOCKS_PER_SM, N_COUNTER };
 
 // Fills `out` (N_COUNTER ints) for `kernel` launched with blocks of

@@ -7,7 +7,9 @@ against its wrapper's and declares its entries, once per library and
 process; :func:`launch` calls an entry with tensors as pointers (from
 ``Tensor.data_ptr()``) on the current stream
 (``torch.cuda.current_stream().cuda_stream``): the one way Python reaches a
-library of ``csrc/``.  The library goes to
+library of ``csrc/``.  :func:`occupancy` reads, through a library's
+occupancy entry, what the kernel instance a launch runs costs an SM: the
+one reader of the NL, TL and AD sweeps' counters.  The library goes to
 ``build/cloudsc2jax_torch/<hash>/`` under the checkout, keyed by a hash of
 the sources, the flags, the ``-D`` defines, the library's extra flags and
 the compiler's ``nvcc --version``, so an edited source or a new toolkit is
@@ -38,10 +40,10 @@ from typing import Dict, List, Mapping, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["NO_FMA", "NVCC_FLAGS", "SHIPPED_FLAGS", "VARIANTS", "bind", "launch",
-           "load_libraries", "load_library", "library_digest", "loop_census", "nvcc_path",
-           "nvcc_version", "ptxas_report", "role_registers", "sass", "sass_digests",
-           "variant"]
+__all__ = ["NO_FMA", "NVCC_FLAGS", "OCCUPANCY", "SHIPPED_FLAGS", "VARIANTS", "bind",
+           "launch", "load_libraries", "load_library", "library_digest", "loop_census",
+           "nvcc_path", "nvcc_version", "occupancy", "occupancy_queries", "ptxas_report",
+           "role_registers", "sass", "sass_digests", "variant"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cloudsc2jax_torch"
@@ -286,6 +288,39 @@ def launch(lib: ctypes.CDLL, entry: str, like, *args, stream: bool = True) -> No
     if err != 0:
         what = "kernel launch" if stream else "query"
         raise RuntimeError(f"{entry} {what} failed: cudaError_t {err}")
+
+
+# The counters of a kernel instance, in the order the libraries' occupancy
+# entries write them (cloudsc2_occupancy::Counter in csrc/cloudsc2_occupancy.cuh).
+OCCUPANCY = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
+_OCCUPANCY_READ: Dict[tuple, dict] = {}
+
+
+def occupancy_queries(entry: str, switches: int) -> Dict[str, list]:
+    """:func:`bind`'s declarations of ``<entry>_occupancy_f32|f64``, which
+    take ``switches`` ints (the launch's own, after ``nlev``), then the
+    :data:`OCCUPANCY` counters to fill."""
+    return {f"{entry}_occupancy_{s}": [ctypes.c_int] * switches + [ctypes.POINTER(ctypes.c_int)]
+            for s in ("f32", "f64")}
+
+
+def occupancy(lib: ctypes.CDLL, entry: str, like: torch.Tensor, *switches: int) -> dict:
+    """What the kernel instance that ``<entry>_f32|f64`` of the bound
+    library ``lib`` launches on ``like``'s dtype with ``switches`` (the
+    launch's ints after ``nlev``) costs an SM of ``like``'s card: ``dtype``
+    (its bits), then :data:`OCCUPANCY`, as the library's
+    ``<entry>_occupancy_f32|f64`` reads them (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the launch's own
+    block size and dynamic shared memory; ``csrc/cloudsc2_occupancy.cuh``).
+    Read once per library, instance and card, then cached."""
+    key = (lib, entry, like.dtype, like.device, switches)
+    got = _OCCUPANCY_READ.get(key)
+    if got is None:
+        out = (ctypes.c_int * len(OCCUPANCY))()
+        launch(lib, f"{entry}_occupancy", like, *switches, out, stream=False)
+        got = _OCCUPANCY_READ[key] = {"dtype": 8 * like.element_size(),
+                                      **dict(zip(OCCUPANCY, out))}
+    return got
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")

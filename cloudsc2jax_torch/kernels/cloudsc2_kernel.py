@@ -717,9 +717,10 @@ def _load_kernel():
         {"cloudsc2_nl_abi": (len(KERNEL_STREAMS), n_out, n_const),
          "cloudsc2_fwd_ckpt_abi": (len(FWD_CKPT_STREAMS), len(FWD_CKPT_OUTPUTS),
                                    n_const)},
-        {f"{entry}_{suffix}": _NL_ARGTYPES
-         for entry in ("cloudsc2_nl", "cloudsc2_fwd_ckpt")
-         for suffix in ("f32", "f64")})
+        {**{f"{entry}_{suffix}": _NL_ARGTYPES
+            for entry in ("cloudsc2_nl", "cloudsc2_fwd_ckpt")
+            for suffix in ("f32", "f64")},
+         **build.occupancy_queries("cloudsc2_nl", 1)})  # evap
 
 
 def check_operands(tensors, names, like: torch.Tensor, what: str) -> None:
@@ -795,10 +796,13 @@ def launch_cloudsc2_nl(
     Checks device, dtype, shape and contiguity, allocates the 8 outputs but
     those ``out`` gives by name (the flux rows of :func:`flux_slots`), and
     raises if the launch is refused.  Counts each launch in
-    ``cloudsc2_nl.launches``.
+    ``cloudsc2_nl.launches``, and gives the ``nl_sweep`` span the counters
+    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`).
     """
     outs = _launch("cloudsc2_nl", KERNEL_STREAMS, KERNEL_OUTPUTS, inputs,
                    pre, params, ldrain1d, out=out)
+    evap = int(_evap(params, ldrain1d))
+    spans.count(lambda: build.occupancy(_load_kernel(), "cloudsc2_nl", inputs.pt, evap))
     cloudsc2_nl.launches += 1
     return Cloudsc2StreamOutputs(*outs)
 

@@ -16,7 +16,8 @@ input (``Cloudsc2State.device_kernel_inputs(..., pqs=True)``).
   ``csrc/cloudsc2_ad.cu``), a CPU tensor to the plain version, any other
   device raises.  Each counts its kernel launches in ``.launches``, and
   while ``torch.profiler`` records gives its span the counters of the
-  kernel instance it launched (:func:`occupancy`).
+  kernel instance it launched
+  (:func:`~cloudsc2jax_torch.kernels.build.occupancy`).
 * :func:`cloudsc2_tl_din` is the TL sweep with STREAMED increments
   (``_tl_kernel`` without ``dscale``): its kernel
   (``csrc/cloudsc2_tl_din.cu``) reads a second set of 16 streams and
@@ -109,7 +110,6 @@ __all__ = [
     "launch_cloudsc2_tl",
     "launch_cloudsc2_tl_din",
     "launch_cloudsc2_tl_std",
-    "occupancy",
     "seed_scales",
     "seed_streams",
     "tl_contract",
@@ -316,13 +316,11 @@ def _binding(name: str, layout, suffixes=("f32", "f64"), queries=None) -> dict:
             "strings": (f"{name}_param_names",)}
 
 
-# the TL and AD libraries' occupancy entries (:func:`occupancy`): the ints
+# the TL and AD libraries' occupancy entries (``build.occupancy``): the ints
 # they take before their counters are the launch's after nlev (evap, lregcl,
 # and for the TL write_primal)
-_OCCUPANCY_QUERIES = {
-    name: {f"{name}_occupancy_{s}": [ctypes.c_int] * n + [ctypes.POINTER(ctypes.c_int)]
-           for s in ("f32", "f64")}
-    for name, n in (("cloudsc2_tl", 3), ("cloudsc2_ad", 2))}
+_OCCUPANCY_QUERIES = {name: build.occupancy_queries(name, n)
+                      for name, n in (("cloudsc2_tl", 3), ("cloudsc2_ad", 2))}
 _BINDINGS = {name: _binding(name, layout, queries=_OCCUPANCY_QUERIES.get(name))
              for name, layout in _LAYOUT.items()}
 
@@ -348,32 +346,6 @@ def _param_array(lib, name: str, params: Params):
     return (ctypes.c_double * len(names))(*(param_value(params, p) for p in names))
 
 
-# The counters of a kernel instance, in the order the libraries' occupancy
-# entries write them (cloudsc2_occupancy::Counter in csrc/cloudsc2_occupancy.cuh).
-OCCUPANCY = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
-_OCCUPANCY_READ = {}
-
-
-def occupancy(name: str, like: torch.Tensor, *switches: int, flags=()) -> dict:
-    """What the instance of ``csrc/<name>.cu`` (its build with the extra
-    nvcc ``flags``) that a launch on ``like``'s dtype with ``switches`` (its
-    ints after ``nlev``: evap, lregcl, and for the TL write_primal) runs
-    costs an SM of ``like``'s card: ``dtype`` (its bits), then
-    :data:`OCCUPANCY`, from ``cudaFuncGetAttributes`` and
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the launch's own
-    block size and dynamic shared memory.  Read once per instance and card,
-    then cached; ``name`` is ``cloudsc2_tl`` or ``cloudsc2_ad``."""
-    key = (name, tuple(flags), like.dtype, like.device, switches)
-    got = _OCCUPANCY_READ.get(key)
-    if got is None:
-        out = (ctypes.c_int * len(OCCUPANCY))()
-        build.launch(_library(name, flags), f"{name}_occupancy", like, *switches, out,
-                     stream=False)
-        bits = 32 if like.dtype == torch.float32 else 64
-        got = _OCCUPANCY_READ[key] = {"dtype": bits, **dict(zip(OCCUPANCY, out))}
-    return got
-
-
 def _check_launch(inputs: Cloudsc2Inputs, params: Params, ldrain1d: bool,
                   what: str) -> None:
     if inputs.pt.device.type != "cuda":
@@ -394,12 +366,13 @@ def launch_cloudsc2_tl(
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_tl.launches``, and gives the ``tl_sweep`` span the counters
-    of the instance (:func:`occupancy`)."""
+    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`)."""
     outs = _tl_launch("cloudsc2_tl", _library, inputs, pre, params, dscale=dscale,
                       ldrain1d=ldrain1d, lregcl=lregcl, write_primal=write_primal,
                       extra=(int(write_primal),))
     switches = (int(_evap(params, ldrain1d)), int(lregcl), int(write_primal))
-    spans.count(lambda: occupancy("cloudsc2_tl", inputs.pt, *switches))
+    spans.count(lambda: build.occupancy(_library("cloudsc2_tl"), "cloudsc2_tl", inputs.pt,
+                                        *switches))
     cloudsc2_tl.launches += 1
     return outs
 
@@ -444,14 +417,15 @@ def launch_cloudsc2_tl_std(
     :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.flux_slots`), and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_tl_std.launches``, and gives the ``tl_sweep`` span the
-    counters of the instance (:func:`occupancy`) and ``checkpoints`` 1: the
-    carries of the reverse sweep were written."""
+    counters of the instance
+    (:func:`~cloudsc2jax_torch.kernels.build.occupancy`) and ``checkpoints``
+    1: the carries of the reverse sweep were written."""
     outs = _tl_launch("cloudsc2_tl", partial(_library, flags=build.NO_FMA), inputs, pre,
                       params, dscale=dscale, ldrain1d=ldrain1d, lregcl=lregcl,
                       write_primal=True, extra=(1,), out=out)
     switches = (int(_evap(params, ldrain1d)), int(lregcl), 1)
-    spans.count(lambda: {**occupancy("cloudsc2_tl", inputs.pt, *switches,
-                                     flags=build.NO_FMA),
+    spans.count(lambda: {**build.occupancy(_library("cloudsc2_tl", build.NO_FMA),
+                                           "cloudsc2_tl", inputs.pt, *switches),
                          "checkpoints": 1})
     cloudsc2_tl_std.launches += 1
     return outs
@@ -525,7 +499,7 @@ def launch_cloudsc2_ad(
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_ad.launches``, and gives the ``ad_sweep`` span the counters
-    of the instance (:func:`occupancy`)."""
+    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`)."""
     _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_ad")
     streams = _ad_operands(inputs, pre, d_outputs, checkpoints, "cloudsc2_ad")
     nlev, ncol = inputs.pt.shape
@@ -537,7 +511,7 @@ def launch_cloudsc2_ad(
     build.launch(lib, "cloudsc2_ad", inputs.pt, streams, outs,
                  _param_array(lib, "cloudsc2_ad", params), *scales, ncol, nlev,
                  *switches)
-    spans.count(lambda: occupancy("cloudsc2_ad", inputs.pt, *switches))
+    spans.count(lambda: build.occupancy(lib, "cloudsc2_ad", inputs.pt, *switches))
     cloudsc2_ad.launches += 1
     d = dict(zip(_LEVEL_FIELDS, outs))
     return Cloudsc2Inputs(plu=outs[-2], paph=outs[-1], **d)

@@ -26,9 +26,9 @@ outer.
 
 ``count(get)`` inside a span gives the innermost open span the counters
 ``get()`` returns, a small dict of numbers; with the profiler off ``get``
-is not called.  The ``tl_sweep`` and ``ad_sweep`` spans of the
-hand-written kernels' launches carry the counters of the kernel instance
-launched (:func:`~cloudsc2jax_torch.kernels.tlad_kernel.occupancy`):
+is not called.  The ``nl_sweep``, ``tl_sweep`` and ``ad_sweep`` spans of
+the hand-written kernels' launches carry the counters of the kernel
+instance launched (:func:`~cloudsc2jax_torch.kernels.build.occupancy`):
 ``dtype`` (its bits), ``registers`` and ``local_bytes`` per thread,
 ``shared_bytes`` (dynamic, per block) and ``blocks_per_sm``; the standard
 contract's TL (``launch_cloudsc2_tl_std``) adds ``checkpoints`` 1, the

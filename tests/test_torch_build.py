@@ -225,3 +225,124 @@ def test_the_smoke_builds_and_pins_the_standard_tl(monkeypatch):
     assert pinned["cloudsc2_tl"].startswith("cbba2c41")
     assert len(set(pinned.values())) == len(pinned)
     assert set(pinned) >= {"cloudsc2_tl", "cloudsc2_tl -fmad=false", "cloudsc2_tl_din"}
+
+
+def _counters(*values):
+    """An occupancy entry that writes ``values`` into its counters."""
+    def write(*args):
+        out = args[-1]
+        for i, v in enumerate(values):
+            out[i] = v
+    return Entry(body=write)
+
+
+def test_occupancy_reads_each_instance_once(fake_cuda):
+    """``build.occupancy`` asks the library's ``<entry>_occupancy`` of the
+    tensor's dtype, with the launch's switches and no stream, for the
+    counters of ``build.OCCUPANCY``, once per library, instance and card."""
+    lib = Library(fake_occupancy_f32=_counters(40, 0, 0, 12),
+                  fake_occupancy_f64=_counters(92, 8, 0, 5))
+    like = torch.zeros(2, dtype=torch.float64)
+    want = {"dtype": 64, "registers": 92, "local_bytes": 8, "shared_bytes": 0,
+            "blocks_per_sm": 5}
+    assert build.occupancy(lib, "fake", like, 0) == want
+    assert build.occupancy(lib, "fake", like, 0) == want
+    (args,) = lib.fake_occupancy_f64.calls
+    assert args[0] == 0 and len(args[1]) == len(build.OCCUPANCY) == 4
+    # another instance (its switches, its dtype) is read once of its own
+    build.occupancy(lib, "fake", like, 1)
+    assert len(lib.fake_occupancy_f64.calls) == 2
+    assert build.occupancy(lib, "fake", like.float(), 0)["registers"] == 40
+    assert build.occupancy(lib, "fake", like.float(), 0)["dtype"] == 32
+    assert len(lib.fake_occupancy_f32.calls) == 1
+    # a refused query raises and is not cached
+    bad = Library(fake_occupancy_f64=Entry(err=98))
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="^fake_occupancy query failed"):
+            build.occupancy(bad, "fake", like, 0)
+    assert len(bad.fake_occupancy_f64.calls) == 2
+    # bind's declarations: the switches, then the counters
+    queries = build.occupancy_queries("fake", 2)
+    assert set(queries) == {"fake_occupancy_f32", "fake_occupancy_f64"}
+    assert queries["fake_occupancy_f64"] == [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+
+
+def test_the_sweeps_spans_count_through_the_one_reader(monkeypatch):
+    """The NL, TL (both builds) and AD launches give their spans the
+    counters of ``build.occupancy``, the one reader, asked for the library
+    each binds, its entry and the launch's switches; with the profiler off
+    the reader is not asked."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cloudsc2jax_torch import spans
+    from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
+
+    assert not hasattr(tk, "occupancy") and not hasattr(tk, "OCCUPANCY")
+    st = Cloudsc2State.synthetic(ngptot=6, nlev=5)
+    x = st.device_kernel_inputs(6, dtype=torch.float64, device="cpu", pqs=True)
+    pre = kmod.plain_prelude(x, st.params)
+    asked = []
+
+    def reader(lib, entry, like, *switches):
+        asked.append((lib, entry, like.dtype, switches))
+        return {"dtype": 64, "blocks_per_sm": len(asked)}
+
+    monkeypatch.setattr(build, "occupancy", reader)
+    monkeypatch.setattr(build, "launch", lambda *a, **k: None)
+    monkeypatch.setattr(kmod, "_load_kernel", lambda: "nl library")
+    monkeypatch.setattr(kmod, "_launch", lambda *a, **k: [torch.empty_like(x.pt)] * 8)
+    monkeypatch.setattr(tk, "_library", lambda name, flags=(): (name, flags))
+    monkeypatch.setattr(tk, "_tl_launch", lambda *a, **k: (None, None, ()))
+    monkeypatch.setattr(tk, "_check_launch", lambda *a: None)
+    monkeypatch.setattr(tk, "_ad_operands", lambda *a: [])
+    monkeypatch.setattr(tk, "_param_array", lambda *a: "params")
+
+    def launches():
+        kmod.launch_cloudsc2_nl(x, pre, st.params)
+        tk.launch_cloudsc2_tl(x, pre, st.params, dscale=0.01, write_primal=False)
+        tk.launch_cloudsc2_tl_std(x, pre, st.params, dscale=0.01)
+        tk.launch_cloudsc2_ad(x, pre, None, (), st.params)
+
+    launches()
+    assert asked == []
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        launches()
+    assert asked == [("nl library", "cloudsc2_nl", torch.float64, (0,)),
+                     (("cloudsc2_tl", ()), "cloudsc2_tl", torch.float64, (0, 1, 0)),
+                     (("cloudsc2_tl", build.NO_FMA), "cloudsc2_tl", torch.float64, (0, 1, 1)),
+                     (("cloudsc2_ad", ()), "cloudsc2_ad", torch.float64, (0, 1))]
+    counters = {n: s["counters"] for n, s in spans.summary().items()}
+    assert counters == {
+        spans.PREFIX + "nl_sweep": {"dtype": 64, "blocks_per_sm": 1},
+        spans.PREFIX + "tl_sweep": {"dtype": 64, "blocks_per_sm": 2.5, "checkpoints": 1},
+        spans.PREFIX + "ad_sweep": {"dtype": 64, "blocks_per_sm": 4}}
+
+
+def test_the_nl_library_binds_its_occupancy_entries(monkeypatch):
+    """``csrc/cloudsc2_nl.cu`` exports ``cloudsc2_nl_occupancy_f32/_f64``
+    (evap, then the counters), which the NL wrapper declares beside its
+    launchers."""
+    from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
+
+    seen = {}
+    monkeypatch.setattr(build, "bind", lambda name, layouts, launchers, **kw:
+                        seen.update(name=name, launchers=launchers))
+    kmod._load_kernel()
+    assert seen["name"] == "cloudsc2_nl"
+    assert {k: v for k, v in seen["launchers"].items() if "occupancy" in k} == \
+        build.occupancy_queries("cloudsc2_nl", 1)
+    source = (build.CSRC / "cloudsc2_nl.cu").read_text()
+    for suffix in ("f32", "f64"):
+        assert f"int cloudsc2_nl_occupancy_{suffix}(int evap, int* out)" in source
+    assert '#include "cloudsc2_occupancy.cuh"' in source
+
+
+def test_the_smoke_keeps_the_nl_sass_pinned(monkeypatch):
+    """The NL library's occupancy entries are host code: ``chip_smoke.py``
+    holds its SASS to the digest recorded before them."""
+    monkeypatch.syspath_prepend(str(build.CSRC.parents[1]))
+    import chip_smoke
+
+    assert chip_smoke.EXACT_SASS["cloudsc2_nl"].startswith("b2c4a963")
+    assert "cloudsc2_nl" in chip_smoke.LIBRARIES

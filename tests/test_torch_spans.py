@@ -3,11 +3,12 @@ the profiler off; under ``torch.profiler`` each layer of ``run_nl`` and
 ``run_tlad`` is a ``cloudsc2.*`` range of the Chrome trace and a record
 with its call, parent and self time; the store is bounded; the CLI's
 ``--profile`` prints the spans' table and their counters; on the CPU only
-the ``contract`` span carries counters (its form and bytes).  On a card (marked ``cuda``): the NL sweep's span
-against the profiler's kernel time, the layers' self times against the
-entry span, and the counters of the TL and AD sweeps' spans against the
-compiler's report and the card's limits, in f32 and f64, for both
-contracts' units.
+the ``contract`` span carries counters (its form and bytes), the
+``nl_sweep`` span none on either contract.  On a card (marked ``cuda``):
+the NL sweep's span against the profiler's kernel time, the layers' self
+times against the entry span, and the counters of the NL, TL and AD sweeps'
+spans against the compiler's report and the card's limits, in f32 and f64,
+for both contracts' units.
 
 The file imports neither JAX nor ``conftest``; the CPU cases run the plain
 versions on a synthetic store of 13 levels::
@@ -152,6 +153,27 @@ def test_no_counters_on_the_cpu_or_with_the_profiler_off(small):
     assert all(r.counters is None for r in spans.records())
     assert {n: s["counters"] for n, s in spans.summary().items()} == {
         P + n: {} for n in EXPECTED["run_tlad", "streams"]}
+
+
+@pytest.mark.parametrize("backend", ("streams", "kernels"))
+def test_the_nl_sweep_span_carries_no_counters_on_the_cpu(small, backend, monkeypatch):
+    """``run_nl``'s plain sweep launches no kernel instance: its
+    ``nl_sweep`` span carries no counters, and with the profiler off the
+    one reader of the sweeps' counters is not asked."""
+    from cloudsc2jax_torch.kernels import build
+
+    asked = []
+    monkeypatch.setattr(build, "occupancy", lambda *a: asked.append(a) or {})
+    call = _call(small, "run_nl", backend)
+    call()
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        call()
+    assert asked == []
+    summary = spans.summary()
+    assert summary[P + "nl_sweep"]["count"] == 1
+    assert summary[P + "nl_sweep"]["counters"] == {}
+    assert all(r.counters is None for r in spans.records() if r.name == P + "nl_sweep")
 
 
 def test_the_contract_span_counts_its_form_and_bytes(small):
@@ -394,3 +416,60 @@ def test_standard_unit_tl_counters_on_the_card():
             "checkpoints": 1,
         }, (dtype, ptxas, got["sm"])
         assert set(got[dtype]) == {P + n for n in EXPECTED["run_tlad", "kernels"]}
+
+
+# run_nl on the stream contract in f32 and f64, one profiled call each (the
+# profiler's CPU activity alone, as above), then the compiler's report of
+# the NL library
+_NL_COUNTERS_ON_THE_CARD = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from cloudsc2jax_torch import drivers, spans
+from cloudsc2jax_torch.kernels import build
+from cloudsc2jax_torch.state import Cloudsc2State
+st = Cloudsc2State.synthetic(ngptot=100, nlev=137)
+got = {}
+for dtype in (torch.float32, torch.float64):
+    x = st.device_kernel_inputs(16_384, dtype=dtype, device="cuda")
+    drivers.run_nl(x, st.params)
+    torch.cuda.synchronize()
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        drivers.run_nl(x, st.params)
+        torch.cuda.synchronize()
+    got[str(dtype)] = {name: s["counters"] for name, s in spans.summary().items()}
+got["ptxas"] = build.ptxas_report("cloudsc2_nl")
+got["sm"] = {k: getattr(torch.cuda.get_device_properties(0), k) for k in (
+    "regs_per_multiprocessor", "max_threads_per_multi_processor",
+    "shared_memory_per_multiprocessor", "shared_memory_per_block_optin")}
+print(json.dumps(got))
+"""
+
+
+@pytest.mark.cuda
+def test_nl_sweep_counters_on_the_card():
+    """The ``nl_sweep`` span of ``run_nl`` carries the instance it
+    launched, in f32 and f64: registers and local bytes as ptxas reports
+    them for ``cloudsc2_nl_kernel``, no shared memory, and the blocks an SM
+    holds at them; no other span carries counters."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _NL_COUNTERS_ON_THE_CARD],
+                         capture_output=True, text=True, timeout=900, cwd=root)
+    assert res.returncode == 0, res.stderr[-4000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    for dtype, code, size in (("torch.float32", "f", 4), ("torch.float64", "d", 8)):
+        (ptxas,) = [e for e in got["ptxas"] if f"cloudsc2_nl_kernelI{code}Lb0E" in e["entry"]]
+        assert got[dtype][P + "nl_sweep"] == {
+            "dtype": 8 * size, "registers": ptxas["registers"],
+            "local_bytes": ptxas["stack_bytes"], "shared_bytes": 0,
+            "blocks_per_sm": _blocks_per_sm(ptxas["registers"], 0, got["sm"]),
+        }, (dtype, ptxas, got["sm"])
+        assert {n: c for n, c in got[dtype].items() if c} == {
+            P + "nl_sweep": got[dtype][P + "nl_sweep"]}
+        assert set(got[dtype]) == {P + n for n in EXPECTED["run_nl", "streams"]}
