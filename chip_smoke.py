@@ -466,7 +466,9 @@ BF16_TOLERANCE = 1e-4
 # libraries of the schedules (phase 21: the 17-stream AD, the chunked sweeps,
 # the bfloat16 encoded sweeps) as first built, on the same card and release;
 # and the standard contract's TL, STD_TL, keyed by its name and flags, as
-# first built.
+# first built; the six libraries that include the AD level body
+# (cloudsc2_ad_level.cuh) as rebuilt when it came to divide once per divisor
+# (probes/ad_ab.py, against the tree before).
 # Phase 2 fails if a build differs under that release; under another release
 # it says that it did not check.
 EXACT_SASS_RELEASE = "release 12.9, V12.9.86"
@@ -482,19 +484,19 @@ EXACT_SASS = {
     "cloudsc2_tl -fmad=false":
         "179821ae64a97a4439128be91298904eba0ebb44734113dc43a823ae816c9cad",
     "cloudsc2_ad":
-        "927e675bcceda99b119f0d4d09b29d05baeb99919f838b6e909cdff0dd148e05",
+        "7b2e800b012438d35f6401ec4c5c87eb365bd6ae476d8a50c15facc9a3bdb54a",
     "cloudsc2_tlad_fused":
-        "f3a81d0e5389348a8943ebfd072bacec3ef19e7652c2dc4c605e3501ea2ad8fb",
+        "7b696a4f70fcc442a9fecdf8374bcd4135a08b8c733b2ccc270b7869612ce598",
     "cloudsc2_tl_enc":
         "ad95bff501a6c45d47ee62f503c05ea2fa880d780975121cc30a46ba6eb0398b",
     "cloudsc2_ad_enc":
-        "b03aa73161ad4dae373f40c97b70196e6aa290ea6d5b7a7d1b399b5489b1e802",
+        "726a3dedaab2e1ae05aef423cea4e23d3cd9720074f95f5bf5c4e895e6434aaa",
     "bw_probe BW_PROBE_R=15 BW_PROBE_W=8 BW_PROBE_TANH=0 BW_PROBE_FLOPS=0":
         "1135bc6ea617882236b667ce6bdb0c9e881a9697576534d37b240de51c1321cc",
     "cloudsc2_ad_xscat":
-        "14be371569edf1889a91f44d7e8505533bdd78ca859dc2420222f36b6799e02b",
+        "78ce2f29eddc72c332eb0e4dbb71a4cbcc2f3d8edb8bd9fd70df97c4cb8e0977",
     "cloudsc2_ad_chunk":
-        "cb0eb93e036a6f96a8bea28dff0ed6e3f67d2ecdc5fe805847447aee75aa6399",
+        "02b998ea9179c26d3b02c8e26f85ff51d493c61de916a083da385754172e3ecf",
     "cloudsc2_tl_chunk":
         "b1bd9944aafd7d073b60f4d0ae61dd0362b6ba2e1297673737a19d0717a470c2",
     "cloudsc2_tl_din_chunk":
@@ -504,7 +506,7 @@ EXACT_SASS = {
     "cloudsc2_tl_enc_bf16":
         "adeeaf98f1f3c0d868ab7ed56dd31d8bb9ddd28647531d2046c8ff95246029ae",
     "cloudsc2_ad_enc_bf16":
-        "843d68dccd9504840b46714182bca770d177912b2d389ed95b171ef955d99b14",
+        "ce444d939dfa6fb827a6ea79dfb5cd64d7ef5c63885bcb7d6a90696d6d81b252",
 }
 
 

@@ -17,6 +17,22 @@ __device__ __forceinline__ float xsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double xsqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float xpow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double xpow(double x, double y) { return pow(x, y); }
+// a / b from rb = T(1.0) / b, correctly rounded: the product q = a * rb, then
+// one step on its residual a - b * q, which the fused multiply-add computes
+// exactly; the step, the correction an IEEE division ends with (Markstein's),
+// rounds q to the correctly rounded quotient: bit for bit a / b outside
+// underflow and overflow, for a multiply and two fused multiply-adds where a
+// division takes a reciprocal's refinement, a range check and a branch.
+// kernels/emit.py prints it for the quotients of a divisor that divides more
+// than one numerator.
+__device__ __forceinline__ float xdivr(float a, float b, float rb) {
+  const float q = __fmul_rn(a, rb);
+  return __fmaf_rn(__fmaf_rn(-b, q, a), rb, q);
+}
+__device__ __forceinline__ double xdivr(double a, double b, double rb) {
+  const double q = __dmul_rn(a, rb);
+  return __fma_rn(__fma_rn(-b, q, a), rb, q);
+}
 // Shared-memory slots of the AD level bodies (kernels/emit.py parks the
 // longest-lived values of a body there instead of in registers): slot j of a
 // thread lies kStashStride * j values after the thread's first, so the 32

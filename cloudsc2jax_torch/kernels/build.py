@@ -445,12 +445,14 @@ def library_digest(digests: Dict[str, str]) -> str:
     return h.hexdigest()
 
 
-def loop_census(text: str, marks: Sequence[str]) -> dict:
+def loop_census(text: str, marks: Sequence[str], detail: Sequence[str] = ()) -> dict:
     """The instructions of the outermost loop of the first kernel entry in
     the SASS ``text`` whose mangled name holds every one of ``marks`` (the
     code between the backward branch that spans the most instructions and
     its target: a sweep's level loop, whose body is unrolled): their count
-    and the count of each opcode, ``{"instructions": n, "ops": {op: n}}``."""
+    and the count of each opcode, ``{"instructions": n, "ops": {op: n}}``;
+    with ``detail``, also the count of each form (opcode and modifiers,
+    ``MUFU.RCP``) of the opcodes it names, under ``"detail"``."""
     code = _entry_code(text, marks)
     index = {addr: i for i, (addr, _) in enumerate(code)}
     best = None
@@ -464,10 +466,15 @@ def loop_census(text: str, marks: Sequence[str]) -> dict:
     if best is None:
         raise AssertionError(f"no loop in the kernel entry matching {marks}")
     ops: Dict[str, int] = {}
+    forms: Dict[str, int] = {}
     for _, text in code[best[0]:best[1] + 1]:
         op = _opcode(text)
         ops[op] = ops.get(op, 0) + 1
-    return {"instructions": best[1] - best[0] + 1, "ops": ops}
+        if op in detail:
+            form = text.split()[1 if text.startswith("@") else 0]
+            forms[form] = forms.get(form, 0) + 1
+    census = {"instructions": best[1] - best[0] + 1, "ops": ops}
+    return {**census, "detail": forms} if detail else census
 
 
 def role_registers(name: str, marks: Sequence[str], defines: Sequence[str] = (),

@@ -46,6 +46,15 @@ Any aten target without a rule raises, so no op can vanish silently.  The
 kernels' schedule, memory traffic, checkpoints and scatter are written by
 hand in ``csrc/cloudsc2_tl_sweep.cuh`` and ``csrc/cloudsc2_ad_sweep.cuh``.
 
+An IEEE division is a reciprocal's refinement, a range check and a branch
+to a slow path, each a cut in the code the compiler can schedule, and
+``vjp`` of ``a / b`` prints ``g / b``, ``a / b`` again and ``(a / b) / b``.
+So an AD body first divides once per divisor (:func:`divide_once`): a
+divisor of two numerators or more gets one correctly rounded reciprocal,
+from which each quotient is formed exactly (:func:`quotient`, printed
+``xdivr``), quotients printed twice are merged, and a param or literal
+divisor becomes a product with its reciprocal folded in double.
+
 The order of the statements sets the registers a body needs, so the AD
 bodies are rescheduled before they are printed (:func:`reschedule`).
 ``vjp`` traces all of the primal recompute, then all of the transpose:
@@ -57,9 +66,12 @@ the values with the longest gaps between reads in shared memory
 (:func:`stash`, read back by :func:`unstash`; printed ``xstash`` and
 ``xunstash``, volatile shared-memory accesses the compiler cannot fold back
 into a register) until at most ``LIVE_BUDGET`` values are live in
-registers.  No statement is computed twice, and the derivative is still
-the traced one: the rescheduled graph is a graph of the same aten ops and
-identities, held to the traced function by the tests.  (Recomputing the
+registers, then unparks those whose unparking frees a shared slot within
+the budget (5 f32 blocks of ``Level<false, true>`` fit an SM).  No
+statement is computed
+twice, and the derivative is still the traced one: the rescheduled graph
+is a graph of the same aten ops, identities and exact quotients, held to
+the traced function by the tests.  (Recomputing the
 long-lived values near their reads instead bought the same registers for
 ~1.75x the arithmetic and ran slower on the card: PERF.md.)  The TL
 bodies keep the traced order: their peak is ~60 values.
@@ -70,6 +82,7 @@ from __future__ import annotations
 import dataclasses
 import pathlib
 import weakref
+from fractions import Fraction
 from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
@@ -78,9 +91,9 @@ from ..constants import Params
 from .cloudsc2_kernel import level_physics
 
 __all__ = ["HEADERS", "LIVE_BUDGET", "REGENERATE", "Trace",
-           "VARIANTS", "emit_header", "live_peak", "main", "param_value",
-           "render_header", "reschedule", "shared_slots", "stash", "trace",
-           "trace_params", "unstash"]
+           "VARIANTS", "divide_once", "emit_header", "live_peak", "main",
+           "param_value", "quotient", "render_header", "reschedule",
+           "shared_slots", "stash", "trace", "trace_params", "unstash"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 HEADERS = {"tl": CSRC / "cloudsc2_tl_level.cuh", "ad": CSRC / "cloudsc2_ad_level.cuh"}
@@ -236,10 +249,9 @@ class _Kinds(NamedTuple):
 
 
 def _name(node) -> str:
-    if node.target is stash:
-        return "stash"
-    if node.target is unstash:
-        return "unstash"
+    for target in (stash, unstash, quotient):
+        if node.target is target:
+            return target.__name__
     return _op_name(node)[0]
 
 
@@ -354,29 +366,23 @@ LIVE_BUDGET = 96
 # one read back
 _GROUP = 8
 _SCHEDULED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# the meta key that marks a reciprocal :func:`divide_once` computes in the body
+_RECIPROCAL = "divide_once"
 
 
 def reschedule(tr: Trace) -> Trace:
-    """``tr``, an AD trace, in the order the kernel runs it: the primal
-    statements sunk to the transpose's first read (:func:`_sink`), then as
-    few of the longest-lived values parked in shared memory as bring the
-    registers' live peak within ``LIVE_BUDGET`` (:func:`_park`)."""
+    """``tr``, an AD trace, in the order the kernel runs it: one division
+    per divisor (:func:`divide_once`), the primal statements sunk to the
+    transpose's first read (:func:`_sink`), then the longest-lived values
+    parked in shared memory until the registers' live peak is within
+    ``LIVE_BUDGET`` (:func:`_park`), less those whose unparking frees a
+    shared slot within the budget."""
     if tr.graph in _SCHEDULED:
         return _SCHEDULED[tr.graph]
-    sunk = _sink(tr)
+    sunk = _sink(divide_once(tr))
     k = _kinds(sunk)
     spans = _lifetimes(sunk, k)
-    uses: Dict[torch.fx.Node, List[int]] = {v: [] for v in spans}
-    pos = {n: i for i, n in enumerate(k.values)}
-    for n in k.values:
-        for d in set(_reads(n, k)):
-            if d in uses:
-                uses[d].append(pos[n])
-    end = len(k.values)
-    for d in sunk.graph.graph.output_node().all_input_nodes:
-        d = k.root.get(d, d)
-        if d in uses:
-            uses[d].append(end)
+    uses = _uses(sunk, k)
 
     def gap(v):
         marks = [spans[v][0], *sorted(set(uses[v]))]
@@ -386,11 +392,137 @@ def reschedule(tr: Trace) -> Trace:
                     and gap(v) > _GROUP),
                    key=lambda v: (-gap(v), spans[v][0]))
     for n in range(0, len(order) + 5, 5):
-        parked = _park(sunk, k, set(order[:n]), uses)
-        if live_peak(parked) <= LIVE_BUDGET:
+        if _parked_counts(sunk, k, set(order[:n]), uses)[0] <= LIVE_BUDGET:
             break
-    _SCHEDULED[tr.graph] = parked
-    return parked
+    parked = set(order[:n])
+    slots = _parked_counts(sunk, k, parked, uses)[1]
+    for v in reversed(order[:n]):  # shortest gap first: unpark where it frees a slot
+        peak, fewer = _parked_counts(sunk, k, parked - {v}, uses)
+        if peak <= LIVE_BUDGET and fewer < slots:
+            parked.discard(v)
+            slots = fewer
+    _SCHEDULED[tr.graph] = _park(sunk, k, parked, uses)
+    return _SCHEDULED[tr.graph]
+
+
+def _uses(tr: Trace, k: _Kinds) -> Dict[torch.fx.Node, List[int]]:
+    """Per input and value, the statement index of each statement that
+    reads it (``len(k.values)`` for an output)."""
+    uses: Dict[torch.fx.Node, List[int]] = {v: [] for v in [*k.inputs, *k.values]}
+    for i, n in enumerate(k.values):
+        for d in set(_reads(n, k)):
+            if d in uses:
+                uses[d].append(i)
+    for d in tr.graph.graph.output_node().all_input_nodes:
+        d = k.root.get(d, d)
+        if d in uses:
+            uses[d].append(len(k.values))
+    return uses
+
+
+def _quotients(tr: Trace, k: _Kinds):
+    """The body's divisions (``div`` and ``reciprocal`` statements), each
+    with its key ``(numerator, divisor)``: values by the node they copy,
+    literals by value (a reciprocal's numerator is ``1.0``); and per
+    divisor, the distinct numerators it divides."""
+    found, numerators = [], {}
+    for n in k.values:
+        name = _name(n)
+        if name == "reciprocal":
+            num, div = 1.0, n.args[0]
+        elif name == "div" and not n.kwargs:
+            num, div = n.args
+        else:
+            continue
+        key = tuple(k.root.get(a, a) for a in (num, div))
+        found.append((n, key))
+        numerators.setdefault(key[1], {})[key[0]] = None
+    return found, numerators
+
+
+def quotient(a, b, rb):
+    """``a / b`` from ``rb``, the correctly rounded ``1 / b``, as a graph
+    target (printed ``xdivr``): the product ``q = a * rb``, then one step
+    on its residual, ``fma(fma(-b, q, a), rb, q)``, the correction an IEEE
+    division ends with (Markstein's), which rounds ``q`` to the correctly
+    rounded quotient, bit for bit the division's outside underflow and
+    overflow.  Here each ``fma`` is computed exactly and rounded once,
+    element by element."""
+    a, b, rb = torch.broadcast_tensors(a, b, rb)
+    q = a * rb
+    r = _fma(-b, q, a)
+    return _fma(r, rb, q)
+
+
+def _fma(x, y, z):
+    """``x * y + z`` rounded once, element by element (float64)."""
+    if x.dtype != torch.float64:
+        raise NotImplementedError(f"emit: exact fma of {x.dtype}")
+    out = [float(Fraction(u) * Fraction(v) + Fraction(w))
+           for u, v, w in zip(x.flatten().tolist(), y.flatten().tolist(),
+                              z.flatten().tolist())]
+    return torch.tensor(out, dtype=x.dtype).reshape(x.shape)
+
+
+def divide_once(tr: Trace) -> Trace:
+    """``tr`` with one division per divisor, and quotients printed twice
+    merged.  A divisor the body computes (or reads) and divides more than
+    one numerator by gets one correctly rounded reciprocal, printed
+    ``T(1.0) / b``, from which each of its quotients is formed exactly
+    (:func:`quotient`: a multiply and two fused multiply-adds, in place of
+    a division).  A divisor of params only gets its reciprocal as host code
+    in double, and a literal divisor a literal reciprocal computed in
+    double, each rounded to ``T`` once, which its quotients multiply (at
+    most 1.5 ulp from the quotient, not 0.5).  A divisor of one numerator
+    stays a division."""
+    k = _kinds(tr)
+    found, numerators = _quotients(tr, k)
+    keys = dict(found)
+    g = tr.graph.graph
+    new = torch.fx.Graph()
+    new.set_codegen(g._codegen)
+    env: Dict[torch.fx.Node, torch.fx.Node] = {}
+    made: Dict[tuple, torch.fx.Node] = {}  # quotient key -> its node
+    inverse: Dict[torch.fx.Node, torch.fx.Node] = {}  # divisor -> its reciprocal
+
+    def reciprocal(div):
+        if div not in inverse:
+            inverse[div] = new.call_function(torch.ops.aten.reciprocal.default,
+                                             (env[div],))
+            inverse[div].meta = dict(div.meta)
+            if div not in k.params:
+                inverse[div].meta[_RECIPROCAL] = True
+        return inverse[div]
+
+    def call(target, *args):
+        return new.call_function(target, args)
+
+    for n in g.nodes:
+        if n.op == "placeholder":
+            env[n] = new.placeholder(n.name)
+            env[n].meta = dict(n.meta)
+            continue
+        if n not in keys:
+            env[n] = new.node_copy(n, lambda a: env[a])
+            continue
+        num, div = key = keys[n]
+        if key not in made:
+            if not isinstance(div, torch.fx.Node):
+                made[key] = call(torch.ops.aten.mul.Tensor, env[num], 1.0 / div)
+            elif div in k.params:
+                made[key] = call(torch.ops.aten.mul.Tensor, env[num], reciprocal(div))
+            elif len(numerators[div]) > 1:
+                inv = reciprocal(div)
+                made[key] = (call(quotient, env[num], env[div], inv)
+                             if isinstance(num, torch.fx.Node) else inv)
+            else:
+                made[key] = new.node_copy(n, lambda a: env[a])
+            if made[key] is not inverse.get(div):
+                made[key].meta = dict(n.meta)
+        env[n] = made[key]
+    new.output(torch.fx.node.map_arg(g.output_node().args[0], lambda a: env[a]))
+    return Trace(torch.fx.GraphModule(tr.graph, new), tr.inputs, tr.outputs,
+                 tr.params, tr.fn)
 
 
 def _sink(tr: Trace) -> Trace:
@@ -434,6 +566,67 @@ def _sink(tr: Trace) -> Trace:
                  tr.params, tr.fn)
 
 
+def _read_groups(parked: set, pos, uses) -> Dict[Tuple[torch.fx.Node, int], object]:
+    """Per parked value and read (its statement index), the group of reads
+    that one read back serves: "first" for reads within ``_GROUP``
+    statements of the value's own statement, which read its register."""
+    reader: Dict[Tuple[torch.fx.Node, int], object] = {}
+    for v in parked:
+        prev, group = pos.get(v, -1), "first"
+        for u in sorted(set(uses[v])):
+            if u - prev > _GROUP:
+                group = u
+            reader[v, u] = group
+            prev = u
+    return reader
+
+
+def _parked_counts(tr: Trace, k: _Kinds, parked: set, uses) -> Tuple[int, int]:
+    """``(live_peak, shared_slots)`` of ``_park(tr, k, parked, uses)``,
+    counted on the statement order :func:`_park` would print, without
+    building its graph."""
+    pos = {n: i for i, n in enumerate(k.values)}
+    reader = _read_groups(parked, pos, uses)
+    current: Dict[torch.fx.Node, Tuple[object, object]] = {}
+    order: List[Tuple[object, tuple]] = []  # (value defined or None, reads)
+    held: Dict[torch.fx.Node, List[int]] = {}  # parked value -> [stash, last read back]
+
+    def read(v, u):
+        group = reader[v, u]
+        if current[v][0] != group:
+            current[v] = (group, ("unstash", v, group))
+            order.append((current[v][1], ()))
+            held[v][1] = len(order) - 1
+        return current[v][1]
+
+    def park(v):
+        order.append((None, (v,)))  # the stash, which holds no register
+        held[v] = [len(order) - 1] * 2
+        current[v] = ("first", v)
+
+    for p in k.inputs:
+        if p in parked:
+            park(p)
+    for n in k.values:
+        order.append((n, tuple(read(d, pos[n]) if d in parked else d
+                               for d in dict.fromkeys(_reads(n, k)))))
+        if n in parked:
+            park(n)
+    outs = [read(d, len(k.values)) if d in parked else d
+            for d in (k.root.get(a, a) for a in tr.graph.graph.output_node().all_input_nodes)]
+    first = {p: -1 for p in k.inputs}
+    last = dict(first)
+    for i, (v, reads) in enumerate(order):
+        if v is not None:
+            first[v] = last[v] = i
+        for d in reads:
+            last[d] = max(last.get(d, -1), i)
+    for d in outs:
+        last[d] = len(order)
+    return (_peak([(first[v], max(last[v], first[v])) for v in first], len(order)),
+            _peak([tuple(span) for span in held.values()], len(order)))
+
+
 def _park(tr: Trace, k: _Kinds, parked: set, uses) -> Trace:
     """``tr`` with each value of ``parked`` stored to shared memory right
     after its statement (inputs at the start) and read back before each
@@ -445,18 +638,7 @@ def _park(tr: Trace, k: _Kinds, parked: set, uses) -> Trace:
     env: Dict[torch.fx.Node, torch.fx.Node] = {}
     pos = {n: i for i, n in enumerate(k.values)}
     slot: Dict[torch.fx.Node, torch.fx.Node] = {}
-    # read -> the value's register copy it reads, per parked value
-    reader: Dict[Tuple[torch.fx.Node, int], str] = {}
-    for v in parked:
-        start = pos.get(v, -1)
-        marks = sorted(set(uses[v]))
-        prev = start
-        group = "first"
-        for u in marks:
-            if u - prev > _GROUP:
-                group = u
-            reader[v, u] = group
-            prev = u
+    reader = _read_groups(parked, pos, uses)
     current: Dict[torch.fx.Node, Tuple[object, torch.fx.Node]] = {}
 
     def park(v, node):
@@ -548,6 +730,8 @@ class _Printer:
         self.root: Dict[torch.fx.Node, torch.fx.Node] = {}  # copy -> source
         self.host: List[str] = []
         self.body: List[str] = []
+        self.divides = 0  # division statements of the body
+        self.reciprocals = 0  # of them, the reciprocals :func:`divide_once` made
         places = [n for n in tr.graph.graph.nodes if n.op == "placeholder"]
         if len(places) != len(tr.inputs):
             raise RuntimeError(f"{len(places)} placeholders for "
@@ -595,7 +779,8 @@ class _Printer:
             self.name[node] = str(self.slot[node])
             self.body.append(f"xstash(stash, {self.slot[node]}, {self.arg(node.args[0], 'T')});")
             return
-        name, overload = ("unstash", "") if node.target is unstash else _op_name(node)
+        name, overload = ((_name(node), "") if node.target in (unstash, quotient)
+                          else _op_name(node))
         deps = [a for a in node.all_input_nodes]
         is_param = bool(deps) and all(self.param[d] for d in deps) \
             and name not in _CONSTANTS
@@ -641,6 +826,8 @@ class _Printer:
             expr = f"{r(a[0])} * ({one} - {r(a[1])} * {r(a[1])})"
         elif name == "unstash":
             expr = f"xunstash(stash, {self.name[a[0]]})"
+        elif name == "quotient":
+            expr = f"xdivr({r(a[0])}, {r(a[1])}, {r(a[2])})"
         elif name == "where":
             expr = f"{r(a[0])} ? {r(a[1])} : {r(a[2])}"
         elif name == "clamp_min":
@@ -651,6 +838,9 @@ class _Printer:
             expr = f"xmin(xmax({r(a[0])}, {r(a[1])}), {r(a[2])})"
         else:
             raise NotImplementedError(f"emit: no rule for {node.target}")
+        if name in ("div", "reciprocal") and not is_param:
+            self.divides += 1
+            self.reciprocals += bool(node.meta.get(_RECIPROCAL))
         cname = f"{'h' if is_param else 'v'}{len(self.host if is_param else self.body)}"
         self.name[node] = cname
         (self.host if is_param else self.body).append(
@@ -780,14 +970,19 @@ def render_header(kind: str, traces: Dict[Tuple[bool, bool], Trace]) -> str:
             "",
             f"// levapls2 or ldrain1d, lregcl: {flags}"
             f" ({len(pr.body)} statements, live peak {live_peak(pr.tr)},"
-            + (f" {pr.slots} shared slots," if kind == "ad" else "")
+            + (f" {pr.slots} shared slots, {pr.divides} divisions,"
+               f" {pr.reciprocals} reciprocals," if kind == "ad" else "")
             + f" {printed} order)",
             "template <>",
             f"struct Level<{flags}> {{",
             f"  static constexpr int kNumConsts = {len(pr.consts)};",
             *([] if kind != "ad" else [
                 "  // shared-memory slots per thread, kStashStride values apart",
-                f"  static constexpr int kStashSlots = {pr.slots};"]),
+                f"  static constexpr int kStashSlots = {pr.slots};",
+                "  // division statements of run(), and of them the reciprocals of",
+                "  // divisors that divide more than one numerator",
+                f"  static constexpr int kDivides = {pr.divides};",
+                f"  static constexpr int kReciprocals = {pr.reciprocals};"]),
             "",
             "  static void constants(const double* p, double* k) {",
             *(f"    {s}" for s in pr.host),

@@ -59,7 +59,8 @@ no forward-checkpoint sweep.
 from __future__ import annotations
 
 import ctypes
-from functools import partial
+import re
+from functools import lru_cache, partial
 from typing import Optional, Tuple
 
 import torch
@@ -97,6 +98,7 @@ __all__ = [
     "TL_STREAMS",
     "TL_TANGENT_STREAMS",
     "ad_from_seeds",
+    "ad_level_divisions",
     "cloudsc2_ad",
     "cloudsc2_ad_reference",
     "cloudsc2_kernel_ad",
@@ -329,6 +331,18 @@ def _library(name: str, flags=()):
     return build.bind(name, flags=flags, **_BINDINGS[name])
 
 
+@lru_cache(maxsize=None)
+def ad_level_divisions(evap: bool, lregcl: bool) -> dict:
+    """The division statements of the AD level body ``Level<evap, lregcl>``
+    as the generated header states them (``kDivides``, ``kReciprocals``):
+    ``{"divides": n, "reciprocals": m}``, per level and column."""
+    text = (build.CSRC / "cloudsc2_ad_level.cuh").read_text()
+    flags = f"{str(bool(evap)).lower()}, {str(bool(lregcl)).lower()}"
+    body = re.search(rf"struct Level<{flags}> {{.*?\n}};", text, re.S).group(0)
+    return {key: int(re.search(rf"k{name} = (\d+);", body).group(1))
+            for key, name in (("divides", "Divides"), ("reciprocals", "Reciprocals"))}
+
+
 def _param_array(lib, name: str, params: Params):
     """The params array of a launch of ``csrc/<name>.cu``: the values of the
     names its ``<name>_param_names`` gives, read once per library, held to
@@ -499,7 +513,8 @@ def launch_cloudsc2_ad(
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_ad.launches``, and gives the ``ad_sweep`` span the counters
-    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`)."""
+    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`) and
+    the divisions of its level body (:func:`ad_level_divisions`)."""
     _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_ad")
     streams = _ad_operands(inputs, pre, d_outputs, checkpoints, "cloudsc2_ad")
     nlev, ncol = inputs.pt.shape
@@ -511,7 +526,8 @@ def launch_cloudsc2_ad(
     build.launch(lib, "cloudsc2_ad", inputs.pt, streams, outs,
                  _param_array(lib, "cloudsc2_ad", params), *scales, ncol, nlev,
                  *switches)
-    spans.count(lambda: build.occupancy(lib, "cloudsc2_ad", inputs.pt, *switches))
+    spans.count(lambda: {**build.occupancy(lib, "cloudsc2_ad", inputs.pt, *switches),
+                         **ad_level_divisions(*switches)})
     cloudsc2_ad.launches += 1
     d = dict(zip(_LEVEL_FIELDS, outs))
     return Cloudsc2Inputs(plu=outs[-2], paph=outs[-1], **d)

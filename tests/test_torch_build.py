@@ -270,8 +270,9 @@ def test_occupancy_reads_each_instance_once(fake_cuda):
 def test_the_sweeps_spans_count_through_the_one_reader(monkeypatch):
     """The NL, TL (both builds) and AD launches give their spans the
     counters of ``build.occupancy``, the one reader, asked for the library
-    each binds, its entry and the launch's switches; with the profiler off
-    the reader is not asked."""
+    each binds, its entry and the launch's switches (the AD's beside its
+    level body's divisions and reciprocals); with the profiler off the
+    reader is not asked."""
     from torch.profiler import ProfilerActivity, profile
 
     from cloudsc2jax_torch import spans
@@ -316,7 +317,8 @@ def test_the_sweeps_spans_count_through_the_one_reader(monkeypatch):
     assert counters == {
         spans.PREFIX + "nl_sweep": {"dtype": 64, "blocks_per_sm": 1},
         spans.PREFIX + "tl_sweep": {"dtype": 64, "blocks_per_sm": 2.5, "checkpoints": 1},
-        spans.PREFIX + "ad_sweep": {"dtype": 64, "blocks_per_sm": 4}}
+        spans.PREFIX + "ad_sweep": {"dtype": 64, "blocks_per_sm": 4, "divides": 28,
+                                    "reciprocals": 19}}
 
 
 def test_the_nl_library_binds_its_occupancy_entries(monkeypatch):

@@ -124,34 +124,156 @@ def test_rescheduled_graph_computes_the_traced_function(traces, fixture_params,
         assert float((a - b).abs().max()) / scale <= 1e-15
 
 
+def _quotients(tr):
+    """The runtime divisions of a traced AD body (``div`` and
+    ``reciprocal`` statements that read a value), keyed by the values (or
+    literals) they divide, copies followed to what they copy: ``{divisor:
+    {numerator: [statements]}}``, a reciprocal's numerator ``1.0``."""
+    k = emit._kinds(tr)
+    out = {}
+    for n in k.values:
+        if n.target is torch.ops.aten.reciprocal.default:
+            num, div = 1.0, n.args[0]
+        elif n.target is torch.ops.aten.div.Tensor:
+            num, div = n.args
+        else:
+            continue
+        num, div = (k.root.get(a, a) for a in (num, div))
+        out.setdefault(div, {}).setdefault(num, []).append(n)
+    return out, k
+
+
+def _division_counts(traced):
+    """From the traced AD body: the runtime divisors (each divided once
+    after :func:`emit.divide_once`), those of two numerators or more (each
+    given a reciprocal), the quotients printed more than once, merged, and
+    those of a repeated divisor that are its reciprocal, merged into it."""
+    quotients, k = _quotients(traced)
+    runtime = {d: q for d, q in quotients.items()
+               if isinstance(d, torch.fx.Node) and d not in k.params}
+    repeated = [q for q in runtime.values() if len(q) > 1]
+    twice = sum(len(ns) - 1 for q in quotients.values() for ns in q.values())
+    ones = sum(1.0 in q for q in repeated)
+    return len(runtime), repeated, twice, ones
+
+
 @pytest.mark.parametrize("lregcl", [False, True])
 @pytest.mark.parametrize("evap", [False, True])
 def test_rescheduled_body_fits_its_budget(traces, evap, lregcl):
     """The printed AD body holds at most ``emit.LIVE_BUDGET`` values in
     registers (100 at most for ``Level<false, *>``, 120 for ``Level<true,
     *>``; 183-224 in the traced order), computes every traced statement
-    once and no more, needs at most twice the traced statements, and its
-    header states its live peak and shared slots (the few primal statements
-    no transpose statement reads, whose values only lend a literal its
-    shape, are dropped); the TL body keeps its
-    traced order, whose peak is below either budget."""
+    once and no more: the traced statements, less the quotients printed
+    twice and the reciprocals of a repeated divisor, each merged into one
+    statement, plus one reciprocal per repeated divisor, less the few primal
+    statements no transpose statement reads, whose values only lend a
+    literal its shape; it needs at most twice the traced statements, and
+    its header states its live peak, shared slots, divisions and
+    reciprocals; the TL body keeps its traced order, whose peak is below
+    either budget."""
     traced = traces["ad"][evap, lregcl]
     tr = emit.reschedule(traced)
     peak, traced_peak = emit.live_peak(tr), emit.live_peak(traced)
     assert peak <= emit.LIVE_BUDGET <= (120 if evap else 100) < traced_peak
     k, k0 = emit._kinds(tr), emit._kinds(traced)
+    _, repeated, twice, ones = _division_counts(traced)
     ops = [n for n in k.values if n.target not in (emit.stash, emit.unstash)]
-    assert len(k0.values) - 10 <= len(ops) <= len(k0.values)  # none recomputed
+    once = len(k0.values) - twice - ones + len(repeated)
+    assert once - 10 <= len(ops) <= once  # none recomputed
     assert len(k.values) <= 2 * len(k0.values)
     slots = emit.shared_slots(tr)
     assert 0 < slots * 4 * 128 <= 232_448 // 3 - 1024  # 3 f32 blocks fit an SM
     flags = f"{str(evap).lower()}, {str(lregcl).lower()}"
     ad = emit.HEADERS["ad"].read_text()
     assert re.search(rf"lregcl: {flags} \((\d+) statements, live peak {peak}, "
-                     rf"{slots} shared slots, stash order\)", ad)
+                     rf"{slots} shared slots, \d+ divisions, \d+ reciprocals, "
+                     rf"stash order\)", ad)
     tl_peak = emit.live_peak(traces["tl"][evap, lregcl])
     assert tl_peak <= 64
     assert f"live peak {tl_peak}, trace order)" in emit.HEADERS["tl"].read_text()
+
+
+def _variant_body(text, evap, lregcl):
+    flags = f"{str(evap).lower()}, {str(lregcl).lower()}"
+    return re.search(rf"lregcl: {flags} (.*?)\n}};", text, re.S).group(1)
+
+
+@pytest.mark.parametrize("lregcl", [False, True])
+@pytest.mark.parametrize("evap", [False, True])
+def test_ad_body_divides_once_per_divisor(traces, evap, lregcl):
+    """Each printed AD body divides by each value it computes or reads at
+    most once (a value read back from shared memory is the value parked),
+    and by no param and no literal; a divisor of two numerators or more is
+    divided once, into its reciprocal, from which each of its other
+    quotients is formed (``xdivr``).  The header's ``kDivides`` and
+    ``kReciprocals`` are the printed division statements and the
+    reciprocals of repeated divisors: 28 and 19 in ``Level<false, true>``,
+    the body the stream and standard cells run (93 divisions by 32
+    divisors in the trace)."""
+    traced = traces["ad"][evap, lregcl]
+    tr = emit.reschedule(traced)
+    quotients, k = _quotients(tr)
+    parked = {}
+    for n in tr.graph.graph.nodes:
+        if n.target is emit.stash:
+            parked[n] = k.root.get(n.args[0], n.args[0])
+        elif n.target is emit.unstash:
+            parked[n] = parked[n.args[0]]
+    divisors = [parked.get(d, d) for d in quotients]
+    assert len(divisors) == len(set(divisors))
+    assert all(isinstance(d, torch.fx.Node) and d not in k.params for d in divisors)
+    assert all(len(q) == 1 and len(ns) == 1 for q in quotients.values()
+               for ns in q.values())
+
+    runtime, repeated, _, _ = _division_counts(traced)
+    body = _variant_body(emit.HEADERS["ad"].read_text(), evap, lregcl)
+    statements = re.findall(r"const T v\d+ = ([^;]*);", body)
+    printed = [s for s in statements if " / " in s]
+    assert not any(re.search(r" / (k\[|T\()", s) for s in printed)
+    divides = int(re.search(r"kDivides = (\d+);", body).group(1))
+    reciprocals = int(re.search(r"kReciprocals = (\d+);", body).group(1))
+    assert f"{divides} divisions, {reciprocals} reciprocals" in body
+    assert divides == len(printed) == runtime
+    assert reciprocals == len(repeated)
+    assert sum(s.startswith("xdivr(") for s in statements) == sum(
+        len(q) - (1.0 in q) for q in repeated)
+    if (evap, lregcl) == (False, True):
+        assert (divides, reciprocals) == (28, 19)
+        assert sum(len(ns) for q in _quotients(traced)[0].values()
+                   for ns in q.values()) == 93
+
+
+def test_quotient_is_the_correctly_rounded_division():
+    """``emit.quotient``, the graph's form of ``xdivr``: the product with
+    the correctly rounded reciprocal and one step on its exact residual
+    give ``a / b`` bit for bit, where the product alone is off by an ulp
+    in a share of cases."""
+    gen = torch.Generator().manual_seed(3)
+    a = torch.rand(4096, generator=gen, dtype=torch.float64) * 10.0 ** torch.randint(
+        -8, 8, (4096,), generator=gen)
+    b = torch.rand(4096, generator=gen, dtype=torch.float64) + 2.0 ** torch.randint(
+        -30, 30, (4096,), generator=gen)
+    rb = torch.reciprocal(b)
+    assert torch.equal(emit.quotient(a, b, rb), a / b)
+    assert not torch.equal(a * rb, a / b)
+
+
+@pytest.mark.parametrize("evap", [False, True])
+def test_parked_counts_count_the_printed_order(traces, evap):
+    """``emit._parked_counts``, which :func:`emit.reschedule` asks while it
+    chooses what to park, are ``live_peak`` and ``shared_slots`` of the
+    body ``_park`` prints, for no value parked, for the longest-lived
+    values and for every value that may be parked."""
+    sunk = emit._sink(emit.divide_once(traces["ad"][evap, True]))
+    k = emit._kinds(sunk)
+    pos = {n: i for i, n in enumerate(k.values)}
+    uses = emit._uses(sunk, k)
+    values = [v for v in uses if v.meta["val"].dtype != torch.bool and uses[v]]
+    longest = sorted(values, key=lambda v: pos.get(v, -1) - max(uses[v]))
+    for parked in (set(), set(longest[:60]), set(values)):
+        printed = emit._park(sunk, k, parked, uses)
+        assert emit._parked_counts(sunk, k, parked, uses) == (
+            emit.live_peak(printed), emit.shared_slots(printed))
 
 
 @pytest.mark.parametrize("evap", [False, True])

@@ -179,3 +179,13 @@ def test_sass_helpers_read_a_cuobjdump_listing():
                       "ops": {"LDG": 1, "LDC": 1, "FADD": 1, "BRA": 1}}
     with pytest.raises(AssertionError, match="no loop"):
         build.loop_census(_LISTING, ["copy"])
+
+
+def test_loop_census_counts_the_forms_it_is_asked_for():
+    """``detail`` names opcodes whose forms (opcode and modifiers) the
+    census counts besides: a predicated branch counts as ``BRA``."""
+    listing = _LISTING.replace("LDC.64 R6", "MUFU.RCP R6").replace(
+        "FADD R2, R2, R6", "MUFU.EX2 R2, R6")
+    census = build.loop_census(listing, ["loop"], detail=("MUFU", "BRA"))
+    assert census["ops"] == {"LDG": 1, "MUFU": 2, "BRA": 1}
+    assert census["detail"] == {"MUFU.RCP": 1, "MUFU.EX2": 1, "BRA": 1}

@@ -176,6 +176,50 @@ def test_the_nl_sweep_span_carries_no_counters_on_the_cpu(small, backend, monkey
     assert all(r.counters is None for r in spans.records() if r.name == P + "nl_sweep")
 
 
+@pytest.mark.parametrize("lregcl", [False, True])
+@pytest.mark.parametrize("ldrain1d", [False, True])
+def test_the_ad_span_counts_its_body_divisions(small, monkeypatch, ldrain1d, lregcl):
+    """The ``ad_sweep`` span of a launch of the AD kernel carries
+    ``divides`` and ``reciprocals``: the ``kDivides`` and ``kReciprocals``
+    that the generated header states for the body ``Level<evap, lregcl>``
+    the launch runs, beside the instance's counters; with the profiler off
+    nothing is read.  No card is needed: the launch itself is stubbed."""
+    from pathlib import Path
+
+    from cloudsc2jax_torch.kernels import build
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import plain_prelude
+
+    x = small.device_kernel_inputs(6, dtype=torch.float64, device="cpu", pqs=True)
+    pre = plain_prelude(x, small.params)
+    asked = []
+    monkeypatch.setattr(build, "occupancy",
+                        lambda *a: asked.append(a[3:]) or {"blocks_per_sm": 5})
+    monkeypatch.setattr(build, "launch", lambda *a, **k: None)
+    monkeypatch.setattr(tk, "_library", lambda name, flags=(): name)
+    monkeypatch.setattr(tk, "_check_launch", lambda *a: None)
+    monkeypatch.setattr(tk, "_ad_operands", lambda *a: [])
+    monkeypatch.setattr(tk, "_param_array", lambda *a: "params")
+
+    def launch():
+        tk.launch_cloudsc2_ad(x, pre, None, (), small.params, ldrain1d=ldrain1d,
+                              lregcl=lregcl)
+
+    launch()
+    assert asked == []
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        launch()
+    assert asked == [(int(ldrain1d), int(lregcl))]
+    header = (Path(tk.__file__).parent.parent / "csrc" / "cloudsc2_ad_level.cuh").read_text()
+    flags = f"{str(ldrain1d).lower()}, {str(lregcl).lower()}"
+    body = re.search(rf"struct Level<{flags}> {{(.*?)\n}};", header, re.S).group(1)
+    want = {name: int(re.search(rf"k{key} = (\d+);", body).group(1))
+            for name, key in (("divides", "Divides"), ("reciprocals", "Reciprocals"))}
+    assert 0 < want["reciprocals"] < want["divides"]
+    assert spans.summary()[P + "ad_sweep"]["counters"] == {"blocks_per_sm": 5, **want}
+
+
 def test_the_contract_span_counts_its_form_and_bytes(small):
     """The ``contract`` span carries ``in_place`` and ``bytes``: 1 on the
     standard paths, whose sweeps write into the contract's flux fields (the
@@ -328,7 +372,9 @@ def test_sweep_counters_on_the_card():
     """The ``tl_sweep`` and ``ad_sweep`` spans of the stream contract's unit
     carry the instance they launched, in f32 and f64: registers and local
     bytes as ptxas reports them, the AD body's shared-memory slots, and the
-    blocks an SM holds at them; the f32 AD at least its budget's 5."""
+    blocks an SM holds at them; the f32 AD at least its budget's 5; the AD
+    span also its body's divisions and reciprocals, as the header states
+    them."""
     import subprocess
     import sys
     from pathlib import Path
@@ -341,8 +387,9 @@ def test_sweep_counters_on_the_card():
     assert res.returncode == 0, res.stderr[-4000:]
     got = json.loads(res.stdout.strip().splitlines()[-1])
     level = (root / "cloudsc2jax_torch/csrc/cloudsc2_ad_level.cuh").read_text()
-    slots = int(re.search(r"struct Level<false, true> \{.*?kStashSlots = (\d+);",
-                          level, re.S).group(1))
+    slots, divides, reciprocals = (int(re.search(
+        rf"struct Level<false, true> \{{.*?k{key} = (\d+);", level, re.S).group(1))
+        for key in ("StashSlots", "Divides", "Reciprocals"))
     for dtype, code, size in (("torch.float32", "f", 4), ("torch.float64", "d", 8)):
         for span, lib, entry, shared in (
                 ("tl_sweep", "cloudsc2_tl", f"cloudsc2_tl_kernelI{code}Lb0ELb1ELb0E", 0),
@@ -350,10 +397,13 @@ def test_sweep_counters_on_the_card():
                  slots * 128 * size)):
             counters = got[dtype][P + span]
             (ptxas,) = [e for e in got["ptxas"][lib] if entry in e["entry"]]
+            body = ({"divides": divides, "reciprocals": reciprocals}
+                    if span == "ad_sweep" else {})
             assert counters == {
                 "dtype": 8 * size, "registers": ptxas["registers"],
                 "local_bytes": ptxas["stack_bytes"], "shared_bytes": shared,
                 "blocks_per_sm": _blocks_per_sm(ptxas["registers"], shared, got["sm"]),
+                **body,
             }, (dtype, span, ptxas, got["sm"])
         assert set(got[dtype]) == {P + n for n in EXPECTED["run_tlad", "streams"]}
     assert got["torch.float32"][P + "ad_sweep"]["blocks_per_sm"] >= 5
