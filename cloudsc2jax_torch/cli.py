@@ -85,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import math
 import os
 import pathlib
@@ -121,6 +122,11 @@ def _build_parser():
                         "contract instead of the truth path; tl/ad: add the f32 "
                         "verdict through the CUDA kernels on the standard "
                         "contract (their plain versions with --device cpu)")
+    p.add_argument("--levapls2", action="store_true",
+                   help="switch on YOPHNC LEVAPLS2, the evaporation of falling "
+                        "rain and snow (cloudsc2.F90:556-591), which the "
+                        "dwarf's drivers force off (dwarf_cloudsc.F90:104-105); "
+                        "the golden file was made without it")
     p.add_argument("--threshold", type=float, default=None,
                    help="tolerance in units of the working precision's "
                         "machine epsilon; defaults per variant: 10 for nl "
@@ -458,6 +464,9 @@ def _main(args) -> int:
         else Cloudsc2State.synthetic(ngptot=min(ngptot, 100))
     )
     state.ngptot = ngptot
+    if args.levapls2:
+        state.params = state.params.replace(
+            yophnc=dataclasses.replace(state.params.yophnc, levapls2=True))
     tlad = args.variant == "tlad"
     streams = args.kernels and args.variant in ("nl", "tlad")
     # each lane expands its own global columns on its device (the per-rank

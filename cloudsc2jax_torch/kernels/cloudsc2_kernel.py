@@ -58,6 +58,7 @@ from . import build
 from ..ops import damp_tangent
 from ..ops import maximum as _maximum
 from ..ops import minimum as _minimum
+from ..ops import power
 from ..physics.cloudsc2 import (
     Cloudsc2Inputs,
     Cloudsc2Outputs,
@@ -362,7 +363,7 @@ def level_physics(params: Params, ldrain1d: bool, scalars, fields, cols, carry,
             torch.sqrt(pap / paph_sfc) / 5.09e-3 * zpreclr / covpclr_safe,
             one,
         )
-        zbeta = cst.rg * cldp.rpecons * zbeta_arg ** 0.5777
+        zbeta = cst.rg * cldp.rpecons * power(zbeta_arg, 0.5777)
         zb = ptsphy * zbeta * (pqs - zqe) / (1.0 + zbeta * ptsphy * zcorqs)
         zdtgdp = ptsphy * cst.rg / zdp
         zdpr = _minimum(zcovpclr * zb / zdtgdp, zpreclr)
@@ -797,12 +798,14 @@ def launch_cloudsc2_nl(
     those ``out`` gives by name (the flux rows of :func:`flux_slots`), and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_nl.launches``, and gives the ``nl_sweep`` span the counters
-    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`).
+    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`) and
+    ``evap``: 1 where it ran the evaporating body.
     """
     outs = _launch("cloudsc2_nl", KERNEL_STREAMS, KERNEL_OUTPUTS, inputs,
                    pre, params, ldrain1d, out=out)
     evap = int(_evap(params, ldrain1d))
-    spans.count(lambda: build.occupancy(_load_kernel(), "cloudsc2_nl", inputs.pt, evap))
+    spans.count(lambda: {**build.occupancy(_load_kernel(), "cloudsc2_nl", inputs.pt, evap),
+                         "evap": evap})
     cloudsc2_nl.launches += 1
     return Cloudsc2StreamOutputs(*outs)
 

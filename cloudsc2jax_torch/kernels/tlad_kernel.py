@@ -98,7 +98,7 @@ __all__ = [
     "TL_STREAMS",
     "TL_TANGENT_STREAMS",
     "ad_from_seeds",
-    "ad_level_divisions",
+    "ad_level_counts",
     "cloudsc2_ad",
     "cloudsc2_ad_reference",
     "cloudsc2_kernel_ad",
@@ -332,15 +332,18 @@ def _library(name: str, flags=()):
 
 
 @lru_cache(maxsize=None)
-def ad_level_divisions(evap: bool, lregcl: bool) -> dict:
-    """The division statements of the AD level body ``Level<evap, lregcl>``
-    as the generated header states them (``kDivides``, ``kReciprocals``):
-    ``{"divides": n, "reciprocals": m}``, per level and column."""
+def ad_level_counts(evap: bool, lregcl: bool) -> dict:
+    """The counts the generated header states for the AD level body
+    ``Level<evap, lregcl>``: its division statements (``kDivides``,
+    ``kReciprocals``, per level and column) and the shared-memory slots a
+    thread parks values in (``kStashSlots``):
+    ``{"divides": n, "reciprocals": m, "stash_slots": s}``."""
     text = (build.CSRC / "cloudsc2_ad_level.cuh").read_text()
     flags = f"{str(bool(evap)).lower()}, {str(bool(lregcl)).lower()}"
     body = re.search(rf"struct Level<{flags}> {{.*?\n}};", text, re.S).group(0)
     return {key: int(re.search(rf"k{name} = (\d+);", body).group(1))
-            for key, name in (("divides", "Divides"), ("reciprocals", "Reciprocals"))}
+            for key, name in (("divides", "Divides"), ("reciprocals", "Reciprocals"),
+                              ("stash_slots", "StashSlots"))}
 
 
 def _param_array(lib, name: str, params: Params):
@@ -380,13 +383,15 @@ def launch_cloudsc2_tl(
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_tl.launches``, and gives the ``tl_sweep`` span the counters
-    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`)."""
+    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`) and
+    ``evap``: 1 where it ran the evaporating body."""
     outs = _tl_launch("cloudsc2_tl", _library, inputs, pre, params, dscale=dscale,
                       ldrain1d=ldrain1d, lregcl=lregcl, write_primal=write_primal,
                       extra=(int(write_primal),))
     switches = (int(_evap(params, ldrain1d)), int(lregcl), int(write_primal))
-    spans.count(lambda: build.occupancy(_library("cloudsc2_tl"), "cloudsc2_tl", inputs.pt,
-                                        *switches))
+    spans.count(lambda: {**build.occupancy(_library("cloudsc2_tl"), "cloudsc2_tl",
+                                           inputs.pt, *switches),
+                         "evap": switches[0]})
     cloudsc2_tl.launches += 1
     return outs
 
@@ -432,15 +437,16 @@ def launch_cloudsc2_tl_std(
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_tl_std.launches``, and gives the ``tl_sweep`` span the
     counters of the instance
-    (:func:`~cloudsc2jax_torch.kernels.build.occupancy`) and ``checkpoints``
-    1: the carries of the reverse sweep were written."""
+    (:func:`~cloudsc2jax_torch.kernels.build.occupancy`), ``evap`` (1 where
+    it ran the evaporating body) and ``checkpoints`` 1: the carries of the
+    reverse sweep were written."""
     outs = _tl_launch("cloudsc2_tl", partial(_library, flags=build.NO_FMA), inputs, pre,
                       params, dscale=dscale, ldrain1d=ldrain1d, lregcl=lregcl,
                       write_primal=True, extra=(1,), out=out)
     switches = (int(_evap(params, ldrain1d)), int(lregcl), 1)
     spans.count(lambda: {**build.occupancy(_library("cloudsc2_tl", build.NO_FMA),
                                            "cloudsc2_tl", inputs.pt, *switches),
-                         "checkpoints": 1})
+                         "evap": switches[0], "checkpoints": 1})
     cloudsc2_tl_std.launches += 1
     return outs
 
@@ -513,8 +519,9 @@ def launch_cloudsc2_ad(
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_ad.launches``, and gives the ``ad_sweep`` span the counters
-    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`) and
-    the divisions of its level body (:func:`ad_level_divisions`)."""
+    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`),
+    ``evap`` (1 where it ran the evaporating body) and the divisions and
+    shared-memory slots of its level body (:func:`ad_level_counts`)."""
     _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_ad")
     streams = _ad_operands(inputs, pre, d_outputs, checkpoints, "cloudsc2_ad")
     nlev, ncol = inputs.pt.shape
@@ -527,7 +534,7 @@ def launch_cloudsc2_ad(
                  _param_array(lib, "cloudsc2_ad", params), *scales, ncol, nlev,
                  *switches)
     spans.count(lambda: {**build.occupancy(lib, "cloudsc2_ad", inputs.pt, *switches),
-                         **ad_level_divisions(*switches)})
+                         "evap": switches[0], **ad_level_counts(*switches)})
     cloudsc2_ad.launches += 1
     d = dict(zip(_LEVEL_FIELDS, outs))
     return Cloudsc2Inputs(plu=outs[-2], paph=outs[-1], **d)

@@ -8,13 +8,16 @@ cloudsc2ad.F90).  Here the one nonlinear level body is differentiated with
 ``torch.func.jvp``/``torch.func.vjp``, and each damp is an identity op whose
 tangent and cotangent are scaled by the same factor, so TL and AD stay
 mutually adjoint by construction.
+
+:func:`power` is the one op here that is not about derivatives: a power
+whose value does not depend on where an element sits in its tensor.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["damp_tangent", "maximum", "minimum"]
+__all__ = ["damp_tangent", "maximum", "minimum", "power"]
 
 
 class _DampTangent(torch.autograd.Function):
@@ -69,3 +72,16 @@ def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.minimum``, as :func:`maximum`."""
     return torch.where(a < b, a, torch.where(a > b, b, (a + b) * 0.5))
+
+
+def power(x: torch.Tensor, exponent: float) -> torch.Tensor:
+    """``x ** exponent``, the same value for the same element at every
+    position of ``x``.  On the CPU, float32 ``torch.pow`` with a non-integer
+    exponent rounds the elements of its vectorised loop and those of its
+    tail differently (an ulp apart for equal inputs), so there a float32
+    tensor is raised in float64 and rounded once, its tangent and cotangent
+    too.  Any other tensor is raised as ``x ** exponent``: the float64
+    traces of the level bodies, and so the generated CUDA, are unchanged."""
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return (x.double() ** exponent).float()
+    return x ** exponent

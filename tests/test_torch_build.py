@@ -270,9 +270,9 @@ def test_occupancy_reads_each_instance_once(fake_cuda):
 def test_the_sweeps_spans_count_through_the_one_reader(monkeypatch):
     """The NL, TL (both builds) and AD launches give their spans the
     counters of ``build.occupancy``, the one reader, asked for the library
-    each binds, its entry and the launch's switches (the AD's beside its
-    level body's divisions and reciprocals); with the profiler off the
-    reader is not asked."""
+    each binds, its entry and the launch's switches, beside ``evap`` (the AD's
+    also beside its level body's divisions, reciprocals and shared slots);
+    with the profiler off the reader is not asked."""
     from torch.profiler import ProfilerActivity, profile
 
     from cloudsc2jax_torch import spans
@@ -315,10 +315,11 @@ def test_the_sweeps_spans_count_through_the_one_reader(monkeypatch):
                      (("cloudsc2_ad", ()), "cloudsc2_ad", torch.float64, (0, 1))]
     counters = {n: s["counters"] for n, s in spans.summary().items()}
     assert counters == {
-        spans.PREFIX + "nl_sweep": {"dtype": 64, "blocks_per_sm": 1},
-        spans.PREFIX + "tl_sweep": {"dtype": 64, "blocks_per_sm": 2.5, "checkpoints": 1},
-        spans.PREFIX + "ad_sweep": {"dtype": 64, "blocks_per_sm": 4, "divides": 28,
-                                    "reciprocals": 19}}
+        spans.PREFIX + "nl_sweep": {"dtype": 64, "blocks_per_sm": 1, "evap": 0},
+        spans.PREFIX + "tl_sweep": {"dtype": 64, "blocks_per_sm": 2.5, "evap": 0,
+                                    "checkpoints": 1},
+        spans.PREFIX + "ad_sweep": {"dtype": 64, "blocks_per_sm": 4, "evap": 0,
+                                    "divides": 28, "reciprocals": 19, "stash_slots": 87}}
 
 
 def test_the_nl_library_binds_its_occupancy_entries(monkeypatch):

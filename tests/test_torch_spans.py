@@ -180,10 +180,11 @@ def test_the_nl_sweep_span_carries_no_counters_on_the_cpu(small, backend, monkey
 @pytest.mark.parametrize("ldrain1d", [False, True])
 def test_the_ad_span_counts_its_body_divisions(small, monkeypatch, ldrain1d, lregcl):
     """The ``ad_sweep`` span of a launch of the AD kernel carries
-    ``divides`` and ``reciprocals``: the ``kDivides`` and ``kReciprocals``
-    that the generated header states for the body ``Level<evap, lregcl>``
-    the launch runs, beside the instance's counters; with the profiler off
-    nothing is read.  No card is needed: the launch itself is stubbed."""
+    ``divides``, ``reciprocals`` and ``stash_slots``: the ``kDivides``,
+    ``kReciprocals`` and ``kStashSlots`` that the generated header states
+    for the body ``Level<evap, lregcl>`` the launch runs, beside the
+    instance's counters and ``evap``; with the profiler off nothing is
+    read.  No card is needed: the launch itself is stubbed."""
     from pathlib import Path
 
     from cloudsc2jax_torch.kernels import build
@@ -215,9 +216,11 @@ def test_the_ad_span_counts_its_body_divisions(small, monkeypatch, ldrain1d, lre
     flags = f"{str(ldrain1d).lower()}, {str(lregcl).lower()}"
     body = re.search(rf"struct Level<{flags}> {{(.*?)\n}};", header, re.S).group(1)
     want = {name: int(re.search(rf"k{key} = (\d+);", body).group(1))
-            for name, key in (("divides", "Divides"), ("reciprocals", "Reciprocals"))}
-    assert 0 < want["reciprocals"] < want["divides"]
-    assert spans.summary()[P + "ad_sweep"]["counters"] == {"blocks_per_sm": 5, **want}
+            for name, key in (("divides", "Divides"), ("reciprocals", "Reciprocals"),
+                              ("stash_slots", "StashSlots"))}
+    assert 0 < want["reciprocals"] < want["divides"] < want["stash_slots"]
+    assert spans.summary()[P + "ad_sweep"]["counters"] == {
+        "blocks_per_sm": 5, "evap": int(ldrain1d), **want}
 
 
 def test_the_contract_span_counts_its_form_and_bytes(small):
@@ -372,9 +375,9 @@ def test_sweep_counters_on_the_card():
     """The ``tl_sweep`` and ``ad_sweep`` spans of the stream contract's unit
     carry the instance they launched, in f32 and f64: registers and local
     bytes as ptxas reports them, the AD body's shared-memory slots, and the
-    blocks an SM holds at them; the f32 AD at least its budget's 5; the AD
-    span also its body's divisions and reciprocals, as the header states
-    them."""
+    blocks an SM holds at them; the f32 AD at least its budget's 5; both
+    ``evap`` 0; the AD span also its body's divisions, reciprocals and
+    shared slots, as the header states them."""
     import subprocess
     import sys
     from pathlib import Path
@@ -397,16 +400,81 @@ def test_sweep_counters_on_the_card():
                  slots * 128 * size)):
             counters = got[dtype][P + span]
             (ptxas,) = [e for e in got["ptxas"][lib] if entry in e["entry"]]
-            body = ({"divides": divides, "reciprocals": reciprocals}
+            body = ({"divides": divides, "reciprocals": reciprocals, "stash_slots": slots}
                     if span == "ad_sweep" else {})
             assert counters == {
                 "dtype": 8 * size, "registers": ptxas["registers"],
                 "local_bytes": ptxas["stack_bytes"], "shared_bytes": shared,
                 "blocks_per_sm": _blocks_per_sm(ptxas["registers"], shared, got["sm"]),
-                **body,
+                "evap": 0, **body,
             }, (dtype, span, ptxas, got["sm"])
         assert set(got[dtype]) == {P + n for n in EXPECTED["run_tlad", "streams"]}
     assert got["torch.float32"][P + "ad_sweep"]["blocks_per_sm"] >= 5
+
+
+# the stream contract's unit in f32 with LEVAPLS2 on, one profiled call, as
+# above: the evaporating instances of both libraries
+_EVAP_COUNTERS_ON_THE_CARD = """
+import dataclasses, json, torch
+from torch.profiler import ProfilerActivity, profile
+from cloudsc2jax_torch import drivers, spans
+from cloudsc2jax_torch.kernels import build
+from cloudsc2jax_torch.state import Cloudsc2State
+st = Cloudsc2State.synthetic(ngptot=100, nlev=137)
+p = st.params.replace(yophnc=dataclasses.replace(st.params.yophnc, levapls2=True))
+x = st.device_kernel_inputs(16_384, dtype=torch.float32, device="cuda", pqs=True)
+drivers.run_tlad(x, p, write_primal=False)
+torch.cuda.synchronize()
+spans.clear()
+with profile(activities=[ProfilerActivity.CPU]):
+    drivers.run_tlad(x, p, write_primal=False)
+    torch.cuda.synchronize()
+got = {name: s["counters"] for name, s in spans.summary().items()}
+got["ptxas"] = {lib: build.ptxas_report(lib) for lib in ("cloudsc2_tl", "cloudsc2_ad")}
+got["sm"] = {k: getattr(torch.cuda.get_device_properties(0), k) for k in (
+    "regs_per_multiprocessor", "max_threads_per_multi_processor",
+    "shared_memory_per_multiprocessor", "shared_memory_per_block_optin")}
+print(json.dumps(got))
+"""
+
+
+@pytest.mark.cuda
+def test_evaporating_sweep_counters_on_the_card():
+    """With LEVAPLS2 on, the ``tl_sweep`` and ``ad_sweep`` spans of the
+    stream contract's f32 unit carry the evaporating instances
+    (``Level<true, true>``): ``evap`` 1, registers and local bytes as ptxas
+    reports them, the AD body's ``kStashSlots`` (148) as its shared slots and
+    ``stash_slots``, and the blocks an SM holds at them: the AD's shared
+    memory leaves it 3, below the 5 of the body without evaporation."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _EVAP_COUNTERS_ON_THE_CARD],
+                         capture_output=True, text=True, timeout=900, cwd=root)
+    assert res.returncode == 0, res.stderr[-4000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    level = (root / "cloudsc2jax_torch/csrc/cloudsc2_ad_level.cuh").read_text()
+    slots, divides, reciprocals = (int(re.search(
+        rf"struct Level<true, true> \{{.*?k{key} = (\d+);", level, re.S).group(1))
+        for key in ("StashSlots", "Divides", "Reciprocals"))
+    assert slots == 148
+    for span, lib, entry, shared in (
+            ("tl_sweep", "cloudsc2_tl", "cloudsc2_tl_kernelIfLb1ELb1ELb0E", 0),
+            ("ad_sweep", "cloudsc2_ad", "cloudsc2_ad_kernelIfLb1ELb1E", slots * 128 * 4)):
+        (ptxas,) = [e for e in got["ptxas"][lib] if entry in e["entry"]]
+        body = ({"divides": divides, "reciprocals": reciprocals, "stash_slots": slots}
+                if span == "ad_sweep" else {})
+        assert got[P + span] == {
+            "dtype": 32, "registers": ptxas["registers"],
+            "local_bytes": ptxas["stack_bytes"], "shared_bytes": shared,
+            "blocks_per_sm": _blocks_per_sm(ptxas["registers"], shared, got["sm"]),
+            "evap": 1, **body,
+        }, (span, ptxas, got["sm"])
+    assert got[P + "ad_sweep"]["blocks_per_sm"] == 3
 
 
 # the standard contract's unit in f32 and f64, one profiled call each, as
@@ -463,7 +531,7 @@ def test_standard_unit_tl_counters_on_the_card():
             "dtype": 8 * size, "registers": ptxas["registers"],
             "local_bytes": ptxas["stack_bytes"], "shared_bytes": 0,
             "blocks_per_sm": _blocks_per_sm(ptxas["registers"], 0, got["sm"]),
-            "checkpoints": 1,
+            "evap": 0, "checkpoints": 1,
         }, (dtype, ptxas, got["sm"])
         assert set(got[dtype]) == {P + n for n in EXPECTED["run_tlad", "kernels"]}
 
@@ -519,6 +587,7 @@ def test_nl_sweep_counters_on_the_card():
             "dtype": 8 * size, "registers": ptxas["registers"],
             "local_bytes": ptxas["stack_bytes"], "shared_bytes": 0,
             "blocks_per_sm": _blocks_per_sm(ptxas["registers"], 0, got["sm"]),
+            "evap": 0,
         }, (dtype, ptxas, got["sm"])
         assert {n: c for n, c in got[dtype].items() if c} == {
             P + "nl_sweep": got[dtype][P + "nl_sweep"]}
