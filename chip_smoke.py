@@ -468,7 +468,11 @@ BF16_TOLERANCE = 1e-4
 # and the standard contract's TL, STD_TL, keyed by its name and flags, as
 # first built; the six libraries that include the AD level body
 # (cloudsc2_ad_level.cuh) as rebuilt when it came to divide once per divisor
-# (probes/ad_ab.py, against the tree before).
+# (probes/level_ab.py ad, against the tree before); the eight builds that
+# include the TL level body (cloudsc2_tl_level.cuh: cloudsc2_tl in both
+# builds, _tl_din, _tl_chunk, _tl_din_chunk, _tl_enc, _tl_enc_bf16,
+# _tlad_fused) as rebuilt when it too came to divide once per divisor
+# (probes/level_ab.py tl, against the tree before).
 # Phase 2 fails if a build differs under that release; under another release
 # it says that it did not check.
 EXACT_SASS_RELEASE = "release 12.9, V12.9.86"
@@ -478,17 +482,17 @@ EXACT_SASS = {
     "cloudsc2_nl_res":
         "4b38e00514a94c1f16680fd404533d0e6a179384878723d990d173ca1ddd4154",
     "cloudsc2_tl":
-        "cbba2c4115e373e581b4ef161242bfc1f2981263125c58f42cfc53e3e07dbfc6",
+        "dd020d5c979766baa468e20300abf4109d7572c92c7b41a7b2c9e33350367375",
     "cloudsc2_tl_din":
-        "d36ff22e14257deed01a6850a7e8da8d32e21691f7406829897970c855661a81",
+        "94f772f2743bad7a1ad46ab210755e532c33e826af534017aa2dcd650b091ffa",
     "cloudsc2_tl -fmad=false":
-        "179821ae64a97a4439128be91298904eba0ebb44734113dc43a823ae816c9cad",
+        "637e39665d2630c721765b4c0cd544fcc0dfb8a0e774ea677fc2d081ef1a6748",
     "cloudsc2_ad":
         "7b2e800b012438d35f6401ec4c5c87eb365bd6ae476d8a50c15facc9a3bdb54a",
     "cloudsc2_tlad_fused":
-        "7b696a4f70fcc442a9fecdf8374bcd4135a08b8c733b2ccc270b7869612ce598",
+        "22ab965c887acb19a21c41df2b9e6fc088685ae4b3a65a608d0a6932de4487f8",
     "cloudsc2_tl_enc":
-        "ad95bff501a6c45d47ee62f503c05ea2fa880d780975121cc30a46ba6eb0398b",
+        "bbc3687e5538d17d423191261e3635f4a07fd217ef33df3f1165be5bdcfcc33c",
     "cloudsc2_ad_enc":
         "726a3dedaab2e1ae05aef423cea4e23d3cd9720074f95f5bf5c4e895e6434aaa",
     "bw_probe BW_PROBE_R=15 BW_PROBE_W=8 BW_PROBE_TANH=0 BW_PROBE_FLOPS=0":
@@ -498,13 +502,13 @@ EXACT_SASS = {
     "cloudsc2_ad_chunk":
         "02b998ea9179c26d3b02c8e26f85ff51d493c61de916a083da385754172e3ecf",
     "cloudsc2_tl_chunk":
-        "b1bd9944aafd7d073b60f4d0ae61dd0362b6ba2e1297673737a19d0717a470c2",
+        "78b594082d9b921658b6ddf784a43c89fd16e12754b184deb841c6ad9940a007",
     "cloudsc2_tl_din_chunk":
-        "14898ed906a4edde730b74fcd2ffa1b934c4a0032c510ca56bcae26f0757baa4",
+        "8e592dcd4db8f8f0561fae32b510e4cf8050d44a358ba1861b9e86f6aac03925",
     "cloudsc2_fwd_chunk":
         "7195fb9cead6541ff8b488df8f5503c6a5d6494d76a5d4eb00fc40fc34123a67",
     "cloudsc2_tl_enc_bf16":
-        "adeeaf98f1f3c0d868ab7ed56dd31d8bb9ddd28647531d2046c8ff95246029ae",
+        "4135d4bc0262c10bfb935ec6f0bc60fe51b879c103182e690ea3e7a587ee6d33",
     "cloudsc2_ad_enc_bf16":
         "ce444d939dfa6fb827a6ea79dfb5cd64d7ef5c63885bcb7d6a90696d6d81b252",
 }

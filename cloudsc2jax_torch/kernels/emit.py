@@ -49,11 +49,15 @@ hand in ``csrc/cloudsc2_tl_sweep.cuh`` and ``csrc/cloudsc2_ad_sweep.cuh``.
 An IEEE division is a reciprocal's refinement, a range check and a branch
 to a slow path, each a cut in the code the compiler can schedule, and
 ``vjp`` of ``a / b`` prints ``g / b``, ``a / b`` again and ``(a / b) / b``.
-So an AD body first divides once per divisor (:func:`divide_once`): a
+So every body first divides once per divisor (:func:`divide_once`): a
 divisor of two numerators or more gets one correctly rounded reciprocal,
 from which each quotient is formed exactly (:func:`quotient`, printed
 ``xdivr``), quotients printed twice are merged, and a param or literal
-divisor becomes a product with its reciprocal folded in double.
+divisor becomes a product with its reciprocal folded in double.  A
+reciprocal is live beside its divisor from its first quotient to its
+last, so where one would lift a TL body's live peak above
+``TL_LIVE_BUDGET``, that divisor keeps its divisions
+(:func:`divide_within`).
 
 The order of the statements sets the registers a body needs, so the AD
 bodies are rescheduled before they are printed (:func:`reschedule`).
@@ -90,8 +94,8 @@ import torch
 from ..constants import Params
 from .cloudsc2_kernel import level_physics
 
-__all__ = ["HEADERS", "LIVE_BUDGET", "REGENERATE", "Trace",
-           "VARIANTS", "divide_once", "emit_header", "live_peak", "main",
+__all__ = ["HEADERS", "LIVE_BUDGET", "REGENERATE", "TL_LIVE_BUDGET", "Trace",
+           "VARIANTS", "divide_once", "divide_within", "emit_header", "live_peak", "main",
            "param_value", "quotient", "render_header", "reschedule",
            "shared_slots", "stash", "trace", "trace_params", "unstash"]
 
@@ -308,16 +312,22 @@ def _lifetimes(tr: Trace, k: _Kinds):
     return {v: (pos.get(v, -1), max(stop, pos.get(v, -1))) for v, stop in last.items()}
 
 
-def _peak(spans, n: int) -> int:
+def _live(spans, n: int) -> List[int]:
+    """The number of ``spans`` (first, last statement index) that hold
+    statement ``i``, at position ``i + 1`` (from the inputs' ``-1``)."""
     delta = [0] * (n + 3)
     for start, stop in spans:
         delta[start + 1] += 1
         delta[stop + 2] -= 1
-    peak = live = 0
+    live, counts = 0, []
     for step in delta:
         live += step
-        peak = max(peak, live)
-    return peak
+        counts.append(live)
+    return counts
+
+
+def _peak(spans, n: int) -> int:
+    return max([0, *_live(spans, n)])
 
 
 def live_peak(tr: Trace) -> int:
@@ -366,8 +376,12 @@ LIVE_BUDGET = 96
 # one read back
 _GROUP = 8
 _SCHEDULED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-# the meta key that marks a reciprocal :func:`divide_once` computes in the body
+# the meta key that marks a reciprocal :func:`divide_once` computes in the
+# body; its value is the divisor, a node of the graph divided once
 _RECIPROCAL = "divide_once"
+# the most values a TL body may hold in registers: the 64 registers of the
+# f32 kernel's 8 blocks of 128 threads an SM (csrc/cloudsc2_tl_sweep.cuh)
+TL_LIVE_BUDGET = 64
 
 
 def reschedule(tr: Trace) -> Trace:
@@ -421,12 +435,15 @@ def _uses(tr: Trace, k: _Kinds) -> Dict[torch.fx.Node, List[int]]:
 
 
 def _quotients(tr: Trace, k: _Kinds):
-    """The body's divisions (``div`` and ``reciprocal`` statements), each
-    with its key ``(numerator, divisor)``: values by the node they copy,
-    literals by value (a reciprocal's numerator is ``1.0``); and per
-    divisor, the distinct numerators it divides."""
+    """The body's divisions (``div`` and ``reciprocal`` statements, and the
+    divisions of a literal's value by a literal, which the body prints too:
+    a zero tangent over ``0.15``), each with its key ``(numerator,
+    divisor)``: values by the node they copy, literals by value (a
+    reciprocal's numerator is ``1.0``); and per divisor, the distinct
+    numerators it divides."""
     found, numerators = [], {}
-    for n in k.values:
+    body = set(k.values) | k.constants
+    for n in (n for n in tr.graph.graph.nodes if n in body):
         name = _name(n)
         if name == "reciprocal":
             num, div = 1.0, n.args[0]
@@ -464,7 +481,7 @@ def _fma(x, y, z):
     return torch.tensor(out, dtype=x.dtype).reshape(x.shape)
 
 
-def divide_once(tr: Trace) -> Trace:
+def divide_once(tr: Trace, keep=frozenset()) -> Trace:
     """``tr`` with one division per divisor, and quotients printed twice
     merged.  A divisor the body computes (or reads) and divides more than
     one numerator by gets one correctly rounded reciprocal, printed
@@ -473,8 +490,8 @@ def divide_once(tr: Trace) -> Trace:
     a division).  A divisor of params only gets its reciprocal as host code
     in double, and a literal divisor a literal reciprocal computed in
     double, each rounded to ``T`` once, which its quotients multiply (at
-    most 1.5 ulp from the quotient, not 0.5).  A divisor of one numerator
-    stays a division."""
+    most 1.5 ulp from the quotient, not 0.5).  A divisor of one numerator,
+    or one of ``keep`` (nodes of ``tr``), stays a division."""
     k = _kinds(tr)
     found, numerators = _quotients(tr, k)
     keys = dict(found)
@@ -491,7 +508,7 @@ def divide_once(tr: Trace) -> Trace:
                                              (env[div],))
             inverse[div].meta = dict(div.meta)
             if div not in k.params:
-                inverse[div].meta[_RECIPROCAL] = True
+                inverse[div].meta[_RECIPROCAL] = div
         return inverse[div]
 
     def call(target, *args):
@@ -511,7 +528,7 @@ def divide_once(tr: Trace) -> Trace:
                 made[key] = call(torch.ops.aten.mul.Tensor, env[num], 1.0 / div)
             elif div in k.params:
                 made[key] = call(torch.ops.aten.mul.Tensor, env[num], reciprocal(div))
-            elif len(numerators[div]) > 1:
+            elif len(numerators[div]) > 1 and div not in keep:
                 inv = reciprocal(div)
                 made[key] = (call(quotient, env[num], env[div], inv)
                              if isinstance(num, torch.fx.Node) else inv)
@@ -523,6 +540,29 @@ def divide_once(tr: Trace) -> Trace:
     new.output(torch.fx.node.map_arg(g.output_node().args[0], lambda a: env[a]))
     return Trace(torch.fx.GraphModule(tr.graph, new), tr.inputs, tr.outputs,
                  tr.params, tr.fn)
+
+
+def divide_within(tr: Trace, budget: int) -> Trace:
+    """``tr``, a TL trace, in its traced order with one division per divisor
+    (:func:`divide_once`), but where a reciprocal would lift the registers'
+    live peak above ``budget`` (or above the traced body's, where that is
+    higher): while the peak is over, the divisor whose reciprocal is live
+    the longest across the first statement at the peak keeps its
+    divisions."""
+    keep: set = set()
+    limit = max(budget, live_peak(tr))
+    while True:
+        out = divide_once(tr, keep)
+        k = _kinds(out)
+        spans = _lifetimes(out, k)
+        live = _live(spans.values(), len(k.values))
+        peak = max(live)
+        at = live.index(peak) - 1  # the first statement at the peak
+        over = [v for v, (a, b) in spans.items()
+                if _RECIPROCAL in v.meta and a <= at <= b]
+        if peak <= limit or not over:
+            return out
+        keep.add(max(over, key=lambda v: spans[v][1] - spans[v][0]).meta[_RECIPROCAL])
 
 
 def _sink(tr: Trace) -> Trace:
@@ -840,7 +880,7 @@ class _Printer:
             raise NotImplementedError(f"emit: no rule for {node.target}")
         if name in ("div", "reciprocal") and not is_param:
             self.divides += 1
-            self.reciprocals += bool(node.meta.get(_RECIPROCAL))
+            self.reciprocals += _RECIPROCAL in node.meta
         cname = f"{'h' if is_param else 'v'}{len(self.host if is_param else self.body)}"
         self.name[node] = cname
         (self.host if is_param else self.body).append(
@@ -929,11 +969,12 @@ def emit_header(kind: str) -> str:
 
 def render_header(kind: str, traces: Dict[Tuple[bool, bool], Trace]) -> str:
     """The header for ``kind`` from its four traces, keyed by ``(evap,
-    lregcl)``: the TL bodies in their traced order, the AD bodies in the
+    lregcl)``: the TL bodies in their traced order, divided once within
+    ``TL_LIVE_BUDGET`` (:func:`divide_within`), the AD bodies in the
     schedule of :func:`reschedule` ("stash order" in their comments)."""
     printed = "stash" if kind == "ad" else "trace"
-    if kind == "ad":
-        traces = {v: reschedule(tr) for v, tr in traces.items()}
+    traces = {v: reschedule(tr) if kind == "ad" else divide_within(tr, TL_LIVE_BUDGET)
+              for v, tr in traces.items()}
     printers = {v: _Printer(traces[v]) for v in VARIANTS}
     paths = printers[VARIANTS[0]].tr.params
     used = {p for pr in printers.values() for p, _ in pr.used_params}
@@ -970,19 +1011,18 @@ def render_header(kind: str, traces: Dict[Tuple[bool, bool], Trace]) -> str:
             "",
             f"// levapls2 or ldrain1d, lregcl: {flags}"
             f" ({len(pr.body)} statements, live peak {live_peak(pr.tr)},"
-            + (f" {pr.slots} shared slots, {pr.divides} divisions,"
-               f" {pr.reciprocals} reciprocals," if kind == "ad" else "")
-            + f" {printed} order)",
+            + (f" {pr.slots} shared slots," if kind == "ad" else "")
+            + f" {pr.divides} divisions, {pr.reciprocals} reciprocals, {printed} order)",
             "template <>",
             f"struct Level<{flags}> {{",
             f"  static constexpr int kNumConsts = {len(pr.consts)};",
             *([] if kind != "ad" else [
                 "  // shared-memory slots per thread, kStashStride values apart",
-                f"  static constexpr int kStashSlots = {pr.slots};",
-                "  // division statements of run(), and of them the reciprocals of",
-                "  // divisors that divide more than one numerator",
-                f"  static constexpr int kDivides = {pr.divides};",
-                f"  static constexpr int kReciprocals = {pr.reciprocals};"]),
+                f"  static constexpr int kStashSlots = {pr.slots};"]),
+            "  // division statements of run(), and of them the reciprocals of",
+            "  // divisors that divide more than one numerator",
+            f"  static constexpr int kDivides = {pr.divides};",
+            f"  static constexpr int kReciprocals = {pr.reciprocals};",
             "",
             "  static void constants(const double* p, double* k) {",
             *(f"    {s}" for s in pr.host),

@@ -213,8 +213,8 @@ def test_the_standard_tl_launch_writes_into_the_rows_given(fake_cuda, monkeypatc
 def test_the_smoke_builds_and_pins_the_standard_tl(monkeypatch):
     """``chip_smoke.py`` phase 2 builds ``cloudsc2_tl`` a second time with
     ``build.NO_FMA`` (the standard contract's TL) and holds that build's
-    SASS to a recorded digest of its own, beside the default build, whose
-    digest stays the one recorded before."""
+    SASS to a recorded digest of its own, beside the default build's, the
+    one recorded when the TL level body came to divide once per divisor."""
     monkeypatch.syspath_prepend(str(build.CSRC.parents[1]))
     import chip_smoke
 
@@ -222,7 +222,7 @@ def test_the_smoke_builds_and_pins_the_standard_tl(monkeypatch):
     assert "cloudsc2_tl" in chip_smoke.LIBRARIES
     assert chip_smoke.KERNEL_MIX["cloudsc2_tl_std"] == chip_smoke.KERNEL_MIX["cloudsc2_tl"]
     pinned = {k: v for k, v in chip_smoke.EXACT_SASS.items() if k.startswith("cloudsc2_tl")}
-    assert pinned["cloudsc2_tl"].startswith("cbba2c41")
+    assert pinned["cloudsc2_tl"].startswith("dd020d5c")
     assert len(set(pinned.values())) == len(pinned)
     assert set(pinned) >= {"cloudsc2_tl", "cloudsc2_tl -fmad=false", "cloudsc2_tl_din"}
 
@@ -270,8 +270,9 @@ def test_occupancy_reads_each_instance_once(fake_cuda):
 def test_the_sweeps_spans_count_through_the_one_reader(monkeypatch):
     """The NL, TL (both builds) and AD launches give their spans the
     counters of ``build.occupancy``, the one reader, asked for the library
-    each binds, its entry and the launch's switches, beside ``evap`` (the AD's
-    also beside its level body's divisions, reciprocals and shared slots);
+    each binds, its entry and the launch's switches, beside ``evap`` (the TL's
+    and AD's also beside their level body's divisions and reciprocals, the
+    AD's and its shared slots);
     with the profiler off the reader is not asked."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -317,7 +318,7 @@ def test_the_sweeps_spans_count_through_the_one_reader(monkeypatch):
     assert counters == {
         spans.PREFIX + "nl_sweep": {"dtype": 64, "blocks_per_sm": 1, "evap": 0},
         spans.PREFIX + "tl_sweep": {"dtype": 64, "blocks_per_sm": 2.5, "evap": 0,
-                                    "checkpoints": 1},
+                                    "divides": 29, "reciprocals": 20, "checkpoints": 1},
         spans.PREFIX + "ad_sweep": {"dtype": 64, "blocks_per_sm": 4, "evap": 0,
                                     "divides": 28, "reciprocals": 19, "stash_slots": 87}}
 

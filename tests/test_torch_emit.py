@@ -5,18 +5,21 @@ The eight traces (TL and AD, each with ``levapls2 or ldrain1d`` and
 
 * both generated headers byte for byte against what the emitter writes
   now, so an edit of ``level_physics`` that is not regenerated fails here;
-* each traced graph against the function it traced (``torch.func.jvp`` /
-  ``torch.func.vjp`` of ``level_physics``) on fixture columns (the trace
-  saw random values; the graph keeps the trace's width) and with the
-  fixture's params, to 1e-15 relative: the trace is general in the data
-  and in every param;
+* each traced graph, and each TL graph as it is printed (one division
+  per divisor, :func:`emit.divide_within`), against the function it
+  traced (``torch.func.jvp`` / ``torch.func.vjp`` of ``level_physics``)
+  on fixture columns (the trace saw random values; the graph keeps the
+  trace's width) and with the fixture's params, to 1e-15 relative: the
+  trace is general in the data and in every param;
 * the AD bodies' schedule (:func:`emit.reschedule`: primal statements
   sunk to their first read, the longest-lived values parked in shared
   memory) against the traced function to 1e-15, its registers' live peak
   within the budget (at most 100 values for ``Level<false, *>``, 120 for
   ``Level<true, *>``, from 183-224 in the traced order), every traced
   statement computed once, and its shared-memory slots held without
-  overlap;
+  overlap; the printed TL bodies' live peak within ``emit.TL_LIVE_BUDGET``;
+* every printed body dividing once per divisor, by no param and no
+  literal, its header's ``kDivides`` and ``kReciprocals`` its own;
 * the headers free of any value of the fixture's params;
 * an aten op without a rule raising instead of vanishing.
 
@@ -95,15 +98,18 @@ def test_traced_graph_computes_the_traced_function(traces, fixture_params, kind,
                                                    evap, lregcl):
     """The graph the header is printed from against ``torch.func.jvp`` /
     ``vjp`` of ``level_physics`` itself, on data and params the trace did
-    not see, to 1e-15 of each output's max."""
+    not see, to 1e-15 of each output's max; for the TL also the graph as it
+    is printed, divided once per divisor (:func:`emit.divide_within`)."""
     tr = traces[kind][evap, lregcl]
+    graphs = [tr] + ([emit.divide_within(tr, emit.TL_LIVE_BUDGET)] if kind == "tl" else [])
     args = _level_args(tr, kind, fixture_params, ncol=emit._TRACE_WIDTH)
-    got = torch.utils._pytree.tree_leaves(tr.graph(*args))
     want = torch.utils._pytree.tree_leaves(tr.fn(*args))
-    assert len(got) == len(want) == len(tr.outputs)
-    for a, b in zip(got, want):
-        scale = max(float(b.abs().max()), 1e-300)
-        assert float((a - b).abs().max()) / scale <= 1e-15
+    for g in graphs:
+        got = torch.utils._pytree.tree_leaves(g.graph(*args))
+        assert len(got) == len(want) == len(tr.outputs)
+        for a, b in zip(got, want):
+            scale = max(float(b.abs().max()), 1e-300)
+            assert float((a - b).abs().max()) / scale <= 1e-15
 
 
 @pytest.mark.parametrize("lregcl", [False, True])
@@ -125,7 +131,7 @@ def test_rescheduled_graph_computes_the_traced_function(traces, fixture_params,
 
 
 def _quotients(tr):
-    """The runtime divisions of a traced AD body (``div`` and
+    """The runtime divisions of a traced body (``div`` and
     ``reciprocal`` statements that read a value), keyed by the values (or
     literals) they divide, copies followed to what they copy: ``{divisor:
     {numerator: [statements]}}``, a reciprocal's numerator ``1.0``."""
@@ -144,7 +150,7 @@ def _quotients(tr):
 
 
 def _division_counts(traced):
-    """From the traced AD body: the runtime divisors (each divided once
+    """From a traced body: the runtime divisors (each divided once
     after :func:`emit.divide_once`), those of two numerators or more (each
     given a reciprocal), the quotients printed more than once, merged, and
     those of a repeated divisor that are its reciprocal, merged into it."""
@@ -169,8 +175,9 @@ def test_rescheduled_body_fits_its_budget(traces, evap, lregcl):
     statements no transpose statement reads, whose values only lend a
     literal its shape; it needs at most twice the traced statements, and
     its header states its live peak, shared slots, divisions and
-    reciprocals; the TL body keeps its traced order, whose peak is below
-    either budget."""
+    reciprocals; the TL body as it is printed (its traced order, divided
+    once per divisor) holds at most ``emit.TL_LIVE_BUDGET`` (64) values,
+    as its header states."""
     traced = traces["ad"][evap, lregcl]
     tr = emit.reschedule(traced)
     peak, traced_peak = emit.live_peak(tr), emit.live_peak(traced)
@@ -188,9 +195,12 @@ def test_rescheduled_body_fits_its_budget(traces, evap, lregcl):
     assert re.search(rf"lregcl: {flags} \((\d+) statements, live peak {peak}, "
                      rf"{slots} shared slots, \d+ divisions, \d+ reciprocals, "
                      rf"stash order\)", ad)
-    tl_peak = emit.live_peak(traces["tl"][evap, lregcl])
-    assert tl_peak <= 64
-    assert f"live peak {tl_peak}, trace order)" in emit.HEADERS["tl"].read_text()
+    tl_peak = emit.live_peak(emit.divide_within(traces["tl"][evap, lregcl],
+                                                emit.TL_LIVE_BUDGET))
+    assert tl_peak <= emit.TL_LIVE_BUDGET == 64
+    assert re.search(rf"lregcl: {flags} \(\d+ statements, live peak {tl_peak}, "
+                     rf"\d+ divisions, \d+ reciprocals, trace order\)",
+                     emit.HEADERS["tl"].read_text())
 
 
 def _variant_body(text, evap, lregcl):
@@ -200,18 +210,22 @@ def _variant_body(text, evap, lregcl):
 
 @pytest.mark.parametrize("lregcl", [False, True])
 @pytest.mark.parametrize("evap", [False, True])
-def test_ad_body_divides_once_per_divisor(traces, evap, lregcl):
-    """Each printed AD body divides by each value it computes or reads at
-    most once (a value read back from shared memory is the value parked),
-    and by no param and no literal; a divisor of two numerators or more is
-    divided once, into its reciprocal, from which each of its other
-    quotients is formed (``xdivr``).  The header's ``kDivides`` and
-    ``kReciprocals`` are the printed division statements and the
-    reciprocals of repeated divisors: 28 and 19 in ``Level<false, true>``,
-    the body the stream and standard cells run (93 divisions by 32
-    divisors in the trace)."""
-    traced = traces["ad"][evap, lregcl]
-    tr = emit.reschedule(traced)
+@pytest.mark.parametrize("kind", ["tl", "ad"])
+def test_ad_body_divides_once_per_divisor(traces, kind, evap, lregcl):
+    """Each printed body, AD and TL, divides by each value it computes or
+    reads at most once (in the AD a value read back from shared memory is
+    the value parked), and by no param and no literal; a divisor of two
+    numerators or more is divided once, into its reciprocal, from which each
+    of its other quotients is formed (``xdivr``), but in a TL body the
+    divisors :func:`emit.divide_within` keeps, whose reciprocals would lift
+    its live peak above ``emit.TL_LIVE_BUDGET``, keep their divisions.  The
+    header's ``kDivides`` and ``kReciprocals`` are the printed division
+    statements and the reciprocals of repeated divisors: in
+    ``Level<false, true>``, the body the stream and standard cells run, 28
+    and 19 in the AD (93 divisions in the trace), 29 and 20 in the TL (61)."""
+    traced = traces[kind][evap, lregcl]
+    tr = (emit.reschedule(traced) if kind == "ad"
+          else emit.divide_within(traced, emit.TL_LIVE_BUDGET))
     quotients, k = _quotients(tr)
     parked = {}
     for n in tr.graph.graph.nodes:
@@ -222,25 +236,27 @@ def test_ad_body_divides_once_per_divisor(traces, evap, lregcl):
     divisors = [parked.get(d, d) for d in quotients]
     assert len(divisors) == len(set(divisors))
     assert all(isinstance(d, torch.fx.Node) and d not in k.params for d in divisors)
-    assert all(len(q) == 1 and len(ns) == 1 for q in quotients.values()
-               for ns in q.values())
+    kept = {d: q for d, q in quotients.items() if sum(len(ns) for ns in q.values()) > 1}
+    assert all(len(ns) == 1 for q in quotients.values() for ns in q.values())
+    if kind == "ad" or emit.live_peak(emit.divide_once(traced)) <= emit.TL_LIVE_BUDGET:
+        assert not kept
 
     runtime, repeated, _, _ = _division_counts(traced)
-    body = _variant_body(emit.HEADERS["ad"].read_text(), evap, lregcl)
+    body = _variant_body(emit.HEADERS[kind].read_text(), evap, lregcl)
     statements = re.findall(r"const T v\d+ = ([^;]*);", body)
     printed = [s for s in statements if " / " in s]
     assert not any(re.search(r" / (k\[|T\()", s) for s in printed)
     divides = int(re.search(r"kDivides = (\d+);", body).group(1))
     reciprocals = int(re.search(r"kReciprocals = (\d+);", body).group(1))
     assert f"{divides} divisions, {reciprocals} reciprocals" in body
-    assert divides == len(printed) == runtime
-    assert reciprocals == len(repeated)
+    assert divides == len(printed) == runtime + sum(len(q) - 1 for q in kept.values())
+    assert reciprocals == len(repeated) - len(kept)
     assert sum(s.startswith("xdivr(") for s in statements) == sum(
-        len(q) - (1.0 in q) for q in repeated)
+        len(q) - (1.0 in q) for q in repeated) - sum(len(q) - (1.0 in q) for q in kept.values())
     if (evap, lregcl) == (False, True):
-        assert (divides, reciprocals) == (28, 19)
+        assert (divides, reciprocals) == {"ad": (28, 19), "tl": (29, 20)}[kind]
         assert sum(len(ns) for q in _quotients(traced)[0].values()
-                   for ns in q.values()) == 93
+                   for ns in q.values()) == {"ad": 93, "tl": 61}[kind]
 
 
 def test_quotient_is_the_correctly_rounded_division():

@@ -43,6 +43,23 @@ def small():
     return Cloudsc2State.synthetic(ngptot=24, nlev=13)
 
 
+def _body_counts(kind, evap, lregcl=True):
+    """What the generated header of ``kind`` ("tl" or "ad") states for its
+    body ``Level<evap, lregcl>``: ``kDivides``, ``kReciprocals`` and, in the
+    AD, ``kStashSlots``, under the span counters' names."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    header = (root / f"cloudsc2jax_torch/csrc/cloudsc2_{kind}_level.cuh").read_text()
+    flags = f"{str(bool(evap)).lower()}, {str(bool(lregcl)).lower()}"
+    body = re.search(rf"struct Level<{flags}> {{(.*?)\n}};", header, re.S).group(1)
+    names = (("divides", "Divides"), ("reciprocals", "Reciprocals"))
+    if kind == "ad":
+        names += (("stash_slots", "StashSlots"),)
+    return {name: int(re.search(rf"k{key} = (\d+);", body).group(1))
+            for name, key in names}
+
+
 def _call(st, entry, backend, device="cpu", ncol=24):
     if backend == "streams":
         x = st.device_kernel_inputs(ncol, dtype=torch.float32, device=device,
@@ -185,8 +202,6 @@ def test_the_ad_span_counts_its_body_divisions(small, monkeypatch, ldrain1d, lre
     for the body ``Level<evap, lregcl>`` the launch runs, beside the
     instance's counters and ``evap``; with the profiler off nothing is
     read.  No card is needed: the launch itself is stubbed."""
-    from pathlib import Path
-
     from cloudsc2jax_torch.kernels import build
     from cloudsc2jax_torch.kernels import tlad_kernel as tk
     from cloudsc2jax_torch.kernels.cloudsc2_kernel import plain_prelude
@@ -212,15 +227,55 @@ def test_the_ad_span_counts_its_body_divisions(small, monkeypatch, ldrain1d, lre
     with profile(activities=[ProfilerActivity.CPU]):
         launch()
     assert asked == [(int(ldrain1d), int(lregcl))]
-    header = (Path(tk.__file__).parent.parent / "csrc" / "cloudsc2_ad_level.cuh").read_text()
-    flags = f"{str(ldrain1d).lower()}, {str(lregcl).lower()}"
-    body = re.search(rf"struct Level<{flags}> {{(.*?)\n}};", header, re.S).group(1)
-    want = {name: int(re.search(rf"k{key} = (\d+);", body).group(1))
-            for name, key in (("divides", "Divides"), ("reciprocals", "Reciprocals"),
-                              ("stash_slots", "StashSlots"))}
+    want = _body_counts("ad", ldrain1d, lregcl)
     assert 0 < want["reciprocals"] < want["divides"] < want["stash_slots"]
     assert spans.summary()[P + "ad_sweep"]["counters"] == {
         "blocks_per_sm": 5, "evap": int(ldrain1d), **want}
+
+
+@pytest.mark.parametrize("launch", ["tl", "tl_std", "tl_din"])
+@pytest.mark.parametrize("lregcl", [False, True])
+@pytest.mark.parametrize("ldrain1d", [False, True])
+def test_the_tl_span_counts_its_body_divisions(small, monkeypatch, ldrain1d, lregcl,
+                                               launch):
+    """The ``tl_sweep`` span of a launch of a TL kernel (the stream
+    contract's, the standard contract's build without FMA contraction, the
+    streamed-increment drop-in's) carries ``divides`` and ``reciprocals``:
+    the ``kDivides`` and ``kReciprocals`` that the generated TL header
+    states for the body ``Level<evap, lregcl>`` the launch runs, beside
+    ``evap`` and, where the library reports one, the instance's counters;
+    with the profiler off nothing is read.  No card is needed: the launch
+    itself is stubbed."""
+    from cloudsc2jax_torch.kernels import build
+    from cloudsc2jax_torch.kernels import tlad_kernel as tk
+    from cloudsc2jax_torch.kernels.cloudsc2_kernel import plain_prelude
+
+    x = small.device_kernel_inputs(6, dtype=torch.float64, device="cpu", pqs=True)
+    pre = plain_prelude(x, small.params)
+    asked = []
+    monkeypatch.setattr(build, "occupancy",
+                        lambda *a: asked.append(a[3:]) or {"blocks_per_sm": 8})
+    monkeypatch.setattr(tk, "_library", lambda name, flags=(): name)
+    monkeypatch.setattr(tk, "_tl_launch", lambda *a, **k: (None, None, ()))
+    monkeypatch.setattr(tk, "_tl_din_launch", lambda *a, **k: (None, None))
+    run = {"tl": lambda: tk.launch_cloudsc2_tl(x, pre, small.params, dscale=0.01,
+                                               ldrain1d=ldrain1d, lregcl=lregcl,
+                                               write_primal=False),
+           "tl_std": lambda: tk.launch_cloudsc2_tl_std(x, pre, small.params, dscale=0.01,
+                                                       ldrain1d=ldrain1d, lregcl=lregcl),
+           "tl_din": lambda: tk.launch_cloudsc2_tl_din(x, x, pre, small.params,
+                                                       ldrain1d=ldrain1d, lregcl=lregcl)}
+    spans.clear()
+    run[launch]()
+    assert asked == [] and spans.records() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        run[launch]()
+    want = _body_counts("tl", ldrain1d, lregcl)
+    assert 0 < want["reciprocals"] < want["divides"]
+    instance = {"tl": {"blocks_per_sm": 8}, "tl_std": {"blocks_per_sm": 8, "checkpoints": 1},
+                "tl_din": {}}[launch]
+    assert spans.summary()[P + "tl_sweep"]["counters"] == {
+        **instance, "evap": int(ldrain1d), **want}
 
 
 def test_the_contract_span_counts_its_form_and_bytes(small):
@@ -376,8 +431,8 @@ def test_sweep_counters_on_the_card():
     carry the instance they launched, in f32 and f64: registers and local
     bytes as ptxas reports them, the AD body's shared-memory slots, and the
     blocks an SM holds at them; the f32 AD at least its budget's 5; both
-    ``evap`` 0; the AD span also its body's divisions, reciprocals and
-    shared slots, as the header states them."""
+    ``evap`` 0; each its body's divisions and reciprocals, the AD's also
+    its shared slots, as the headers state them."""
     import subprocess
     import sys
     from pathlib import Path
@@ -389,10 +444,8 @@ def test_sweep_counters_on_the_card():
                          text=True, timeout=900, cwd=root)
     assert res.returncode == 0, res.stderr[-4000:]
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    level = (root / "cloudsc2jax_torch/csrc/cloudsc2_ad_level.cuh").read_text()
-    slots, divides, reciprocals = (int(re.search(
-        rf"struct Level<false, true> \{{.*?k{key} = (\d+);", level, re.S).group(1))
-        for key in ("StashSlots", "Divides", "Reciprocals"))
+    ad_body, tl_body = _body_counts("ad", False), _body_counts("tl", False)
+    slots = ad_body["stash_slots"]
     for dtype, code, size in (("torch.float32", "f", 4), ("torch.float64", "d", 8)):
         for span, lib, entry, shared in (
                 ("tl_sweep", "cloudsc2_tl", f"cloudsc2_tl_kernelI{code}Lb0ELb1ELb0E", 0),
@@ -400,8 +453,7 @@ def test_sweep_counters_on_the_card():
                  slots * 128 * size)):
             counters = got[dtype][P + span]
             (ptxas,) = [e for e in got["ptxas"][lib] if entry in e["entry"]]
-            body = ({"divides": divides, "reciprocals": reciprocals, "stash_slots": slots}
-                    if span == "ad_sweep" else {})
+            body = ad_body if span == "ad_sweep" else tl_body
             assert counters == {
                 "dtype": 8 * size, "registers": ptxas["registers"],
                 "local_bytes": ptxas["stack_bytes"], "shared_bytes": shared,
@@ -444,8 +496,9 @@ def test_evaporating_sweep_counters_on_the_card():
     stream contract's f32 unit carry the evaporating instances
     (``Level<true, true>``): ``evap`` 1, registers and local bytes as ptxas
     reports them, the AD body's ``kStashSlots`` (148) as its shared slots and
-    ``stash_slots``, and the blocks an SM holds at them: the AD's shared
-    memory leaves it 3, below the 5 of the body without evaporation."""
+    ``stash_slots``, each body's divisions and reciprocals as the headers
+    state them, and the blocks an SM holds at them: the AD's shared memory
+    leaves it 3, below the 5 of the body without evaporation."""
     import subprocess
     import sys
     from pathlib import Path
@@ -457,17 +510,14 @@ def test_evaporating_sweep_counters_on_the_card():
                          capture_output=True, text=True, timeout=900, cwd=root)
     assert res.returncode == 0, res.stderr[-4000:]
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    level = (root / "cloudsc2jax_torch/csrc/cloudsc2_ad_level.cuh").read_text()
-    slots, divides, reciprocals = (int(re.search(
-        rf"struct Level<true, true> \{{.*?k{key} = (\d+);", level, re.S).group(1))
-        for key in ("StashSlots", "Divides", "Reciprocals"))
+    ad_body, tl_body = _body_counts("ad", True), _body_counts("tl", True)
+    slots = ad_body["stash_slots"]
     assert slots == 148
     for span, lib, entry, shared in (
             ("tl_sweep", "cloudsc2_tl", "cloudsc2_tl_kernelIfLb1ELb1ELb0E", 0),
             ("ad_sweep", "cloudsc2_ad", "cloudsc2_ad_kernelIfLb1ELb1E", slots * 128 * 4)):
         (ptxas,) = [e for e in got["ptxas"][lib] if entry in e["entry"]]
-        body = ({"divides": divides, "reciprocals": reciprocals, "stash_slots": slots}
-                if span == "ad_sweep" else {})
+        body = ad_body if span == "ad_sweep" else tl_body
         assert got[P + span] == {
             "dtype": 32, "registers": ptxas["registers"],
             "local_bytes": ptxas["stack_bytes"], "shared_bytes": shared,
@@ -509,7 +559,8 @@ def test_standard_unit_tl_counters_on_the_card():
     """The ``tl_sweep`` span of ``run_tlad(backend="kernels")`` carries the
     instance of the standard contract's TL it launched, in f32 and f64
     (registers and local bytes as ptxas reports them for the build of
-    ``cloudsc2_tl`` with ``build.NO_FMA``, the blocks an SM holds at them), and
+    ``cloudsc2_tl`` with ``build.NO_FMA``, the blocks an SM holds at them),
+    its body's divisions and reciprocals as the TL header states them, and
     ``checkpoints`` 1: the same launch wrote the reverse sweep's carries,
     and no ``fwd_sweep`` span ran."""
     import subprocess
@@ -531,7 +582,7 @@ def test_standard_unit_tl_counters_on_the_card():
             "dtype": 8 * size, "registers": ptxas["registers"],
             "local_bytes": ptxas["stack_bytes"], "shared_bytes": 0,
             "blocks_per_sm": _blocks_per_sm(ptxas["registers"], 0, got["sm"]),
-            "evap": 0, "checkpoints": 1,
+            "evap": 0, **_body_counts("tl", False), "checkpoints": 1,
         }, (dtype, ptxas, got["sm"])
         assert set(got[dtype]) == {P + n for n in EXPECTED["run_tlad", "kernels"]}
 
