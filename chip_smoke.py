@@ -195,9 +195,10 @@ and prints no result line):
    failing unless ``streamed_gb > device_memory_gb > peak_allocated_gb``;
    and ``nl 1 100 100 --kernels --dtype f64 --profile
    build/chip_smoke/profile`` with ``CLOUDSC2_WRITE_REFERENCE=1`` in a
-   temporary directory, whose trace must name ``cloudsc2_nl_kernel`` and
-   whose ``reference.npz`` must validate a second run at the default
-   threshold.
+   temporary directory, whose trace must name the NL kernel its span says
+   ran (``cloudsc2_nl_kernel``, or ``cloudsc2_nl_stamped_kernel`` where the
+   call stamped its warps) and whose ``reference.npz`` must validate a
+   second run at the default threshold.
 19. The column decomposition over processes: two ranks on the card, each a
    process of its own (``chip_smoke.py --rank-worker``) in one ``gloo``
    group over ``localhost``, started after phase 2's build so that they find
@@ -472,23 +473,26 @@ BF16_TOLERANCE = 1e-4
 # include the TL level body (cloudsc2_tl_level.cuh: cloudsc2_tl in both
 # builds, _tl_din, _tl_chunk, _tl_din_chunk, _tl_enc, _tl_enc_bf16,
 # _tlad_fused) as rebuilt when it too came to divide once per divisor
-# (probes/level_ab.py tl, against the tree before).
+# (probes/level_ab.py tl, against the tree before); cloudsc2_nl,
+# cloudsc2_ad and cloudsc2_tl in both builds as rebuilt when they gained
+# their sweeps' stamped twins, whose other entries kept the tree before's
+# SASS (tests/test_torch_stamps.py).
 # Phase 2 fails if a build differs under that release; under another release
 # it says that it did not check.
 EXACT_SASS_RELEASE = "release 12.9, V12.9.86"
 EXACT_SASS = {
     "cloudsc2_nl":
-        "b2c4a9637915d6568094fc4306ec116494c72ef31eafd672e5f1f43025f7af60",
+        "e25cc72de0588e3e2a01afcf04f10757ba3442dff9fb9e608fd9a86eeb21763f",
     "cloudsc2_nl_res":
         "4b38e00514a94c1f16680fd404533d0e6a179384878723d990d173ca1ddd4154",
     "cloudsc2_tl":
-        "dd020d5c979766baa468e20300abf4109d7572c92c7b41a7b2c9e33350367375",
+        "6aa56de9cab7b2f4b7e07a911cb3e2c83a8bc23a4aa9828999d4b78b5d534b82",
     "cloudsc2_tl_din":
         "94f772f2743bad7a1ad46ab210755e532c33e826af534017aa2dcd650b091ffa",
     "cloudsc2_tl -fmad=false":
-        "637e39665d2630c721765b4c0cd544fcc0dfb8a0e774ea677fc2d081ef1a6748",
+        "e4feb78b096ec89430ea4ee691e8f3b618ab53ea0a06d8db3472f458d6086853",
     "cloudsc2_ad":
-        "7b2e800b012438d35f6401ec4c5c87eb365bd6ae476d8a50c15facc9a3bdb54a",
+        "8642ecd67613e0093f664e1042f92aced115ea48ad245eb2f0020362e273d5ca",
     "cloudsc2_tlad_fused":
         "22ab965c887acb19a21c41df2b9e6fc088685ae4b3a65a608d0a6932de4487f8",
     "cloudsc2_tl_enc":
@@ -2083,7 +2087,7 @@ def chunked_and_bench(state, params) -> dict:
     Returns the launches of the main path and the bench's records."""
     import torch
 
-    from cloudsc2jax_torch import cli
+    from cloudsc2jax_torch import cli, spans
     from cloudsc2jax_torch.drivers import (
         _CHUNK_CACHE,
         chunk_columns,
@@ -2192,10 +2196,14 @@ def chunked_and_bench(state, params) -> dict:
             del os.environ["CLOUDSC2_WRITE_REFERENCE"]
             os.chdir(cwd)
         (trace,) = profile.glob("*.pt.trace.json")
-        named = "cloudsc2_nl_kernel" in trace.read_text()
+        # the kernel the NL sweep's span says ran: the shipped one, or in a
+        # recorded call that stamps (spans.STAMP_EVERY) its stamped twin
+        sweep = spans.summary().get(spans.PREFIX + "nl_sweep", {})
+        kernel = ("cloudsc2_nl_stamped_kernel" if "twin_registers" in sweep.get("counters", {})
+                  else "cloudsc2_nl_kernel")
+        named = kernel in trace.read_text()
         print(f"[18] cli {' '.join(PROFILE_RUN)} --profile: rc={rc}, trace "
-              f"{trace.name} ({trace.stat().st_size} B) names cloudsc2_nl_kernel: "
-              f"{named}")
+              f"{trace.name} ({trace.stat().st_size} B) names {kernel}: {named}")
         if rc != 0 or not named:
             raise AssertionError("the profiled CLI run failed or its trace "
                                  "misses the kernel")

@@ -3,33 +3,65 @@
 // in-place-scatter branch, the AD half of the TL+AD work unit and of the
 // standalone adjoint.  The kernel and its schedule are in
 // cloudsc2_ad_sweep.cuh; this file instantiates `cloudsc2_ad_kernel` for
-// float/double x evap x lregcl and gives it a plain C interface, and
-// reports what each instance costs an SM (cloudsc2_occupancy.cuh).
+// float/double x evap x lregcl and gives it a plain C interface, reports
+// what each instance costs an SM (cloudsc2_occupancy.cuh), and holds its
+// traced twin, `cloudsc2_ad_stamped_kernel`, which stamps each warp
+// (cloudsc2_stamps.cuh).
 
 #include "cloudsc2_ad_sweep.cuh"
 #include "cloudsc2_occupancy.cuh"
+#include "cloudsc2_stamps.cuh"
 
 namespace {
 
-// The instance `launch_variant` runs for these switches, read at its launch
-// configuration: the level body's shared-memory slots, allowed as the launch
-// allows them.
+using cloudsc2_ad::kThreads;
+
+// `cloudsc2_ad_kernel`'s sweep under its register budget, each warp stamped
+// into `records`.
 template <typename T, bool EVAP, bool LREGCL>
+__global__ void __launch_bounds__(kThreads, cloudsc2_ad::kMinBlocks<T>)
+    cloudsc2_ad_stamped_kernel(const __grid_constant__ cloudsc2_ad::Args<T> a,
+                               const int ncol, const int nlev,
+                               cloudsc2_stamps::Record* const records) {
+  extern __shared__ __align__(16) unsigned char smem[];  // the body's slots
+  cloudsc2_stamps::open<kThreads>(records);
+  const int64_t col = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= ncol) return;
+  cloudsc2_ad::sweep_column<T, EVAP, LREGCL, cloudsc2_load::Exact, false>(
+      a, ncol, nlev, col, ncol, col, cloudsc2_ad::stash_of<T, EVAP, LREGCL>(smem));
+  cloudsc2_stamps::close<kThreads>(records, col, ncol);
+}
+
+// The stamped twins of cloudsc2_ad::Shipped's kernels, which
+// cloudsc2_ad::launch runs with the records after their own arguments.
+struct Stamped {
+  template <typename T, bool EVAP, bool LREGCL>
+  static auto kernel() {
+    return cloudsc2_ad_stamped_kernel<T, EVAP, LREGCL>;
+  }
+};
+
+// The instance of `Kernels` that `launch_variant` runs for these switches,
+// read at its launch configuration: the level body's shared-memory slots,
+// allowed as the launch allows them.
+template <typename Kernels, typename T, bool EVAP, bool LREGCL>
 int occupancy_of(int* out) {
   using namespace cloudsc2_ad;
   constexpr size_t bytes = stash_bytes<T, EVAP, LREGCL>(kThreads);
-  auto kernel = cloudsc2_ad_kernel<T, EVAP, LREGCL, cloudsc2_load::Exact>;
+  auto kernel = Kernels::template kernel<T, EVAP, LREGCL>();
   const int err = allow_shared(kernel, bytes);
   if (err != 0) return err;
   return cloudsc2_occupancy::read(kernel, kThreads, bytes, out);
 }
 
-template <typename T>
+template <typename T, typename Kernels = cloudsc2_ad::Shipped>
 int occupancy(const int evap, const int lregcl, int* out) {
   if (evap) {
-    return lregcl ? occupancy_of<T, true, true>(out) : occupancy_of<T, true, false>(out);
+    return lregcl ? occupancy_of<Kernels, T, true, true>(out)
+                  : occupancy_of<Kernels, T, true, false>(out);
   }
-  return lregcl ? occupancy_of<T, false, true>(out) : occupancy_of<T, false, false>(out);
+  return lregcl ? occupancy_of<Kernels, T, false, true>(out)
+                : occupancy_of<Kernels, T, false, false>(out);
 }
 
 }  // namespace
@@ -66,6 +98,28 @@ int cloudsc2_ad_f64(const void* const* in, void* const* out,
                                      nlev, evap, lregcl, stream);
 }
 
+// cloudsc2_ad_f32/f64 with each warp's record written to `records`, one
+// cloudsc2_stamps::Record a warp of the grid (cloudsc2_stamps.cuh).
+int cloudsc2_ad_stamped_f32(const void* const* in, void* const* out,
+                            const double* params, double seed_rfl, double seed_sfl,
+                            int ncol, int nlev, int evap, int lregcl, void* records,
+                            void* stream) {
+  if (records == nullptr) return int(cudaErrorInvalidValue);
+  return cloudsc2_ad::launch<float, Stamped>(in, out, params, seed_rfl, seed_sfl, ncol,
+                                             nlev, evap, lregcl, stream,
+                                             static_cast<cloudsc2_stamps::Record*>(records));
+}
+
+int cloudsc2_ad_stamped_f64(const void* const* in, void* const* out,
+                            const double* params, double seed_rfl, double seed_sfl,
+                            int ncol, int nlev, int evap, int lregcl, void* records,
+                            void* stream) {
+  if (records == nullptr) return int(cudaErrorInvalidValue);
+  return cloudsc2_ad::launch<double, Stamped>(in, out, params, seed_rfl, seed_sfl, ncol,
+                                              nlev, evap, lregcl, stream,
+                                              static_cast<cloudsc2_stamps::Record*>(records));
+}
+
 // Writes registers and local bytes per thread, dynamic shared bytes per
 // block and blocks per SM (cloudsc2_occupancy::Counter) of the instance that
 // cloudsc2_ad_f32/f64 launch for these switches; returns a cudaError_t.
@@ -75,6 +129,15 @@ int cloudsc2_ad_occupancy_f32(int evap, int lregcl, int* out) {
 
 int cloudsc2_ad_occupancy_f64(int evap, int lregcl, int* out) {
   return occupancy<double>(evap, lregcl, out);
+}
+
+// The same of the stamped twins that cloudsc2_ad_stamped_f32/f64 launch.
+int cloudsc2_ad_stamped_occupancy_f32(int evap, int lregcl, int* out) {
+  return occupancy<float, Stamped>(evap, lregcl, out);
+}
+
+int cloudsc2_ad_stamped_occupancy_f64(int evap, int lregcl, int* out) {
+  return occupancy<double, Stamped>(evap, lregcl, out);
 }
 
 }  // extern "C"

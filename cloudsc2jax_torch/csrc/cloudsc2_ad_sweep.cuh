@@ -249,16 +249,26 @@ void fill_constants(Args<T>& a, const double* params) {
   for (int j = 0; j < L::kNumConsts; ++j) a.k[j] = T(k[j]);
 }
 
-template <typename T, bool EVAP, bool LREGCL>
+// The exact kernel of the switches: what `launch` runs unless it is handed
+// another family of the same instances (cloudsc2_ad.cu's stamped twins),
+// which take the arguments it passes on.
+struct Shipped {
+  template <typename T, bool EVAP, bool LREGCL>
+  static auto kernel() {
+    return cloudsc2_ad_kernel<T, EVAP, LREGCL, cloudsc2_load::Exact>;
+  }
+};
+
+template <typename T, bool EVAP, bool LREGCL, typename Kernels, typename... Extra>
 int launch_variant(Args<T>& a, const double* params, int ncol, int nlev,
-                   cudaStream_t s) {
+                   cudaStream_t s, Extra... extra) {
   fill_constants<T, EVAP, LREGCL>(a, params);
   const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
   constexpr size_t bytes = stash_bytes<T, EVAP, LREGCL>(kThreads);
-  auto kernel = cloudsc2_ad_kernel<T, EVAP, LREGCL, cloudsc2_load::Exact>;
+  auto kernel = Kernels::template kernel<T, EVAP, LREGCL>();
   const int err = allow_shared(kernel, bytes);
   if (err != 0) return err;
-  kernel<<<blocks, kThreads, bytes, s>>>(a, ncol, nlev);
+  kernel<<<blocks, kThreads, bytes, s>>>(a, ncol, nlev, extra...);
   return int(cudaGetLastError());
 }
 
@@ -289,21 +299,22 @@ int fill_args(Args<T>& a, const void* const* in, void* const* out,
 }
 
 // Fills Args from the launcher's pointer arrays and picks the variant of
-// the exact kernel.
-template <typename T>
+// the exact kernel, of `Kernels`, launched with `extra` after its own
+// arguments.
+template <typename T, typename Kernels = Shipped, typename... Extra>
 int launch(const void* const* in, void* const* out, const double* params,
            double seed_rfl, double seed_sfl, int ncol, int nlev, int evap,
-           int lregcl, void* stream) {
+           int lregcl, void* stream, Extra... extra) {
   Args<T> a = {};
   const int err = fill_args<T>(a, in, out, seed_rfl, seed_sfl, ncol, nlev);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (evap) {
-    return lregcl ? launch_variant<T, true, true>(a, params, ncol, nlev, s)
-                  : launch_variant<T, true, false>(a, params, ncol, nlev, s);
+    return lregcl ? launch_variant<T, true, true, Kernels>(a, params, ncol, nlev, s, extra...)
+                  : launch_variant<T, true, false, Kernels>(a, params, ncol, nlev, s, extra...);
   }
-  return lregcl ? launch_variant<T, false, true>(a, params, ncol, nlev, s)
-                : launch_variant<T, false, false>(a, params, ncol, nlev, s);
+  return lregcl ? launch_variant<T, false, true, Kernels>(a, params, ncol, nlev, s, extra...)
+                : launch_variant<T, false, false, Kernels>(a, params, ncol, nlev, s, extra...);
 }
 
 // ---------------------------------------------------------------------------

@@ -231,18 +231,28 @@ void fill_constants(Args<T>& a, const double* params) {
   for (int j = 0; j < Level<EVAP, LREGCL>::kNumConsts; ++j) a.k[j] = T(k[j]);
 }
 
-template <typename T, bool EVAP, bool LREGCL, bool D_INPUTS>
+// The exact in-register-increment kernel of the switches: what `launch`
+// runs unless it is handed another family of the same instances
+// (cloudsc2_tl.cu's stamped twins), which take the arguments it passes on.
+struct Shipped {
+  template <typename T, bool EVAP, bool LREGCL, bool WRITE_PRIMAL>
+  static auto kernel() {
+    return cloudsc2_tl_kernel<T, EVAP, LREGCL, WRITE_PRIMAL, cloudsc2_load::Exact>;
+  }
+};
+
+template <typename T, bool EVAP, bool LREGCL, bool D_INPUTS, typename Kernels,
+          typename... Extra>
 int launch_variant(Args<T>& a, const double* params, int ncol, int nlev,
-                   bool write_primal, cudaStream_t s) {
-  using Load = cloudsc2_load::Exact;
+                   bool write_primal, cudaStream_t s, Extra... extra) {
   fill_constants<T, EVAP, LREGCL>(a, params);
   const unsigned blocks = unsigned((int64_t(ncol) + kThreads - 1) / kThreads);
   if constexpr (D_INPUTS) {
     cloudsc2_tl_din_kernel<T, EVAP, LREGCL><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
-  } else if (write_primal) {
-    cloudsc2_tl_kernel<T, EVAP, LREGCL, true, Load><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
   } else {
-    cloudsc2_tl_kernel<T, EVAP, LREGCL, false, Load><<<blocks, kThreads, 0, s>>>(a, ncol, nlev);
+    auto kernel = write_primal ? Kernels::template kernel<T, EVAP, LREGCL, true>()
+                               : Kernels::template kernel<T, EVAP, LREGCL, false>();
+    kernel<<<blocks, kThreads, 0, s>>>(a, ncol, nlev, extra...);
   }
   return int(cudaGetLastError());
 }
@@ -286,11 +296,12 @@ int fill_args(Args<T>& a, const void* const* in, const void* const* din,
 }
 
 // Fills Args from the launcher's pointer arrays and picks the variant of
-// the exact kernels.
-template <typename T, bool D_INPUTS>
+// the exact kernels, of `Kernels` without D_INPUTS, launched with `extra`
+// after their own arguments.
+template <typename T, bool D_INPUTS, typename Kernels = Shipped, typename... Extra>
 int launch(const void* const* in, const void* const* din, void* const* out,
            const double* params, double dscale, int ncol, int nlev, int evap,
-           int lregcl, int write_primal, void* stream) {
+           int lregcl, int write_primal, void* stream, Extra... extra) {
   Args<T> a = {};
   const int err =
       fill_args<T, D_INPUTS>(a, in, din, out, dscale, ncol, nlev, write_primal);
@@ -298,11 +309,15 @@ int launch(const void* const* in, const void* const* din, void* const* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wp = write_primal != 0;
   if (evap) {
-    return lregcl ? launch_variant<T, true, true, D_INPUTS>(a, params, ncol, nlev, wp, s)
-                  : launch_variant<T, true, false, D_INPUTS>(a, params, ncol, nlev, wp, s);
+    return lregcl ? launch_variant<T, true, true, D_INPUTS, Kernels>(a, params, ncol, nlev,
+                                                                      wp, s, extra...)
+                  : launch_variant<T, true, false, D_INPUTS, Kernels>(a, params, ncol, nlev,
+                                                                       wp, s, extra...);
   }
-  return lregcl ? launch_variant<T, false, true, D_INPUTS>(a, params, ncol, nlev, wp, s)
-                : launch_variant<T, false, false, D_INPUTS>(a, params, ncol, nlev, wp, s);
+  return lregcl ? launch_variant<T, false, true, D_INPUTS, Kernels>(a, params, ncol, nlev,
+                                                                     wp, s, extra...)
+                : launch_variant<T, false, false, D_INPUTS, Kernels>(a, params, ncol, nlev,
+                                                                      wp, s, extra...);
 }
 
 // ---------------------------------------------------------------------------

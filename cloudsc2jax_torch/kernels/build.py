@@ -9,7 +9,8 @@ process; :func:`launch` calls an entry with tensors as pointers (from
 (``torch.cuda.current_stream().cuda_stream``): the one way Python reaches a
 library of ``csrc/``.  :func:`occupancy` reads, through a library's
 occupancy entry, what the kernel instance a launch runs costs an SM: the
-one reader of the NL, TL and AD sweeps' counters.  The library goes to
+one reader of the NL, TL and AD sweeps' counters, and of their stamped
+twins' (:func:`sweep_occupancy`).  The library goes to
 ``build/cloudsc2jax_torch/<hash>/`` under the checkout, keyed by a hash of
 the sources, the flags, the ``-D`` defines, the library's extra flags and
 the compiler's ``nvcc --version``, so an edited source or a new toolkit is
@@ -43,7 +44,7 @@ import torch
 __all__ = ["NO_FMA", "NVCC_FLAGS", "OCCUPANCY", "SHIPPED_FLAGS", "VARIANTS", "bind",
            "launch", "load_libraries", "load_library", "library_digest", "loop_census",
            "nvcc_path", "nvcc_version", "occupancy", "occupancy_queries", "ptxas_report",
-           "role_registers", "sass", "sass_digests", "variant"]
+           "role_registers", "sass", "sass_digests", "sweep_occupancy", "variant"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cloudsc2jax_torch"
@@ -321,6 +322,19 @@ def occupancy(lib: ctypes.CDLL, entry: str, like: torch.Tensor, *switches: int) 
         got = _OCCUPANCY_READ[key] = {"dtype": 8 * like.element_size(),
                                       **dict(zip(OCCUPANCY, out))}
     return got
+
+
+def sweep_occupancy(lib: ctypes.CDLL, name: str, entry: str, like: torch.Tensor,
+                    *switches: int) -> dict:
+    """:func:`occupancy` of the instance ``<name>_f32|f64`` launches with
+    ``switches``, and where the launch called ``entry`` = ``<name>_stamped``
+    (its traced twin, :func:`~cloudsc2jax_torch.spans.stamped`) the twin's
+    instance's beside it, each counter but ``dtype`` as ``twin_<counter>``."""
+    got = occupancy(lib, name, like, *switches)
+    if entry == name:
+        return got
+    twin = occupancy(lib, entry, like, *switches)
+    return {**got, **{f"twin_{k}": v for k, v in twin.items() if k != "dtype"}}
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")

@@ -721,7 +721,11 @@ def _load_kernel():
         {**{f"{entry}_{suffix}": _NL_ARGTYPES
             for entry in ("cloudsc2_nl", "cloudsc2_fwd_ckpt")
             for suffix in ("f32", "f64")},
-         **build.occupancy_queries("cloudsc2_nl", 1)})  # evap
+         # the stamped twin's: the warps' records before the stream
+         **{f"cloudsc2_nl_stamped_{suffix}": _NL_ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+            for suffix in ("f32", "f64")},
+         **build.occupancy_queries("cloudsc2_nl", 1),  # evap
+         **build.occupancy_queries("cloudsc2_nl_stamped", 1)})
 
 
 def check_operands(tensors, names, like: torch.Tensor, what: str) -> None:
@@ -798,13 +802,17 @@ def launch_cloudsc2_nl(
     those ``out`` gives by name (the flux rows of :func:`flux_slots`), and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_nl.launches``, and gives the ``nl_sweep`` span the counters
-    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`) and
-    ``evap``: 1 where it ran the evaporating body.
+    of the instance (:func:`~cloudsc2jax_torch.kernels.build.sweep_occupancy`)
+    and ``evap``: 1 where it ran the evaporating body.  In the recorded calls
+    that stamp it launches the kernel's twin that stamps each warp
+    (:func:`~cloudsc2jax_torch.spans.stamped`).
     """
-    outs = _launch("cloudsc2_nl", KERNEL_STREAMS, KERNEL_OUTPUTS, inputs,
-                   pre, params, ldrain1d, out=out)
+    entry, stamps = spans.stamped("cloudsc2_nl", inputs.pt, inputs.pt.shape[-1])
+    outs = _launch(entry, KERNEL_STREAMS, KERNEL_OUTPUTS, inputs,
+                   pre, params, ldrain1d, extra=stamps, out=out)
     evap = int(_evap(params, ldrain1d))
-    spans.count(lambda: {**build.occupancy(_load_kernel(), "cloudsc2_nl", inputs.pt, evap),
+    spans.count(lambda: {**build.sweep_occupancy(_load_kernel(), "cloudsc2_nl", entry,
+                                                 inputs.pt, evap),
                          "evap": evap})
     cloudsc2_nl.launches += 1
     return Cloudsc2StreamOutputs(*outs)

@@ -302,28 +302,35 @@ _LAYOUT = {
         (AD_STREAMS, AD_OUTPUTS),
         [ctypes.c_double] * 2 + [ctypes.c_int] * 4),  # seed scales; ncol nlev evap lregcl
 }
-def _binding(name: str, layout, suffixes=("f32", "f64"), queries=None) -> dict:
+def _binding(name: str, layout, suffixes=("f32", "f64"), queries=None,
+             stamped=False) -> dict:
     """:func:`~cloudsc2jax_torch.kernels.build.bind`'s arguments for a
     library of the TL/AD family, whose launchers take one pointer array per
     entry of ``layout[0]``, the params array, the scalars ``layout[1]`` and
-    the stream, for each precision of ``suffixes``; ``queries`` adds entries
-    by name and argument types.  Its ``*_abi`` writes the arrays' lengths,
-    then the params' count, which :func:`_param_array` checks against the
-    names ``<name>_param_names`` returns."""
+    the stream, for each precision of ``suffixes``; with ``stamped`` also
+    ``<name>_stamped``, which takes the warps' records before the stream
+    (:func:`~cloudsc2jax_torch.spans.stamped`); ``queries`` adds
+    entries by name and argument types.  Its ``*_abi`` writes the arrays'
+    lengths, then the params' count, which :func:`_param_array` checks
+    against the names ``<name>_param_names`` returns."""
     arrays, scalars = layout
-    launchers = {f"{name}_{s}": [_PTRS] * len(arrays) + [ctypes.POINTER(ctypes.c_double)]
-                 + scalars + [ctypes.c_void_p] for s in suffixes}
+    args = [_PTRS] * len(arrays) + [ctypes.POINTER(ctypes.c_double)] + scalars
+    launchers = {f"{entry}_{s}": args + [ctypes.c_void_p] * (1 + (entry != name))
+                 for entry in ((name, f"{name}_stamped") if stamped else (name,))
+                 for s in suffixes}
     return {"layouts": {f"{name}_abi": tuple(len(a) for a in arrays) + (None,)},
             "launchers": {**launchers, **(queries or {})},
             "strings": (f"{name}_param_names",)}
 
 
-# the TL and AD libraries' occupancy entries (``build.occupancy``): the ints
-# they take before their counters are the launch's after nlev (evap, lregcl,
-# and for the TL write_primal)
-_OCCUPANCY_QUERIES = {name: build.occupancy_queries(name, n)
+# the TL and AD libraries' occupancy entries (``build.occupancy``), and
+# their stamped twins': the ints they take before their counters are the
+# launch's after nlev (evap, lregcl, and for the TL write_primal)
+_OCCUPANCY_QUERIES = {name: {**build.occupancy_queries(name, n),
+                             **build.occupancy_queries(f"{name}_stamped", n)}
                       for name, n in (("cloudsc2_tl", 3), ("cloudsc2_ad", 2))}
-_BINDINGS = {name: _binding(name, layout, queries=_OCCUPANCY_QUERIES.get(name))
+_BINDINGS = {name: _binding(name, layout, queries=_OCCUPANCY_QUERIES.get(name),
+                            stamped=name in _OCCUPANCY_QUERIES)
              for name, layout in _LAYOUT.items()}
 
 
@@ -385,15 +392,18 @@ def launch_cloudsc2_tl(
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_tl.launches``, and gives the ``tl_sweep`` span the counters
-    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`),
+    of the instance (:func:`~cloudsc2jax_torch.kernels.build.sweep_occupancy`),
     ``evap`` (1 where it ran the evaporating body) and the divisions of its
-    level body (:func:`level_counts`)."""
+    level body (:func:`level_counts`).  In the recorded calls that stamp it
+    launches the kernel's twin that stamps each warp
+    (:func:`~cloudsc2jax_torch.spans.stamped`)."""
+    entry, records = spans.stamped("cloudsc2_tl", inputs.pt, inputs.pt.shape[-1])
     outs = _tl_launch("cloudsc2_tl", _library, inputs, pre, params, dscale=dscale,
                       ldrain1d=ldrain1d, lregcl=lregcl, write_primal=write_primal,
-                      extra=(int(write_primal),))
+                      extra=(int(write_primal),), entry=entry, records=records)
     switches = (int(_evap(params, ldrain1d)), int(lregcl), int(write_primal))
-    spans.count(lambda: {**build.occupancy(_library("cloudsc2_tl"), "cloudsc2_tl",
-                                           inputs.pt, *switches),
+    spans.count(lambda: {**build.sweep_occupancy(_library("cloudsc2_tl"), "cloudsc2_tl",
+                                                 entry, inputs.pt, *switches),
                          "evap": switches[0], **level_counts("tl", *switches[:2])})
     cloudsc2_tl.launches += 1
     return outs
@@ -401,13 +411,15 @@ def launch_cloudsc2_tl(
 
 def _tl_launch(name: str, library, inputs: Cloudsc2Inputs, pre: KernelPrelude,
                params: Params, *, dscale: float, ldrain1d: bool, lregcl: bool,
-               write_primal: bool, extra, out=None):
+               write_primal: bool, extra, out=None, entry=None, records=()):
     """Check the operands of an in-register-increment TL launch, allocate
     its outputs (the primal streams with ``write_primal``) but those ``out``
     gives by name (``rfln``, ``d_rfln``, ...: the flux rows of
     :func:`~cloudsc2jax_torch.kernels.cloudsc2_kernel.flux_slots`), and
     launch ``csrc/<name>.cu``, bound by ``library(name)``, with ``extra``
-    after ``lregcl``: ``(outputs | None, tangents, checkpoints)``."""
+    after ``lregcl``, through ``entry`` (the stamped twin that
+    :func:`~cloudsc2jax_torch.spans.stamped` picks, with ``records`` before
+    the stream) where given: ``(outputs | None, tangents, checkpoints)``."""
     _check_launch(inputs, params, ldrain1d, f"launch_{name}")
     operands = {**inputs._asdict(), **pre._asdict()}
     check_operands(operands, TL_STREAMS, inputs.pt, name)
@@ -417,9 +429,9 @@ def _tl_launch(name: str, library, inputs: Cloudsc2Inputs, pre: KernelPrelude,
     bufs = output_buffers(names, out, inputs.pt, name)
     dout, prim = bufs[:8], (bufs[8:] if write_primal else [None] * 8)
     ckpts = [torch.empty_like(inputs.pt) for _ in CHECKPOINTS]
-    build.launch(lib, name, inputs.pt, [operands[n] for n in TL_STREAMS],
+    build.launch(lib, entry or name, inputs.pt, [operands[n] for n in TL_STREAMS],
                  dout + ckpts + prim, _param_array(lib, name, params), float(dscale),
-                 ncol, nlev, int(_evap(params, ldrain1d)), int(lregcl), *extra)
+                 ncol, nlev, int(_evap(params, ldrain1d)), int(lregcl), *extra, *records)
     return (Cloudsc2StreamOutputs(*prim) if write_primal else None,
             Cloudsc2StreamOutputs(*dout), tuple(ckpts))
 
@@ -440,16 +452,19 @@ def launch_cloudsc2_tl_std(
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_tl_std.launches``, and gives the ``tl_sweep`` span the
     counters of the instance
-    (:func:`~cloudsc2jax_torch.kernels.build.occupancy`), ``evap`` (1 where
-    it ran the evaporating body), the divisions of its level body
+    (:func:`~cloudsc2jax_torch.kernels.build.sweep_occupancy`), ``evap`` (1
+    where it ran the evaporating body), the divisions of its level body
     (:func:`level_counts`) and ``checkpoints`` 1: the carries of the reverse
-    sweep were written."""
+    sweep were written.  In the recorded calls that stamp it launches the
+    kernel's twin that stamps each warp
+    (:func:`~cloudsc2jax_torch.spans.stamped`)."""
+    entry, records = spans.stamped("cloudsc2_tl", inputs.pt, inputs.pt.shape[-1])
     outs = _tl_launch("cloudsc2_tl", partial(_library, flags=build.NO_FMA), inputs, pre,
                       params, dscale=dscale, ldrain1d=ldrain1d, lregcl=lregcl,
-                      write_primal=True, extra=(1,), out=out)
+                      write_primal=True, extra=(1,), out=out, entry=entry, records=records)
     switches = (int(_evap(params, ldrain1d)), int(lregcl), 1)
-    spans.count(lambda: {**build.occupancy(_library("cloudsc2_tl", build.NO_FMA),
-                                           "cloudsc2_tl", inputs.pt, *switches),
+    spans.count(lambda: {**build.sweep_occupancy(_library("cloudsc2_tl", build.NO_FMA),
+                                                 "cloudsc2_tl", entry, inputs.pt, *switches),
                          "evap": switches[0], **level_counts("tl", *switches[:2]),
                          "checkpoints": 1})
     cloudsc2_tl_std.launches += 1
@@ -528,9 +543,11 @@ def launch_cloudsc2_ad(
     Checks device, dtype, shape and contiguity, allocates the outputs, and
     raises if the launch is refused.  Counts each launch in
     ``cloudsc2_ad.launches``, and gives the ``ad_sweep`` span the counters
-    of the instance (:func:`~cloudsc2jax_torch.kernels.build.occupancy`),
+    of the instance (:func:`~cloudsc2jax_torch.kernels.build.sweep_occupancy`),
     ``evap`` (1 where it ran the evaporating body) and the divisions and
-    shared-memory slots of its level body (:func:`level_counts`)."""
+    shared-memory slots of its level body (:func:`level_counts`).  In the
+    recorded calls that stamp it launches the kernel's twin that stamps each
+    warp (:func:`~cloudsc2jax_torch.spans.stamped`)."""
     _check_launch(inputs, params, ldrain1d, "launch_cloudsc2_ad")
     streams = _ad_operands(inputs, pre, d_outputs, checkpoints, "cloudsc2_ad")
     nlev, ncol = inputs.pt.shape
@@ -539,10 +556,12 @@ def launch_cloudsc2_ad(
         torch.empty_like(inputs.plu), torch.empty_like(inputs.paph)]
     scales = seed_scales(params) if fold_seeds else (1.0, 1.0)
     switches = (int(_evap(params, ldrain1d)), int(lregcl))
-    build.launch(lib, "cloudsc2_ad", inputs.pt, streams, outs,
+    entry, stamps = spans.stamped("cloudsc2_ad", inputs.pt, ncol)
+    build.launch(lib, entry, inputs.pt, streams, outs,
                  _param_array(lib, "cloudsc2_ad", params), *scales, ncol, nlev,
-                 *switches)
-    spans.count(lambda: {**build.occupancy(lib, "cloudsc2_ad", inputs.pt, *switches),
+                 *switches, *stamps)
+    spans.count(lambda: {**build.sweep_occupancy(lib, "cloudsc2_ad", entry, inputs.pt,
+                                                 *switches),
                          "evap": switches[0], **level_counts("ad", *switches)})
     cloudsc2_ad.launches += 1
     d = dict(zip(_LEVEL_FIELDS, outs))

@@ -214,7 +214,10 @@ def test_the_smoke_builds_and_pins_the_standard_tl(monkeypatch):
     """``chip_smoke.py`` phase 2 builds ``cloudsc2_tl`` a second time with
     ``build.NO_FMA`` (the standard contract's TL) and holds that build's
     SASS to a recorded digest of its own, beside the default build's, the
-    one recorded when the TL level body came to divide once per divisor."""
+    one recorded when the library gained its stamped twins (its other
+    entries keep the digest recorded when the TL level body came to divide
+    once per divisor, ``dd020d5c``, which ``tests/test_torch_stamps.py``
+    holds on the card)."""
     monkeypatch.syspath_prepend(str(build.CSRC.parents[1]))
     import chip_smoke
 
@@ -222,7 +225,7 @@ def test_the_smoke_builds_and_pins_the_standard_tl(monkeypatch):
     assert "cloudsc2_tl" in chip_smoke.LIBRARIES
     assert chip_smoke.KERNEL_MIX["cloudsc2_tl_std"] == chip_smoke.KERNEL_MIX["cloudsc2_tl"]
     pinned = {k: v for k, v in chip_smoke.EXACT_SASS.items() if k.startswith("cloudsc2_tl")}
-    assert pinned["cloudsc2_tl"].startswith("dd020d5c")
+    assert pinned["cloudsc2_tl"].startswith("6aa56de9")
     assert len(set(pinned.values())) == len(pinned)
     assert set(pinned) >= {"cloudsc2_tl", "cloudsc2_tl -fmad=false", "cloudsc2_tl_din"}
 
@@ -325,8 +328,9 @@ def test_the_sweeps_spans_count_through_the_one_reader(monkeypatch):
 
 def test_the_nl_library_binds_its_occupancy_entries(monkeypatch):
     """``csrc/cloudsc2_nl.cu`` exports ``cloudsc2_nl_occupancy_f32/_f64``
-    (evap, then the counters), which the NL wrapper declares beside its
-    launchers."""
+    (evap, then the counters), and the same of its stamped twins,
+    ``cloudsc2_nl_stamped_occupancy_f32/_f64``, which the NL wrapper
+    declares beside its launchers."""
     from cloudsc2jax_torch.kernels import cloudsc2_kernel as kmod
 
     seen = {}
@@ -334,19 +338,24 @@ def test_the_nl_library_binds_its_occupancy_entries(monkeypatch):
                         seen.update(name=name, launchers=launchers))
     kmod._load_kernel()
     assert seen["name"] == "cloudsc2_nl"
-    assert {k: v for k, v in seen["launchers"].items() if "occupancy" in k} == \
-        build.occupancy_queries("cloudsc2_nl", 1)
+    assert {k: v for k, v in seen["launchers"].items() if "occupancy" in k} == {
+        **build.occupancy_queries("cloudsc2_nl", 1),
+        **build.occupancy_queries("cloudsc2_nl_stamped", 1)}
     source = (build.CSRC / "cloudsc2_nl.cu").read_text()
     for suffix in ("f32", "f64"):
         assert f"int cloudsc2_nl_occupancy_{suffix}(int evap, int* out)" in source
+        assert f"int cloudsc2_nl_stamped_occupancy_{suffix}(int evap, int* out)" in source
     assert '#include "cloudsc2_occupancy.cuh"' in source
 
 
 def test_the_smoke_keeps_the_nl_sass_pinned(monkeypatch):
-    """The NL library's occupancy entries are host code: ``chip_smoke.py``
-    holds its SASS to the digest recorded before them."""
+    """The NL library's occupancy entries are host code and its stamped
+    twins add entries only: ``chip_smoke.py`` holds its SASS to the digest
+    recorded with the twins, whose other entries keep the digest recorded
+    before both (``b2c4a963``, which ``tests/test_torch_stamps.py`` holds
+    on the card)."""
     monkeypatch.syspath_prepend(str(build.CSRC.parents[1]))
     import chip_smoke
 
-    assert chip_smoke.EXACT_SASS["cloudsc2_nl"].startswith("b2c4a963")
+    assert chip_smoke.EXACT_SASS["cloudsc2_nl"].startswith("e25cc72d")
     assert "cloudsc2_nl" in chip_smoke.LIBRARIES
